@@ -1,0 +1,60 @@
+"""Carry trained weights from the JAX package to the port.
+
+`params_from_jax` takes the JAX `params` tree with NumPy leaves
+({"model": ..., "fusion": ...}, as `imm_tsf_tpu.training.trainer.
+init_state` returns it or an orbax checkpoint restores it) and returns
+the port's (model_state_dict, fusion_state_dict):
+
+  - flax Dense `kernel [in, out]` -> torch Linear `weight [out, in]`;
+  - LayerNorm `scale` -> `weight`, `bias` -> `bias`;
+  - raw parameters (the GRU's `gru_*` tensors in their [in, 3H] layout,
+    `log_recency_sigma`) keep their names and meaning.
+
+Flax names PatchTST's attention blocks `AttentionLayer_<i>` and its
+encoder layers `enc_layer_<i>` at the model's top level; the port nests
+both under `encoder.layers.<i>`.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_RENAMES = (
+    (re.compile(r"^AttentionLayer_(\d+)\."), r"encoder.layers.\1.attention."),
+    (re.compile(r"^enc_layer_(\d+)\."), r"encoder.layers.\1."),
+)
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _flatten(v, path + ".")
+        else:
+            yield path, v
+
+
+def _convert(tree: dict) -> dict:
+    state = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf, dtype=np.float32)
+        module, _, name = path.rpartition(".")
+        if name == "kernel":
+            name, arr = "weight", arr.T
+        elif name == "scale":
+            name = "weight"
+        key = f"{module}.{name}" if module else name
+        for pattern, repl in _RENAMES:
+            key = pattern.sub(repl, key)
+        state[key] = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    return state
+
+
+def params_from_jax(params_np: dict) -> tuple[dict, dict | None]:
+    """JAX params tree (NumPy leaves) -> (model_state_dict, fusion_state_dict).
+    fusion_state_dict is None when the tree has no fusion subtree."""
+    fusion = params_np.get("fusion")
+    return _convert(params_np["model"]), (_convert(fusion) if fusion else None)

@@ -1,0 +1,59 @@
+"""Composite fusion: TTF -> MMF (after imm_tsf_tpu/fusion/fusion_model.py;
+reference fusions/FusionModel.py:24-113).
+
+forward(notes_emb, tau, t_hat, Y_ts, notes_mask) -> Y_fused. Only the
+TTF_RecAvg / MMF_GR_Add pair is ported so far.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from ..config import MMF_MODULES, TTF_MODULES, Config
+from .mmf import MMF_GR_Add
+from .ttf import TTF_RecAvg
+
+# hidden sizes per alias (reference fusions/load_llm.py:5-13 comments)
+LLM_D_MODEL = {
+    "GPT2": 768,
+    "GPT2M": 1024,
+    "GPT2L": 1280,
+    "GPT2XL": 1600,
+    "BERT": 768,
+    "Llama": 4096,
+    "DeepSeek": 4096,
+}
+
+
+def get_d_model(llm_model_fusion: str) -> int:
+    if llm_model_fusion in LLM_D_MODEL:
+        return LLM_D_MODEL[llm_model_fusion]
+    raise KeyError(f"Unknown fusion LLM alias: {llm_model_fusion}")
+
+
+def _check_ported(name: str, known: tuple, ported: str) -> None:
+    if name == ported:
+        return
+    if name in known:
+        raise NotImplementedError(
+            f"fusion module {name!r} is not ported to imm_tsf_torch yet "
+            "(see ROADMAP.md, Queue 1)")
+    raise KeyError(f"Unknown fusion module: {name}")
+
+
+class FusionModel(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        _check_ported(cfg.TTF_module, TTF_MODULES, "TTF_RecAvg")
+        _check_ported(cfg.MMF_module, MMF_MODULES, "MMF_GR_Add")
+        d_model_llm = get_d_model(cfg.llm_model_fusion)
+        d_txt = cfg.d_txt if cfg.d_txt is not None else d_model_llm
+        self.ttf = TTF_RecAvg(d_txt=d_txt, d_model_llm=d_model_llm,
+                              recency_sigma=cfg.recency_sigma,
+                              dropout=cfg.dropout, use_pallas=cfg.use_pallas)
+        self.mmf = MMF_GR_Add(d_txt=d_txt, C=cfg.input_dim,
+                              hidden_dim=cfg.input_dim, dropout=cfg.dropout)
+
+    def forward(self, notes_emb, tau, t_hat, Y_ts, notes_mask=None):
+        E_txt, M_txt = self.ttf(notes_emb, tau, t_hat, notes_mask)
+        return self.mmf(Y_ts, E_txt, M_txt)

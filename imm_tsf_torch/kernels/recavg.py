@@ -1,0 +1,76 @@
+"""Recency-weighted note average: the CUDA kernel `csrc/recavg.cu` and
+its plain version.
+
+Port of imm_tsf_tpu/ops/pallas/fusion_kernels.py
+(`recency_weighted_average`, forward only):
+
+    w = exp(-(max(t_hat - tau, 0) / sigma)^2) * mask        # [B, N, T]
+    E = w^T V / max(sum_n w, 1e-6)                            # [B, T, d]
+
+The wrapper runs the plain version for CPU tensors and launches the
+kernel for CUDA tensors, for any B, N, T and d. The hand VJP comes with
+the training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0  # kernel launches through recency_weighted_average
+
+
+def recavg_reference(tau, t_hat, V, mask, sigma) -> torch.Tensor:
+    """Plain PyTorch forward (after fusion_kernels.py:_recavg_xla)."""
+    delta = (t_hat[:, None, :] - tau[:, :, None]).clamp(min=0)  # [B,N,T]
+    w = torch.exp(-((delta / sigma) ** 2)) * mask[:, :, None]
+    denom = w.sum(dim=1).clamp(min=1e-6)  # [B,T]
+    return torch.einsum("bnt,bnd->btd", w, V) / denom[:, :, None]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"recavg_forward": ([_P] * 6 + [_I, _I, _I, _I, _P], _I)}
+
+
+def _library() -> ctypes.CDLL:
+    return _build.load("recavg", _SIGNATURES)
+
+
+def recency_weighted_average(tau, t_hat, V, mask, sigma) -> torch.Tensor:
+    """[B,N] x [B,T] x [B,N,d] x [B,N] x 0-d sigma -> E [B,T,d].
+
+    On CUDA, sigma stays a device tensor: the host never syncs on it."""
+    if V.device.type == "cpu":
+        return recavg_reference(tau, t_hat, V, mask, sigma)
+    if V.device.type != "cuda":
+        raise ValueError(f"recency_weighted_average: unsupported device {V.device}")
+    B, N, d = V.shape
+    T = t_hat.shape[1]
+    want = {"tau": (tau, (B, N)), "t_hat": (t_hat, (B, T)), "V": (V, (B, N, d)),
+            "mask": (mask, (B, N)), "sigma": (sigma, tuple(sigma.shape))}
+    for name, (t, shape) in want.items():
+        if t.dtype != torch.float32 or t.device != V.device or tuple(t.shape) != shape:
+            raise ValueError(
+                f"recency_weighted_average: {name} must be float32 {shape} on "
+                f"{V.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if sigma.numel() != 1:
+        raise ValueError("recency_weighted_average: sigma must hold one value")
+    if T > 65535 * 8:
+        raise ValueError(f"recency_weighted_average: T={T} exceeds the grid")
+    lib = _library()
+    tau, t_hat, V, mask = (t.contiguous() for t in (tau, t_hat, V, mask))
+    sigma = sigma.contiguous()
+    E = torch.empty((B, T, d), dtype=torch.float32, device=V.device)
+    if E.numel() == 0:
+        return E
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    rc = lib.recavg_forward(tau.data_ptr(), t_hat.data_ptr(), V.data_ptr(),
+                            mask.data_ptr(), sigma.data_ptr(), E.data_ptr(),
+                            B, N, T, d, stream)
+    _build.check(rc, "recency_weighted_average")
+    global launches
+    launches += 1
+    return E
