@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 
  1. the card: `nvidia-smi` name and power limit, torch's device name;
     TF32 off for matmuls and cuDNN (every comparison here is float32);
- 2. build both CUDA kernels from `imm_tsf_torch/csrc/` with nvcc (one
-    process per source, in parallel) and print the build time;
+ 2. build the three CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
+    (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
       recency average at the serving shape (B=64, N=8, T=24, d=768) and a
       ragged case (B=3, N=5, T=7, one sample without notes), to
@@ -18,6 +18,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       (float32, K=2048 sums in another order); with dropout the zero
       patterns of both hash-dropout sites must equal the hash bits
       exactly (structured inputs make them visible in the output);
+      causal attention at the shapes of embed_notes' bucket-32 and
+      bucket-1024 calls ([1024,12,32,64], [64,12,1024,64], right-padded
+      notes) and a ragged [3,2,13,64] (token 0 padded in one sample, every
+      token in another: exact zeros there), to |err| <= 2e-5 + 1e-5|ref|
+      (float32, online softmax against the two-pass plain version);
  4. serve: a full-width PatchTST (d_model 512, d_ff 2048, 2 heads, one
     layer) + TTF_RecAvg + MMF_GR_Add (d_txt 768, GPT2) experiment with
     seeded random weights, through `ForecastService(max_batch=64,
@@ -28,8 +33,23 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     versions must agree to |err| <= 1e-4 + 1e-4|ref|; then one
     uncontended dispatch is traced with torch.profiler (host ms, device
     busy ms, idle share, kernel launches, top device ops);
- 5. time each kernel and its plain version at the serving shapes and
-    print one JSON line {"kernels": [...]} with the bound each is held to.
+ 4b. serve raw text: the same experiment with use_text_embeddings=false
+    and use_fused_attn, whose notes go through a frozen GPT-2 (768 wide,
+    12 heads, 6 layers, seeded random weights, hash tokenizer) on the
+    card: 256 ragged requests from 8 threads, 0-8 text notes each in a
+    synthetic mix made to cover every length bucket from 32 to 1024
+    (log-uniform word counts over 1-1000, a quarter of the strings
+    repeated, some empty; not a traffic baseline); every answer
+    finite with the requested rows, all three kernels' launch counts
+    (zeroed just before) must grow, and one dispatch's notes embedded
+    with the attention kernel and with the plain attention through the
+    same GPT-2 must agree to |err| <= 1e-4 + 1e-4|ref|; prints real
+    tokens/s of the embedding stage, requests/s, dispatch p50/p95 and one
+    traced dispatch whose notes are all new (the cache cleared first);
+ 5. time each kernel and its plain version at the serving shapes (the
+    attention at both bucket shapes, beside scaled_dot_product_attention
+    with the same boolean mask as the library yardstick) and print one
+    JSON line {"kernels": [...]} with the bound each is held to.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -54,9 +74,11 @@ from torch import nn
 
 from imm_tsf_torch.config import Config
 from imm_tsf_torch.fusion.fusion_model import FusionModel
-from imm_tsf_torch.kernels import _build, ffn, recavg
+from imm_tsf_torch.kernels import _build, attn, ffn, recavg
 from imm_tsf_torch.layers.fast_dropout import _keep_mask
 from imm_tsf_torch.layers.transformer import EncoderLayer
+from imm_tsf_torch.llm.gpt2 import GPT2Block
+from imm_tsf_torch.llm.loader import embed_notes
 from imm_tsf_torch.models import get_model
 from imm_tsf_torch.serving import ForecastService, _build_chunk
 from imm_tsf_torch.training.checkpoint import save_experiment
@@ -69,10 +91,13 @@ PEAK_FP32_FLOP_PER_S = 67e12
 
 SEED = 0  # weights, requests and kernel inputs
 N_REQUESTS = 1024
+N_TEXT_REQUESTS = 256
 KEEP = 0.9
 RECAVG_TOL = (1e-5, 1e-5)  # (atol, rtol)
 FFN_TOL = (1e-4, 1e-4)
+ATTN_TOL = (2e-5, 1e-5)
 SERVE_TOL = (1e-4, 1e-4)
+EMBED_TOL = (1e-4, 1e-4)  # pooled notes after 6 layers, kernel vs plain attention
 
 SERVE_CFG = dict(
     model="PatchTST", dataset="EPA-Air", history=7, pred_window=7, stride=7,
@@ -81,6 +106,10 @@ SERVE_CFG = dict(
     use_text_embeddings=True, TTF_module="TTF_RecAvg", MMF_module="MMF_GR_Add",
     llm_model_fusion="GPT2", d_txt=768, use_pallas=True, use_fused_ffn=True,
 )
+# raw-text notes through the frozen GPT-2 (768 wide, 12 heads) at the
+# config's depth, 6 layers (not cut)
+TEXT_CFG = dict(SERVE_CFG, use_text_embeddings=False, use_fused_attn=True,
+                llm_layers_fusion=6)
 
 
 def log(msg: str) -> None:
@@ -151,6 +180,47 @@ def dropout_probe_inputs(M, D, F, site, salts, device):
     return [x, w1, b1, w2, b2, gamma, beta, salts], expect
 
 
+def attn_inputs(B, H, T, D, gen, device, lo=None):
+    """q, k, v ~ N(0, 1) [B, H, T, D] and a right-padded pad [B, T]: each
+    sample's length uniform in [lo, T], as embed_notes' buckets give them
+    (lo=None: no padding)."""
+    q, k, v = (torch.randn((B, H, T, D), generator=gen, device=device) for _ in range(3))
+    pad = torch.ones((B, T), device=device)
+    if lo is not None:
+        n = torch.randint(lo, T + 1, (B,), generator=gen, device=device)
+        pad = (torch.arange(T, device=device)[None] < n[:, None]).float()
+    return [q, k, v, pad]
+
+
+def bucket_lo(T: int) -> int:
+    """The shortest note in embed_notes' length bucket T (32 is the first)."""
+    return 1 if T <= 32 else T // 2 + 1
+
+
+def attn_ragged_inputs(gen, device):
+    """[3, 2, 13, 64]: token 0 padded in sample 0 (its row 0 sees no key),
+    every token padded in sample 1, sample 2 right-padded at 9."""
+    q, k, v, pad = attn_inputs(3, 2, 13, 64, gen, device)
+    pad[0, 0] = 0.0
+    pad[1] = 0.0
+    pad[2, 9:] = 0.0
+    return [q, k, v, pad]
+
+
+def attn_work(pad, H, D) -> tuple[int, int]:
+    """(bytes, FLOPs) one attention call needs on these inputs. Only the
+    keys up to each sample's last real token are needed (the kernel skips
+    the rest): q and pad read once, k and v read once up to that token,
+    out written once; QK^T and PV over the keys each row keeps (causal,
+    up to that token)."""
+    B, T = pad.shape
+    idx = torch.arange(1, T + 1, device=pad.device)
+    kv_len = ((pad > 0) * idx).amax(dim=1)  # one past the last real token
+    kept = torch.minimum(idx[None], kv_len[:, None]).sum()
+    kv_rows = int(kv_len.sum())
+    return 4 * (2 * B * H * T * D + 2 * H * D * kv_rows + B * T), 4 * H * D * int(kept)
+
+
 # ---------------------------------------------------------------- phase 3
 def check_kernels(device, shapes, gen) -> dict:
     """Each kernel against its plain version; returns max errors by case."""
@@ -175,6 +245,17 @@ def check_kernels(device, shapes, gen) -> dict:
         errs[case] = max_err(got, want, FFN_TOL)
         log(f"# check {case} M={m} D={D} F={F} {act} dropout={drop}: "
             f"max|err| {errs[case]:.3e}")
+    for case, shape in (("attn bucket-32", shapes["attn"][0]),
+                        ("attn bucket-1024", shapes["attn"][1]), ("attn ragged", None)):
+        args = (attn_inputs(*shape, gen, device, bucket_lo(shape[2])) if shape
+                else attn_ragged_inputs(gen, device))
+        got = attn.fused_causal_attention(*args)
+        want = attn.attention_reference(*args)
+        errs[case] = max_err(got, want, ATTN_TOL)
+        if shape is None:
+            assert bool((got[0, :, 0] == 0).all()), "a row with no kept key must give 0"
+            assert bool((got[1] == 0).all()), "a sample without tokens must give 0"
+        log(f"# check {case} {tuple(args[0].shape)}: max|err| {errs[case]:.3e}")
     salts = ffn_inputs(8, 8, 8, gen, device)[-1]
     for site in ("output", "hidden"):
         args, expect = dropout_probe_inputs(M, D, F, site, salts, device)
@@ -227,10 +308,13 @@ def make_experiment(exp_dir: str, cfg_kw: dict, seed: int):
     return cfg
 
 
-def make_requests(cfg, n: int, seed: int) -> list[dict]:
+def make_requests(cfg, n: int, seed: int, note=None) -> list[dict]:
     """Ragged requests: 0..input_len observations with NaN holes,
-    1..pred_len forecast times, 0-8 notes, every third with mean/std."""
+    1..pred_len forecast times, 0-8 notes, every third with mean/std.
+    note(rng) gives a note's payload: a random embedding by default."""
     rng = np.random.default_rng(seed)
+    if note is None:
+        note = lambda rng: {"embedding": rng.standard_normal(cfg.d_txt).tolist()}
     D, hist = cfg.input_dim, float(cfg.history)
     tmax = hist + cfg.pred_window
     out = []
@@ -243,14 +327,36 @@ def make_requests(cfg, n: int, seed: int) -> list[dict]:
         tp = np.sort(rng.choice(np.linspace(hist, tmax, 4 * cfg.pred_len), m, replace=False))
         inst = {"observed_tp": tt.tolist(), "observed_data": vals.tolist(),
                 "tp_to_predict": tp.tolist(),
-                "notes": [{"tau": float(rng.uniform(0, hist)),
-                           "embedding": rng.standard_normal(cfg.d_txt).tolist()}
+                "notes": [{"tau": float(rng.uniform(0, hist)), **note(rng)}
                           for _ in range(int(rng.integers(0, 9)))]}
         if i % 3 == 0:
             inst["mean"] = rng.standard_normal(D).tolist()
             inst["std"] = (0.5 + rng.random(D)).tolist()
         out.append(inst)
     return out
+
+
+class TextNotes:
+    """note(rng) for raw-text requests, a synthetic mix for coverage (no
+    measured note traffic stands behind it): word counts log-uniform over
+    1..max_words (so every embed_notes bucket is hit), about a quarter of
+    the notes repeat an earlier string, about one in twenty is empty."""
+
+    def __init__(self, max_words: int = 1000):
+        self.max_words = max_words
+        self.vocab = np.asarray([f"w{i}" for i in range(5000)])
+        self.seen: list[str] = []
+
+    def __call__(self, rng) -> dict:
+        r = rng.random()
+        if self.seen and r < 0.25:
+            return {"text": self.seen[int(rng.integers(len(self.seen)))]}
+        if r < 0.30:
+            return {"text": ""}
+        n = int(np.exp(rng.uniform(0, np.log(self.max_words + 1))))
+        text = " ".join(rng.choice(self.vocab, max(n, 1)))
+        self.seen.append(text)
+        return {"text": text}
 
 
 def serve_requests(svc, requests, n_threads: int = 8) -> list[dict]:
@@ -284,6 +390,15 @@ def set_kernels(svc, on: bool) -> None:
         if isinstance(m, EncoderLayer):
             m.use_fused_ffn = on
     svc.fusion.ttf.use_pallas = on
+    llm = getattr(svc._stage_top, "llm", None)
+    if llm is not None:
+        set_attention(llm, on)
+
+
+def set_attention(llm, on: bool) -> None:
+    for m in llm.modules():
+        if isinstance(m, GPT2Block):
+            m.use_fused_attn = on
 
 
 def run_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
@@ -355,24 +470,110 @@ def run_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
         svc.close()
 
 
-def profile_dispatch(svc, built, reps: int = 10) -> dict:
+def run_raw_text_serving(device, n_requests: int, seed: int, exp_dir: str,
+                         cfg_kw: dict = TEXT_CFG, max_words: int = 1000) -> dict:
+    """Phase 4b: raw-text notes through the frozen GPT-2 on `device`."""
+    cfg = make_experiment(exp_dir, cfg_kw, seed)
+    t0 = time.monotonic()
+    svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
+    log(f"# raw-text service up in {time.monotonic() - t0:.2f} s (GPT-2 init and "
+        f"one warmup dispatch)")
+    try:
+        stage = svc._stage_top
+        llm, tok = stage.llm, stage.tokenizer
+        requests = make_requests(cfg, n_requests, seed, note=TextNotes(max_words))
+        d0, calls0 = svc.metrics()["dispatches_total"], stage.llm_calls
+        ffn.launches = recavg.launches = attn.launches = 0
+        t0 = time.monotonic()
+        answers = serve_requests(svc, requests)
+        wall = time.monotonic() - t0
+        launches = {"fused_encoder_ffn": ffn.launches,
+                    "recency_weighted_average": recavg.launches,
+                    "fused_causal_attention": attn.launches}
+        metrics = svc.metrics()
+        dispatches = metrics["dispatches_total"] - d0
+        for name, n in launches.items():
+            if n == 0 and device.type == "cuda":  # CPU tensors take the plain versions
+                raise AssertionError(f"{name} was never launched while serving raw text")
+        for inst, ans in zip(requests, answers):
+            y = np.asarray(ans["prediction"])
+            if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+                raise AssertionError(f"bad answer shape {y.shape} or non-finite values")
+        texts = [n["text"] for r in requests for n in r["notes"]]
+        unique = set(texts)
+        run_tokens = int(tok(sorted(unique), max_length=cfg.max_length)[1].sum())
+        log(f"# served {len(requests)} raw-text requests ({len(texts)} notes, "
+            f"{len(unique)} distinct strings, {run_tokens} real tokens) in {dispatches} "
+            f"dispatches and {stage.llm_calls - calls0} LLM calls, {wall:.3f} s: "
+            f"{len(requests) / wall:.1f} requests/s, dispatch p50 "
+            f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
+            f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}")
+        log("# dispatch latencies in order (ms): "
+            + " ".join(f"{t * 1e3:.1f}" for t in list(svc._lat_ring)[-dispatches:]))
+
+        # one dispatch's notes through the same GPT-2, attention kernel vs plain
+        notes = [[n["text"] for n in r["notes"]] for r in requests[:64]]
+        stats: dict = {}
+        embed = lambda: embed_notes(notes, llm, tok, max_length=cfg.max_length,
+                                    stats_out=stats)[0]
+        got = embed()
+        set_attention(llm, False)
+        try:
+            want = embed()
+            embed_ms = {}
+            if device.type == "cuda":
+                for mode in ("plain", "kernel", "kernel", "plain"):  # in turns
+                    set_attention(llm, mode == "kernel")
+                    embed_ms.setdefault(mode, []).extend(wall_ms(embed, reps=3))
+                embed_ms = {k: float(np.median(v)) for k, v in embed_ms.items()}
+        finally:
+            set_attention(llm, True)
+        err = max_err(torch.from_numpy(got), torch.from_numpy(want), EMBED_TOL)
+        embed = {"notes": stats["n_notes"], "real_tokens": stats["real_tokens"],
+                 "processed_tokens": stats["processed_tokens"], "max_abs_err": err,
+                 "ms": embed_ms}
+        if embed_ms:
+            embed["real_tokens_per_s"] = {k: stats["real_tokens"] / (v / 1e3)
+                                          for k, v in embed_ms.items()}
+        log(f"# one dispatch's notes through GPT-2, attention kernel vs plain: {json.dumps(embed)}")
+        profile = None
+        if device.type == "cuda":
+            built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
+            profile = profile_dispatch(svc, built, reset=stage._cache.clear)
+            log(f"# one uncontended raw-text dispatch of 64 requests, every note new: "
+                f"{json.dumps(profile)}")
+        return {"launches": launches, "dispatches": dispatches,
+                "requests_per_s": len(requests) / wall, "wall_s": wall,
+                "run_real_tokens": run_tokens,
+                "dispatch_ms": metrics["dispatch_latency_ms"], "embed": embed,
+                "dispatch_profile": profile}
+    finally:
+        svc.close()
+
+
+def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
     """Where one uncontended dispatch of a full batch goes. Host clock
-    (median of `reps`): the collate alone, and the whole dispatch
-    (collate, H2D, forward, D2H, fan-out). Then `reps` dispatches under
-    torch.profiler, whose host overhead makes them slower
-    (`traced_dispatch_ms`): device-busy ms per dispatch is the union of
-    the kernels' and copies' device intervals there, and the idle share
-    is 1 - busy / the untraced dispatch ms. Raises when the trace holds
-    no device activity."""
+    (median of `reps`): the collate alone (with the loader stages: for raw
+    text, the note embedding), and the whole dispatch (collate, H2D,
+    forward, D2H, fan-out). Then `reps` dispatches under torch.profiler,
+    whose host overhead makes them slower (`traced_dispatch_ms`):
+    device-busy ms per dispatch is the union of the kernels' and copies'
+    device intervals there, and the idle share is 1 - busy / the untraced
+    dispatch ms. `reset()` runs before every collate and dispatch (to
+    empty the note cache). Raises when the trace holds no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     chunks = [b[0] for b in built]
-    wall_ms(svc._infer, built, reps=1)  # warm
-    collate_ms = float(np.median(wall_ms(svc._collate, chunks, reps=reps)))
-    dispatch_ms = float(np.median(wall_ms(svc._infer, built, reps=reps)))
+    reset = reset or (lambda: None)
+    collate = lambda: (reset(), svc._collate(chunks))
+    dispatch = lambda: (reset(), svc._infer(built))
+    wall_ms(dispatch, reps=1)  # warm
+    collate_ms = float(np.median(wall_ms(collate, reps=reps)))
+    dispatch_ms = float(np.median(wall_ms(dispatch, reps=reps)))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_ms = float(np.median(wall_ms(svc._infer, built, reps=reps)))
+        traced_ms = float(np.median(wall_ms(dispatch, reps=reps)))
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise AssertionError("torch.profiler recorded no device activity")
@@ -433,7 +634,10 @@ def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     return float(np.median(times))
 
 
-def measure(device, shapes, gen, errs, serving) -> list[dict]:
+def measure(device, shapes, gen, errs, serving, text) -> list[dict]:
+    """One row per kernel. `launches` counts the raw-text path (phase 4b),
+    which runs all three; `launches_by_path` adds the embedding path
+    (phase 4)."""
     B, N, T, d = shapes["recavg"]
     rsets = [recavg_inputs(B, N, T, d, gen, device) for _ in range(4)]
     r_bytes = 4 * (B * N * 2 + B * T + B * N * d + 1 + B * T * d)
@@ -443,7 +647,6 @@ def measure(device, shapes, gen, errs, serving) -> list[dict]:
     f_bytes = 4 * (2 * M * D + 2 * D * F + F + 3 * D)
     f_flops = 4 * M * D * F + 10 * M * F + 10 * M * D
     rows = []
-    per_dispatch = max(serving["dispatches"], 1)
     for name, src, replaces, fn, plain, sets, nbytes, flops, err, per_rep in (
         ("recency_weighted_average", "imm_tsf_torch/csrc/recavg.cu",
          "imm_tsf_tpu/ops/pallas/fusion_kernels.py:73",
@@ -455,21 +658,51 @@ def measure(device, shapes, gen, errs, serving) -> list[dict]:
          lambda *a: ffn.ffn_reference(*a, KEEP, "gelu", False), fsets,
          f_bytes, f_flops, errs["ffn serving"], 10),
     ):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
-        launches = serving["launches"][name]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "ok": True, "launches": launches,
-            "launches_per_dispatch": launches / per_dispatch,
-            "max_abs_err": err,
-            "ms": device_ms(fn, sets, per_rep=per_rep),
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "ok": True, "max_abs_err": err,
+                     **timed(fn, plain, None, sets, nbytes, flops, per_rep)})
+
+    by_shape = {}
+    key = lambda shape: "[" + ",".join(map(str, shape)) + "]"
+    for (Bq, H, Tq, Dq), case in zip(shapes["attn"], ("attn bucket-32", "attn bucket-1024")):
+        sets = [attn_inputs(Bq, H, Tq, Dq, gen, device, bucket_lo(Tq)) for _ in range(2)]
+        work = [attn_work(a[3], H, Dq) for a in sets]
+        causal = torch.ones((Tq, Tq), dtype=torch.bool, device=device).tril()
+        masks = [causal[None, None] & (a[3] > 0)[:, None, None, :] for a in sets]
+        sdpa_sets = [a[:3] + [m] for a, m in zip(sets, masks)]
+        sdpa = lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=m)
+        per_rep = 20 if Tq <= 32 else 5
+        by_shape[key((Bq, H, Tq, Dq))] = {
+            "max_abs_err": errs[case],
+            **timed(attn.fused_causal_attention, attn.attention_reference, (sdpa, sdpa_sets),
+                    sets, sum(w[0] for w in work) / len(work),
+                    sum(w[1] for w in work) / len(work), per_rep)}
+    head = key(shapes["attn"][1])  # the bucket-1024 call gives the row's headline numbers
+    rows.append({"name": "fused_causal_attention", "route": "cuda",
+                 "source": "imm_tsf_torch/csrc/attn.cu",
+                 "replaces": "imm_tsf_tpu/ops/pallas/attn_kernel.py:109", "ok": True,
+                 **by_shape[head], "shape": head, "by_shape": by_shape})
+    for row in rows:
+        n = text["launches"][row["name"]]
+        row["launches"] = n
+        row["launches_per_dispatch"] = n / max(text["dispatches"], 1)
+        row["launches_by_path"] = {"raw_text": n,
+                                   "embeddings": serving["launches"].get(row["name"], 0)}
+    return rows
+
+
+def timed(fn, plain, library, sets, nbytes, flops, per_rep) -> dict:
+    """Device ms of the kernel, its plain version and (library_fn,
+    library_sets) when given, with the bound of (nbytes, flops)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return {"ms": device_ms(fn, sets, per_rep=per_rep),
             "plain_ms": device_ms(plain, sets, per_rep=per_rep),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "bytes": nbytes, "flops": flops,
-        })
-    return rows
+            "library_ms": (device_ms(library[0], library[1], per_rep=per_rep)
+                           if library else None),
+            "bytes": nbytes, "flops": flops}
 
 
 # ------------------------------------------------------------------- main
@@ -493,13 +726,16 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.monotonic()
-    secs = _build.build(["ffn", "recavg"])
+    secs = _build.build(["ffn", "recavg", "attn"])
     log(f"# built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in sorted(secs.items()))})")
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device=device).manual_seed(SEED)
-    shapes = {"recavg": (64, 8, 24, 768), "ffn": (8192, 512, 2048)}
+    # attention: embed_notes' bucket-32 and bucket-1024 calls (token_budget
+    # 32768 rows of 32 tokens; token_batch 64 rows of 1024), GPT-2's 12 heads of 64
+    shapes = {"recavg": (64, 8, 24, 768), "ffn": (8192, 512, 2048),
+              "attn": ((1024, 12, 32, 64), (64, 12, 1024, 64))}
     errs = check_kernels(device, shapes, gen)
 
     # phase 4: serving
@@ -508,18 +744,30 @@ def main() -> int:
         serving = run_serving(device, N_REQUESTS, SEED, exp_dir)
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
-    if serving["shapes"] != shapes:
-        raise AssertionError(f"serving shapes {serving['shapes']} != checked {shapes}")
+    checked = {k: shapes[k] for k in serving["shapes"]}
+    if serving["shapes"] != checked:
+        raise AssertionError(f"serving shapes {serving['shapes']} != checked {checked}")
+
+    # phase 4b: raw-text serving through the frozen GPT-2, random weights
+    # from a seed (no local checkpoint is read)
+    os.environ.pop("IMM_TSF_LLM_DIR", None)
+    try:
+        text = run_raw_text_serving(device, N_TEXT_REQUESTS, SEED, exp_dir)
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
 
     # phase 5: timings
-    rows = measure(device, shapes, gen, errs, serving)
+    rows = measure(device, shapes, gen, errs, serving, text)
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
-        f"{serving['dispatch_ms']['p50']} ms, total {time.monotonic() - t_start:.1f} s")
+        f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
+        f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; total "
+        f"{time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": rows, "power": smi,
                       "requests_per_s": serving["requests_per_s"],
                       "dispatch_ms": serving["dispatch_ms"],
                       "forward_ms": serving["forward_ms"],
-                      "dispatch_profile": serving["dispatch_profile"]}), flush=True)
+                      "dispatch_profile": serving["dispatch_profile"],
+                      "raw_text": text}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -13,6 +13,10 @@ the port's (model_state_dict, fusion_state_dict):
 Flax names PatchTST's attention blocks `AttentionLayer_<i>` and its
 encoder layers `enc_layer_<i>` at the model's top level; the port nests
 both under `encoder.layers.<i>`.
+
+`gpt2_params_from_jax` carries a flax `GPT2Model` param tree (the JAX
+package's frozen LLM) into the port's `llm.gpt2.GPT2Model` state dict:
+Embed `embedding` -> `weight` (not transposed), blocks `h_<i>` -> `h.<i>`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ _RENAMES = (
     (re.compile(r"^AttentionLayer_(\d+)\."), r"encoder.layers.\1.attention."),
     (re.compile(r"^enc_layer_(\d+)\."), r"encoder.layers.\1."),
 )
+_GPT2_RENAMES = ((re.compile(r"^h_(\d+)\."), r"h.\1."),)
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -37,17 +42,17 @@ def _flatten(tree: dict, prefix: str = ""):
             yield path, v
 
 
-def _convert(tree: dict) -> dict:
+def _convert(tree: dict, renames=_RENAMES) -> dict:
     state = {}
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf, dtype=np.float32)
         module, _, name = path.rpartition(".")
         if name == "kernel":
             name, arr = "weight", arr.T
-        elif name == "scale":
+        elif name in ("scale", "embedding"):
             name = "weight"
         key = f"{module}.{name}" if module else name
-        for pattern, repl in _RENAMES:
+        for pattern, repl in renames:
             key = pattern.sub(repl, key)
         state[key] = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
     return state
@@ -58,3 +63,8 @@ def params_from_jax(params_np: dict) -> tuple[dict, dict | None]:
     fusion_state_dict is None when the tree has no fusion subtree."""
     fusion = params_np.get("fusion")
     return _convert(params_np["model"]), (_convert(fusion) if fusion else None)
+
+
+def gpt2_params_from_jax(params_np: dict) -> dict:
+    """flax GPT2Model params (NumPy leaves) -> llm.gpt2.GPT2Model state dict."""
+    return _convert(params_np, _GPT2_RENAMES)

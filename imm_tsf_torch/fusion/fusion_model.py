@@ -10,25 +10,9 @@ from __future__ import annotations
 from torch import nn
 
 from ..config import MMF_MODULES, TTF_MODULES, Config
+from ..llm.loader import get_d_model
 from .mmf import MMF_GR_Add
 from .ttf import TTF_RecAvg
-
-# hidden sizes per alias (reference fusions/load_llm.py:5-13 comments)
-LLM_D_MODEL = {
-    "GPT2": 768,
-    "GPT2M": 1024,
-    "GPT2L": 1280,
-    "GPT2XL": 1600,
-    "BERT": 768,
-    "Llama": 4096,
-    "DeepSeek": 4096,
-}
-
-
-def get_d_model(llm_model_fusion: str) -> int:
-    if llm_model_fusion in LLM_D_MODEL:
-        return LLM_D_MODEL[llm_model_fusion]
-    raise KeyError(f"Unknown fusion LLM alias: {llm_model_fusion}")
 
 
 def _check_ported(name: str, known: tuple, ported: str) -> None:

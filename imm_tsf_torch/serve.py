@@ -12,7 +12,11 @@
        body: {"instances": [<instance schema — see imm_tsf_torch/serving.py>]}
 
 Concurrent requests are micro-batched into single device dispatches.
-The server runs on cuda unless --device cpu is passed.
+The server runs on cuda unless --device cpu is passed. An experiment
+trained on raw text (use_text_embeddings=false) takes {"tau", "text"}
+notes: the server loads its frozen GPT-2 on the same device (from
+IMM_TSF_LLM_DIR/GPT2 when that holds a checkpoint, else random from a
+seed with the hash tokenizer) and caches each string's embedding.
 """
 
 from __future__ import annotations

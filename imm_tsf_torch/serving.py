@@ -18,9 +18,11 @@ Instance schema (all lists / nested lists, JSON-friendly):
   observed_data  [n, D]  values; NaN/null = missing (mask derived)
   observed_mask  [n, D]  optional explicit mask (overrides NaN detection)
   tp_to_predict  [m]     requested forecast times in [history, history+pred_window]
-  notes          optional list of {"tau": t, "embedding": [d_txt]}; raw
-                 {"tau": t, "text": "..."} notes need the frozen-LLM
-                 slice and are refused for now
+  notes          optional list of {"tau": t, "embedding": [d_txt]} or,
+                 for an experiment with use_text_embeddings=false,
+                 {"tau": t, "text": "..."}: raw text is embedded by the
+                 service's frozen GPT-2 on its device, with a per-string
+                 cache (llm/loader.py, training/trainer.py)
   mean, std      optional [D] per-record stats: inputs are z-scored with
                  them and predictions de-normalized back. Without them
                  the service assumes model (z-scored) space, matching the
@@ -43,21 +45,24 @@ from .config import Config, load_saved_config
 from .data import collate as C
 from .data.dataset import Chunk
 from .data.loader import _pad_batch_dim
+from .device import resolve_device
 
 logger = logging.getLogger("imm_tsf_torch.serving")
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """cuda unless the caller asks otherwise; never a silent CPU fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: pass device='cpu' to run on the CPU")
-        # the port's comparisons are float32 comparisons: no TF32 anywhere
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
+class _OneBatchProxy:
+    """A one-batch loader, so the trainer's loader stages (raw-text note
+    embedding) are built once and reused by every dispatch: their caches
+    outlive the request."""
+
+    def __init__(self):
+        self.batch = None
+
+    def __len__(self):
+        return 1
+
+    def __iter__(self):
+        yield self.batch
 
 
 def _build_chunk(inst: dict, cfg: Config, d_txt: int) -> tuple[Chunk, np.ndarray, np.ndarray]:
@@ -276,15 +281,12 @@ class ForecastService(_MetricsMixin):
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
-        if cfg.enable_text and not cfg.use_text_embeddings:
-            raise NotImplementedError(
-                "raw-text notes (use_text_embeddings=false) need the frozen-LLM "
-                "slice, which is not ported yet (ROADMAP.md, Queue 1)")
 
-        from .fusion.fusion_model import FusionModel, get_d_model
+        from .fusion.fusion_model import FusionModel
+        from .llm.loader import get_d_model
         from .models import get_model
         from .training.checkpoint import load_weights
-        from .training.trainer import make_forward
+        from .training.trainer import make_forward, make_loader_wrappers
 
         d_txt = 0
         if cfg.enable_text:
@@ -304,6 +306,14 @@ class ForecastService(_MetricsMixin):
             self.fusion.load_state_dict(state["fusion"])
         self.step = int(state["step"])
         self._forward = make_forward(cfg, self.model, self.fusion)
+
+        # loader stages (raw-text embedding with its cache), built once
+        # over a one-batch proxy; the frozen LLM lives on self.device
+        self._proxy = _OneBatchProxy()
+        stage = self._proxy
+        for wrap in make_loader_wrappers(cfg, self.device):
+            stage = wrap(stage)
+        self._stage_top = stage
 
         self._q: queue.Queue = queue.Queue()
         self._closed = False
@@ -330,7 +340,8 @@ class ForecastService(_MetricsMixin):
         note_times = np.zeros(0, np.float32)
         if cfg.enable_text:
             note_times = np.asarray([0.0], np.float32)
-            payloads = [np.ones(self.d_txt, np.float32)]
+            payloads = ([np.ones(self.d_txt, np.float32)]
+                        if cfg.use_text_embeddings else ["service warmup note"])
         return Chunk(
             chunk_id="warmup_chunk0",
             tt=np.concatenate([tt, tp]),
@@ -340,8 +351,11 @@ class ForecastService(_MetricsMixin):
         )
 
     def _collate(self, chunks: list[Chunk], pad_to: int | None = None) -> dict:
-        return collate_chunks(self.cfg, chunks, self.d_txt, self.time_max,
-                              pad_to or self.max_batch)
+        """Host batch of `chunks`, through the loader stages (raw-text
+        notes are embedded here)."""
+        self._proxy.batch = collate_chunks(self.cfg, chunks, self.d_txt, self.time_max,
+                                           pad_to or self.max_batch)
+        return next(iter(self._stage_top))
 
     def to_device(self, out: dict) -> dict:
         """Host batch -> tensors on the service's device (pinned host

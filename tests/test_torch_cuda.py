@@ -8,13 +8,15 @@ has only PyTorch:
 
 Tolerances: float32 with another summation order, |err| <= 1e-4 +
 1e-4|ref| for the FFN (K=2048 sums), 1e-5 + 1e-5|ref| for the recency
-average (N-term sums)."""
+average (N-term sums), 2e-5 + 1e-5|ref| for the causal attention (online
+softmax against the plain two-pass softmax)."""
 
 import pytest
 import torch
 
-from chip_smoke import dropout_probe_inputs, ffn_inputs, recavg_inputs
-from imm_tsf_torch.kernels import ffn, recavg
+from chip_smoke import (attn_inputs, attn_ragged_inputs, dropout_probe_inputs, ffn_inputs,
+                        recavg_inputs)
+from imm_tsf_torch.kernels import attn, ffn, recavg
 
 KEEP = 0.9
 
@@ -83,3 +85,41 @@ def test_recavg_kernel_matches_plain(dev, gen, B, N, T, d, empty):
     torch.testing.assert_close(out, recavg.recavg_reference(*args), atol=1e-5, rtol=1e-5)
     if empty:
         assert bool((out[-1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D,lo", [
+    (2, 3, 40, 64, None),
+    (4, 12, 37, 64, 1),     # T not a multiple of 8, right-padded
+    (2, 2, 200, 64, 101),   # several query and key tiles
+    (3, 2, 130, 128, 60),   # the 128-column variant
+    (2, 2, 70, 30, 35),     # D not a multiple of 4: zero-padded columns
+])
+def test_attn_kernel_matches_plain(dev, gen, B, H, T, D, lo):
+    args = attn_inputs(B, H, T, D, gen, dev, lo)
+    before = attn.launches
+    out = attn.fused_causal_attention(*args)
+    torch.cuda.synchronize()
+    assert attn.launches == before + 1
+    assert out.shape == (B, H, T, D)
+    torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attn_kernel_fully_masked_rows_are_zero(dev, gen):
+    args = attn_ragged_inputs(gen, dev)
+    out = attn.fused_causal_attention(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[0, :, 0] == 0).all()) and bool((out[1] == 0).all())
+    torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attn_kernel_refuses_what_it_cannot_take(dev, gen):
+    q, k, v, pad = attn_inputs(1, 1, 8, 136, gen, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.fused_causal_attention(q, k, v, pad)
+    q, k, v, pad = attn_inputs(1, 1, 8, 64, gen, dev)
+    with pytest.raises(ValueError, match="float32"):
+        attn.fused_causal_attention(q.double(), k, v, pad)

@@ -251,13 +251,29 @@ def test_entry_points_default_to_cuda(experiments):
         serve.main(["--load", tdir, "--port", "0"])
 
 
-def test_raw_text_experiments_are_refused(experiments, tmp_path):
-    from imm_tsf_torch.config import Config
+def test_raw_text_experiments_are_refused(experiments):
+    """A raw-text experiment (use_text_embeddings=false) refuses
+    precomputed embeddings and takes {"tau", "text"} notes, as the JAX
+    package's service does; serving it end to end is
+    tests/test_torch_llm.py::test_raw_text_service_matches_jax."""
+    from imm_tsf_tpu.serving import _build_chunk as j_build_chunk
 
-    _, tdir = experiments
-    cfg = Config(**{**CFG_KW, "use_text_embeddings": False})
-    with pytest.raises(NotImplementedError, match="frozen-LLM"):
-        ForecastService(tdir, cfg=cfg, device="cpu")
+    from imm_tsf_torch.config import Config
+    from imm_tsf_torch.serving import _build_chunk as t_build_chunk
+
+    tcfg = Config(**{**CFG_KW, "use_text_embeddings": False})
+    jcfg = JConfig(**{**CFG_KW, "use_text_embeddings": False})
+    inst = _requests(5, 1)[0]
+    inst["notes"] = [{"tau": 0.5, "embedding": [0.0] * D_TXT}]
+    with pytest.raises(ValueError) as je:
+        j_build_chunk(inst, jcfg, D_TXT)
+    with pytest.raises(ValueError, match="embeds raw text") as te:
+        t_build_chunk(inst, tcfg, D_TXT)
+    assert str(te.value) == str(je.value)
+    inst["notes"] = [{"tau": 0.5, "text": "ozone rising"}, {"tau": 1.0, "text": ""}]
+    chunk, _, _ = t_build_chunk(inst, tcfg, D_TXT)
+    assert chunk.note_payloads == ["ozone rising", ""]
+    assert chunk.note_payloads == j_build_chunk(inst, jcfg, D_TXT)[0].note_payloads
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "imm_tsf_tpu")
