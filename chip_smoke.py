@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 
  1. the card: `nvidia-smi` name and power limit, torch's device name;
     TF32 off for matmuls and cuDNN (every comparison here is float32);
- 2. build the three CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
+ 2. build the five CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
     (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
       recency average at the serving shape (B=64, N=8, T=24, d=768) and a
@@ -23,6 +23,15 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       notes) and a ragged [3,2,13,64] (token 0 padded in one sample, every
       token in another: exact zeros there), to |err| <= 2e-5 + 1e-5|ref|
       (float32, online softmax against the two-pass plain version);
+      batched expm at [64,64,64] with inf-norms 0.01, 0.5, 6 and 80 (each
+      tier: Taylor-4, Taylor-12, 3 and 7 squarings), a ragged [3,24,24]
+      and an all-zero batch that must give exactly I, to 1e-5 of each
+      matrix's largest entry (tiered Taylor against Taylor-12);
+      fused CRU scan at the serving shape (B 64, T 72, lod 16, K 15) with
+      repeat-padded tails and invalid steps, on post-means and all four
+      residuals, against its plain version run in float64: within 2.5 x
+      (1e-4 + 1e-4|ref|) (`check_scan`: float32 rounding alone reaches
+      1.25 x there);
  4. serve: a full-width PatchTST (d_model 512, d_ff 2048, 2 heads, one
     layer) + TTF_RecAvg + MMF_GR_Add (d_txt 768, GPT2) experiment with
     seeded random weights, through `ForecastService(max_batch=64,
@@ -46,10 +55,26 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     same GPT-2 must agree to |err| <= 1e-4 + 1e-4|ref|; prints real
     tokens/s of the embedding stage, requests/s, dispatch p50/p95 and one
     traced dispatch whose notes are all new (the cache cleared first);
- 5. time each kernel and its plain version at the serving shapes (the
-    attention at both bucket shapes, beside scaled_dot_product_attention
-    with the same boolean mask as the library yardstick) and print one
-    JSON line {"kernels": [...]} with the bound each is held to.
+ 6. serve CRU: the CRU preset at full width (cru_lsd 32: 64 x 64 Van Loan
+    blocks, hidden 32, K 15) + TTF_RecAvg + MMF_GR_Add (d_txt 768), EPA-Air
+    48 + 24 steps, seeded random weights (bases N(0, 0.2^2)), in two
+    services: the default route, then IMM_TSF_CRU_FUSED=1 around the
+    second service's whole life; each answers 512 ragged requests from 8
+    threads; every answer finite with the requested rows; launch counts
+    (zeroed just before) exactly 72 expm launches a dispatch on the
+    default route, one fused-scan launch a dispatch on the fused route,
+    one recency average a dispatch on both; one dispatch's batch through
+    kernels vs plain versions to |err| <= 1e-4 + 1e-4|ref|, the two routes
+    to each other to the same; each tier's share of that dispatch's Van
+    Loan blocks (all three must occur); one uncontended dispatch of each
+    route traced;
+ 5. (after 6) time each kernel and its plain version at the serving
+    shapes (the attention at both bucket shapes, beside
+    scaled_dot_product_attention with the same boolean mask; the expm on
+    the 72 Van Loan blocks of a served dispatch, beside
+    torch.linalg.matrix_exp; the fused scan on that dispatch's scan
+    inputs) and print one JSON line {"kernels": [...]} with the bound each
+    is held to (#5 and #6 from the blocks' own tier mix).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -72,14 +97,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from imm_tsf_torch.config import Config
+from imm_tsf_torch.config import MODEL_PRESETS, Config
 from imm_tsf_torch.fusion.fusion_model import FusionModel
-from imm_tsf_torch.kernels import _build, attn, ffn, recavg
+from imm_tsf_torch.kernels import _build, attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.layers.fast_dropout import _keep_mask
 from imm_tsf_torch.layers.transformer import EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
 from imm_tsf_torch.llm.loader import embed_notes
 from imm_tsf_torch.models import get_model
+from imm_tsf_torch.models.cru import CRU
+from imm_tsf_torch.ops import cru_scan as cru_ops
+from imm_tsf_torch.ops.expm import expm_taylor12
 from imm_tsf_torch.serving import ForecastService, _build_chunk
 from imm_tsf_torch.training.checkpoint import save_experiment
 
@@ -98,6 +126,18 @@ FFN_TOL = (1e-4, 1e-4)
 ATTN_TOL = (2e-5, 1e-5)
 SERVE_TOL = (1e-4, 1e-4)
 EMBED_TOL = (1e-4, 1e-4)  # pooled notes after 6 layers, kernel vs plain attention
+EXPM_RTOL = 1e-5  # per matrix, max|err| <= 1e-5 max|ref| (tests/test_ops_expm.py:55-67)
+# 72 Kalman steps, each an expm in another summation order; held against the
+# float64 plain run (check_scan), since float32 rounding alone reaches it
+SCAN_TOL = (1e-4, 1e-4)
+# check_scan's limit in units of SCAN_TOL: on the check's inputs the float32
+# plain version itself scores 1.25 and the kernel 1.73 on the H100 (PERF.md);
+# twice the plain version's reading
+SCAN_SCORE_MAX = 2.5
+CRU_SERVE_TOL = (1e-4, 1e-4)
+N_CRU_REQUESTS = 512
+MAX_SQUARINGS = 7  # ops.expm / ops.cru_scan default, as in the JAX package
+BASIS_STD = 0.2  # the CRU's banded bases, N(0, 0.2^2) (tests/test_cru_fused_scan.py:37-38)
 
 SERVE_CFG = dict(
     model="PatchTST", dataset="EPA-Air", history=7, pred_window=7, stride=7,
@@ -110,6 +150,14 @@ SERVE_CFG = dict(
 # config's depth, 6 layers (not cut)
 TEXT_CFG = dict(SERVE_CFG, use_text_embeddings=False, use_fused_attn=True,
                 llm_layers_fusion=6)
+# the CRU preset (cru_lsd 32: a 64 x 64 Van Loan block; hidden 32; K 15 bases
+# of bandwidth 3) behind the same fusion stack, EPA-Air 48 + 24 steps
+CRU_CFG = dict(
+    model="CRU", dataset="EPA-Air", history=7, pred_window=7, stride=7,
+    time_unit="days", input_dim=8, input_len=48, pred_len=24, enable_text=True,
+    use_text_embeddings=True, TTF_module="TTF_RecAvg", MMF_module="MMF_GR_Add",
+    llm_model_fusion="GPT2", d_txt=768, use_pallas=True, **MODEL_PRESETS["CRU"],
+)
 
 
 def log(msg: str) -> None:
@@ -221,6 +269,134 @@ def attn_work(pad, H, D) -> tuple[int, int]:
     return 4 * (2 * B * H * T * D + 2 * H * D * kv_rows + B * T), 4 * H * D * int(kept)
 
 
+def expm_inputs(B, n, norm, gen, device):
+    """[B, n, n] Gaussian matrices scaled to inf-norm `norm` each."""
+    M = torch.randn((B, n, n), generator=gen, device=device)
+    return M / M.abs().sum(-1).amax(-1)[:, None, None] * norm
+
+
+def expm_tiers(M, max_squarings: int = MAX_SQUARINGS):
+    """Per matrix of M [..., n, n]: (Taylor-4?, squarings k, products the
+    kernel runs: 2 for Taylor-4, 5 + k for Taylor-12), as csrc/expm.cuh
+    chooses them."""
+    norm = M.abs().sum(-1).amax(-1)
+    k = torch.ceil(torch.log2(norm.clamp(min=1.0))).clamp(max=max_squarings)
+    t4 = norm <= 1.0 / 32.0
+    return t4, torch.where(t4, 0.0, k), torch.where(t4, 2.0, 5.0 + k)
+
+
+def tier_shares(M) -> dict:
+    t4, k, _ = expm_tiers(M)
+    n = t4.numel()
+    return {"taylor4": int(t4.sum()) / n, "taylor12": int((~t4 & (k == 0)).sum()) / n,
+            "taylor12_squared": int((k > 0).sum()) / n,
+            "mean_squarings_when_squared": float(k[k > 0].mean()) if bool((k > 0).any()) else 0.0}
+
+
+def expm_work(M) -> tuple[int, int]:
+    """(bytes, FLOPs) one batched_expm call needs on M [B, n, n]: M read
+    and exp(M) written once; each matrix's products at 2n^3 FLOPs."""
+    B, n, _ = M.shape
+    return 8 * B * n * n, int(expm_tiers(M)[2].sum()) * 2 * n ** 3
+
+
+def expm_rel_err(got, want) -> float:
+    """Max over matrices of max|got - want| / max|want|; raises above
+    EXPM_RTOL or on a non-finite value."""
+    err = (got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    worst = float(err.max())
+    if worst > EXPM_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"expm: relative error {worst:.3e} > {EXPM_RTOL} "
+                             f"(finite={bool(torch.isfinite(got).all())})")
+    return worst
+
+
+def scan_inputs(B, T, lod, K, gen, device) -> dict:
+    """CRU scan inputs as cru_collate and the encoder give them: each
+    sample has 1..T real steps at sorted times in [0, 14) days, its tail
+    repeat-padded (dt = 0, invalid), 30 % of its real steps invalid, the
+    final dt 1; bases N(0, BASIS_STD^2). Few real steps mean long dt: the
+    Van Loan blocks then reach the squaring tier."""
+    lsd = 2 * lod
+    u = lambda *s: torch.rand(s, generator=gen, device=device)
+    n_real = torch.randint(1, T + 1, (B,), generator=gen, device=device)
+    step = torch.arange(T, device=device)[None]
+    tp = torch.sort(u(B, T) * 14.0, dim=1).values
+    real = step < n_real[:, None]
+    last = tp.gather(1, (n_real - 1)[:, None])
+    tp = torch.where(real, tp, last)
+    dts = torch.cat([tp[:, 1:] - tp[:, :-1], torch.ones((B, 1), device=device)], dim=1)
+    return dict(
+        y_mean=torch.randn((B, T, lod), generator=gen, device=device),
+        y_var=0.1 + u(B, T, lod), valid=((u(B, T) > 0.3) & real).float(), dts=dts,
+        coeff_w=torch.randn((lsd, K), generator=gen, device=device) * 0.3,
+        coeff_b=torch.randn((K,), generator=gen, device=device) * 0.1,
+        dense_basis=torch.randn((4, K, lod, lod), generator=gen, device=device) * BASIS_STD,
+        trans_var=0.05 + u(lsd) * 0.1, init_cu=1.0 + u(lod), init_cl=1.0 + u(lod))
+
+
+def check_scan(got, ins) -> dict:
+    """Hold fused_cru_scan's (post_means, residuals) `got` on `ins` to its
+    plain version. The scan's state grows over its steps, and its float32
+    rounding alone passes SCAN_TOL: on the card the plain version in
+    float32 strays from its own float64 run by 1.25x SCAN_TOL on
+    scan_inputs' data, by 1.03x on a served dispatch's (PERF.md). So each
+    output is held to the plain version run in float64: the kernel's
+    score there (max |err| / (atol + rtol|ref|)) must be at most
+    SCAN_SCORE_MAX. Returns, by output, max |kernel - float32 plain| and
+    the kernel's and the float32 plain version's scores; raises
+    otherwise."""
+    want = cru_ops.cru_scan_reference(**ins, max_squarings=MAX_SQUARINGS)
+    ref = cru_ops.cru_scan_reference(**{k: v.double() for k, v in ins.items()},
+                                     max_squarings=MAX_SQUARINGS)
+    atol, rtol = SCAN_TOL
+    score = lambda x, r: float(((x.double() - r).abs() / (atol + rtol * r.abs())).max())
+    out = {}
+    for name, g, w, r in zip(("post_means", "pm", "pcu", "pcl", "pcs"), (got[0], *got[1]),
+                             (want[0], *want[1]), (ref[0], *ref[1])):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"fused_cru_scan {name}: shape {tuple(g.shape)} or non-finite")
+        kernel, plain = score(g, r), score(w, r)
+        if kernel > SCAN_SCORE_MAX:
+            raise AssertionError(f"fused_cru_scan {name}: score {kernel:.3f} > {SCAN_SCORE_MAX} "
+                                 f"against the float64 plain run (float32 plain {plain:.3f})")
+        out[name] = {"max_abs_err": float((g - w).abs().max()), "score": kernel,
+                     "plain_score": plain}
+    return out
+
+
+def van_loan_blocks(ins: dict) -> list:
+    """The Van Loan block Bm of every step of the scan over `ins` (the
+    default route's loop with the plain expm), [B, 2lsd, 2lsd] each."""
+    blocks = []
+
+    def record(M, max_squarings):
+        blocks.append(M)
+        return expm_taylor12(M, max_squarings)
+
+    cru_ops._scan_steps(**ins, max_squarings=MAX_SQUARINGS, expm_fn=record)
+    return blocks
+
+
+def scan_work(ins: dict, blocks) -> tuple[int, int]:
+    """(bytes, FLOPs) one fused_cru_scan call needs: its inputs read and
+    post-means and residuals written once; per step the expm's products
+    (by each block's own tier), the Bm assembly (K FMAs on the lsd^2
+    entries of A; -A^T is the same sum), the coefficient net, E_A post_m
+    and the three covariance diagonals (3 lod dot products of lsd terms,
+    3 FLOPs a term for Cm). The Van Loan block [[A, Q], [0, -A^T]] is
+    block upper triangular, and so are its powers: a product of two is
+    four (n/2)^3 block products, n^3 FLOPs."""
+    B, T, lod = ins["y_mean"].shape
+    lsd, K = 2 * lod, ins["coeff_w"].shape[1]
+    n = 2 * lsd
+    nbytes = 4 * (B * T * (2 * lod + 2) + lsd * K + K + 4 * K * lod * lod + lsd + 2 * lod
+                  + B * T * (2 * lsd + 3 * lod))
+    products = sum(int(expm_tiers(M)[2].sum()) for M in blocks)
+    per_step = 2 * K * lsd * lsd + 2 * lsd * K + 2 * lsd * lsd + 3 * lod * lsd * 5 + 15 * lod
+    return nbytes, products * n ** 3 + B * T * per_step
+
+
 # ---------------------------------------------------------------- phase 3
 def check_kernels(device, shapes, gen) -> dict:
     """Each kernel against its plain version; returns max errors by case."""
@@ -271,6 +447,28 @@ def check_kernels(device, shapes, gen) -> dict:
                 f"of {expect.numel()} elements")
         log(f"# check ffn {site}-site dropout zeros: identical to the hash bits "
             f"({int((~expect).sum())} dropped of {expect.numel()})")
+
+    B, n = shapes["expm"]
+    for case, M in ([(f"expm norm {norm}", expm_inputs(B, n, norm, gen, device))
+                     for norm in (0.01, 0.5, 6.0, 80.0)]
+                    + [("expm ragged", expm_inputs(3, 24, 3.0, gen, device)),
+                       ("expm zeros", torch.zeros((B, n, n), device=device))]):
+        got = expm.batched_expm(M, MAX_SQUARINGS)
+        want = expm_taylor12(M, MAX_SQUARINGS)
+        errs[case] = expm_rel_err(got, want)
+        if case == "expm zeros":
+            eye = torch.eye(n, device=device).expand(B, n, n)
+            assert torch.equal(got, eye), "exp(0) must be exactly I (the CRU's pad steps)"
+        log(f"# check {case} {tuple(M.shape)}: tiers {tier_shares(M)}, "
+            f"max|err|/max|ref| {errs[case]:.3e}")
+
+    Bs, T, lod, K = shapes["cru_scan"]
+    ins = scan_inputs(Bs, T, lod, K, gen, device)
+    scan = check_scan(cru_scan.fused_cru_scan(**ins, max_squarings=MAX_SQUARINGS), ins)
+    errs["cru_scan"] = max(v["max_abs_err"] for v in scan.values())
+    blocks = torch.cat(van_loan_blocks(ins))
+    log(f"# check cru_scan B={Bs} T={T} lod={lod} K={K} (repeat-padded tails, "
+        f"invalid steps; Van Loan tiers {tier_shares(blocks)}): {json.dumps(scan)}")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return errs
@@ -279,7 +477,10 @@ def check_kernels(device, shapes, gen) -> dict:
 # ---------------------------------------------------------------- phase 4
 def seeded_weights(module, gen) -> None:
     """Fill every parameter from `gen`: Linear at torch's init scale,
-    LayerNorm near identity, GRU tensors U(+/-1/sqrt(H)), sigma near 1."""
+    LayerNorm (and CRU's raw LayerNorm tensors) near identity, GRU tensors
+    U(+/-1/sqrt(H)), sigma near 1, CRU's banded bases N(0, BASIS_STD^2)
+    (at their zero init every Van Loan block would be tiny and nilpotent,
+    and only the Taylor-4 tier would run)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
@@ -296,6 +497,12 @@ def seeded_weights(module, gen) -> None:
                 p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(H))
             elif name.endswith("log_recency_sigma"):
                 p.fill_(math.log(1.5))
+            elif re.fullmatch(r"tm_\d\d_basis", name):
+                p.copy_(BASIS_STD * torch.randn(p.shape, generator=gen))
+            elif re.fullmatch(r"\w+_ln\d_scale", name):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen))
+            elif re.fullmatch(r"\w+_ln\d_bias", name):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
 
 
 def make_experiment(exp_dir: str, cfg_kw: dict, seed: int):
@@ -389,6 +596,8 @@ def set_kernels(svc, on: bool) -> None:
     for m in svc.model.modules():
         if isinstance(m, EncoderLayer):
             m.use_fused_ffn = on
+        elif isinstance(m, CRU):
+            m.use_pallas = on
     svc.fusion.ttf.use_pallas = on
     llm = getattr(svc._stage_top, "llm", None)
     if llm is not None:
@@ -551,6 +760,97 @@ def run_raw_text_serving(device, n_requests: int, seed: int, exp_dir: str,
         svc.close()
 
 
+def run_cru_serving(device, n_requests: int, seed: int, exp_dir: str, cfg, fused: bool) -> dict:
+    """Phase 6: serve the CRU experiment in `exp_dir` on one route, the
+    default (kernel #5 once a scan step) or, with IMM_TSF_CRU_FUSED=1 set
+    for the service's whole life, the fused (kernel #6 once a dispatch)."""
+    route = "fused" if fused else "default"
+    saved = os.environ.pop("IMM_TSF_CRU_FUSED", None)
+    if fused:
+        os.environ["IMM_TSF_CRU_FUSED"] = "1"
+    try:
+        t0 = time.monotonic()
+        svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
+        log(f"# CRU service ({route} route) up in {time.monotonic() - t0:.2f} s")
+        try:
+            return _serve_cru(svc, device, cfg, n_requests, seed, route)
+        finally:
+            svc.close()
+    finally:
+        os.environ.pop("IMM_TSF_CRU_FUSED", None)
+        if saved is not None:
+            os.environ["IMM_TSF_CRU_FUSED"] = saved
+
+
+def _serve_cru(svc, device, cfg, n_requests, seed, route) -> dict:
+    requests = make_requests(cfg, n_requests, seed)
+    d0 = svc.metrics()["dispatches_total"]
+    ffn.launches = recavg.launches = attn.launches = expm.launches = cru_scan.launches = 0
+    t0 = time.monotonic()
+    answers = serve_requests(svc, requests)
+    wall = time.monotonic() - t0
+    launches = {"recency_weighted_average": recavg.launches, "batched_expm": expm.launches,
+                "fused_cru_scan": cru_scan.launches}
+    metrics = svc.metrics()
+    dispatches = metrics["dispatches_total"] - d0
+    T = cfg.input_len + cfg.pred_len
+    if device.type == "cuda":  # CPU tensors take the plain versions
+        want = {"recency_weighted_average": dispatches,
+                "batched_expm": T * dispatches if route == "default" else 0,
+                "fused_cru_scan": dispatches if route == "fused" else 0}
+        if launches != want:
+            raise AssertionError(f"CRU {route} route launched {launches}, expected {want} "
+                                 f"in {dispatches} dispatches")
+    for inst, ans in zip(requests, answers):
+        y = np.asarray(ans["prediction"])
+        if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+            raise AssertionError(f"bad answer shape {y.shape} or non-finite values")
+    log(f"# CRU {route} route: served {len(requests)} requests in {dispatches} dispatches, "
+        f"{wall:.3f} s: {len(requests) / wall:.1f} requests/s, dispatch p50 "
+        f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
+        f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}")
+
+    # one full dispatch's batch, kernels vs plain versions, same modules
+    built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
+    batch = svc.to_device(svc._collate([b[0] for b in built]))
+    with torch.inference_mode():
+        got = svc._forward(batch)
+        set_kernels(svc, False)
+        try:
+            want = svc._forward(batch)
+        finally:
+            set_kernels(svc, True)
+        ins = svc.model.scan_inputs(batch["tp_to_predict"], batch["observed_data"],
+                                    batch["observed_tp"], batch["observed_mask"])
+        blocks = van_loan_blocks(ins)
+    # plain tensors that track no gradient, for phase 5's calls outside inference mode
+    ins = {k: v.detach().clone() for k, v in ins.items()}
+    err = max_err(got, want, CRU_SERVE_TOL)
+    tiers = tier_shares(torch.cat(blocks))
+    log(f"# CRU {route} route, one dispatch {tuple(batch['observed_data'].shape)}: kernels vs "
+        f"plain max|err| {err:.3e}; its {len(blocks)} x {tuple(blocks[0].shape)} Van Loan "
+        f"blocks by tier: {tiers}")
+    if route == "default" and min(tiers["taylor4"], tiers["taylor12"],
+                                  tiers["taylor12_squared"]) == 0:
+        raise AssertionError(f"the served Van Loan blocks miss a tier: {tiers}")
+    forward_ms, profile = {}, None
+    if device.type == "cuda":
+        for mode in ("plain", "kernels", "kernels", "plain"):  # in turns
+            set_kernels(svc, mode == "kernels")
+            forward_ms.setdefault(mode, []).extend(wall_ms(svc._forward, batch, reps=6)[1:])
+        set_kernels(svc, True)
+        forward_ms = {k: float(np.median(v)) for k, v in forward_ms.items()}
+        log(f"# CRU {route} route, one dispatch's forward (host clock to synchronize): "
+            f"{forward_ms} ms")
+        profile = profile_dispatch(svc, built)
+        log(f"# CRU {route} route, one uncontended dispatch of 64 requests: {json.dumps(profile)}")
+    return {"launches": launches, "dispatches": dispatches,
+            "requests_per_s": len(requests) / wall,
+            "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
+            "forward_ms": forward_ms, "dispatch_profile": profile, "tiers": tiers,
+            "out": got, "scan_inputs": ins, "blocks": blocks}
+
+
 def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
     """Where one uncontended dispatch of a full batch goes. Host clock
     (median of `reps`): the collate alone (with the loader stages: for raw
@@ -634,10 +934,11 @@ def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     return float(np.median(times))
 
 
-def measure(device, shapes, gen, errs, serving, text) -> list[dict]:
-    """One row per kernel. `launches` counts the raw-text path (phase 4b),
-    which runs all three; `launches_by_path` adds the embedding path
-    (phase 4)."""
+def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
+    """One row per kernel. For kernels #1-#3 `launches` counts the raw-text
+    path (phase 4b), which runs all three; `launches_by_path` adds the
+    embedding path (phase 4) and both CRU routes (phase 6). Kernels #5
+    and #6: measure_cru."""
     B, N, T, d = shapes["recavg"]
     rsets = [recavg_inputs(B, N, T, d, gen, device) for _ in range(4)]
     r_bytes = 4 * (B * N * 2 + B * T + B * N * d + 1 + B * T * d)
@@ -689,6 +990,51 @@ def measure(device, shapes, gen, errs, serving, text) -> list[dict]:
         row["launches_per_dispatch"] = n / max(text["dispatches"], 1)
         row["launches_by_path"] = {"raw_text": n,
                                    "embeddings": serving["launches"].get(row["name"], 0)}
+        for route, res in cru.items():
+            row["launches_by_path"][f"cru_{route}"] = res["launches"].get(row["name"], 0)
+    return rows + measure_cru(cru)
+
+
+def measure_cru(cru) -> list[dict]:
+    """Rows for kernels #5 and #6 on the served inputs of one dispatch of
+    the CRU experiment (phase 6, default route): its 72 Van Loan blocks
+    [64, 64, 64] and its scan inputs. Each kernel is held to its plain
+    version there first; `launches` counts the route that runs it."""
+    default = cru["default"]
+    blocks, ins = default["blocks"], default["scan_inputs"]
+    pairs = [(expm.batched_expm(M, MAX_SQUARINGS), expm_taylor12(M, MAX_SQUARINGS))
+             for M in blocks]
+    block_err = max(expm_rel_err(got, want) for got, want in pairs)
+    block_abs = max(float((got - want).abs().max()) for got, want in pairs)
+    scan = check_scan(cru_scan.fused_cru_scan(**ins, max_squarings=MAX_SQUARINGS), ins)
+    scan_abs = max(v["max_abs_err"] for v in scan.values())
+    work = [expm_work(M) for M in blocks]
+    sets = [[M, MAX_SQUARINGS] for M in blocks]
+    s_bytes, s_flops = scan_work(ins, blocks)
+    args = list(ins.values()) + [MAX_SQUARINGS]
+    rows = [
+        {"name": "batched_expm", "route": "cuda", "source": "imm_tsf_torch/csrc/expm.cu",
+         "replaces": "imm_tsf_tpu/ops/pallas/expm_kernel.py:212", "ok": True,
+         "max_abs_err": block_abs, "max_rel_err": block_err,
+         "shape": list(blocks[0].shape), "tiers": default["tiers"],
+         **timed(expm.batched_expm, expm_taylor12,
+                 (torch.linalg.matrix_exp, [[M] for M in blocks]), sets,
+                 sum(w[0] for w in work) / len(work), sum(w[1] for w in work) / len(work),
+                 len(blocks)),
+         "launches": cru["default"]["launches"]["batched_expm"]},
+        {"name": "fused_cru_scan", "route": "cuda", "source": "imm_tsf_torch/csrc/cru_scan.cu",
+         "replaces": "imm_tsf_tpu/ops/pallas/cru_scan_kernel.py:429", "ok": True,
+         "max_abs_err": scan_abs, "check": scan,
+         "shape": list(ins["y_mean"].shape) + [ins["coeff_w"].shape[1]],
+         **timed(cru_scan.fused_cru_scan, cru_ops.cru_scan_reference, None, [args],
+                 s_bytes, s_flops, 2),
+         "launches": cru["fused"]["launches"]["fused_cru_scan"]},
+    ]
+    for row in rows:
+        res = cru["default" if row["name"] == "batched_expm" else "fused"]
+        row["launches_per_dispatch"] = row["launches"] / max(res["dispatches"], 1)
+        row["launches_by_path"] = {f"cru_{route}": r["launches"][row["name"]]
+                                   for route, r in cru.items()}
     return rows
 
 
@@ -726,7 +1072,7 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.monotonic()
-    secs = _build.build(["ffn", "recavg", "attn"])
+    secs = _build.build(["ffn", "recavg", "attn", "expm", "cru_scan"])
     log(f"# built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in sorted(secs.items()))})")
 
@@ -734,8 +1080,11 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     # attention: embed_notes' bucket-32 and bucket-1024 calls (token_budget
     # 32768 rows of 32 tokens; token_batch 64 rows of 1024), GPT-2's 12 heads of 64
+    # expm and cru_scan: the CRU preset's [64, 64, 64] Van Loan blocks and its
+    # scan at B=64, T=48+24, lod=16, K=15
     shapes = {"recavg": (64, 8, 24, 768), "ffn": (8192, 512, 2048),
-              "attn": ((1024, 12, 32, 64), (64, 12, 1024, 64))}
+              "attn": ((1024, 12, 32, 64), (64, 12, 1024, 64)),
+              "expm": (64, 64), "cru_scan": (64, 72, 16, 15)}
     errs = check_kernels(device, shapes, gen)
 
     # phase 4: serving
@@ -756,18 +1105,39 @@ def main() -> int:
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
 
+    # phase 6: the CRU experiment, default route then fused route
+    try:
+        cru_cfg = make_experiment(exp_dir, CRU_CFG, SEED)
+        cru = {route: run_cru_serving(device, N_CRU_REQUESTS, SEED, exp_dir, cru_cfg,
+                                      fused=route == "fused")
+               for route in ("default", "fused")}
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    route_err = max_err(cru["fused"]["out"], cru["default"]["out"], CRU_SERVE_TOL)
+    log(f"# CRU routes agree on one dispatch: max|fused - default| {route_err:.3e}")
+    served = (tuple(cru["default"]["scan_inputs"]["y_mean"].shape)
+              + (cru["default"]["scan_inputs"]["coeff_w"].shape[1],))
+    if served != shapes["cru_scan"] or tuple(cru["default"]["blocks"][0].shape[1:]) != \
+            shapes["expm"]:
+        raise AssertionError(f"CRU serving shapes {served} != checked {shapes['cru_scan']}")
+
     # phase 5: timings
-    rows = measure(device, shapes, gen, errs, serving, text)
+    rows = measure(device, shapes, gen, errs, serving, text, cru)
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
-        f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; total "
-        f"{time.monotonic() - t_start:.1f} s")
+        f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
+        f"{cru['default']['requests_per_s']:.1f} / fused {cru['fused']['requests_per_s']:.1f} "
+        f"requests/s; total {time.monotonic() - t_start:.1f} s")
+    cru_summary = {route: {k: v for k, v in res.items()
+                           if k not in ("out", "scan_inputs", "blocks")}
+                   for route, res in cru.items()}
     print(json.dumps({"kernels": rows, "power": smi,
                       "requests_per_s": serving["requests_per_s"],
                       "dispatch_ms": serving["dispatch_ms"],
                       "forward_ms": serving["forward_ms"],
                       "dispatch_profile": serving["dispatch_profile"],
-                      "raw_text": text}), flush=True)
+                      "raw_text": text, "cru": cru_summary,
+                      "cru_route_err": route_err}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

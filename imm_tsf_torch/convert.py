@@ -7,8 +7,12 @@ the port's (model_state_dict, fusion_state_dict):
 
   - flax Dense `kernel [in, out]` -> torch Linear `weight [out, in]`;
   - LayerNorm `scale` -> `weight`, `bias` -> `bias`;
+  - flat Dense pairs (the continuous-time models' `ode/nets.py`
+    `dense_params`: `<name>_kernel [in, out]` beside `<name>_bias`) ->
+    torch Linear `<name>.weight [out, in]` and `<name>.bias`;
   - raw parameters (the GRU's `gru_*` tensors in their [in, 3H] layout,
-    `log_recency_sigma`) keep their names and meaning.
+    `log_recency_sigma`, CRU's `enc_ln0_scale`, `tm_11_basis`,
+    `log_transition_noise` and the like) keep their names and meaning.
 
 Flax names PatchTST's attention blocks `AttentionLayer_<i>` and its
 encoder layers `enc_layer_<i>` at the model's top level; the port nests
@@ -43,14 +47,19 @@ def _flatten(tree: dict, prefix: str = ""):
 
 
 def _convert(tree: dict, renames=_RENAMES) -> dict:
+    leaves = dict(_flatten(tree))
     state = {}
-    for path, leaf in _flatten(tree):
+    for path, leaf in leaves.items():
         arr = np.asarray(leaf, dtype=np.float32)
         module, _, name = path.rpartition(".")
         if name == "kernel":
             name, arr = "weight", arr.T
         elif name in ("scale", "embedding"):
             name = "weight"
+        elif name.endswith("_kernel") and path[:-len("kernel")] + "bias" in leaves:
+            name, arr = name[:-len("_kernel")] + ".weight", arr.T
+        elif name.endswith("_bias") and path[:-len("bias")] + "kernel" in leaves:
+            name = name[:-len("_bias")] + ".bias"
         key = f"{module}.{name}" if module else name
         for pattern, repl in renames:
             key = pattern.sub(repl, key)

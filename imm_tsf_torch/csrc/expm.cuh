@@ -1,0 +1,249 @@
+// Block-wide matrix exponential of one matrix in shared memory, shared by
+// csrc/expm.cu (kernel #5, the batched expm) and csrc/cru_scan.cu (kernel
+// #6, the fused CRU scan, one Van Loan expm per step).
+//
+// The math of the TPU kernel's `expm_value`
+// (imm_tsf_tpu/ops/pallas/expm_kernel.py:54-94), with the tier chosen per
+// matrix instead of per batch tile (both tiers truncate below 2.5e-10, far
+// under float32 eps, so the function is the same):
+//
+//   ||M||inf <= 1/32 : Taylor-4,  R = I + M + M^2/2 + M^2 (M/6 + M^2/24)
+//                      (2 products)
+//   otherwise        : k = min(ceil(log2(max(||M||inf, 1))), max_squarings),
+//                      Taylor-12 on M/2^k by Paterson-Stockmeyer
+//                      (5 products), then k squarings
+//
+// The matrix sits zero-padded to 64 x 64 in the first of five 64 x kLd
+// float buffers (87,040 bytes of dynamic shared memory; the caller opts in
+// above 48 KB). Zero padding changes nothing in the leading n x n block:
+// exp([[M, 0], [0, 0]]) = [[exp(M), 0], [0, I]]. The block's 256 threads
+// each own a 4 x 4 patch of every product; products read A as float4 along
+// its rows and B as float4 along its rows, the row stride of 68 floats
+// keeps both free of bank conflicts. Plain float32 FMA: the JAX package
+// pins this expm to full float32 (ops/expm.py:23-27) because squarings
+// amplify rounding, so TF32 tensor cores are not used.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace expm {
+
+constexpr int kN = 64;                       // matrices are zero-padded to kN x kN
+constexpr int kLd = 68;                      // row stride of a shared-memory matrix
+constexpr int kMat = kN * kLd;               // floats per shared-memory matrix
+constexpr int kThreads = 256;                // 16 x 16 threads, one 4 x 4 patch each
+constexpr int kBuffers = 5;
+constexpr int kSmemFloats = kBuffers * kMat;
+constexpr int kSmemBytes = kSmemFloats * static_cast<int>(sizeof(float));
+constexpr int kWarps = kThreads / 32;
+
+// 1/i!, rounded to float as the JAX package's Python floats are
+__device__ __forceinline__ float coef(int i) {
+  switch (i) {
+    case 0: case 1: return 1.f;
+    case 2: return 0.5f;
+    case 3: return static_cast<float>(1.0 / 6.0);
+    case 4: return static_cast<float>(1.0 / 24.0);
+    case 5: return static_cast<float>(1.0 / 120.0);
+    case 6: return static_cast<float>(1.0 / 720.0);
+    case 7: return static_cast<float>(1.0 / 5040.0);
+    case 8: return static_cast<float>(1.0 / 40320.0);
+    case 9: return static_cast<float>(1.0 / 362880.0);
+    case 10: return static_cast<float>(1.0 / 3628800.0);
+    case 11: return static_cast<float>(1.0 / 39916800.0);
+    default: return static_cast<float>(1.0 / 479001600.0);
+  }
+}
+
+__device__ __forceinline__ float lane(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// this thread's 4 x 4 patch (rows ty*4.., columns tx*4..) of a buffer
+__device__ __forceinline__ void load_patch(const float* s, float p[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(s + (ty * 4 + i) * kLd + tx * 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = lane(v, j);
+  }
+}
+
+__device__ __forceinline__ void store_patch(float* s, const float p[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(s + (ty * 4 + i) * kLd + tx * 4) =
+        make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
+}
+
+// 1 on this thread's patch of the diagonal, 0 elsewhere
+__device__ __forceinline__ float eye(int i, int j) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  return ty * 4 + i == tx * 4 + j ? 1.f : 0.f;
+}
+
+// p = A B on this thread's patch (A, B full kN x kN buffers)
+__device__ __forceinline__ void matmul_patch(const float* __restrict__ A,
+                                             const float* __restrict__ B, float p[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < kN; k += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * kLd + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(B + (k + kk) * kLd + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float av = lane(a[i], kk);
+        p[i][0] = fmaf(av, b.x, p[i][0]);
+        p[i][1] = fmaf(av, b.y, p[i][1]);
+        p[i][2] = fmaf(av, b.z, p[i][2]);
+        p[i][3] = fmaf(av, b.w, p[i][3]);
+      }
+    }
+  }
+}
+
+// max row sum of |M| over the kN x kN buffer; red holds kWarps floats.
+// Every thread returns the same value.
+__device__ __forceinline__ float inf_norm(const float* s, float* red) {
+  const int r = threadIdx.x / 4, quarter = threadIdx.x % 4;  // 64 rows x 4 quarters
+  const float4* row = reinterpret_cast<const float4*>(s + r * kLd + quarter * 16);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 v = row[j];
+    sum += fabsf(v.x) + fabsf(v.y) + fabsf(v.z) + fabsf(v.w);
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) sum = fmaxf(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = sum;
+  __syncthreads();
+  float norm = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) norm = fmaxf(norm, red[w]);
+  __syncthreads();  // red may be written again
+  return norm;
+}
+
+// k = min(ceil(log2(max(norm, 1))), max_squarings), exactly: norm = m 2^e
+// with m in [0.5, 1), and ceil(log2(norm)) = e, or e - 1 when m = 0.5
+__device__ __forceinline__ int squarings(float norm, int max_squarings) {
+  if (!(norm > 1.f)) return 0;
+  if (isinf(norm)) return max_squarings;
+  int e;
+  const float m = frexpf(norm, &e);
+  return min(m == 0.5f ? e - 1 : e, max_squarings);
+}
+
+// Overwrites buffer 0 of s (the zero-padded matrix M, visible to every
+// thread: the caller synchronises after writing it) with exp(M); buffers
+// 1-4 are scratch. All kThreads threads of the block must call it; it
+// returns synchronised. Returns -1 for the Taylor-4 tier, else the number
+// of squarings of the Taylor-12 tier.
+__device__ inline int expm_inplace(float* s, float* red, int max_squarings) {
+  float* M = s;
+  float* M2 = s + kMat;
+  float* M3 = s + 2 * kMat;
+  float* M4 = s + 3 * kMat;
+  float* X = s + 4 * kMat;
+  float m[4][4], m2[4][4], m3[4][4], p[4][4];
+
+  const float norm = inf_norm(M, red);
+  if (norm <= 1.f / 32.f) {
+    // Taylor-4: c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2)
+    matmul_patch(M, M, p);
+    store_patch(M2, p);
+    __syncthreads();
+    load_patch(M, m);
+    load_patch(M2, m2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[i][j] = coef(3) * m[i][j] + coef(4) * m2[i][j];
+    store_patch(X, p);
+    __syncthreads();
+    matmul_patch(M2, X, p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        p[i][j] = coef(0) * eye(i, j) + coef(1) * m[i][j] + coef(2) * m2[i][j] + p[i][j];
+    store_patch(M, p);  // no thread reads M after the first product
+    __syncthreads();
+    return -1;
+  }
+
+  // Taylor-12 on Ms = M / 2^k (exact: a power of two)
+  const int k = squarings(norm, max_squarings);
+  const float scale = ldexpf(1.f, -k);
+  load_patch(M, m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m[i][j] *= scale;
+  store_patch(M, m);  // each thread rescales its own patch
+  __syncthreads();
+  matmul_patch(M, M, p);
+  store_patch(M2, p);
+  __syncthreads();
+  matmul_patch(M2, M, p);
+  store_patch(M3, p);
+  matmul_patch(M2, M2, p);
+  store_patch(M4, p);
+  __syncthreads();
+  load_patch(M2, m2);
+  load_patch(M3, m3);
+  // Paterson-Stockmeyer, base M4: B0 + M4 (B1 + M4 (B2 + c12 M4))
+  float m4[4][4];
+  load_patch(M4, m4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      p[i][j] = coef(8) * eye(i, j) + coef(9) * m[i][j] + coef(10) * m2[i][j] +
+                coef(11) * m3[i][j] + coef(12) * m4[i][j];
+  store_patch(X, p);
+  __syncthreads();
+  matmul_patch(M4, X, p);
+  __syncthreads();  // X is read by every thread before it is overwritten
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      p[i][j] = coef(4) * eye(i, j) + coef(5) * m[i][j] + coef(6) * m2[i][j] +
+                coef(7) * m3[i][j] + p[i][j];
+  store_patch(X, p);
+  __syncthreads();
+  matmul_patch(M4, X, p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      p[i][j] = coef(0) * eye(i, j) + coef(1) * m[i][j] + coef(2) * m2[i][j] +
+                coef(3) * m3[i][j] + p[i][j];
+  store_patch(M, p);  // nothing reads M after the products that made M2-M4
+  __syncthreads();
+  for (int step = 0; step < k; ++step) {
+    matmul_patch(M, M, p);
+    __syncthreads();
+    store_patch(M, p);
+    __syncthreads();
+  }
+  return k;
+}
+
+}  // namespace expm

@@ -1,10 +1,10 @@
 """Collate functions: ragged chunks -> static-shaped NumPy batch dicts.
 
-The standard (MTS/LMTS) path and the multimodal wrapper, carried over
-from imm_tsf_tpu/data/collate.py unchanged (they are host-side NumPy):
-batches are padded to dataset-level ceilings, the notes axis to a small
-menu of bucket sizes. The CRU, ODE and patch collates come with the
-slices that port those backbones.
+The standard (MTS/LMTS) and CRU paths and the multimodal wrapper,
+carried over from imm_tsf_tpu/data/collate.py unchanged (they are
+host-side NumPy): batches are padded to dataset-level ceilings, the
+notes axis to a small menu of bucket sizes. The ODE and patch collates
+come with the slices that port those backbones.
 
 Batch dict contract (keys identical to reference):
   observed_data [B, L, D], observed_tp [B, L], observed_mask,
@@ -74,6 +74,41 @@ def standard_collate(
         out["observed_data"][i, :n] = hv
         out["observed_mask"][i, :n] = hm
         out["tp_to_predict"][i, :p] = normalize_tp(ptt, time_max)
+        out["data_to_predict"][i, :p] = pv
+        out["mask_predicted_data"][i, :p] = pm
+    return out
+
+
+def cru_collate(
+    batch: list[Chunk], history: float, time_max: float, L_obs: int, L_pred: int
+) -> dict:
+    """CRU path, reference :369-408 — identical to standard but tp stays raw
+    (chunk-relative units).
+
+    TPU deviation: pad time entries REPEAT the last real time (the reference
+    zero-pads to the batch max, which makes its Kalman recursion evolve the
+    state backward through t=0 at pad positions — a batch-composition-
+    dependent artifact). Repeat-padding makes every pad step an exact dt=0
+    identity under the scan, independent of batch composition."""
+    B = len(batch)
+    D = batch[0].vals.shape[-1]
+    out = {
+        "observed_data": np.zeros((B, L_obs, D), np.float32),
+        "observed_tp": np.zeros((B, L_obs), np.float32),
+        "observed_mask": np.zeros((B, L_obs, D), np.float32),
+        "data_to_predict": np.zeros((B, L_pred, D), np.float32),
+        "tp_to_predict": np.zeros((B, L_pred), np.float32),
+        "mask_predicted_data": np.zeros((B, L_pred, D), np.float32),
+    }
+    for i, c in enumerate(batch):
+        htt, hv, hm, ptt, pv, pm = _split_hist_pred(c, history)
+        n, p = len(htt), len(ptt)
+        out["observed_tp"][i] = htt[-1] if n else 0.0
+        out["observed_tp"][i, :n] = htt
+        out["observed_data"][i, :n] = hv
+        out["observed_mask"][i, :n] = hm
+        out["tp_to_predict"][i] = ptt[-1] if p else 0.0
+        out["tp_to_predict"][i, :p] = ptt
         out["data_to_predict"][i, :p] = pv
         out["mask_predicted_data"][i, :p] = pm
     return out

@@ -4,7 +4,7 @@ Every model takes the reference's single interface:
 
     model(tp_to_predict, observed_data, observed_tp, observed_mask) -> [B, Lp, C]
 
-Only PatchTST is ported so far; the other backbones are queued in
+PatchTST and CRU are ported so far; the other backbones are queued in
 ROADMAP.md.
 """
 
@@ -19,6 +19,10 @@ def get_model(cfg: Config):
         from .patchtst import PatchTST
 
         return PatchTST(cfg)
+    if name == "CRU":
+        from .cru import CRU
+
+        return CRU(cfg)
     if name in MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported to imm_tsf_torch yet "

@@ -4,7 +4,8 @@ experiment (after imm_tsf_tpu/serving.py).
 A `ForecastService` restores an experiment directory (the resolved
 `config.json` and `best/weights.pt`), builds the backbone and fusion
 stack on `device` (cuda unless the caller asks for the CPU), and serves
-ragged client requests through the training-time standard collate.
+ragged client requests through the training-time collate of the model's
+family (standard, or CRU's raw repeat-padded times).
 Every batch is padded to `max_batch` and the obs/pred axes to the
 experiment's ceilings, so the device sees one batch shape.
 
@@ -179,11 +180,17 @@ def _build_chunk(inst: dict, cfg: Config, d_txt: int) -> tuple[Chunk, np.ndarray
 def collate_chunks(cfg: Config, chunks: list[Chunk], d_txt: int,
                    time_max: float, pad_to: int,
                    n_notes: int | None = None) -> dict:
-    """Collate request chunks through the training-time standard collate,
-    batch-padded to the static size `pad_to`. n_notes pins the notes axis
-    (None: the bucket of the batch's largest note count)."""
-    out = C.standard_collate(chunks, cfg.history, time_max,
-                             cfg.input_len, cfg.pred_len)
+    """Collate request chunks through the training-time collate for cfg's
+    model family (CRU: raw, repeat-padded times; the others ported so far:
+    the standard collate), batch-padded to the static size `pad_to`.
+    n_notes pins the notes axis (None: the bucket of the batch's largest
+    note count)."""
+    if cfg.model == "CRU":
+        out = C.cru_collate(chunks, cfg.history, time_max,
+                            cfg.input_len, cfg.pred_len)
+    else:
+        out = C.standard_collate(chunks, cfg.history, time_max,
+                                 cfg.input_len, cfg.pred_len)
     if n_notes is None:
         n_notes = max([len(c.note_times) for c in chunks], default=0)
         n_notes = C.pad_to_bucket(max(n_notes, 1)) if cfg.enable_text else 0

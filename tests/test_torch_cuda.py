@@ -9,14 +9,20 @@ has only PyTorch:
 Tolerances: float32 with another summation order, |err| <= 1e-4 +
 1e-4|ref| for the FFN (K=2048 sums), 1e-5 + 1e-5|ref| for the recency
 average (N-term sums), 2e-5 + 1e-5|ref| for the causal attention (online
-softmax against the plain two-pass softmax)."""
+softmax against the plain two-pass softmax); the expm to 1e-5 of each
+matrix's largest entry (tiered Taylor against Taylor-12, up to 7
+squarings); the fused CRU scan against its plain version run in float64,
+to 2.5 x (1e-4 + 1e-4|ref|) (chip_smoke.check_scan: T Kalman steps whose
+float32 rounding alone passes 1e-4 + 1e-4|ref|)."""
 
 import pytest
 import torch
 
-from chip_smoke import (attn_inputs, attn_ragged_inputs, dropout_probe_inputs, ffn_inputs,
-                        recavg_inputs)
-from imm_tsf_torch.kernels import attn, ffn, recavg
+from chip_smoke import (attn_inputs, attn_ragged_inputs, check_scan, dropout_probe_inputs,
+                        expm_inputs, expm_rel_err, ffn_inputs, recavg_inputs, scan_inputs)
+from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
+from imm_tsf_torch.ops.expm import expm as ops_expm
+from imm_tsf_torch.ops.expm import expm_taylor12
 
 KEEP = 0.9
 
@@ -123,3 +129,68 @@ def test_attn_kernel_refuses_what_it_cannot_take(dev, gen):
     q, k, v, pad = attn_inputs(1, 1, 8, 64, gen, dev)
     with pytest.raises(ValueError, match="float32"):
         attn.fused_causal_attention(q.double(), k, v, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,norm", [
+    (64, 64, 0.01),  # Taylor-4
+    (64, 64, 0.5),   # Taylor-12
+    (64, 64, 6.0),   # Taylor-12 and 3 squarings
+    (64, 64, 80.0),  # 7 squarings, the most the CRU allows
+    (3, 24, 3.0),    # n < 64: zero-padded in shared memory
+    (5, 1, 2.0),
+    (2, 63, 1.5),
+])
+def test_expm_kernel_matches_plain(dev, gen, B, n, norm):
+    M = expm_inputs(B, n, norm, gen, dev)
+    before = expm.launches
+    out = expm.batched_expm(M, 7)
+    torch.cuda.synchronize()
+    assert expm.launches == before + 1
+    assert out.shape == (B, n, n)
+    expm_rel_err(out, expm_taylor12(M, 7))
+
+
+@pytest.mark.cuda
+def test_expm_kernel_zero_is_exactly_identity(dev):
+    out = expm.batched_expm(torch.zeros((4, 64, 64), device=dev))
+    assert torch.equal(out, torch.eye(64, device=dev).expand(4, 64, 64))
+
+
+@pytest.mark.cuda
+def test_expm_kernel_refuses_what_it_cannot_take(dev, gen):
+    with pytest.raises(ValueError, match="exceeds"):
+        expm.batched_expm(expm_inputs(2, 65, 1.0, gen, dev))
+    with pytest.raises(ValueError, match="float32"):
+        expm.batched_expm(expm_inputs(2, 8, 1.0, gen, dev).double())
+    with pytest.raises(ValueError, match="float32"):  # the dispatch does not cast
+        ops_expm(expm_inputs(2, 8, 1.0, gen, dev).double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lod,K", [
+    (64, 72, 16, 15),  # the CRU preset at serving shape
+    (3, 9, 4, 5),      # a small Van Loan block, zero-padded to 64
+    (2, 5, 1, 1),
+    (1, 40, 16, 32),   # the most bases the softmax warp takes
+])
+def test_cru_scan_kernel_matches_plain(dev, gen, B, T, lod, K):
+    ins = scan_inputs(B, T, lod, K, gen, dev)
+    before = cru_scan.launches
+    got = cru_scan.fused_cru_scan(**ins)
+    torch.cuda.synchronize()
+    assert cru_scan.launches == before + 1
+    print(f"scores at {(B, T, lod, K)}:",
+          {k: (round(v["score"], 3), round(v["plain_score"], 3))
+           for k, v in check_scan(got, ins).items()})
+
+
+@pytest.mark.cuda
+def test_cru_scan_kernel_refuses_what_it_cannot_take(dev, gen):
+    with pytest.raises(ValueError, match="exceed"):
+        cru_scan.fused_cru_scan(**scan_inputs(2, 4, 17, 3, gen, dev))
+    with pytest.raises(ValueError, match="exceed"):
+        cru_scan.fused_cru_scan(**scan_inputs(2, 4, 4, 33, gen, dev))
+    ins = scan_inputs(2, 4, 4, 3, gen, dev)
+    with pytest.raises(ValueError, match="float32"):
+        cru_scan.fused_cru_scan(**dict(ins, y_var=ins["y_var"].double()))
