@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 
  1. the card: `nvidia-smi` name and power limit, torch's device name;
     TF32 off for matmuls and cuDNN (every comparison here is float32);
- 2. build the five CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
+ 2. build the seven CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
     (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
       recency average at the serving shape (B=64, N=8, T=24, d=768) and a
@@ -32,6 +32,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       residuals, against its plain version run in float64: within 2.5 x
       (1e-4 + 1e-4|ref|) (`check_scan`: float32 rounding alone reaches
       1.25 x there);
+      the expm's Frechet derivative at the trained [32,64,64] with
+      inf-norms 0.01-80, a ragged [3,24,24] and M = 0 (exactly E), to 2e-5
+      of each matrix's largest entry; the scan's backward at the trained
+      (B 32, T 72, lod 16, K 15) on #6's residuals and g ~ N(0, 1),
+      against its plain version run in float64 on the same residuals,
+      within SCAN_BWD_SCORE_MAX x (1e-5 max|ref| + 1e-5|ref|) on every cotangent
+      but the ill-conditioned initial covariances', held relative to the
+      float32 plain version's own score (`check_scan_bwd`);
  4. serve: a full-width PatchTST (d_model 512, d_ff 2048, 2 heads, one
     layer) + TTF_RecAvg + MMF_GR_Add (d_txt 768, GPT2) experiment with
     seeded random weights, through `ForecastService(max_batch=64,
@@ -68,13 +76,31 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     to each other to the same; each tier's share of that dispatch's Van
     Loan blocks (all three must occur); one uncontended dispatch of each
     route traced;
- 5. (after 6) time each kernel and its plain version at the serving
-    shapes (the attention at both bucket shapes, beside
+ 7. train: the CRU experiment of phase 6 through
+    `imm_tsf_torch.main.main([...])` (TRAIN_ARGS: the presets, batch 32,
+    two epochs) on the EPA-Air fixture the port's generator writes
+    (TRAIN_DATA, T = 72), the default route, then IMM_TSF_CRU_FUSED=1;
+    prints each epoch's train loss, val MSE and windows/s, each step's
+    forward / backward / optimizer device ms (CUDA events) and the
+    launches; every loss finite, and the launch counts (zeroed just
+    before each run) exact: #5 T times a forward (evaluation too) and #4
+    T - 1 times a step (expected_counts says why), #6 once a forward and
+    #7 once a step, #1 once a forward; then one step from seeded
+    weights on a validation batch (`compare_step`): exact launches of one
+    step, loss and every gradient of each route's kernel path against the
+    plain path and a float64 plain run, #4 and #7 held to their plain
+    versions on that step's own inputs, and one traced step per route;
+    the trained shapes must equal those phase 3 checked;
+ 5. (after 6 and 7) time each kernel and its plain version at the shapes
+    of its path (the attention at both bucket shapes, beside
     scaled_dot_product_attention with the same boolean mask; the expm on
     the 72 Van Loan blocks of a served dispatch, beside
     torch.linalg.matrix_exp; the fused scan on that dispatch's scan
-    inputs) and print one JSON line {"kernels": [...]} with the bound each
-    is held to (#5 and #6 from the blocks' own tier mix).
+    inputs; the Frechet derivative on a training step's 72 [32,64,64]
+    calls, beside matrix_exp of the 128-square block; the scan backward
+    on that step's inputs) and print one JSON line {"kernels": [...]}
+    (seven rows) with the bound each is held to (#4-#7 from the data's
+    own tiers and squarings).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -83,6 +109,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -97,19 +124,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from imm_tsf_torch.config import MODEL_PRESETS, Config
+from imm_tsf_torch import main as train_main
+from imm_tsf_torch.config import MODEL_PRESETS, Config, apply_presets, resolve_max_length
+from imm_tsf_torch.data.loader import parse_datasets
+from imm_tsf_torch.data.synthetic import make_synthetic_dataset
 from imm_tsf_torch.fusion.fusion_model import FusionModel
 from imm_tsf_torch.kernels import _build, attn, cru_scan, expm, ffn, recavg
-from imm_tsf_torch.layers.fast_dropout import _keep_mask
+from imm_tsf_torch.layers.fast_dropout import Dropout, _keep_mask
 from imm_tsf_torch.layers.transformer import EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
 from imm_tsf_torch.llm.loader import embed_notes
 from imm_tsf_torch.models import get_model
 from imm_tsf_torch.models.cru import CRU
 from imm_tsf_torch.ops import cru_scan as cru_ops
-from imm_tsf_torch.ops.expm import expm_taylor12
+from imm_tsf_torch.ops import expm as ops_expm
+from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_taylor12
 from imm_tsf_torch.serving import ForecastService, _build_chunk
 from imm_tsf_torch.training.checkpoint import save_experiment
+from imm_tsf_torch.training.optim import make_optimizer, trainable_parameters
+from imm_tsf_torch.training.trainer import make_forward, make_grad_step, make_loss_fn, to_device
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -134,8 +167,40 @@ SCAN_TOL = (1e-4, 1e-4)
 # plain version itself scores 1.25 and the kernel 1.73 on the H100 (PERF.md);
 # twice the plain version's reading
 SCAN_SCORE_MAX = 2.5
+FRECHET_RTOL = 2e-5  # per matrix, max|err| <= 2e-5 max|ref| (tests/test_ops_expm.py:117)
+# the scan's backward, held like the forward to its plain version run in
+# float64 on the same residuals (check_scan_bwd); atol relative to each
+# cotangent's largest entry
+SCAN_BWD_TOL = (1e-5, 1e-5)
+# twice the float32 plain version's largest score on the card (0.728, gW on
+# phase 3's third draw; the kernel's largest 0.723), PERF.md
+SCAN_BWD_SCORE_MAX = 1.5
+# the initial covariances' cotangents sum small per-sample values of both
+# signs over the batch (the initial variance 10 makes the first gains
+# nearly 1), so their float32 error against their own scale depends on how
+# far the sum cancels: the float32 plain version scored 217 and 1646 on
+# gicu of two training steps (the kernel 277 and 936), PERF.md. No fixed
+# limit holds there: gicu and gicl may score at most this many times the
+# float32 plain version's own score, plus SCAN_BWD_SCORE_MAX
+SCAN_BWD_ICOV_FACTOR = 2.0
 CRU_SERVE_TOL = (1e-4, 1e-4)
 N_CRU_REQUESTS = 512
+# phase 7: one step's loss, kernel path vs plain path (float32, 72 Kalman
+# steps through expms of another algorithm); each gradient's error against
+# the float64 plain path at most GRAD_FACTOR times the float32 plain
+# path's plus GRAD_FLOOR (some gradients are ill-conditioned in float32: the
+# initial covariances' stray by percent, and by different amounts for
+# algorithms of equal accuracy, tests/test_torch_cru_grad.py)
+TRAIN_LOSS_RTOL = 1e-5
+GRAD_FACTOR = 4.0
+# the initial covariances' gradients (log_icu, log_icl) are the
+# ill-conditioned ones: on the card the kernel path's log_icu error was
+# 3.6 x the plain path's (0.028 vs 0.0078 of its largest entry, the card
+# test's fixture), PERF.md
+ICOV_GRAD_FACTOR = 10.0
+# a gradient reduced over 32 x 72 x 768 float32 terms (TTF's sigma) is good
+# to about 1e-5 of its largest entry in any summation order
+GRAD_FLOOR = 1e-5
 MAX_SQUARINGS = 7  # ops.expm / ops.cru_scan default, as in the JAX package
 BASIS_STD = 0.2  # the CRU's banded bases, N(0, 0.2^2) (tests/test_cru_fused_scan.py:37-38)
 
@@ -158,6 +223,16 @@ CRU_CFG = dict(
     use_text_embeddings=True, TTF_module="TTF_RecAvg", MMF_module="MMF_GR_Add",
     llm_model_fusion="GPT2", d_txt=768, use_pallas=True, **MODEL_PRESETS["CRU"],
 )
+# phase 7 trains that experiment through imm_tsf_torch.main as a user
+# would (the CRU and EPA-Air presets, batch 32, lr 1e-3, w_decay 0.01,
+# dropout 0.1 hash, patience 3), two epochs, on the EPA-Air fixture the
+# port's generator writes: 8 entities, 8 features, 240 days, 3.25
+# observations and 1 note a day, 768-wide note embeddings (T = 36 + 36)
+TRAIN_DATA = dict(n_entities=8, n_features=8, n_days=240, obs_per_day=3.25, notes_per_day=1.0,
+                  d_txt=768, seed=SEED)
+TRAIN_ARGS = ["--dataset", "EPA-Air", "--model", "CRU", "--overwrite_args", "--enable_text",
+              "--use_text_embeddings", "--TTF_module", "TTF_RecAvg", "--MMF_module",
+              "MMF_GR_Add", "--llm_model_fusion", "GPT2", "--epoch", "2", "--seed", str(SEED)]
 
 
 def log(msg: str) -> None:
@@ -365,6 +440,84 @@ def check_scan(got, ins) -> dict:
     return out
 
 
+def frechet_inputs(B, n, norm, gen, device):
+    """(M, E): M as expm_inputs gives it, E ~ N(0, 1) [B, n, n]."""
+    return expm_inputs(B, n, norm, gen, device), torch.randn((B, n, n), generator=gen,
+                                                             device=device)
+
+
+def frechet_rel_err(got, want) -> float:
+    """Max over matrices of max|got - want| / max|want|; raises above
+    FRECHET_RTOL or on a non-finite value."""
+    err = (got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    worst = float(err.max())
+    if worst > FRECHET_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"expm_frechet: relative error {worst:.3e} > {FRECHET_RTOL} "
+                             f"(finite={bool(torch.isfinite(got).all())})")
+    return worst
+
+
+def frechet_work(M) -> tuple[int, int]:
+    """(bytes, FLOPs) one batched_expm_frechet call needs on M [B, n, n]:
+    M and E read and L written once; each matrix's 3 (5 + k) products at
+    2n^3 FLOPs (k from M's own norm, as csrc/frechet.cuh chooses it)."""
+    B, n, _ = M.shape
+    norm = M.abs().sum(-1).amax(-1)
+    k = torch.ceil(torch.log2(norm.clamp(min=1.0))).clamp(max=MAX_SQUARINGS)
+    return 12 * B * n * n, int((3 * (5 + k)).sum()) * 2 * n ** 3
+
+
+SCAN_BWD_NAMES = ("gy", "gyv", "gW", "gb", "gA", "gq", "gicu", "gicl")
+
+
+def scan_bwd_case(ins: dict, gen):
+    """The forward's residuals on `ins` and a cotangent g ~ N(0, 1) of the
+    post-means: the backward's inputs beside `ins`."""
+    out, residuals = cru_scan.fused_cru_scan(**ins, max_squarings=MAX_SQUARINGS)
+    return residuals, torch.randn(out.shape, generator=gen, device=out.device)
+
+
+def check_scan_bwd(got, ins, residuals, g) -> dict:
+    """Hold fused_cru_scan_backward's cotangents `got` on (ins, residuals,
+    g) to its plain version run in float64 on the same residuals, as
+    check_scan holds the forward: each tensor's score max |err| / (atol +
+    rtol|ref|) must be at most SCAN_BWD_SCORE_MAX (plus SCAN_BWD_ICOV_FACTOR
+    times the float32 plain version's score for the initial covariances),
+    with (atol, rtol) = SCAN_BWD_TOL and atol taken relative to the
+    tensor's largest entry: the adjoint grows over the steps, and a
+    tensor's float32 rounding scales with its largest entry. Returns, by cotangent, max |kernel -
+    float32 plain| and both scores."""
+    want = cru_ops.cru_scan_bwd_reference(**ins, residuals=residuals, g=g,
+                                          max_squarings=MAX_SQUARINGS)
+    ref = cru_ops.cru_scan_bwd_reference(
+        **{k: v.double() for k, v in ins.items()}, residuals=[r.double() for r in residuals],
+        g=g.double(), max_squarings=MAX_SQUARINGS)
+    atol, rtol = SCAN_BWD_TOL
+
+    def score(x, r):  # an exact zero against a zero reference scores 0
+        err = (x.double() - r).abs()
+        den = atol * r.abs().max() + rtol * r.abs()
+        return float(torch.where(err > 0, err / den, torch.zeros_like(err)).max())
+
+    out, bad = {}, []
+    for name, x, w, r in zip(SCAN_BWD_NAMES, got, want, ref):
+        if x.shape != w.shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"fused_cru_scan_backward {name}: shape {tuple(x.shape)} "
+                                 "or non-finite")
+        kernel, plain = score(x, r), score(w, r)
+        limit = SCAN_BWD_SCORE_MAX
+        if name in ("gicu", "gicl"):
+            limit += SCAN_BWD_ICOV_FACTOR * plain
+        if not kernel <= limit:
+            bad.append(f"{name} {kernel:.3f} > {limit:.3f}")
+        out[name] = {"max_abs_err": float((x - w).abs().max()), "score": kernel,
+                     "plain_score": plain, "max_abs_ref": float(r.abs().max())}
+    if bad:
+        raise AssertionError(f"fused_cru_scan_backward scores against the float64 plain run: "
+                             f"{bad}; all: {json.dumps(out)}")
+    return out
+
+
 def van_loan_blocks(ins: dict) -> list:
     """The Van Loan block Bm of every step of the scan over `ins` (the
     default route's loop with the plain expm), [B, 2lsd, 2lsd] each."""
@@ -469,6 +622,32 @@ def check_kernels(device, shapes, gen) -> dict:
     blocks = torch.cat(van_loan_blocks(ins))
     log(f"# check cru_scan B={Bs} T={T} lod={lod} K={K} (repeat-padded tails, "
         f"invalid steps; Van Loan tiers {tier_shares(blocks)}): {json.dumps(scan)}")
+
+    B, n = shapes["frechet"]
+    zero_point = torch.zeros((B, n, n), device=device)
+    for case, (M, E) in ([(f"frechet norm {norm}", frechet_inputs(B, n, norm, gen, device))
+                          for norm in (0.01, 0.5, 6.0, 80.0)]
+                         + [("frechet ragged", frechet_inputs(3, 24, 3.0, gen, device)),
+                            ("frechet at zero", (zero_point, frechet_inputs(B, n, 1.0, gen,
+                                                                            device)[1]))]):
+        got = expm.batched_expm_frechet(M, E, MAX_SQUARINGS)
+        errs[case] = frechet_rel_err(got, expm_frechet_taylor12(M, E, MAX_SQUARINGS))
+        if case == "frechet at zero":
+            assert torch.equal(got, E), "L_exp(0)[E] must be exactly E (the CRU's pad steps)"
+        log(f"# check {case} {tuple(M.shape)}: max|err|/max|ref| {errs[case]:.3e}")
+
+    Bs, T, lod, K = shapes["cru_scan_bwd"]
+    errs["cru_scan_bwd"] = 0.0
+    for draw in range(3):
+        ins = scan_inputs(Bs, T, lod, K, gen, device)
+        residuals, g = scan_bwd_case(ins, gen)
+        got = cru_scan.fused_cru_scan_backward(**ins, residuals=residuals, g=g,
+                                               max_squarings=MAX_SQUARINGS)
+        bwd = check_scan_bwd(got, ins, residuals, g)
+        errs["cru_scan_bwd"] = max([errs["cru_scan_bwd"]] + [v["max_abs_err"]
+                                                              for v in bwd.values()])
+        log(f"# check cru_scan_bwd B={Bs} T={T} lod={lod} K={K} draw {draw} against float64, "
+            f"g ~ N(0, 1): {json.dumps(bwd)}")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return errs
@@ -855,16 +1034,9 @@ def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
     """Where one uncontended dispatch of a full batch goes. Host clock
     (median of `reps`): the collate alone (with the loader stages: for raw
     text, the note embedding), and the whole dispatch (collate, H2D,
-    forward, D2H, fan-out). Then `reps` dispatches under torch.profiler,
-    whose host overhead makes them slower (`traced_dispatch_ms`):
-    device-busy ms per dispatch is the union of the kernels' and copies'
-    device intervals there, and the idle share is 1 - busy / the untraced
-    dispatch ms. `reset()` runs before every collate and dispatch (to
-    empty the note cache). Raises when the trace holds no device
-    activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    forward, D2H, fan-out). Then `reps` dispatches under torch.profiler
+    (`trace`). `reset()` runs before every collate and dispatch (to empty
+    the note cache)."""
     chunks = [b[0] for b in built]
     reset = reset or (lambda: None)
     collate = lambda: (reset(), svc._collate(chunks))
@@ -872,8 +1044,22 @@ def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
     wall_ms(dispatch, reps=1)  # warm
     collate_ms = float(np.median(wall_ms(collate, reps=reps)))
     dispatch_ms = float(np.median(wall_ms(dispatch, reps=reps)))
+    traced = trace(dispatch, reps, dispatch_ms)
+    return {"reps": reps, "collate_ms": collate_ms, "dispatch_ms": dispatch_ms,
+            "traced_dispatch_ms": traced.pop("traced_ms"), **traced}
+
+
+def trace(fn, reps: int, untraced_ms: float, inference: bool = True) -> dict:
+    """`reps` calls of fn under torch.profiler, whose host overhead makes
+    them slower (`traced_ms`): device-busy ms per call is the union of the
+    kernels' and copies' device intervals there, and the idle share is
+    1 - busy / the untraced call's ms. Raises when the trace holds no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_ms = float(np.median(wall_ms(dispatch, reps=reps)))
+        traced_ms = float(np.median(wall_ms(fn, reps=reps, inference=inference)))
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise AssertionError("torch.profiler recorded no device activity")
@@ -891,25 +1077,244 @@ def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
         acc[0] += e.time_range.end - e.time_range.start
         acc[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return {"reps": reps, "collate_ms": collate_ms, "dispatch_ms": dispatch_ms,
-            "traced_dispatch_ms": traced_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / dispatch_ms,
+    return {"traced_ms": traced_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / untraced_ms,
             "kernel_launches": len(kernels) / reps,
             "top_device": {n: {"ms": us / reps / 1e3, "launches": c / reps}
                            for n, (us, c) in top}}
 
 
-def wall_ms(fn, *args, reps: int = 10) -> list[float]:
+def wall_ms(fn, *args, reps: int = 10, inference: bool = True) -> list[float]:
     """Host-clock ms of each of `reps` calls fn(*args), each ending in a
-    synchronize; the caller warms up."""
+    synchronize (under torch.inference_mode unless `inference` is off);
+    the caller warms up."""
     out = []
-    with torch.inference_mode():
+    with torch.inference_mode(inference):
         torch.cuda.synchronize()
         for _ in range(reps):
             t0 = time.perf_counter()
             fn(*args)
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
+KERNEL_COUNTS = {  # kernel -> (module, its launch counter)
+    "recency_weighted_average": (recavg, "launches"),
+    "batched_expm": (expm, "launches"), "batched_expm_frechet": (expm, "frechet_launches"),
+    "fused_cru_scan": (cru_scan, "launches"),
+    "fused_cru_scan_backward": (cru_scan, "backward_launches")}
+
+
+def zero_counts() -> None:
+    for module, attr in KERNEL_COUNTS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in KERNEL_COUNTS.items()}
+
+
+class cru_route:
+    """IMM_TSF_CRU_FUSED=1 for the block when `fused`, unset otherwise."""
+
+    def __init__(self, fused: bool):
+        self.fused = fused
+
+    def __enter__(self):
+        self.saved = os.environ.pop("IMM_TSF_CRU_FUSED", None)
+        if self.fused:
+            os.environ["IMM_TSF_CRU_FUSED"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("IMM_TSF_CRU_FUSED", None)
+        if self.saved is not None:
+            os.environ["IMM_TSF_CRU_FUSED"] = self.saved
+
+
+def training_data(root: str) -> dict:
+    """The resolved config and loaders of the trained run, as
+    imm_tsf_torch.main builds them from TRAIN_ARGS."""
+    cfg, _ = train_main.get_args_from_parser(TRAIN_ARGS + ["--data_root", root])
+    cfg = resolve_max_length(apply_presets(cfg, train_main.fixed_params,
+                                           train_main.tunable_params))
+    return parse_datasets(cfg, verbose=False)
+
+
+def expected_counts(route: str, T: int, steps: int, evals: int) -> dict:
+    """Launches of a run of `steps` gradient steps and `evals` eval batches.
+    The default route's backward runs T - 1 expm adjoints a step, not T:
+    the last step's expm gives the prior of a step that does not exist, no
+    output depends on it, and autograd never runs its backward (the JAX
+    package's lax.scan runs it on a zero cotangent)."""
+    fwd = steps + evals
+    default = route == "default"
+    return {"recency_weighted_average": fwd,
+            "batched_expm": T * fwd if default else 0,
+            "batched_expm_frechet": (T - 1) * steps if default else 0,
+            "fused_cru_scan": 0 if default else fwd,
+            "fused_cru_scan_backward": 0 if default else steps}
+
+
+def run_training(device, root: str, exp_dir: str) -> dict:
+    """Phase 7: train the CRU experiment through imm_tsf_torch.main on each
+    route, then one step held kernels vs plain (compare_step)."""
+    data = training_data(root)
+    cfg = data["cfg"]
+    T = cfg.input_len + cfg.pred_len
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    out = {"T": T, "batches": {"train": len(data["train_dataloader"]), "val": n_val,
+                               "test": n_test}, "routes": {}}
+    log(f"# training data: T = {cfg.input_len} + {cfg.pred_len} = {T}, batches {out['batches']}")
+    for route in ("default", "fused"):
+        timings: dict = {}
+        with cru_route(route == "fused"):
+            zero_counts()
+            t0 = time.monotonic()
+            res = train_main.main(TRAIN_ARGS + ["--data_root", root, "--save", exp_dir,
+                                                "--device", device.type], timings=timings)
+            wall = time.monotonic() - t0
+            launches = read_counts()
+        hist = res["history"]
+        losses = [x for h in hist for x in h["step_losses"]]
+        metrics = [res[k] for k in ("mse", "mae", "rmse")] + [h["val"]["mse"] for h in hist]
+        if not np.isfinite(losses + metrics).all():
+            raise AssertionError(f"{route} route: non-finite loss or metric")
+        best, tested = np.inf, 0  # the epochs that improved ran the test split
+        for h in hist:
+            if best - h["val"]["mse"] > cfg.early_stop_delta:
+                best, tested = h["val"]["mse"], tested + 1
+        want = expected_counts(route, T, len(losses), len(hist) * n_val + tested * n_test)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"training on the {route} route launched {launches}, "
+                                 f"expected {want}")
+        epochs = [{"epoch": h["epoch"], "train_loss": h["train_loss"],
+                   "val_mse": h["val"]["mse"], "windows_per_s": h["windows_per_sec"]}
+                  for h in hist]
+        step_ms = {k: float(np.median(v)) for k, v in timings.get("step_ms", {}).items()}
+        per_step = {k: v / len(losses) for k, v in launches.items()}
+        log(f"# trained the {route} route, {len(losses)} steps in {wall:.2f} s: epochs "
+            f"{json.dumps(epochs)}; per step (median device ms by CUDA events) {step_ms}; "
+            f"launches {launches} ({per_step} a step, eval batches included); test "
+            f"{json.dumps({k: res[k] for k in ('mse', 'mae', 'best_iter')})}")
+        out["routes"][route] = {"launches": launches, "steps": len(losses), "wall_s": wall,
+                                "epochs": epochs, "step_ms": step_ms,
+                                "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")}}
+    out["step"] = compare_step(cfg, data, device)
+    return out
+
+
+def compare_step(cfg, data, device) -> dict:
+    """One gradient step of the trained configuration, seeded weights
+    (phase 6's, bases N(0, BASIS_STD^2)) and one validation batch: loss
+    and every parameter's gradient by the kernel path on each route and
+    by the plain path, in float32, against the plain path in float64.
+    Each gradient's error (max |g - g64| / max |g64|) on the kernel path
+    must be at most GRAD_FACTOR (ICOV_GRAD_FACTOR for the initial
+    covariances) times the float32 plain path's, plus GRAD_FLOOR; the
+    losses agree to TRAIN_LOSS_RTOL; so the two routes agree through the
+    float64 run. Launch counts are exact: #5 T and #4 T - 1 times on the
+    default route, #6 and #7 once on the fused, #1 once on both. Captures #4's and #7's inputs for phase 5 and traces
+    one full step (optimizer included) of each route."""
+    gen = torch.Generator().manual_seed(SEED)
+    model, fusion = get_model(cfg), FusionModel(cfg)
+    seeded_weights(model, gen)
+    seeded_weights(fusion, gen)
+    batch = to_device(next(iter(data["val_dataloader"])), device)
+    T = cfg.input_len + cfg.pred_len
+
+    def grads(model, fusion, batch, route, kernels):
+        model.use_pallas = fusion.ttf.use_pallas = kernels
+        for m in [*model.modules(), *fusion.modules()]:
+            if isinstance(m, Dropout):  # the same salts, so the same dropout masks
+                m.generator = torch.Generator().manual_seed(SEED)
+        model.zero_grad(set_to_none=True)
+        fusion.zero_grad(set_to_none=True)
+        with cru_route(route == "fused"):
+            loss = make_loss_fn(make_forward(cfg, model, fusion))(batch)
+            loss.backward()
+        named = [*model.named_parameters(), *fusion.named_parameters()]
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in named}
+
+    model64, fusion64 = (copy.deepcopy(m).double().to(device).train() for m in (model, fusion))
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    loss64, g64 = grads(model64, fusion64, batch64, "default", False)
+    model, fusion = model.to(device).train(), fusion.to(device).train()
+    loss_p, g_p = grads(model, fusion, batch, "default", False)
+    plain_err = {n: float((g_p[n].double() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                 for n, r in g64.items()}
+    out = {"loss_plain": loss_p, "loss_float64": loss64, "routes": {}}
+    captured: dict = {"frechet": [], "scan_bwd": []}
+    adjoint, scan_bwd = ops_expm.expm_adjoint, cru_scan.fused_cru_scan_backward
+
+    def record_adjoint(M, G, max_squarings=MAX_SQUARINGS, kernel=True):
+        captured["frechet"].append((M.detach().transpose(-1, -2).contiguous(), G.detach().clone()))
+        return adjoint(M, G, max_squarings, kernel)
+
+    def record_scan_bwd(*args):
+        captured["scan_bwd"].append(args)
+        return scan_bwd(*args)
+
+    for route in ("default", "fused"):
+        zero_counts()
+        ops_expm.expm_adjoint, cru_scan.fused_cru_scan_backward = record_adjoint, record_scan_bwd
+        try:
+            loss_k, g_k = grads(model, fusion, batch, route, True)
+        finally:
+            ops_expm.expm_adjoint, cru_scan.fused_cru_scan_backward = adjoint, scan_bwd
+        launches = read_counts()
+        want = expected_counts(route, T, 1, 0)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"one {route} step launched {launches}, expected {want}")
+        if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
+            raise AssertionError(f"{route} step loss {loss_k} vs plain {loss_p}")
+        errs = {n: float((g_k[n].double() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                for n, r in g64.items()}
+        factor = lambda n: ICOV_GRAD_FACTOR if n in ("log_icu", "log_icl") else GRAD_FACTOR
+        bad = {n: (e, plain_err[n]) for n, e in errs.items()
+               if not e <= factor(n) * plain_err[n] + GRAD_FLOOR}
+        if bad:
+            raise AssertionError(f"{route} step gradients farther from float64 than "
+                                 f"allowed against the plain path's: {bad}")
+        worst = max(errs, key=lambda n: errs[n] / (plain_err[n] + 1e-6))
+        out["routes"][route] = {"loss": loss_k, "launches": launches, "grads": g_k,
+                                "worst_grad": {worst: (errs[worst], plain_err[worst])}}
+    route_gap = max(float((out["routes"]["fused"]["grads"][n] - out["routes"]["default"]["grads"][n])
+                          .abs().max() / g64[n].abs().max().clamp(min=1e-30)) for n in g64)
+    for res in out["routes"].values():
+        res.pop("grads")
+    out["route_grad_gap"] = route_gap
+    log(f"# one step, seeded weights, a validation batch: {json.dumps(out)}; the largest "
+        f"gradient error vs float64 on the plain path {max(plain_err.values()):.3e}")
+
+    # the captured inputs, held to their plain versions (phase 3's checks)
+    pairs = captured["frechet"]
+    out["frechet_err"] = max(frechet_rel_err(expm.batched_expm_frechet(M, G, MAX_SQUARINGS),
+                                             expm_frechet_taylor12(M, G, MAX_SQUARINGS))
+                             for M, G in pairs)
+    args = captured["scan_bwd"][0]
+    ins = dict(zip(("y_mean", "y_var", "valid", "dts", "coeff_w", "coeff_b", "dense_basis",
+                    "trans_var", "init_cu", "init_cl"), (a.detach() for a in args[:10])))
+    bwd = check_scan_bwd(cru_scan.fused_cru_scan_backward(*args), ins, args[10], args[11])
+    log(f"# the step's {len(pairs)} x {tuple(pairs[0][0].shape)} Frechet derivatives: "
+        f"max|err|/max|ref| {out['frechet_err']:.3e}; its scan backward against float64: "
+        f"{json.dumps(bwd)}")
+    out.update(captured=captured, scan_bwd_check=bwd, frechet_shape=tuple(pairs[0][0].shape),
+               scan_shape=tuple(ins["y_mean"].shape) + (ins["coeff_w"].shape[1],))
+
+    if device.type == "cuda":  # one whole step of each route, optimizer included, traced
+        params = trainable_parameters(model, fusion)
+        step = make_grad_step(make_loss_fn(make_forward(cfg, model, fusion)),
+                              make_optimizer(params, cfg.lr, cfg.w_decay), params)
+        out["profile"] = {}
+        for route in ("default", "fused"):
+            with cru_route(route == "fused"):
+                wall_ms(step, batch, reps=1, inference=False)  # warm
+                step_ms = float(np.median(wall_ms(step, batch, reps=5, inference=False)))
+                out["profile"][route] = {"step_ms": step_ms,
+                                         **trace(lambda: step(batch), 3, step_ms, inference=False)}
+            log(f"# one traced {route} training step: {json.dumps(out['profile'][route])}")
     return out
 
 
@@ -1038,6 +1443,77 @@ def measure_cru(cru) -> list[dict]:
     return rows
 
 
+def scan_bwd_work(ins: dict, blocks) -> tuple[int, int]:
+    """(bytes, FLOPs) one fused_cru_scan_backward call needs: the scan's
+    inputs, #6's residuals and g read once, gy, gyv and the batch-summed
+    parameter cotangents written once; per step the recomputed expm (as
+    scan_work counts it, n^3 a product of the block upper triangular Van
+    Loan block) and the Frechet derivative of Bm^T, (5 + k) pair products
+    with k from Bm^T's own norm: the value half a product of two block
+    lower triangular matrices (n^3), the two derivative products a block
+    triangular times a full matrix (1.5 n^3 each); plus the two Van Loan
+    assemblies, gc and gA (2 K lsd^2 each), the coefficient net and its
+    cotangents and the covariance adjoint."""
+    B, T, lod = ins["y_mean"].shape
+    lsd, K = 2 * lod, ins["coeff_w"].shape[1]
+    n = 2 * lsd
+    params = lsd * K + K + 4 * K * lod * lod + lsd + 2 * lod
+    nbytes = 4 * (B * T * (2 * lod + 2) + params + B * T * (2 * lsd + 3 * lod)
+                  + B * T * 2 * lod + params)
+    expm_products = sum(int(expm_tiers(M)[2].sum()) for M in blocks)
+    pair_products = 0
+    for M in blocks:
+        k = torch.ceil(torch.log2(M.abs().sum(-2).amax(-1).clamp(min=1.0))).clamp(
+            max=MAX_SQUARINGS)
+        pair_products += int((5 + k).sum())
+    per_step = 8 * K * lsd * lsd + 6 * lsd * K + 40 * lsd * lsd + 18 * lod * lsd + 60 * lod
+    return nbytes, (expm_products + 4 * pair_products) * n ** 3 + B * T * per_step
+
+
+def measure_training(train) -> list[dict]:
+    """Rows for kernels #4 and #7 on the inputs captured from one training
+    step (phase 7): the step's T Frechet derivatives [B, 64, 64] of the
+    default route (library: torch.linalg.matrix_exp of the 128-square
+    block [[M, G], [0, M]], whose upper right block is L_exp(M)[G]) and
+    its fused-route scan backward. `launches` counts each route's
+    training run."""
+    step = train["step"]
+    pairs = step["captured"]["frechet"]
+    work = [frechet_work(M) for M, _ in pairs]
+    blocks = [[torch.cat([torch.cat([M, G], -1), torch.cat([torch.zeros_like(M), M], -1)], -2)]
+              for M, G in pairs]
+    f_abs = max(float((expm.batched_expm_frechet(M, G, MAX_SQUARINGS)
+                       - expm_frechet_taylor12(M, G, MAX_SQUARINGS)).abs().max())
+                for M, G in pairs)
+    args = step["captured"]["scan_bwd"][0]
+    ins = dict(zip(("y_mean", "y_var", "valid", "dts", "coeff_w", "coeff_b", "dense_basis",
+                    "trans_var", "init_cu", "init_cl"), (a.detach() for a in args[:10])))
+    b_bytes, b_flops = scan_bwd_work(ins, van_loan_blocks(ins))
+    bwd = step["scan_bwd_check"]
+    return [
+        {"name": "batched_expm_frechet", "route": "cuda",
+         "source": "imm_tsf_torch/csrc/expm_frechet.cu",
+         "replaces": "imm_tsf_tpu/ops/pallas/expm_kernel.py:179", "ok": True,
+         "max_abs_err": f_abs, "max_rel_err": step["frechet_err"],
+         "shape": list(pairs[0][0].shape),
+         **timed(expm.batched_expm_frechet, expm_frechet_taylor12,
+                 (torch.linalg.matrix_exp, blocks), [[M, G, MAX_SQUARINGS] for M, G in pairs],
+                 sum(w[0] for w in work) / len(work), sum(w[1] for w in work) / len(work),
+                 len(pairs)),
+         "launches": train["routes"]["default"]["launches"]["batched_expm_frechet"],
+         "launches_per_step": len(pairs)},
+        {"name": "fused_cru_scan_backward", "route": "cuda",
+         "source": "imm_tsf_torch/csrc/cru_scan_bwd.cu",
+         "replaces": "imm_tsf_tpu/ops/pallas/cru_scan_kernel.py:492", "ok": True,
+         "max_abs_err": max(v["max_abs_err"] for v in bwd.values()), "check": bwd,
+         "shape": list(step["scan_shape"]),
+         **timed(cru_scan.fused_cru_scan_backward, cru_ops.cru_scan_bwd_reference, None,
+                 [list(args)], b_bytes, b_flops, 2),
+         "launches": train["routes"]["fused"]["launches"]["fused_cru_scan_backward"],
+         "launches_per_step": 1},
+    ]
+
+
 def timed(fn, plain, library, sets, nbytes, flops, per_rep) -> dict:
     """Device ms of the kernel, its plain version and (library_fn,
     library_sets) when given, with the bound of (nbytes, flops)."""
@@ -1072,7 +1548,8 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.monotonic()
-    secs = _build.build(["ffn", "recavg", "attn", "expm", "cru_scan"])
+    secs = _build.build(["ffn", "recavg", "attn", "expm", "cru_scan", "expm_frechet",
+                         "cru_scan_bwd"])
     log(f"# built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in sorted(secs.items()))})")
 
@@ -1081,10 +1558,12 @@ def main() -> int:
     # attention: embed_notes' bucket-32 and bucket-1024 calls (token_budget
     # 32768 rows of 32 tokens; token_batch 64 rows of 1024), GPT-2's 12 heads of 64
     # expm and cru_scan: the CRU preset's [64, 64, 64] Van Loan blocks and its
-    # scan at B=64, T=48+24, lod=16, K=15
+    # scan at B=64, T=48+24, lod=16, K=15, as served; frechet and cru_scan_bwd:
+    # the trained batch of phase 7, B=32, T=36+36
     shapes = {"recavg": (64, 8, 24, 768), "ffn": (8192, 512, 2048),
               "attn": ((1024, 12, 32, 64), (64, 12, 1024, 64)),
-              "expm": (64, 64), "cru_scan": (64, 72, 16, 15)}
+              "expm": (64, 64), "cru_scan": (64, 72, 16, 15),
+              "frechet": (32, 64), "cru_scan_bwd": (32, 72, 16, 15)}
     errs = check_kernels(device, shapes, gen)
 
     # phase 4: serving
@@ -1121,23 +1600,40 @@ def main() -> int:
             shapes["expm"]:
         raise AssertionError(f"CRU serving shapes {served} != checked {shapes['cru_scan']}")
 
+    # phase 7: train the CRU experiment through imm_tsf_torch.main on each route
+    root = os.path.join(REPO, "experiments", f"chip_smoke_data_{os.getpid()}")
+    try:
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        train = run_training(device, root, exp_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    step = train["step"]
+    trained = {"frechet": (step["frechet_shape"][0], step["frechet_shape"][1]),
+               "cru_scan_bwd": step["scan_shape"]}
+    if trained != {k: shapes[k] for k in trained}:
+        raise AssertionError(f"trained shapes {trained} != checked "
+                             f"{ {k: shapes[k] for k in trained} }")
+
     # phase 5: timings
-    rows = measure(device, shapes, gen, errs, serving, text, cru)
+    rows = measure(device, shapes, gen, errs, serving, text, cru) + measure_training(train)
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
         f"{cru['default']['requests_per_s']:.1f} / fused {cru['fused']['requests_per_s']:.1f} "
-        f"requests/s; total {time.monotonic() - t_start:.1f} s")
+        f"requests/s; CRU training {train['routes']['default']['wall_s']:.1f} / "
+        f"{train['routes']['fused']['wall_s']:.1f} s; total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
                    for route, res in cru.items()}
+    train_summary = dict(train, step={k: v for k, v in step.items() if k != "captured"})
     print(json.dumps({"kernels": rows, "power": smi,
                       "requests_per_s": serving["requests_per_s"],
                       "dispatch_ms": serving["dispatch_ms"],
                       "forward_ms": serving["forward_ms"],
                       "dispatch_profile": serving["dispatch_profile"],
                       "raw_text": text, "cru": cru_summary,
-                      "cru_route_err": route_err}), flush=True)
+                      "cru_route_err": route_err, "training": train_summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -33,12 +33,12 @@
 // computed. At B = 64 the grid fills 64 of the 132 SMs (one block per SM:
 // 151 KB of shared memory). Plain float32 FMA, as kernel #5.
 
-#include "expm.cuh"
+#include "cru_step.cuh"
 
 namespace {
 
-constexpr int kMaxLsd = expm::kN / 2;  // the Van Loan block is 2lsd square
-constexpr int kMaxK = 32;              // the softmax runs in one warp
+using cru::kMaxK;
+using cru::kMaxLsd;
 
 struct Layout {  // dynamic shared memory, in floats
   int e, A, W, m, cu, cl, cs, pm, pcu, pcl, pcs, coeff, bias, q, total;
@@ -74,7 +74,7 @@ cru_scan_kernel(const float* __restrict__ y, const float* __restrict__ yv,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float red[expm::kWarps];
-  const int lsd = 2 * lod, n2 = 2 * lsd, lda = lsd + 1;
+  const int lsd = 2 * lod, lda = lsd + 1;
   const Layout L(lsd, K);
   float* e = smem + L.e;
   float* A_s = smem + L.A;
@@ -120,61 +120,26 @@ cru_scan_kernel(const float* __restrict__ y, const float* __restrict__ yv,
       res_cu[bt * lod + tid] = cu[tid];
       res_cl[bt * lod + tid] = cl[tid];
       res_cs[bt * lod + tid] = cs[tid];
-      const float c_u = cu[tid], c_l = cl[tid], c_s = cs[tid];
-      const float denom = c_u + yv[bt * lod + tid];
-      const float q_upper = c_u / denom, q_lower = c_s / denom;
-      const float r = y[bt * lod + tid] - m[tid];
-      const float new_u = m[tid] + q_upper * r, new_l = m[lod + tid] + q_lower * r;
-      const float factor = 1.f - q_upper;
-      const float ncu = factor * c_u, ncl = c_l - q_lower * c_s, ncs = factor * c_s;
-      pm[tid] = v * new_u + (1.f - v) * m[tid];
-      pm[lod + tid] = v * new_l + (1.f - v) * m[lod + tid];
-      pcu[tid] = v * ncu + (1.f - v) * c_u;
-      pcl[tid] = v * ncl + (1.f - v) * c_l;
-      pcs[tid] = v * ncs + (1.f - v) * c_s;
+      const cru::Update u = cru::update(m[tid], m[lod + tid], cu[tid], cl[tid], cs[tid],
+                                        y[bt * lod + tid], yv[bt * lod + tid], v);
+      pm[tid] = u.pm_u;
+      pm[lod + tid] = u.pm_l;
+      pcu[tid] = u.pcu;
+      pcl[tid] = u.pcl;
+      pcs[tid] = u.pcs;
     }
     __syncthreads();
     if (tid < lsd) out[bt * lsd + tid] = pm[tid];
 
     // transition coefficients: softmax over K of post_m W + b (warp 0)
-    if (tid < 32) {
-      float logit = -INFINITY;
-      if (tid < K) {
-        float acc = 0.f;
-        for (int j = 0; j < lsd; ++j) acc = fmaf(pm[j], W_s[j * K + tid], acc);
-        logit = acc + b_s[tid];
-      }
-      float mx = logit;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float ex = tid < K ? expf(logit - mx) : 0.f;
-      float sum = ex;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      coeff[tid] = ex / sum;
-    }
+    if (tid < 32) cru::coefficients(pm, W_s, b_s, coeff, lsd, K);
     __syncthreads();
 
     // Van Loan block Bm = (sum_k c_k G_k + QB) dt in buffer 0, zero-padded
     // to kN x kN (the last expm left exp of the padding there)
     for (int idx = tid; idx < expm::kN * expm::kN; idx += expm::kThreads) {
       const int r = idx / expm::kN, c = idx % expm::kN;
-      float val = 0.f;
-      if (r >= n2 || c >= n2) {
-        // padding
-      } else if (r < lsd && c < lsd) {
-        float acc = 0.f;
-        for (int k = 0; k < K; ++k) acc = fmaf(coeff[k], A_s[(k * lsd + r) * lda + c], acc);
-        val = acc;
-      } else if (r >= lsd && c >= lsd) {  // -A^T
-        float acc = 0.f;
-        for (int k = 0; k < K; ++k)
-          acc = fmaf(coeff[k], A_s[(k * lsd + c - lsd) * lda + r - lsd], acc);
-        val = -acc;
-      } else if (r < lsd && c - lsd == r) {
-        val = q_s[r];
-      }
-      e[r * expm::kLd + c] = val * dt;
+      e[r * expm::kLd + c] = cru::van_loan(r, c, coeff, A_s, lda, q_s, lsd, K) * dt;
     }
     __syncthreads();
     expm::expm_inplace(e, red, max_squarings);

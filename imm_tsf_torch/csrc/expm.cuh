@@ -1,6 +1,8 @@
 // Block-wide matrix exponential of one matrix in shared memory, shared by
-// csrc/expm.cu (kernel #5, the batched expm) and csrc/cru_scan.cu (kernel
-// #6, the fused CRU scan, one Van Loan expm per step).
+// csrc/expm.cu (kernel #5, the batched expm), csrc/cru_scan.cu (kernel
+// #6, the fused CRU scan, one Van Loan expm per step) and
+// csrc/cru_scan_bwd.cu (kernel #7, which recomputes that expm); its
+// products are frechet.cuh's too.
 //
 // The math of the TPU kernel's `expm_value`
 // (imm_tsf_tpu/ops/pallas/expm_kernel.py:54-94), with the tier chosen per
@@ -86,14 +88,10 @@ __device__ __forceinline__ float eye(int i, int j) {
   return ty * 4 + i == tx * 4 + j ? 1.f : 0.f;
 }
 
-// p = A B on this thread's patch (A, B full kN x kN buffers)
-__device__ __forceinline__ void matmul_patch(const float* __restrict__ A,
-                                             const float* __restrict__ B, float p[4][4]) {
+// p += A B on this thread's patch (A, B full kN x kN buffers)
+__device__ __forceinline__ void matmul_acc_patch(const float* __restrict__ A,
+                                                 const float* __restrict__ B, float p[4][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
 #pragma unroll 2
   for (int k = 0; k < kN; k += 4) {
     float4 a[4];
@@ -113,6 +111,16 @@ __device__ __forceinline__ void matmul_patch(const float* __restrict__ A,
       }
     }
   }
+}
+
+// p = A B on this thread's patch
+__device__ __forceinline__ void matmul_patch(const float* __restrict__ A,
+                                             const float* __restrict__ B, float p[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
+  matmul_acc_patch(A, B, p);
 }
 
 // max row sum of |M| over the kN x kN buffer; red holds kWarps floats.

@@ -1,0 +1,155 @@
+// Block-wide Frechet derivative of the matrix exponential of one matrix in
+// shared memory, shared by csrc/expm_frechet.cu (kernel #4, the batched
+// Frechet derivative) and csrc/cru_scan_bwd.cu (kernel #7, the fused CRU
+// scan backward, one Frechet derivative per step).
+//
+// The math of the TPU kernel's `frechet_value`
+// (imm_tsf_tpu/ops/pallas/expm_kernel.py:109-153): L_exp(M)[E] is the
+// derivative half of Taylor-12 and k squarings run on (value, derivative)
+// pairs, where a pair product is
+//
+//   (X, dX) (Y, dY) = (X Y, X dY + dX Y)       (3 products)
+//
+// k = min(ceil(log2(max(||M||inf, 1))), max_squarings) comes from M alone
+// and scales both halves by 2^-k (L is linear in E). There is no Taylor-4
+// tier. Per matrix: M^2, M^3, M^4 and two Paterson-Stockmeyer products,
+// then k squarings: (5 + k) pair products, 3 (5 + k) matrix products.
+//
+// Shared memory: eight 64 x kLd buffers (139,264 bytes), in this order:
+// X, dX (in: M and E zero-padded to 64 x 64; out: exp(M) and L), then
+// the value and derivative of M^2, M^3 and M^4. After M^4 the polynomial
+// pieces B0, B1 overwrite M^2, M^3 and the Paterson-Stockmeyer
+// accumulator lives in X, dX, so ten live pairs fit in eight buffers.
+// Zero padding changes nothing in the leading n x n block: every pair
+// stays block diagonal and the padding's derivative stays 0.
+
+#pragma once
+
+#include "expm.cuh"
+
+namespace expm {
+
+constexpr int kFrechetBuffers = 8;
+constexpr int kFrechetSmemFloats = kFrechetBuffers * kMat;
+constexpr int kFrechetSmemBytes = kFrechetSmemFloats * static_cast<int>(sizeof(float));
+
+// (pv, pd) = (X, dX) (Y, dY) on this thread's patch
+__device__ __forceinline__ void pair_product(const float* X, const float* dX, const float* Y,
+                                             const float* dY, float pv[4][4], float pd[4][4]) {
+  matmul_patch(X, Y, pv);
+  matmul_patch(X, dY, pd);
+  matmul_acc_patch(dX, Y, pd);
+}
+
+// row i of this thread's patch of a buffer
+__device__ __forceinline__ float4& patch_row(float* s, int i) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  return *reinterpret_cast<float4*>(s + (ty * 4 + i) * kLd + tx * 4);
+}
+
+__device__ __forceinline__ void add_patch(const float* s, float p[4][4]) {
+  float q[4][4];
+  load_patch(s, q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] += q[i][j];
+}
+
+// Buffer 0 holds M and buffer 1 holds E (zero-padded, visible to every
+// thread: the caller synchronises after writing them). On return buffer 1
+// holds L_exp(M)[E] and buffer 0 exp(M) by Taylor-12; buffers 2-7 are
+// scratch. All kThreads threads of the block must call it; it returns
+// synchronised. Returns the number of squarings.
+__device__ inline int frechet_inplace(float* s, float* red, int max_squarings) {
+  float* X = s;
+  float* dX = s + kMat;
+  float* V2 = s + 2 * kMat;
+  float* D2 = s + 3 * kMat;
+  float* V3 = s + 4 * kMat;
+  float* D3 = s + 5 * kMat;
+  float* V4 = s + 6 * kMat;
+  float* D4 = s + 7 * kMat;
+  float pv[4][4], pd[4][4];
+
+  const int k = squarings(inf_norm(X, red), max_squarings);
+  const float scale = ldexpf(1.f, -k);  // exact: a power of two
+  load_patch(X, pv);
+  load_patch(dX, pd);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pv[i][j] *= scale;
+      pd[i][j] *= scale;
+    }
+  store_patch(X, pv);  // each thread rescales its own patch
+  store_patch(dX, pd);
+  __syncthreads();
+  pair_product(X, dX, X, dX, pv, pd);  // M^2
+  store_patch(V2, pv);
+  store_patch(D2, pd);
+  __syncthreads();
+  pair_product(V2, D2, X, dX, pv, pd);  // M^3
+  store_patch(V3, pv);
+  store_patch(D3, pd);
+  pair_product(V2, D2, V2, D2, pv, pd);  // M^4
+  store_patch(V4, pv);
+  store_patch(D4, pd);
+  __syncthreads();
+
+  // From here on M, M^2 and M^3 are read only element by element, each
+  // thread its own patch: B0 -> (V2, D2), B1 -> (V3, D3) and
+  // B2 + c12 M^4 -> (X, dX), one patch row at a time
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = patch_row(X, i), dx = patch_row(dX, i);
+    const float4 v2 = patch_row(V2, i), d2 = patch_row(D2, i);
+    const float4 v3 = patch_row(V3, i), d3 = patch_row(D3, i);
+    const float4 v4 = patch_row(V4, i), d4 = patch_row(D4, i);
+    float b0v[4], b0d[4], b1v[4], b1d[4], inv[4], ind[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float e = eye(i, j);
+      const float xv = lane(x, j), xd = lane(dx, j), m2 = lane(v2, j), m2d = lane(d2, j);
+      const float m3 = lane(v3, j), m3d = lane(d3, j), m4 = lane(v4, j), m4d = lane(d4, j);
+      b0v[j] = coef(0) * e + coef(1) * xv + coef(2) * m2 + coef(3) * m3;
+      b0d[j] = coef(1) * xd + coef(2) * m2d + coef(3) * m3d;
+      b1v[j] = coef(4) * e + coef(5) * xv + coef(6) * m2 + coef(7) * m3;
+      b1d[j] = coef(5) * xd + coef(6) * m2d + coef(7) * m3d;
+      inv[j] = coef(8) * e + coef(9) * xv + coef(10) * m2 + coef(11) * m3 + coef(12) * m4;
+      ind[j] = coef(9) * xd + coef(10) * m2d + coef(11) * m3d + coef(12) * m4d;
+    }
+    patch_row(V2, i) = make_float4(b0v[0], b0v[1], b0v[2], b0v[3]);
+    patch_row(D2, i) = make_float4(b0d[0], b0d[1], b0d[2], b0d[3]);
+    patch_row(V3, i) = make_float4(b1v[0], b1v[1], b1v[2], b1v[3]);
+    patch_row(D3, i) = make_float4(b1d[0], b1d[1], b1d[2], b1d[3]);
+    patch_row(X, i) = make_float4(inv[0], inv[1], inv[2], inv[3]);
+    patch_row(dX, i) = make_float4(ind[0], ind[1], ind[2], ind[3]);
+  }
+  __syncthreads();
+  pair_product(V4, D4, X, dX, pv, pd);  // mid = M^4 (B2 + c12 M^4)
+  __syncthreads();                      // every thread has read X and dX
+  add_patch(V3, pv);                    // B1 + mid
+  add_patch(D3, pd);
+  store_patch(X, pv);
+  store_patch(dX, pd);
+  __syncthreads();
+  pair_product(V4, D4, X, dX, pv, pd);  // outer = M^4 (B1 + mid)
+  __syncthreads();
+  add_patch(V2, pv);  // R = B0 + outer
+  add_patch(D2, pd);
+  store_patch(X, pv);
+  store_patch(dX, pd);
+  __syncthreads();
+  for (int step = 0; step < k; ++step) {
+    pair_product(X, dX, X, dX, pv, pd);
+    __syncthreads();
+    store_patch(X, pv);
+    store_patch(dX, pd);
+    __syncthreads();
+  }
+  return k;
+}
+
+}  // namespace expm

@@ -11,7 +11,8 @@ over q, k, v [B, H, T, D] and pad [B, T] (> 0 = real token). A query row
 with no kept key gives exact zeros, not NaN. The wrapper runs the plain
 version for CPU tensors and launches the kernel for CUDA tensors, for any
 B, H, T and D <= 128; a larger D raises. The backward (the TPU package's
-`_attn_bwd`) comes with the training slice.
+`_attn_bwd`) comes with TimeLLM training; the trainer refuses
+use_fused_attn until then.
 """
 
 from __future__ import annotations

@@ -1,14 +1,21 @@
-"""Batched matrix exponential: the CUDA kernel `csrc/expm.cu` and its
-plain version.
+"""Batched matrix exponential and its Frechet derivative: the CUDA kernels
+`csrc/expm.cu` (#5) and `csrc/expm_frechet.cu` (#4) and their plain
+versions.
 
-Port of imm_tsf_tpu/ops/pallas/expm_kernel.py (`expm_pallas`): exp(M)
+#5 ports imm_tsf_tpu/ops/pallas/expm_kernel.py (`expm_pallas`): exp(M)
 of every matrix of M [B, n, n] float32, tiered Taylor (Taylor-4 at
 ||M||inf <= 1/32, else Taylor-12 on M/2^k and k squarings, k chosen per
-matrix; csrc/expm.cuh). The plain version is `ops.expm.expm_taylor12`,
+matrix; csrc/expm.cuh). Its plain version is `ops.expm.expm_taylor12`,
 the JAX package's path off the TPU: the two truncate below float32 eps
-and agree to float32 rounding. The wrapper runs the plain version for
-CPU tensors and launches the kernel for CUDA tensors, for any B and
-n <= 64; a larger n raises.
+and agree to float32 rounding.
+
+#4 ports `expm_frechet_pallas`: L_exp(M)[E] of every pair of M, E
+[B, n, n] float32 by Taylor-12 and k squarings on (value, derivative)
+pairs (csrc/frechet.cuh). Its plain version is
+`ops.expm.expm_frechet_taylor12`, the same recursion.
+
+Each wrapper runs its plain version for CPU tensors and launches its
+kernel for CUDA tensors, for any B and n <= 64; a larger n raises.
 """
 
 from __future__ import annotations
@@ -17,20 +24,37 @@ import ctypes
 
 import torch
 
-from ..ops.expm import expm_taylor12
+from ..ops.expm import expm_frechet_taylor12, expm_taylor12
 from . import _build
 
-launches = 0  # kernel launches through batched_expm
+launches = 0  # kernel launches through batched_expm (#5)
+frechet_launches = 0  # kernel launches through batched_expm_frechet (#4)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "expm_forward": ([_P, _P, _I, _I, _I, _P], _I),
     "expm_max_n": ([], _I),
 }
+_FRECHET_SIGNATURES = {
+    "expm_frechet_forward": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "expm_frechet_max_n": ([], _I),
+}
 
 
-def _library() -> ctypes.CDLL:
-    return _build.load("expm", _SIGNATURES)
+def _check(name: str, tensors: dict, max_squarings: int, max_n) -> None:
+    """Raise unless every tensor is float32 [B, n, n] of one shape with
+    n <= max_n() on the first one's CUDA device."""
+    first = next(iter(tensors.values()))
+    for arg, t in tensors.items():
+        if (t.dim() != 3 or t.shape[1] != t.shape[2] or t.dtype != torch.float32
+                or t.shape != first.shape or t.device != first.device):
+            raise ValueError(f"{name}: {arg} must be float32 [B, n, n] like the first "
+                             f"argument, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if max_squarings < 0:
+        raise ValueError(f"{name}: max_squarings must be >= 0, got {max_squarings}")
+    if first.shape[1] > max_n():
+        raise ValueError(f"{name}: n={first.shape[1]} exceeds the kernel's {max_n()} x "
+                         f"{max_n()} shared-memory matrices")
 
 
 def batched_expm(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
@@ -39,17 +63,9 @@ def batched_expm(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
         return expm_taylor12(M, max_squarings)
     if M.device.type != "cuda":
         raise ValueError(f"batched_expm: unsupported device {M.device}")
-    if M.dim() != 3 or M.shape[1] != M.shape[2] or M.dtype != torch.float32:
-        raise ValueError(
-            f"batched_expm: M must be float32 [B, n, n], got {M.dtype} {tuple(M.shape)}")
-    if max_squarings < 0:
-        raise ValueError(f"batched_expm: max_squarings must be >= 0, got {max_squarings}")
+    lib = _build.load("expm", _SIGNATURES)
+    _check("batched_expm", {"M": M}, max_squarings, lib.expm_max_n)
     B, n, _ = M.shape
-    lib = _library()
-    if n > lib.expm_max_n():
-        raise ValueError(
-            f"batched_expm: n={n} exceeds the kernel's {lib.expm_max_n()} x "
-            f"{lib.expm_max_n()} shared-memory matrices")
     M = M.contiguous()
     out = torch.empty_like(M)
     if B == 0:
@@ -59,4 +75,27 @@ def batched_expm(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
     _build.check(rc, "batched_expm")
     global launches
     launches += 1
+    return out
+
+
+def batched_expm_frechet(M: torch.Tensor, E: torch.Tensor,
+                         max_squarings: int = 7) -> torch.Tensor:
+    """M, E [B, n, n] float32 -> L_exp(M)[E] [B, n, n]."""
+    if M.device.type == "cpu":
+        return expm_frechet_taylor12(M, E, max_squarings)
+    if M.device.type != "cuda":
+        raise ValueError(f"batched_expm_frechet: unsupported device {M.device}")
+    lib = _build.load("expm_frechet", _FRECHET_SIGNATURES)
+    _check("batched_expm_frechet", {"M": M, "E": E}, max_squarings, lib.expm_frechet_max_n)
+    B, n, _ = M.shape
+    M, E = M.contiguous(), E.contiguous()
+    out = torch.empty_like(M)
+    if B == 0:
+        return out
+    stream = torch.cuda.current_stream(M.device).cuda_stream
+    rc = lib.expm_frechet_forward(M.data_ptr(), E.data_ptr(), out.data_ptr(), B, n,
+                                  max_squarings, stream)
+    _build.check(rc, "batched_expm_frechet")
+    global frechet_launches
+    frechet_launches += 1
     return out

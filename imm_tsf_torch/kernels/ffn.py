@@ -9,7 +9,7 @@ with the hash-dropout bits of layers/fast_dropout.py. The wrapper runs
 the plain version for CPU tensors and launches the kernel for CUDA
 tensors; a shape the kernel cannot take raises instead of silently
 running unfused. The backward and the a1/r residual outputs come with
-the training slice.
+PatchTST training; the trainer refuses use_fused_ffn until then.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ Port of imm_tsf_tpu/ops/pallas/fusion_kernels.py
     E = w^T V / max(sum_n w, 1e-6)                            # [B, T, d]
 
 The wrapper runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors, for any B, N, T and d. The hand VJP comes with
-the training slice.
+kernel for CUDA tensors, for any B, N, T and d. It is differentiable: its
+backward is `recavg_backward_reference`, the plain PyTorch transcription
+of the JAX package's hand VJP (`_bwd`, fusion_kernels.py:120-140), which
+is XLA there and not a Pallas kernel. Gradients go to tau, t_hat, V and
+sigma; mask is data.
 """
 
 from __future__ import annotations
@@ -31,6 +34,23 @@ def recavg_reference(tau, t_hat, V, mask, sigma) -> torch.Tensor:
     return torch.einsum("bnt,bnd->btd", w, V) / denom[:, :, None]
 
 
+def recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE):
+    """The hand VJP (fusion_kernels.py:_bwd) -> (dtau, dt_hat, dV, dsigma).
+    w and its sum are recomputed; E is the forward's output."""
+    delta = (t_hat[:, None, :] - tau[:, :, None]).clamp(min=0)  # [B,N,T]
+    w = torch.exp(-((delta / sigma) ** 2)) * mask[:, :, None]
+    S = w.sum(dim=1)  # [B,T] (pre-clip)
+    inv = 1.0 / S.clamp(min=1e-6)
+    dV = torch.einsum("bnt,btd->bnd", w * inv[:, None, :], dE)
+    # dW[t,d] = dE/denom; dS = -(E . dE)/denom, gated by the clip
+    dS = -(E * dE).sum(-1) * inv * (S > 1e-6).to(dE.dtype)  # [B,T]
+    dw = torch.einsum("bnd,btd->bnt", V, dE * inv[:, :, None]) + dS[:, None, :]
+    ddelta = dw * (w * (-2.0 * delta / sigma ** 2))
+    ddelta = ddelta * (t_hat[:, None, :] - tau[:, :, None] > 0).to(dE.dtype)
+    dsigma = (dw * w * 2.0 * delta ** 2 / sigma ** 3).sum()
+    return -ddelta.sum(dim=2), ddelta.sum(dim=1), dV, dsigma
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"recavg_forward": ([_P] * 6 + [_I, _I, _I, _I, _P], _I)}
 
@@ -39,10 +59,29 @@ def _library() -> ctypes.CDLL:
     return _build.load("recavg", _SIGNATURES)
 
 
+class _RecencyAverage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tau, t_hat, V, mask, sigma):
+        E = _forward(tau, t_hat, V, mask, sigma)
+        ctx.save_for_backward(tau, t_hat, V, mask, sigma, E)
+        return E
+
+    @staticmethod
+    def backward(ctx, dE):
+        tau, t_hat, V, mask, sigma, E = ctx.saved_tensors
+        dtau, dt_hat, dV, dsigma = recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE)
+        return dtau, dt_hat, dV, None, dsigma.reshape(sigma.shape)
+
+
 def recency_weighted_average(tau, t_hat, V, mask, sigma) -> torch.Tensor:
-    """[B,N] x [B,T] x [B,N,d] x [B,N] x 0-d sigma -> E [B,T,d].
+    """[B,N] x [B,T] x [B,N,d] x [B,N] x 0-d sigma -> E [B,T,d], differentiable.
 
     On CUDA, sigma stays a device tensor: the host never syncs on it."""
+    return _RecencyAverage.apply(tau, t_hat, V, mask, sigma)
+
+
+def _forward(tau, t_hat, V, mask, sigma) -> torch.Tensor:
+    """Kernel #1 for CUDA tensors, the plain version for CPU tensors."""
     if V.device.type == "cpu":
         return recavg_reference(tau, t_hat, V, mask, sigma)
     if V.device.type != "cuda":

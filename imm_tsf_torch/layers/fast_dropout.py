@@ -1,4 +1,4 @@
-"""The hash dropout mask (after imm_tsf_tpu/layers/fast_dropout.py).
+"""Hash dropout (after imm_tsf_tpu/layers/fast_dropout.py).
 
 Keep bits come from a murmur3-style integer hash of the flat element
 index and two uint32 salts:
@@ -10,8 +10,16 @@ version needs them here. Torch on the CPU has no `>>` or `<` for uint32,
 so the uint32 arithmetic is emulated in int64 and cut to the low 32 bits
 after every multiply; the mask is bit-identical to the JAX one.
 
-Only inference is ported: `Dropout` is the identity in eval, and the
-training-time dropout op comes with the training slice.
+`Dropout` is the identity in eval. In train mode it computes
+where(keep, x / keep_prob, 0), keep drawn from two uint32 salts, as the
+JAX package's `_hash_dropout` (:94-114) does; autograd re-derives
+nothing, since the mask is an input of the `where`. The salts come from
+the module's `generator`, which the trainer sets to a torch.Generator it
+owns (torch's default generator when unset): the two frameworks' random
+streams differ, so trained runs compare in their seed band, and tests
+hand both the same salts. Only `dropout_impl="hash"` is ported; the
+trainer refuses "flax". The mask runs as plain PyTorch elementwise ops:
+the JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -53,16 +61,31 @@ def _keep_mask(s0, s1, keep_prob: float, shape, device=None) -> torch.Tensor:
     return h < _thresh(keep_prob)
 
 
+def draw_salts(generator: torch.Generator | None = None) -> tuple[int, int]:
+    """Two uint32 salts from `generator` (a CPU generator)."""
+    s0, s1 = torch.randint(0, 2**32, (2,), generator=generator, dtype=torch.int64).tolist()
+    return s0, s1
+
+
+def hash_dropout(x: torch.Tensor, s0, s1, keep_prob: float) -> torch.Tensor:
+    """where(keep, x / keep_prob, 0) with keep = _keep_mask(s0, s1) over x's
+    shape: bit-identical to the JAX package's `_hash_dropout` given the
+    same salts, its gradient too."""
+    keep = _keep_mask(s0, s1, keep_prob, tuple(x.shape), x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class Dropout(nn.Module):
-    """Identity in eval. Training-time hash dropout is not ported yet."""
+    """Identity in eval, hash dropout in train mode."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
+        self.generator: torch.Generator | None = None  # salt source, set by the trainer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "training-time dropout comes with the training slice "
-                "(ROADMAP.md, Queue 1)")
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        return hash_dropout(x, *draw_salts(self.generator), 1.0 - self.rate)

@@ -90,7 +90,10 @@ class EncoderLayer(nn.Module):
         self.use_fused_ffn = use_fused_ffn
 
     def forward(self, x, attn_mask=None):
-        # in training with dropout > 0, Dropout raises (training slice)
+        if self.training and self.dropout.rate > 0:
+            raise NotImplementedError(
+                "training the encoder (its FFN's two hash-dropout sites) comes with "
+                "PatchTST training (ROADMAP.md, Queue 1)")
         x = self.norm1(x + self.dropout(self.attention(x, x, x, attn_mask=attn_mask)))
         ffn = fused_encoder_ffn if self.use_fused_ffn else ffn_reference
         lead, D = x.shape[:-1], x.shape[-1]

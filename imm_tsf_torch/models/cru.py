@@ -1,6 +1,7 @@
-"""CRU — Continuous Recurrent Units (continuous-discrete Kalman filter),
-forward only (after imm_tsf_tpu/models/cru.py; reference models/CRU.py +
-lib/cru_components/):
+"""CRU — Continuous Recurrent Units (continuous-discrete Kalman filter)
+(after imm_tsf_tpu/models/cru.py; reference models/CRU.py +
+lib/cru_components/), for training and inference alike (it has no
+dropout):
   - wrapper concatenates history + future times, zero future values,
     obs_valid = any(mask) for history / False for future (models/CRU.py:71-97)
   - encoder: 3x(Linear+ReLU+LayerNorm) -> L2-normalized last hidden layer
@@ -18,9 +19,11 @@ scales and biases, the bases and the noise parameters are raw tensors
 (convert.params_from_jax maps them). The LayerNorm is the JAX package's
 hand formula (biased variance, eps 1e-5), not nn.LayerNorm.
 
-With cfg.use_pallas the scan reaches the CUDA kernels on the card (#5 on
-the default route, #6 under IMM_TSF_CRU_FUSED=1); without it, their
-plain versions.
+With cfg.use_pallas the scan reaches the CUDA kernels on the card (#5
+forward and #4 backward on the default route, #6 and #7 under
+IMM_TSF_CRU_FUSED=1); without it, their plain versions. `scan_inputs`
+carries gradients to every parameter the JAX module's gradient reaches
+(tests/test_torch_cru_grad.py holds each one to jax.grad).
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ class CRU(nn.Module):
 
     def scan_inputs(self, tp_to_predict, observed_data, observed_tp, observed_mask) -> dict:
         """The encoder and the transition parameters: the keyword arguments
-        of ops.cru_scan.cru_scan_auto for this batch."""
+        of ops.cru_scan.cru_scan_auto for this batch (differentiable)."""
         cfg = self.cfg
         lsd, lod = self.lsd, self.lod
         B, _, C = observed_data.shape

@@ -1,23 +1,48 @@
-"""The forward path of the training harness, in eval only, and the
-host-side loader stages (after imm_tsf_tpu/training/trainer.py:163-283,
-349-446).
+"""Training harness: the reference's trainable() protocol (after
+imm_tsf_tpu/training/trainer.py:163-314, 349-446, 502-906).
 
-The loss, optimizer, epoch loop and early stopping come with the
-training slice; the TimeLLM prompt stage with TimeLLM.
+Parity with reference main.py:945-1176:
+  - Adam(lr, weight_decay) after clipping the gradients to a global norm
+    of 1.0 (:1024, :1092-1101; training/optim.py);
+  - epoch loop, validation after each epoch, test ONLY when the val MSE
+    improves by more than early_stop_delta, early stop after `patience`
+    epochs without it (:1131-1170); returns the best epoch's test metrics;
+  - the loss is checked for NaN at every step.
+
+This is the JAX package's streaming loop (:794-829): one host batch at a
+time, moved to the device, one gradient step. Its device-resident epoch
+loop (`device_loop`, training/device_loop.py) is not ported yet: the flag
+is accepted and ignored, and the JAX package tests the two loops as equal
+(tests/test_device_loop.py). Best weights go to
+`<checkpoint_dir>/best/weights.pt` beside `config.json`
+(training/checkpoint.save_experiment), which `python -m
+imm_tsf_torch.serve --load <checkpoint_dir>` serves; full-state resume is
+not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
+import time
+
 import numpy as np
+import torch
 
 from ..config import Config
+from ..device import resolve_device
+from ..layers.fast_dropout import Dropout
+from .evaluation import evaluation, masked_mse_loss
+from .optim import clip_and_step, make_optimizer, trainable_parameters
+
+logger = logging.getLogger("imm_tsf_torch")
 
 
 def make_forward(cfg: Config, model, fusion):
     """forward(batch) -> pred_y [B, Lp, C]: the backbone, then
     `pred_y.float()`, then the fusion stack when the run has text.
-    `batch` holds tensors on the modules' device; call it under
-    `torch.inference_mode()` with the modules in eval mode."""
+    `batch` holds tensors on the modules' device; the modules' train or
+    eval mode is the caller's (eval under `torch.inference_mode()` to
+    serve)."""
 
     def forward(batch: dict):
         pred_y = model(batch["tp_to_predict"], batch["observed_data"],
@@ -28,6 +53,232 @@ def make_forward(cfg: Config, model, fusion):
         return pred_y
 
     return forward
+
+
+def make_loss_fn(forward):
+    """The masked-MSE training loss (reference lib/evaluation.py:107):
+    loss_fn(batch) -> 0-d tensor."""
+
+    def loss_fn(batch: dict):
+        return masked_mse_loss(forward(batch), batch["data_to_predict"],
+                               batch["mask_predicted_data"])
+
+    return loss_fn
+
+
+class StepTimer:
+    """Device ms of each gradient step's forward, backward and optimizer,
+    from CUDA events recorded between them; read once the step's loss has
+    reached the host."""
+
+    PHASES = ("forward", "backward", "optimizer")
+
+    def __init__(self):
+        self._events: list = []
+        self.ms: dict = {k: [] for k in self.PHASES}
+
+    def mark(self) -> None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self._events.append(event)
+
+    def collect(self) -> None:
+        ev, self._events = self._events, []
+        for name, a, b in zip(self.PHASES, ev[:-1], ev[1:]):
+            self.ms[name].append(a.elapsed_time(b))
+
+
+def make_grad_step(loss_fn, optimizer, params, clip_norm: float = 1.0,
+                   timer: StepTimer | None = None):
+    """grad_step(batch) -> loss (0-d, on the device): forward, backward,
+    clip, Adam step. `timer` marks the phases with CUDA events."""
+    mark = timer.mark if timer is not None else (lambda: None)
+
+    def grad_step(batch: dict):
+        optimizer.zero_grad(set_to_none=True)
+        mark()
+        loss = loss_fn(batch)
+        mark()
+        loss.backward()
+        mark()
+        clip_and_step(optimizer, params, clip_norm)
+        mark()
+        return loss.detach()
+
+    return grad_step
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """The batch's arrays as tensors on `device` (other entries dropped)."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
+
+
+def check_trainable(cfg: Config) -> None:
+    """Refuse a configuration whose kernels have no backward yet, or whose
+    training path is not ported: nothing drops to a plain version unsaid."""
+    refusals = [
+        (cfg.model == "PatchTST",
+         "PatchTST training (the backward of kernels #1 and #2 and the FFN's dropout) is "
+         "not ported yet (ROADMAP.md, Queue 1)"),
+        (cfg.dropout_impl != "hash",
+         f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
+         "(ROADMAP.md, Queue 1, slice 4)"),
+        (cfg.use_pallas and cfg.use_fused_ffn,
+         "use_fused_ffn: kernel #2 (fused_encoder_ffn) has no backward yet; it comes "
+         "with PatchTST training (ROADMAP.md, Queue 1)"),
+        (cfg.use_pallas and cfg.use_fused_attn,
+         "use_fused_attn: kernel #3 (fused_causal_attention) has no backward yet; it "
+         "comes with TimeLLM training (ROADMAP.md, Queue 1, slice 6)"),
+        (cfg.enable_text and not cfg.use_text_embeddings,
+         "training on raw-text notes comes with the remaining LLM work "
+         "(ROADMAP.md, Queue 1, slice 6)"),
+        (cfg.compute_dtype in ("bfloat16", "amp_bf16"),
+         f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32 only"),
+        (bool(cfg.mesh_shape),
+         "mesh_shape: multi-GPU training comes with the system layers "
+         "(ROADMAP.md, Queue 1, slice 7)"),
+    ]
+    for refused, why in refusals:
+        if refused:
+            raise NotImplementedError(why)
+
+
+def run_evaluation(forward, loader, device, modules) -> dict:
+    """Streaming evaluation with the modules in eval mode; back to train
+    mode after."""
+
+    def forecast(batch):
+        dev = to_device(batch, device)
+        return forward(dev), dev["data_to_predict"], dev["mask_predicted_data"]
+
+    for m in modules:
+        m.eval()
+    try:
+        with torch.inference_mode():
+            return evaluation(forecast, loader)
+    finally:
+        for m in modules:
+            m.train()
+
+
+def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
+              checkpoint_dir: str | None = None, timings: dict | None = None,
+              device=None, initial_state: tuple | None = None) -> dict:
+    """Train one (dataset, model, fusion) combination on `device` (cuda
+    unless the caller asks for the CPU); returns the best epoch's test
+    metrics {loss, mse, mae, rmse, mape} with best_iter, history (per
+    epoch: train loss, per-step losses, val metrics, seconds, windows/s)
+    and the trained `model` and `fusion` modules.
+
+    initial_state: (model_state_dict, fusion_state_dict or None) to start
+    from, e.g. the JAX package's init through convert.params_from_jax;
+    otherwise torch's init under torch.manual_seed(cfg.seed).
+    timings, if given, gets wall seconds by phase (parse, train per
+    epoch, val, test) and, on cuda, "step_ms": each step's forward,
+    backward and optimizer device ms (CUDA events)."""
+    from ..data.loader import parse_datasets
+    from ..models import get_model
+
+    device = resolve_device(device)
+    check_trainable(cfg)
+
+    def _mark(key, dt):
+        if timings is not None:
+            timings.setdefault(key, []).append(dt)
+
+    if data_obj is None:
+        t0 = time.time()
+        data_obj = parse_datasets(cfg, verbose=False)
+        _mark("parse", time.time() - t0)
+    cfg = data_obj["cfg"]
+
+    # the JAX trainer draws one sample batch for its init (trainer.py:556),
+    # which advances the shuffle stream: draw it too, so the batch order
+    # stays the JAX package's for the same seed
+    next(iter(data_obj["train_dataloader"]))
+    torch.manual_seed(cfg.seed)
+    model = get_model(cfg)
+    fusion = None
+    if cfg.enable_text:
+        from ..fusion.fusion_model import FusionModel
+
+        fusion = FusionModel(cfg)
+    if initial_state is not None:
+        model.load_state_dict(initial_state[0])
+        if fusion is not None:
+            fusion.load_state_dict(initial_state[1])
+    modules = [m for m in (model, fusion) if m is not None]
+    salts = torch.Generator().manual_seed(cfg.seed)  # the hash dropout's salt stream
+    for mod in modules:
+        mod.to(device).train()
+        for m in mod.modules():
+            if isinstance(m, Dropout):
+                m.generator = salts
+
+    params = trainable_parameters(model, fusion)
+    optimizer = make_optimizer(params, cfg.lr, cfg.w_decay)
+    forward = make_forward(cfg, model, fusion)
+    timer = StepTimer() if timings is not None and device.type == "cuda" else None
+    grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0, timer)
+
+    best_val_mse, best_iter, test_res, no_improve, history = np.inf, -1, None, 0, []
+    for itr in range(cfg.epoch):
+        st = time.time()
+        step_losses = []
+        for step, batch in enumerate(data_obj["train_dataloader"]):
+            loss = float(grad_step(to_device(batch, device)))
+            if timer is not None:
+                timer.collect()
+            if np.isnan(loss):
+                raise FloatingPointError(
+                    f"NaN loss at epoch {itr} step {step} "
+                    f"(model={cfg.model}, dataset={cfg.dataset})")
+            step_losses.append(loss)
+            if log_every and step % log_every == 0:
+                logger.info("epoch %d step %d loss %.5f", itr, step, loss)
+        _mark("train", time.time() - st)
+
+        t0 = time.time()
+        val_res = run_evaluation(forward, data_obj["val_dataloader"], device, modules)
+        _mark("val", time.time() - t0)
+        if best_val_mse - val_res["mse"] > cfg.early_stop_delta:
+            best_val_mse, best_iter, no_improve = val_res["mse"], itr, 0
+            if data_obj["test_dataloader"] is not None:
+                t0 = time.time()
+                test_res = run_evaluation(forward, data_obj["test_dataloader"], device,
+                                          modules)
+                _mark("test", time.time() - t0)
+            else:  # no test split: the best epoch's val metrics
+                test_res = dict(val_res)
+            if checkpoint_dir is not None:
+                from .checkpoint import save_experiment
+
+                save_experiment(checkpoint_dir, cfg.replace(platform="auto"),
+                                model.state_dict(),
+                                fusion.state_dict() if fusion is not None else None, itr)
+        else:
+            no_improve += 1
+
+        epoch_secs = time.time() - st
+        n_windows = len(data_obj["train_dataloader"]) * cfg.batch_size
+        history.append(dict(epoch=itr, train_loss=step_losses[-1] if step_losses else np.nan,
+                            step_losses=step_losses, val=val_res, secs=epoch_secs,
+                            windows_per_sec=n_windows / max(epoch_secs, 1e-9)))
+        logger.info("- Epoch %03d | train loss %.5f | val mse %.5f mae %.5f | %.2fs"
+                    " | %.0f windows/s", itr, history[-1]["train_loss"], val_res["mse"],
+                    val_res["mae"], epoch_secs, history[-1]["windows_per_sec"])
+        if best_iter == itr:
+            logger.info("Test - best epoch %d, mse %.5f, mae %.5f",
+                        best_iter, test_res["mse"], test_res["mae"])
+        if no_improve >= cfg.patience:
+            logger.info("Exp has been early stopped!")
+            break
+
+    if timer is not None:
+        timings["step_ms"] = timer.ms
+    assert test_res is not None, "No test results available."
+    return dict(test_res, best_iter=best_iter, history=history, model=model, fusion=fusion)
 
 
 class _EmbedNotesLoader:

@@ -11,18 +11,25 @@ Tolerances: float32 with another summation order, |err| <= 1e-4 +
 average (N-term sums), 2e-5 + 1e-5|ref| for the causal attention (online
 softmax against the plain two-pass softmax); the expm to 1e-5 of each
 matrix's largest entry (tiered Taylor against Taylor-12, up to 7
-squarings); the fused CRU scan against its plain version run in float64,
-to 2.5 x (1e-4 + 1e-4|ref|) (chip_smoke.check_scan: T Kalman steps whose
-float32 rounding alone passes 1e-4 + 1e-4|ref|)."""
+squarings); its Frechet derivative to 2e-5 of each matrix's largest entry
+(tests/test_ops_expm.py:117); the fused CRU scan and its backward against
+their plain versions run in float64, to 2.5 x (1e-4 + 1e-4|ref|) and
+SCAN_BWD_SCORE_MAX x (1e-5 max|ref| + 1e-5|ref|) (chip_smoke.check_scan and
+check_scan_bwd: T Kalman steps whose float32 rounding alone passes
+1e-4 + 1e-4|ref|)."""
+
+import os
 
 import pytest
 import torch
 
-from chip_smoke import (attn_inputs, attn_ragged_inputs, check_scan, dropout_probe_inputs,
-                        expm_inputs, expm_rel_err, ffn_inputs, recavg_inputs, scan_inputs)
+from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, check_scan,
+                        check_scan_bwd, compare_step, dropout_probe_inputs, expm_inputs,
+                        expm_rel_err, ffn_inputs, frechet_inputs, frechet_rel_err,
+                        recavg_inputs, scan_bwd_case, scan_inputs, training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.ops.expm import expm as ops_expm
-from imm_tsf_torch.ops.expm import expm_taylor12
+from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_plain, expm_taylor12
 
 KEEP = 0.9
 
@@ -194,3 +201,103 @@ def test_cru_scan_kernel_refuses_what_it_cannot_take(dev, gen):
     ins = scan_inputs(2, 4, 4, 3, gen, dev)
     with pytest.raises(ValueError, match="float32"):
         cru_scan.fused_cru_scan(**dict(ins, y_var=ins["y_var"].double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,norm", [
+    (32, 64, 0.01),
+    (32, 64, 0.5),
+    (32, 64, 6.0),   # 3 squarings
+    (32, 64, 80.0),  # 7 squarings
+    (3, 24, 3.0),    # n < 64: zero-padded in shared memory
+    (5, 1, 2.0),
+    (2, 63, 1.5),
+])
+def test_frechet_kernel_matches_plain(dev, gen, B, n, norm):
+    M, E = frechet_inputs(B, n, norm, gen, dev)
+    before = expm.frechet_launches
+    out = expm.batched_expm_frechet(M, E, 7)
+    torch.cuda.synchronize()
+    assert expm.frechet_launches == before + 1
+    assert out.shape == (B, n, n)
+    frechet_rel_err(out, expm_frechet_taylor12(M, E, 7))
+
+
+@pytest.mark.cuda
+def test_frechet_kernel_at_zero_is_the_direction(dev, gen):
+    """L_exp(0)[E] = E exactly: the CRU's pad steps have Bm = 0."""
+    E = torch.randn((4, 64, 64), generator=gen, device=dev)
+    out = expm.batched_expm_frechet(torch.zeros_like(E), E)
+    assert torch.equal(out, E)
+
+
+@pytest.mark.cuda
+def test_frechet_kernel_refuses_what_it_cannot_take(dev, gen):
+    M, E = frechet_inputs(2, 65, 1.0, gen, dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        expm.batched_expm_frechet(M, E)
+    M, E = frechet_inputs(2, 8, 1.0, gen, dev)
+    with pytest.raises(ValueError, match="float32"):
+        expm.batched_expm_frechet(M, E.double())
+    with pytest.raises(ValueError, match="float32"):
+        expm.batched_expm_frechet(M, E[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [0.01, 0.5, 6.0])
+def test_expm_backward_is_the_frechet_kernel(dev, gen, norm):
+    """ops.expm.expm on the card: #5 forward, #4 backward; its gradient
+    against the plain block-form backward."""
+    M = expm_inputs(32, 64, norm, gen, dev)
+    G = torch.randn(M.shape, generator=gen, device=dev)
+    before = expm.frechet_launches
+    Mk = M.clone().requires_grad_()
+    (gk,) = torch.autograd.grad((ops_expm(Mk) * G).sum(), Mk)
+    torch.cuda.synchronize()
+    assert expm.frechet_launches == before + 1
+    Mp = M.clone().requires_grad_()
+    (gp,) = torch.autograd.grad((expm_plain(Mp) * G).sum(), Mp)
+    frechet_rel_err(gk, gp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lod,K", [
+    (32, 72, 16, 15),  # the CRU preset at the trained batch
+    (3, 9, 4, 5),      # a small Van Loan block, zero-padded to 64
+    (2, 5, 1, 1),
+    (1, 40, 16, 32),   # the most bases: A_k read from device memory
+])
+def test_cru_scan_bwd_kernel_matches_plain(dev, gen, B, T, lod, K):
+    ins = scan_inputs(B, T, lod, K, gen, dev)
+    residuals, g = scan_bwd_case(ins, gen)
+    before = cru_scan.backward_launches
+    got = cru_scan.fused_cru_scan_backward(**ins, residuals=residuals, g=g)
+    torch.cuda.synchronize()
+    assert cru_scan.backward_launches == before + 1
+    print(f"backward scores at {(B, T, lod, K)}:",
+          {k: (round(v["score"], 3), round(v["plain_score"], 3))
+           for k, v in check_scan_bwd(got, ins, residuals, g).items()})
+
+
+@pytest.mark.cuda
+def test_cru_scan_bwd_kernel_refuses_what_it_cannot_take(dev, gen):
+    ins = scan_inputs(2, 4, 4, 3, gen, dev)
+    residuals, g = scan_bwd_case(ins, gen)
+    with pytest.raises(ValueError, match="float32"):
+        cru_scan.fused_cru_scan_backward(**ins, residuals=residuals, g=g.double())
+    with pytest.raises(ValueError, match="float32"):
+        cru_scan.fused_cru_scan_backward(**ins, residuals=residuals[:3] + (g,), g=g)
+
+
+@pytest.mark.cuda
+def test_training_step_on_each_route_kernels_vs_plain(dev, tmp_path):
+    """chip_smoke.compare_step on a smaller fixture (4 entities, 120 days):
+    exact launch counts of one step on each route, its loss and every
+    gradient against the plain path and a float64 plain run."""
+    from imm_tsf_torch.data.synthetic import make_synthetic_dataset
+
+    make_synthetic_dataset(os.path.join(str(tmp_path), "EPA-Air"),
+                           **dict(TRAIN_DATA, n_entities=4, n_days=120))
+    data = training_data(str(tmp_path))
+    out = compare_step(data["cfg"], data, dev)
+    print("one training step:", {r: v["worst_grad"] for r, v in out["routes"].items()})

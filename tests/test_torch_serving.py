@@ -276,7 +276,7 @@ def test_raw_text_experiments_are_refused(experiments):
     assert chunk.note_payloads == j_build_chunk(inst, jcfg, D_TXT)[0].note_payloads
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "imm_tsf_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "imm_tsf_tpu", "pandas", "sklearn")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
