@@ -18,11 +18,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       (float32, K=2048 sums in another order); with dropout the zero
       patterns of both hash-dropout sites must equal the hash bits
       exactly (structured inputs make them visible in the output);
-      causal attention at the shapes of embed_notes' bucket-32 and
-      bucket-1024 calls ([1024,12,32,64], [64,12,1024,64], right-padded
-      notes) and a ragged [3,2,13,64] (token 0 padded in one sample, every
-      token in another: exact zeros there), to |err| <= 2e-5 + 1e-5|ref|
-      (float32, online softmax against the two-pass plain version);
+      causal attention at the shape of each embed_notes bucket call at the
+      token budget (T 32-1024: [1024,12,32,64] ... [64,12,1024,64],
+      right-padded notes) and a ragged [3,2,13,64] (token 0 padded in one
+      sample, every token in another: exact zeros there), to |err| <= 2e-5
+      + 1e-5|ref| (float32 by three TF32 passes, online softmax against the
+      two-pass plain version);
       batched expm at [64,64,64] with inf-norms 0.01, 0.5, 6 and 80 (each
       tier: Taylor-4, Taylor-12, 3 and 7 squarings), a ragged [3,24,24]
       and an all-zero batch that must give exactly I, to 1e-5 of each
@@ -92,7 +93,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     versions on that step's own inputs, and one traced step per route;
     the trained shapes must equal those phase 3 checked;
  5. (after 6 and 7) time each kernel and its plain version at the shapes
-    of its path (the attention at both bucket shapes, beside
+    of its path (the attention at every bucket shape, beside
     scaled_dot_product_attention with the same boolean mask; the expm on
     the 72 Van Loan blocks of a served dispatch, beside
     torch.linalg.matrix_exp; the fused scan on that dispatch's scan
@@ -100,7 +101,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     calls, beside matrix_exp of the 128-square block; the scan backward
     on that step's inputs) and print one JSON line {"kernels": [...]}
     (seven rows) with the bound each is held to (#4-#7 from the data's
-    own tiers and squarings).
+    own tiers and squarings; #3 at 3 x its FLOPs on the TF32 tensor cores,
+    its fp32-FMA bound beside it; #7 with its cluster size, the clusters
+    the card holds at once and the SMs in use, and its time at each
+    cluster size).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -133,7 +137,7 @@ from imm_tsf_torch.kernels import _build, attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.layers.fast_dropout import Dropout, _keep_mask
 from imm_tsf_torch.layers.transformer import EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
-from imm_tsf_torch.llm.loader import embed_notes
+from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes
 from imm_tsf_torch.models import get_model
 from imm_tsf_torch.models.cru import CRU
 from imm_tsf_torch.ops import cru_scan as cru_ops
@@ -149,6 +153,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data-sheet peaks (dense, without sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12  # tensor cores; #3 runs 3 TF32 passes a product
 
 SEED = 0  # weights, requests and kernel inputs
 N_REQUESTS = 1024
@@ -318,6 +323,12 @@ def attn_inputs(B, H, T, D, gen, device, lo=None):
 def bucket_lo(T: int) -> int:
     """The shortest note in embed_notes' length bucket T (32 is the first)."""
     return 1 if T <= 32 else T // 2 + 1
+
+
+def bucket_rows(T: int, token_batch: int = 64, token_budget: int = 32768) -> int:
+    """Rows of one embed_notes call at bucket T and its default budget."""
+    rows = max(token_batch, token_budget // T)
+    return 1 << (rows - 1).bit_length()
 
 
 def attn_ragged_inputs(gen, device):
@@ -574,10 +585,16 @@ def check_kernels(device, shapes, gen) -> dict:
         errs[case] = max_err(got, want, FFN_TOL)
         log(f"# check {case} M={m} D={D} F={F} {act} dropout={drop}: "
             f"max|err| {errs[case]:.3e}")
-    for case, shape in (("attn bucket-32", shapes["attn"][0]),
-                        ("attn bucket-1024", shapes["attn"][1]), ("attn ragged", None)):
-        args = (attn_inputs(*shape, gen, device, bucket_lo(shape[2])) if shape
-                else attn_ragged_inputs(gen, device))
+    # the end buckets and the ragged case draw from gen as they always did, the
+    # buckets between them from a generator of their own: so every later check
+    # sees the draws its limit was set on (PERF.md)
+    ends, middle = (shapes["attn"][0], shapes["attn"][-1]), shapes["attn"][1:-1]
+    gen_mid = torch.Generator(device=device).manual_seed(SEED + 1)
+    for case, shape, g in ([(f"attn bucket-{x[2]}", x, gen) for x in ends]
+                           + [("attn ragged", None, gen)]
+                           + [(f"attn bucket-{x[2]}", x, gen_mid) for x in middle]):
+        args = (attn_inputs(*shape, g, device, bucket_lo(shape[2])) if shape
+                else attn_ragged_inputs(g, device))
         got = attn.fused_causal_attention(*args)
         want = attn.attention_reference(*args)
         errs[case] = max_err(got, want, ATTN_TOL)
@@ -1370,7 +1387,7 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
 
     by_shape = {}
     key = lambda shape: "[" + ",".join(map(str, shape)) + "]"
-    for (Bq, H, Tq, Dq), case in zip(shapes["attn"], ("attn bucket-32", "attn bucket-1024")):
+    for Bq, H, Tq, Dq in shapes["attn"]:
         sets = [attn_inputs(Bq, H, Tq, Dq, gen, device, bucket_lo(Tq)) for _ in range(2)]
         work = [attn_work(a[3], H, Dq) for a in sets]
         causal = torch.ones((Tq, Tq), dtype=torch.bool, device=device).tril()
@@ -1378,13 +1395,18 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
         sdpa_sets = [a[:3] + [m] for a, m in zip(sets, masks)]
         sdpa = lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=m)
-        per_rep = 20 if Tq <= 32 else 5
-        by_shape[key((Bq, H, Tq, Dq))] = {
-            "max_abs_err": errs[case],
-            **timed(attn.fused_causal_attention, attn.attention_reference, (sdpa, sdpa_sets),
-                    sets, sum(w[0] for w in work) / len(work),
-                    sum(w[1] for w in work) / len(work), per_rep)}
-    head = key(shapes["attn"][1])  # the bucket-1024 call gives the row's headline numbers
+        per_rep = 20 if Tq <= 128 else 5
+        nbytes, flops = sum(w[0] for w in work) / len(work), sum(w[1] for w in work) / len(work)
+        t = timed(attn.fused_causal_attention, attn.attention_reference, (sdpa, sdpa_sets),
+                  sets, nbytes, flops, per_rep)
+        # the kernel's products run as 3 TF32 passes on the tensor cores
+        t["bound_fma_ms"] = t["bound_ms"]
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+        by_shape[key((Bq, H, Tq, Dq))] = {"max_abs_err": errs[f"attn bucket-{Tq}"], **t}
+        log(f"# attention at {key((Bq, H, Tq, Dq))}: kernel {t['ms']:.4f} ms, SDPA "
+            f"{t['library_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}; fp32 FMA {t['bound_fma_ms']:.4f})")
+    head = key(shapes["attn"][-1])  # the bucket-1024 call gives the row's headline numbers
     rows.append({"name": "fused_causal_attention", "route": "cuda",
                  "source": "imm_tsf_torch/csrc/attn.cu",
                  "replaces": "imm_tsf_tpu/ops/pallas/attn_kernel.py:109", "ok": True,
@@ -1490,6 +1512,15 @@ def measure_training(train) -> list[dict]:
                     "trans_var", "init_cu", "init_cl"), (a.detach() for a in args[:10])))
     b_bytes, b_flops = scan_bwd_work(ins, van_loan_blocks(ins))
     bwd = step["scan_bwd_check"]
+    plan, by_cluster = {}, {}
+    if args[0].device.type == "cuda":  # #7's launch plan exists on a card only
+        B, _, lod = ins["y_mean"].shape
+        plan = cru_scan.cluster_plan(B, lod, ins["coeff_w"].shape[1], args[0].device)
+        by_cluster = {C: device_ms(lambda *a, C=C: cru_scan.fused_cru_scan_backward(*a, cluster=C),
+                                   [list(args)], per_rep=2)
+                      for C in cru_scan.CLUSTER_SIZES}
+        log(f"# fused_cru_scan_backward at B {B}: {plan}; device ms by cluster size "
+            f"{by_cluster}")
     return [
         {"name": "batched_expm_frechet", "route": "cuda",
          "source": "imm_tsf_torch/csrc/expm_frechet.cu",
@@ -1509,19 +1540,27 @@ def measure_training(train) -> list[dict]:
          "shape": list(step["scan_shape"]),
          **timed(cru_scan.fused_cru_scan_backward, cru_ops.cru_scan_bwd_reference, None,
                  [list(args)], b_bytes, b_flops, 2),
+         **plan, "ms_by_cluster": by_cluster,
          "launches": train["routes"]["fused"]["launches"]["fused_cru_scan_backward"],
          "launches_per_step": 1},
     ]
 
 
+def bound(nbytes, flops, flop_rate=PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the larger of nbytes at the card's
+    memory rate and flops at flop_rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def timed(fn, plain, library, sets, nbytes, flops, per_rep) -> dict:
     """Device ms of the kernel, its plain version and (library_fn,
-    library_sets) when given, with the bound of (nbytes, flops)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
+    library_sets) when given, with the bound of (nbytes, flops) at the
+    fp32 FMA peak."""
+    bound_ms, bound_by = bound(nbytes, flops)
     return {"ms": device_ms(fn, sets, per_rep=per_rep),
             "plain_ms": device_ms(plain, sets, per_rep=per_rep),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (device_ms(library[0], library[1], per_rep=per_rep)
                            if library else None),
             "bytes": nbytes, "flops": flops}
@@ -1555,13 +1594,14 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device=device).manual_seed(SEED)
-    # attention: embed_notes' bucket-32 and bucket-1024 calls (token_budget
-    # 32768 rows of 32 tokens; token_batch 64 rows of 1024), GPT-2's 12 heads of 64
+    # attention: embed_notes' call at each bucket (token_budget 32768 tokens,
+    # at least token_batch 64 rows: [1024, 12, 32, 64] ... [64, 12, 1024, 64]),
+    # GPT-2's 12 heads of 64
     # expm and cru_scan: the CRU preset's [64, 64, 64] Van Loan blocks and its
     # scan at B=64, T=48+24, lod=16, K=15, as served; frechet and cru_scan_bwd:
     # the trained batch of phase 7, B=32, T=36+36
     shapes = {"recavg": (64, 8, 24, 768), "ffn": (8192, 512, 2048),
-              "attn": ((1024, 12, 32, 64), (64, 12, 1024, 64)),
+              "attn": tuple((bucket_rows(T), 12, T, 64) for T in EMBED_BUCKETS),
               "expm": (64, 64), "cru_scan": (64, 72, 16, 15),
               "frechet": (32, 64), "cru_scan_bwd": (32, 72, 16, 15)}
     errs = check_kernels(device, shapes, gen)

@@ -1,4 +1,5 @@
-// Causal, key-padded attention for the frozen GPT-2, forward only.
+// Causal, key-padded attention for the frozen GPT-2, forward only, on the
+// tensor cores in float32 accuracy (3xTF32).
 //
 // Replaces the TPU kernel imm_tsf_tpu/ops/pallas/attn_kernel.py
 // (fused_causal_attention -> _attn_pallas -> _attn_kernel):
@@ -10,27 +11,41 @@
 //
 // Bound on an H100: operations at long T, bytes at short T. The call must
 // read q, k, v and pad once and write out once (4(4BHTD + BT) bytes) and
-// does 4 BHD T(T+1)/2 multiply-adds' worth of FLOPs in the causal half;
-// at [64,12,1024,64] that is 103 GFLOP against 805 MB, so float32
-// arithmetic sets the floor; at [1024,12,32,64] it is 1.7 GFLOP against
-// 403 MB, so device memory does.
+// does 4 BHD T(T+1)/2 multiply-adds' worth of FLOPs in the causal half.
+// Both products run as three TF32 passes on the tensor cores (495 TFLOP/s
+// dense TF32 on the H100 SXM), so the operation floor is 3 x FLOPs at that
+// rate: at [64,12,1024,64] about 0.57 ms against 805 MB (0.24 ms); at
+// [1024,12,32,64] 1.7 GFLOP against 403 MB, so device memory sets the floor.
 //
-// Design. The TPU kernel holds the whole [T,T] score tile in VMEM; a
-// Hopper block has 227 KB of shared memory, and [1024,1024] floats are
-// 4 MB. Here one block of 256 threads takes one (b, h, 64-row query
-// tile) and walks the keys 64 at a time with an online softmax: Q^T, K^T
-// and V tiles are staged through shared memory, each thread computes a
-// 4x4 patch of the 64x64 score tile with float4 shared-memory reads, the
-// running row max and row sum stay in registers (rows are reduced across
-// the 16 threads that share them with warp shuffles), the probabilities
-// go through shared memory once, and each thread accumulates its 4 rows
-// x DP/16 columns of the output in registers. So no [T,T] tensor ever
-// reaches device memory. Key tiles above the causal diagonal are skipped,
-// and so are key tiles past the sample's last real token (notes are
-// right-padded; each block finds that token itself from pad). Query tiles
-// are issued longest first. Plain float32 FMA: TF32/bf16 tensor cores
-// (wgmma) and TMA would change the float32 comparison contract, and are
-// left for a later change.
+// Precision. One TF32 pass keeps 10 mantissa bits and misses the float32
+// contract (|err| <= 2e-5 + 1e-5|ref|). Each float32 operand x is split
+// into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna's rounding), and a product takes
+// lo*hi, hi*lo and hi*hi, accumulated in float32 by the mma: the dropped
+// lo*lo term is below 2^-21 relative. tests/test_torch_attn_tf32x3.py
+// emulates the scheme on the CPU against the JAX package's reference.
+//
+// Design. A block of four warps takes a 64-row tile of query rows; a warp
+// owns 16 of them. Keys and values come 64 rows at a time, by 16-byte
+// cp.async into padded row-major shared memory (row stride D + 4 floats:
+// every mma fragment load below is free of bank conflicts). One tile at a
+// time: a block then takes 52 KB at D <= 64, three blocks share an SM
+// (registers allow three), and one block's copies overlap the others'
+// products; double buffering, at two blocks an SM, was slower.
+// S = Q K^T is computed with mma.sync m16n8k8 (tf32 in, float32
+// accumulators) and stays in the accumulators: the online softmax runs on
+// them in registers, each row's max and sum across the 4 lanes of a quad,
+// the sum reduced once at the end. For O += P V the accumulator layout of
+// S (lane t holds keys 2t, 2t+1 of an 8-key tile) is used as the A operand
+// with the keys of each 8-key tile permuted (A column t <-> key 2t, column
+// t + 4 <-> key 2t + 1), and V's rows are read in the same order: the sum
+// over keys does not depend on their order, so no shuffle is needed. Key
+// tiles above a warp's causal diagonal or past the sample's last real token
+// are skipped (each warp finds that token from pad). The three passes of a
+// product run over all of a warp's 8-column tiles in turn, so that an mma
+// never waits for the one before it. Query tiles are issued longest first.
+// Short buckets (T <= 32) pack S = 2 or 4 (b, h) slices into a block, each
+// with 64 / S query and key rows, so that no warp idles on padded rows and
+// one key tile holds every key.
 //
 // Masked scores take no part in the max or the sum; a row whose sum is 0
 // writes exact zeros, never NaN, as the TPU kernel and
@@ -38,207 +53,285 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per shared-memory tile
-constexpr int kThreads = 256;     // 16 x 16 threads: 4 query rows x 4 keys each
-constexpr int kLd = kBK + 4;      // row stride of the transposed tiles (float4 aligned)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // query rows and key rows of a block's tile
 
 template <int DP>
-struct Layout {                   // dynamic shared memory, in floats
-  static constexpr int kVLd = DP + 4;
-  static constexpr int q = 0;                    // Q^T [DP][kLd]
-  static constexpr int k = q + DP * kLd;         // K^T [DP][kLd]
-  static constexpr int v = k + DP * kLd;         // V   [kBK][kVLd]
-  static constexpr int p = v + kBK * kVLd;       // P^T [kBK][kLd]
-  static constexpr int keep = p + kBK * kLd;     // key kept by pad [kBK]
-  static constexpr int total = keep + kBK;
+struct Tile {
+  static constexpr int kLd = DP + 4;  // row stride in floats (16-byte rows)
+  static constexpr int kFloats = kRows * kLd;
 };
 
-__device__ __forceinline__ float row_max16(float x) {
+// the bits of cvt.rna.tf32.f32(x) for finite x (round the magnitude to 10
+// mantissa bits, ties away from zero) by two integer operations: the
+// conversion instruction issues at 16 a cycle on an SM, these at 64
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 2^-21 relative, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void split4(const float a[4], uint32_t ah[4], uint32_t al[4]) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+  for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
 }
 
-__device__ __forceinline__ float row_sum16(float x) {
+// c[n] += a b[n] for N tiles, a and b[n] already split: lo*hi, hi*lo, then
+// hi*hi on each accumulator, each pass over all N tiles before the next, so
+// that N independent mma lie between two that share an accumulator
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float c[N][4], const uint32_t ah[4],
+                                           const uint32_t al[4], const uint32_t bh[N][2],
+                                           const uint32_t bl[N][2]) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bh[n]);
 }
 
-__device__ __forceinline__ float4 load4(const float* p, bool ok) {
-  return ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+// 16 bytes from global to shared memory; zeros when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
 }
 
-// rows [row0, row0 + kBQ) of a [T, D] slice into a transposed [DP][kLd]
-// tile; lanes walk rows, so the four scalar stores of a float4 hit
-// distinct banks. Rows past T and columns past D are zero.
-template <int DP>
-__device__ __forceinline__ void stage_transposed(float* dst, const float* src,
-                                                 int row0, int T, int D) {
-  for (int f = threadIdx.x; f < kBQ * (DP / 4); f += kThreads) {
-    const int r = f % kBQ, c = (f / kBQ) * 4;
-    const float4 x = load4(src + (long long)(row0 + r) * D + c, row0 + r < T && c < D);
-    dst[(c + 0) * kLd + r] = x.x;
-    dst[(c + 1) * kLd + r] = x.y;
-    dst[(c + 2) * kLd + r] = x.z;
-    dst[(c + 3) * kLd + r] = x.w;
-  }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// S (b, h) slices share a block, each with kRows / S query rows and key
+// rows of a tile (S > 1 only when T <= kRows / S: one key tile).
+template <int DP, int S>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 3 : 1)
 attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
             const float* __restrict__ V, const float* __restrict__ pad,
-            float* __restrict__ O, int H, int T, int D, float scale) {
-  using L = Layout<DP>;
-  constexpr int kCols = DP / 16;  // output columns per thread
+            float* __restrict__ O, int BH, int H, int T, int D, float scale) {
+  constexpr int kLd = Tile<DP>::kLd;
+  constexpr int kFloats = Tile<DP>::kFloats;
+  constexpr int kSliceRows = kRows / S;  // a slice's query and key rows in a tile
+  constexpr int kNT = kSliceRows / 8;    // 8-key mma tiles of a key tile
+  constexpr int kDT = DP / 8;            // 8-column mma tiles of the output
+  constexpr int kWarpsPerSlice = kWarps / S;
+
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem + L::q;
-  float* k_s = smem + L::k;
-  float* v_s = smem + L::v;
-  float* p_s = smem + L::p;
-  float* keep_s = smem + L::keep;
-  __shared__ int kv_len_s;
+  float* q_s = reinterpret_cast<float*>(smem4);  // [kRows][kLd]
+  float* k_s = q_s + kFloats;                    // [kRows][kLd]
+  float* v_s = k_s + kFloats;                    // [kRows][kLd]
+  float* keep_s = v_s + kFloats;                 // [kRows]: key kept by pad
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long bh = blockIdx.x;
-  const int b = static_cast<int>(bh / H);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest query tiles first
-  const long long base = bh * T * D;
-  const float* pad_b = pad + (long long)b * T;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the mma fragments' row group and lane in it
+  const int slice = warp / kWarpsPerSlice;
+  const long long bh0 = static_cast<long long>(blockIdx.x) * S;  // the block's first slice
+  const long long bh = bh0 + slice;
+  const int q0 = S == 1 ? (gridDim.y - 1 - blockIdx.y) * kRows : 0;  // longest first
+  const int srow = slice * kSliceRows;                  // the slice's first row in a tile
+  const int wrow = (warp % kWarpsPerSlice) * 16;        // the warp's first row in its slice
 
-  // one past the sample's last real token: keys from there on are all padded
-  if (tid == 0) kv_len_s = 0;
-  __syncthreads();
-  int last = 0;
-  for (int t = tid; t < T; t += kThreads)
-    if (pad_b[t] > 0.f) last = t + 1;
+  // one past the last real token of the warp's sample: keys from there on
+  // are all padded
+  int kv_len = 0;
+  if (bh < BH) {
+    const float* pad_b = pad + (bh / H) * T;
+    for (int j = lane; j < T; j += 32)
+      if (pad_b[j] > 0.f) kv_len = j + 1;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
-  if ((tid & 31) == 0) atomicMax(&kv_len_s, last);
-  stage_transposed<DP>(q_s, Q + base, q0, T, D);
-  __syncthreads();
-  const int k_end = min(kv_len_s, min(q0 + kBQ, T));
-
-  float m[4], l[4], o[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o[i][c] = 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      kv_len = max(kv_len, __shfl_xor_sync(0xffffffffu, kv_len, off));
   }
+  // keys this warp's rows can keep, and the block's key tiles
+  const int k_end = (bh < BH && q0 + wrow < T) ? min(kv_len, q0 + wrow + 16) : 0;
+  const int n_iter = S == 1 ? (min(kv_len, min(q0 + kRows, T)) + kRows - 1) / kRows : 1;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_transposed<DP>(k_s, K + base, k0, T, D);
-    for (int f = tid; f < kBK * (DP / 4); f += kThreads) {
+  // rows [row0, row0 + kSliceRows) of each slice's [T, D] matrix into a
+  // [kRows][kLd] tile; rows past T, columns past D and slices past BH are 0
+  auto load = [&](float* dst, const float* src, int row0) {
+    for (int f = tid; f < kRows * (DP / 4); f += kThreads) {
       const int r = f / (DP / 4), c = (f % (DP / 4)) * 4;
-      *reinterpret_cast<float4*>(v_s + r * L::kVLd + c) =
-          load4(V + base + (long long)(k0 + r) * D + c, k0 + r < T && c < D);
+      const int s = r / kSliceRows, row = row0 + r % kSliceRows;
+      const bool ok = bh0 + s < BH && row < T && c < D;
+      cp_async16(dst + r * kLd + c, ok ? src + ((bh0 + s) * T + row) * D + c : src, ok);
     }
-    if (tid < kBK) keep_s[tid] = (k0 + tid < T && pad_b[k0 + tid] > 0.f) ? 1.f : 0.f;
-    __syncthreads();
-
-    // scores for rows ty*4+i, keys tx*4+j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(q_s + d * kLd + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(k_s + d * kLd + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+  };
+  auto load_keys = [&](int k0) {
+    load(k_s, K, k0);
+    load(v_s, V, k0);
+    if (tid < kRows) {
+      const int s = tid / kSliceRows, key = k0 + tid % kSliceRows;
+      keep_s[tid] =
+          (bh0 + s < BH && key < T && pad[((bh0 + s) / H) * T + key] > 0.f) ? 1.f : 0.f;
     }
+  };
 
-    // online softmax over this tile
-    float p[4][4];
+  float o[kDT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
+  for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  const int row_a = q0 + wrow + g, row_b = row_a + 8;  // this lane's two rows
+
+  if (n_iter > 0) {
+    load(q_s, Q, q0);
+    load_keys(0);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has arrived for every thread
+
+    const int k0 = it * kSliceRows;
+    if (k0 < k_end) {
+      const float* qt = q_s + (srow + wrow) * kLd;
+      const float* kt = k_s + srow * kLd;
+      const float* vt = v_s + srow * kLd;
+      const float* kp = keep_s + srow;
+
+      // S = Q K^T: A = Q rows (g, g + 8) x columns (t, t + 4) of each 8-column step,
+      // B = K^T, i.e. K row j*8 + g at columns (t, t + 4)
+      float s[kNT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = tx * 4 + j;
-        const bool kept = keep_s[key] > 0.f && k0 + key <= row;
-        s[i][j] = kept ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const int d = kk * 8 + t;
+        const float a[4] = {qt[g * kLd + d], qt[(g + 8) * kLd + d], qt[g * kLd + d + 4],
+                            qt[(g + 8) * kLd + d + 4]};
+        uint32_t ah[4], al[4], bh[kNT][2], bl[kNT][2];
+        split4(a, ah, al);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* kr = kt + (j * 8 + g) * kLd + d;
+          split(kr[0], bh[j][0], bl[j][0]);
+          split(kr[4], bh[j][1], bl[j][1]);
+        }
+        mma_3xtf32<kNT>(s, ah, al, bh, bl);
       }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      // m_new == -inf: no key of this row is kept yet, nothing to rescale
-      const float corr = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
-      float sum = 0.f;
+
+      // online softmax on the accumulators: s[j][e] is row (e < 2 ? row_a : row_b),
+      // key j*8 + 2t + (e & 1) of the tile
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        sum += p[i][j];
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = j * 8 + 2 * t + (e & 1);
+          const bool kept = k0 + kl <= (e < 2 ? row_a : row_b) && kp[kl] > 0.f;
+          s[j][e] = kept ? s[j][e] * scale : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        // m_new == -inf: no key of this row is kept yet, nothing to rescale
+        const float corr = m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr;
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          o[n][2 * r] *= corr;
+          o[n][2 * r + 1] *= corr;
+        }
       }
-      l[i] = l[i] * corr + row_sum16(sum);
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) o[i][c] *= corr;
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[e >> 1]);
+          l[e >> 1] += p;  // this lane's share; the quad's sum is taken at the end
+          s[j][e] = p;
+        }
+
+      // O += P V: A = P with each 8-key tile's keys in the order (0, 2, 4, 6, 1, 3, 5, 7),
+      // so lane t's accumulators (keys 2t, 2t + 1) are its A registers; B = V rows
+      // 2t and 2t + 1 of the tile, column n*8 + g
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t ah[4], al[4], bh[kDT][2], bl[kDT][2];
+        split4(a, ah, al);
+        const float* vr = vt + (j * 8 + 2 * t) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          split(vr[n * 8], bh[n][0], bl[n][0]);
+          split(vr[kLd + n * 8], bh[n][1], bl[n][1]);
+        }
+        mma_3xtf32<kDT>(o, ah, al, bh, bl);
+      }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(p_s + (tx * 4 + j) * kLd + ty * 4) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncthreads();
-
-    // out rows ty*4+i, columns tx*4 + {0..3} (+ 64 when DP = 128)
-    const int n_keys = min(kBK, k_end - k0);
-    for (int key = 0; key < n_keys; ++key) {
-      const float4 a = *reinterpret_cast<const float4*>(p_s + key * kLd + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int half = 0; half < kCols / 4; ++half) {
-        const float4 c = *reinterpret_cast<const float4*>(v_s + key * L::kVLd + half * 64 + tx * 4);
-        const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            o[i][half * 4 + jj] = fmaf(av[i], cv[jj], o[i][half * 4 + jj]);
-      }
+    __syncthreads();  // every warp is done with the tile before it is refilled
+    if (it + 1 < n_iter) {
+      load_keys((it + 1) * kRows);
+      cp_async_commit();
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= T) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // no kept key: exact zeros
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    const int row = r == 0 ? row_a : row_b;
+    if (bh >= BH || row >= T) continue;
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;  // no kept key: exact zeros
+    float* out = O + (bh * T + row) * D;
 #pragma unroll
-    for (int half = 0; half < kCols / 4; ++half) {
-      const int col = half * 64 + tx * 4;
+    for (int n = 0; n < kDT; ++n) {
+      const int col = n * 8 + 2 * t;
       if (col < D)
-        *reinterpret_cast<float4*>(O + base + (long long)row * D + col) =
-            make_float4(o[i][half * 4 + 0] * inv, o[i][half * 4 + 1] * inv,
-                        o[i][half * 4 + 2] * inv, o[i][half * 4 + 3] * inv);
+        *reinterpret_cast<float2*>(out + col) =
+            make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
   }
 }
 
-template <int DP>
+template <int DP, int S>
 int launch(const float* q, const float* k, const float* v, const float* pad, float* out,
            int B, int H, int T, int D, float scale, cudaStream_t stream) {
-  const int bytes = Layout<DP>::total * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(attn_kernel<DP>,
+  const int bytes = (3 * Tile<DP>::kFloats + kRows) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(attn_kernel<DP, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (T + kBQ - 1) / kBQ);
-  attn_kernel<DP><<<grid, kThreads, bytes, stream>>>(q, k, v, pad, out, H, T, D, scale);
+  const int BH = B * H;
+  const dim3 grid((BH + S - 1) / S, S == 1 ? (T + kRows - 1) / kRows : 1);
+  attn_kernel<DP, S><<<grid, kThreads, bytes, stream>>>(q, k, v, pad, out, BH, H, T, D, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_bucket(const float* q, const float* k, const float* v, const float* pad, float* out,
+                  int B, int H, int T, int D, float scale, cudaStream_t stream) {
+  if (T <= kRows / 4) return launch<DP, 4>(q, k, v, pad, out, B, H, T, D, scale, stream);
+  if (T <= kRows / 2) return launch<DP, 2>(q, k, v, pad, out, B, H, T, D, scale, stream);
+  return launch<DP, 1>(q, k, v, pad, out, B, H, T, D, scale, stream);
 }
 
 }  // namespace
@@ -250,10 +343,11 @@ extern "C" int attn_max_d() { return 128; }
 extern "C" int attn_forward(const float* q, const float* k, const float* v,
                             const float* pad, float* out, int B, int H, int T,
                             int D, float scale, void* stream) {
-  if (D <= 0 || D % 4 != 0 || D > 128 || (T + kBQ - 1) / kBQ > 65535)
+  if (D <= 0 || D % 4 != 0 || D > 128 || (T + kRows - 1) / kRows > 65535 ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || T == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch<64>(q, k, v, pad, out, B, H, T, D, scale, s)
-                 : launch<128>(q, k, v, pad, out, B, H, T, D, scale, s);
+  return D <= 64 ? launch_bucket<64>(q, k, v, pad, out, B, H, T, D, scale, s)
+                 : launch_bucket<128>(q, k, v, pad, out, B, H, T, D, scale, s);
 }

@@ -27,22 +27,89 @@
 // dwarf the bytes (inputs, residuals and g read once, gy, gyv and the
 // per-sample partials written once).
 //
-// Design: one block of 256 threads per sample walks the T steps backwards.
-// Eight 64 x 68 float buffers (139,264 bytes) hold the expm (buffers 0-4)
-// and, once E is used up, the Frechet derivative (all eight; buffer 0 gets
-// Bm^T, buffer 1 gE). The A_k [K][lsd][lsd + 1] are staged in shared
-// memory when they fit beside them (K <= 16 at lsd 32) and read from
-// device memory (L2) otherwise. gA accumulates in device memory, each
-// thread its own entries of its sample's partial (61 KB at K 15, lsd 32).
-// Plain float32 FMA, as kernels #5 and #6.
+// Design: one sample walks the T steps backwards on a thread-block cluster
+// of C CTAs (C = 1, 2 or 4, chosen by the wrapper from the batch and the
+// clusters the card holds at once). Each CTA of 256 threads keeps full
+// copies of eight 64 x 68 float buffers (139,264 bytes), which hold the
+// expm (buffers 0-4) and, once E is used up, the Frechet derivative (all
+// eight; buffer 0 gets Bm^T, buffer 1 gE), and of the A_k [K][lsd][lsd + 1]
+// when they fit beside them (K <= 16 at lsd 32; device memory (L2)
+// otherwise). Every product, and every assembly of a buffer (Bm, gE,
+// Bm^T), is split by rows: a CTA computes 64 / C rows (in a product a
+// thread a (4 / C) x 4 patch), writes them into the same buffer of every
+// CTA of the cluster over distributed shared memory, and one cluster
+// barrier makes them visible (expm.cuh's team interface, here `Cluster`).
+// The squaring count comes from each CTA's own copy of the matrix; the
+// copies are equal, so every CTA takes the same k and meets the same
+// barriers.
+//
+// A step is mostly shared-memory reads, not FMAs, so: the Frechet pair
+// products run their three matmuls in one pass over k (frechet.cuh,
+// kFusedPair: each row of X, dX, Y, dY read once); the Van Loan assembly
+// keeps up to eight of a thread's K-term sums side by side, and a warp
+// takes consecutive columns (conflict-free A_k reads). The per-step
+// scalar work (the Kalman update, the softmax, the covariance and mean
+// adjoints, whose sums run on the four lanes of a quad) runs redundantly
+// in every CTA: it is deterministic, so the copies agree. The gc dot
+// products and the gA accumulation are split by basis k (k mod C), gc
+// exchanged over distributed shared memory. gA accumulates in device
+// memory, each CTA its own bases of its sample's partial (61 KB at K 15,
+// lsd 32), a thread's eight float4 reads in flight before its writes;
+// CTA 0 writes gy, gyv and the other partials. Plain float32 FMA, as
+// kernels #5 and #6.
+
+#include <cooperative_groups.h>
 
 #include "cru_step.cuh"
 #include "frechet.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using cru::kMaxK;
 using cru::kMaxLsd;
+
+constexpr int kThreads = expm::kThreads;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 8;  // gA float4 reads a thread keeps in flight
+
+// expm.cuh's team over a cluster of C CTAs: CTA r owns rows
+// [r 64 / C, (r + 1) 64 / C) of every buffer, a thread a (4 / C) x 4 patch
+// (a cluster of one is a plain block: local stores, __syncthreads)
+template <int C>
+struct Cluster {
+  static constexpr int kRows = 4 / C;
+  static constexpr bool kFusedPair = true;
+  __device__ static int rank() {
+    if constexpr (C == 1) return 0;
+    else return static_cast<int>(cg::this_cluster().block_rank());
+  }
+  __device__ static int row0() { return rank() * (expm::kN / C) + (threadIdx.x / 16) * kRows; }
+  __device__ static int col0() { return (threadIdx.x % 16) * 4; }
+  template <class V>  // float or float4
+  __device__ static void put(float* s, const V& v) {
+    if constexpr (C == 1) {
+      *reinterpret_cast<V*>(s) = v;
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+        *reinterpret_cast<V*>(cluster.map_shared_rank(s, static_cast<unsigned>(r))) = v;
+    }
+  }
+  __device__ static void sync() {
+    if constexpr (C == 1) __syncthreads();
+    else cg::this_cluster().sync();
+  }
+  // max row sum of |M| over this CTA's whole copy (equal in every CTA);
+  // ends with a cluster barrier, so no copy is written while one is read
+  __device__ static float norm(const float* s, float* red) {
+    const float norm = expm::inf_norm(s, red);
+    sync();
+    return norm;
+  }
+};
 
 struct Layout {  // dynamic shared memory, in floats
   int e, A, W, gW, m, cu, cl, cs, pm, pcu, pcl, pcs, den, qu, ql, r, gm, gcu, gcl, gcs, gpm,
@@ -85,7 +152,8 @@ struct Layout {  // dynamic shared memory, in floats
   }
 };
 
-__global__ void __launch_bounds__(expm::kThreads)
+template <int C>
+__global__ void __launch_bounds__(kThreads)
 cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
                     const float* __restrict__ valid, const float* __restrict__ dts,
                     const float* __restrict__ W, const float* __restrict__ b,
@@ -97,9 +165,10 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
                     float* __restrict__ gA, float* __restrict__ gq, float* __restrict__ gicu,
                     float* __restrict__ gicl, int T, int lod, int K, int max_squarings,
                     int a_in_smem) {
+  using Team = Cluster<C>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ float red[expm::kWarps];
+  __shared__ float red[kWarps];
   const int lsd = 2 * lod, n2 = 2 * lsd;
   const Layout L(lsd, K, a_in_smem != 0);
   float* e = smem + L.e;            // buffer 0: Bm, then E, then Bm^T
@@ -137,22 +206,33 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
   float* q_s = smem + L.q;
   float* gq_s = smem + L.gq;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long b_idx = blockIdx.x;
+  const int rank = Team::rank();
+  const bool lead = rank == 0;  // the CTA that writes gy, gyv and the partials but gA
+  const long long b_idx = blockIdx.x / C;  // the cluster's sample
   const int lda = a_in_smem ? lsd + 1 : lsd;
   const float* Ak = a_in_smem ? A_s : A;
   float* gA_b = gA + b_idx * K * lsd * lsd;
+  const int own_k = (K - rank + C - 1) / C;  // this CTA's bases: rank, rank + C, ...
+  // gA entries 4 tid .. 4 tid + 3 of each own basis's lsd x lsd block
+  // (lsd^2 / 4 <= kThreads), and where they sit in H
+  const bool ga_thread = tid < lsd * lsd / 4;
+  auto ga = [&](int u) { return gA_b + (rank + C * u) * lsd * lsd + 4 * tid; };
+  int h_off[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h_off[q] = ((4 * tid + q) / lsd) * expm::kLd + (4 * tid + q) % lsd;
 
   if (a_in_smem) {
-    for (int idx = tid; idx < K * lsd * lsd; idx += expm::kThreads) {
+    for (int idx = tid; idx < K * lsd * lsd; idx += kThreads) {
       const int k = idx / (lsd * lsd), r = (idx / lsd) % lsd, c = idx % lsd;
       A_s[(k * lsd + r) * lda + c] = A[idx];
     }
   }
-  for (int idx = tid; idx < lsd * K; idx += expm::kThreads) {
+  for (int idx = tid; idx < lsd * K; idx += kThreads) {
     W_s[idx] = W[idx];
     gW_s[idx] = 0.f;
   }
-  for (int idx = tid; idx < K * lsd * lsd; idx += expm::kThreads) gA_b[idx] = 0.f;
+  if (ga_thread)
+    for (int u = 0; u < own_k; ++u) *reinterpret_cast<float4*>(ga(u)) = make_float4(0, 0, 0, 0);
   if (tid < K) {
     b_s[tid] = b[tid];
     gb_s[tid] = 0.f;
@@ -163,7 +243,7 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
     gm[tid] = 0.f;
   }
   if (tid < lod) gcu[tid] = gcl[tid] = gcs[tid] = 0.f;
-  __syncthreads();
+  Team::sync();  // every CTA of the cluster runs before any writes another's memory
 
   // E_A, M2 and Cm read from E in buffer 0; the adjoint of P and of Cm
   auto EA = [&](int i, int j) { return e[i * expm::kLd + j]; };
@@ -186,12 +266,57 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
                    : gCm(a, c - lod) * pcs[c - lod] + gCm(a, c) * pcl[c - lod];
     return acc + gm[a] * pm[c];
   };
+  // this CTA's rows of a buffer, element idx of them (consecutive threads,
+  // consecutive columns: the A_k reads below are free of bank conflicts)
+  constexpr int kOwnRows = expm::kN / C;
+  const int row_base = rank * kOwnRows;
+  auto own_row = [&](int idx) { return row_base + idx / expm::kN; };
+  // this CTA's rows of Bm dt (of Bm^T dt when transposed) into buffer 0 of
+  // every CTA: cru::van_loan's sums, up to kSide of a thread's side by side
+  auto van_loan_rows = [&](bool transposed, float dt) {
+    constexpr int kPer = kOwnRows * expm::kN / kThreads;  // elements a thread
+    constexpr int kSide = kPer < 8 ? kPer : 8;
+    for (int m0 = 0; m0 < kPer; m0 += kSide) {
+      int off[kSide];  // A_k[off] is the element's term of basis k, or -1: no sum
+      float acc[kSide];
+#pragma unroll
+      for (int m = 0; m < kSide; ++m) {
+        const int idx = tid + (m0 + m) * kThreads;
+        int r = own_row(idx), c = idx % expm::kN;
+        if (transposed) {
+          const int x = r;
+          r = c;
+          c = x;
+        }
+        acc[m] = 0.f;
+        off[m] = r < lsd && c < lsd                          ? r * lda + c
+                 : r >= lsd && c >= lsd && r < n2 && c < n2 ? (c - lsd) * lda + r - lsd
+                                                            : -1;
+      }
+      for (int k = 0; k < K; ++k) {
+        const float ck = coeff[k];
+        const float* Akk = Ak + k * lsd * lda;
+#pragma unroll
+        for (int m = 0; m < kSide; ++m)
+          if (off[m] >= 0) acc[m] = fmaf(ck, Akk[off[m]], acc[m]);
+      }
+#pragma unroll
+      for (int m = 0; m < kSide; ++m) {
+        const int idx = tid + (m0 + m) * kThreads;
+        const int row = own_row(idx), col = idx % expm::kN;
+        const int r = transposed ? col : row, c = transposed ? row : col;
+        const float v = off[m] >= 0 ? (r < lsd ? acc[m] : -acc[m])
+                        : (r < lsd && c - lsd == r) ? q_s[r] : 0.f;
+        Team::put(e + row * expm::kLd + col, v * dt);
+      }
+    }
+  };
 
   for (int t = T - 1; t >= 0; --t) {
     const long long bt = b_idx * T + t;
     const float v = valid[bt], dt = dts[bt];
 
-    // recompute step t from its residual prior state
+    // recompute step t from its residual prior state (every CTA)
     if (tid < lsd) {
       m[tid] = res_m[bt * lsd + tid];
       gout[tid] = g[bt * lsd + tid];
@@ -218,69 +343,86 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
     __syncthreads();
     if (tid < 32) cru::coefficients(pm, W_s, b_s, coeff, lsd, K);
     __syncthreads();
-    for (int idx = tid; idx < expm::kN * expm::kN; idx += expm::kThreads) {
-      const int r = idx / expm::kN, c = idx % expm::kN;
-      e[r * expm::kLd + c] = cru::van_loan(r, c, coeff, Ak, lda, q_s, lsd, K) * dt;
-    }
-    __syncthreads();
-    expm::expm_inplace(e, red, max_squarings);
+    van_loan_rows(false, dt);
+    Team::sync();
+    expm::expm_inplace<Team>(e, red, max_squarings);
 
     // B8-B5: the cotangent of E into buffer 1; gpost_c* and E_A^T gm
-    for (int idx = tid; idx < expm::kN * expm::kN; idx += expm::kThreads) {
-      const int r = idx / expm::kN, c = idx % expm::kN;
-      float val = 0.f;
-      if (r < lsd && c < n2) val = c < lsd ? gEA(r, c) : gCm(r, c - lsd);
-      e1[r * expm::kLd + c] = val;
+    // (rows rank, rank + C, ...: only gE's first lsd rows are nonzero, and
+    // every CTA takes its share of them)
+    for (int idx = tid; idx < kOwnRows * expm::kN; idx += kThreads) {
+      const int r = rank + C * (idx / expm::kN), c = idx % expm::kN;
+      Team::put(e1 + r * expm::kLd + c,
+                (r < lsd && c < n2) ? (c < lsd ? gEA(r, c) : gCm(r, c - lsd)) : 0.f);
     }
-    if (tid < 3 * lod) {
-      const int which = tid / lod, j = tid % lod;  // 0: gpost_cu, 1: gpost_cs, 2: gpost_cl
+    // gpost_cu, gpost_cs, gpost_cl (o < 3 lod) and E_A^T gm (the rest), each
+    // by the four lanes of a quad over every fourth term (every CTA)
+    for (int o0 = 0; o0 < 3 * lod + lsd; o0 += kThreads / 4) {
+      const int o = o0 + tid / 4, part = tid % 4;
       float acc = 0.f;
-      for (int i = 0; i < lsd; ++i) {
-        if (which == 0) acc += gCm(i, j) * EA(i, j);
-        else if (which == 1) acc += gCm(i, j) * EA(i, j + lod) + gCm(i, j + lod) * EA(i, j);
-        else acc += gCm(i, j + lod) * EA(i, j + lod);
+      if (o < 3 * lod) {
+        const int which = o / lod, j = o % lod;  // 0: gpost_cu, 1: gpost_cs, 2: gpost_cl
+        for (int i = part; i < lsd; i += 4) {
+          if (which == 0) acc += gCm(i, j) * EA(i, j);
+          else if (which == 1) acc += gCm(i, j) * EA(i, j + lod) + gCm(i, j + lod) * EA(i, j);
+          else acc += gCm(i, j + lod) * EA(i, j + lod);
+        }
+      } else if (o < 3 * lod + lsd) {
+        for (int a = part; a < lsd; a += 4) acc = fmaf(EA(a, o - 3 * lod), gm[a], acc);
       }
-      (which == 0 ? gpcu : which == 1 ? gpcs : gpcl)[j] = acc;
-    } else if (tid >= 64 && tid < 64 + lsd) {
-      const int c = tid - 64;
-      float acc = 0.f;
-      for (int a = 0; a < lsd; ++a) acc = fmaf(EA(a, c), gm[a], acc);
-      gpm[c] = acc;
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (part == 0 && o < 3 * lod) (o < lod ? gpcu : o < 2 * lod ? gpcs : gpcl)[o % lod] = acc;
+      else if (part == 0 && o < 3 * lod + lsd) gpm[o - 3 * lod] = acc;
     }
-    __syncthreads();  // E is used up
+    Team::sync();  // E is used up in every CTA
 
     // B4: gBm = L_exp(Bm^T)[gE]
-    for (int idx = tid; idx < expm::kN * expm::kN; idx += expm::kThreads) {
-      const int r = idx / expm::kN, c = idx % expm::kN;
-      e[r * expm::kLd + c] = cru::van_loan(c, r, coeff, Ak, lda, q_s, lsd, K) * dt;
-    }
-    __syncthreads();
-    expm::frechet_inplace(e, red, max_squarings);
+    van_loan_rows(true, dt);
+    Team::sync();
+    expm::frechet_inplace<Team>(e, red, max_squarings);
 
-    // B3: H, gq, then gc and gA
-    for (int idx = tid; idx < lsd * lsd; idx += expm::kThreads) {
-      const int i = idx / lsd, j = idx % lsd;
-      H[i * expm::kLd + j] = e1[i * expm::kLd + j] - e1[(lsd + j) * expm::kLd + lsd + i];
-    }
+    // B3: H (each CTA its own copy), gq, then gc and gA over this CTA's bases
+    for (int i = warp; i < lsd; i += kWarps)
+      if (lane < lsd)
+        H[i * expm::kLd + lane] =
+            e1[i * expm::kLd + lane] - e1[(lsd + lane) * expm::kLd + lsd + i];
     if (tid < lsd) gq_s[tid] += e1[tid * expm::kLd + lsd + tid] * dt;
     __syncthreads();
-    for (int k = warp; k < K; k += expm::kWarps) {
+    for (int k = rank + C * warp; k < K; k += C * kWarps) {
       float acc = 0.f;
-      for (int idx = lane; idx < lsd * lsd; idx += 32) {
-        const int i = idx / lsd, j = idx % lsd;
-        acc = fmaf(H[i * expm::kLd + j], Ak[(k * lsd + i) * lda + j], acc);
-      }
+      if (lane < lsd)
+        for (int i = 0; i < lsd; ++i)
+          acc = fmaf(H[i * expm::kLd + lane], Ak[(k * lsd + i) * lda + lane], acc);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) gc[k] = acc * dt;
+      if (lane < C) *cg::this_cluster().map_shared_rank(gc + k, static_cast<unsigned>(lane)) =
+          acc * dt;
     }
-    for (int idx = tid; idx < K * lsd * lsd; idx += expm::kThreads) {
-      const int k = idx / (lsd * lsd), ij = idx % (lsd * lsd);
-      gA_b[idx] += (coeff[k] * dt) * H[(ij / lsd) * expm::kLd + ij % lsd];
+    // gA: this thread's float4 of each of this CTA's bases, kBatch reads in
+    // flight before the writes
+    if (ga_thread) {
+      const float h0 = H[h_off[0]], h1 = H[h_off[1]], h2 = H[h_off[2]], h3 = H[h_off[3]];
+      for (int u0 = 0; u0 < own_k; u0 += kBatch) {
+        float4 acc[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (u0 + u < own_k) acc[u] = *reinterpret_cast<const float4*>(ga(u0 + u));
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u0 + u >= own_k) continue;
+          const float w = coeff[rank + C * (u0 + u)] * dt;
+          acc[u].x += w * h0;
+          acc[u].y += w * h1;
+          acc[u].z += w * h2;
+          acc[u].w += w * h3;
+          *reinterpret_cast<float4*>(ga(u0 + u)) = acc[u];
+        }
+      }
     }
-    __syncthreads();
+    Team::sync();  // gc complete in every CTA; gBm and H read before the next step writes
 
-    // B2/B1: softmax, then the coefficient net
+    // B2/B1: softmax, then the coefficient net (every CTA)
     if (tid < 32) {
       const float c = tid < K ? coeff[tid] : 0.f, gcv = tid < K ? gc[tid] : 0.f;
       float dot = gcv * c;
@@ -293,7 +435,7 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
       }
     }
     __syncthreads();
-    for (int idx = tid; idx < lsd * K; idx += expm::kThreads)
+    for (int idx = tid; idx < lsd * K; idx += kThreads)
       gW_s[idx] += pm[idx / K] * gs[idx % K];
     if (tid < lsd) {
       float acc = 0.f;
@@ -322,8 +464,10 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
       const float gden = -(gqu * c_u + gql * c_s) / (d * d);
       gcu_p += gqu / d + gden;
       gcs_p += gql / d;
-      gy[bt * lod + i] = gr;
-      gyv[bt * lod + i] = gden;
+      if (lead) {
+        gy[bt * lod + i] = gr;
+        gyv[bt * lod + i] = gden;
+      }
       gm[i] = gm_u;
       gm[lod + i] = gm_l;
       gcu[i] = gcu_p;
@@ -333,13 +477,69 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
     __syncthreads();
   }
 
-  for (int idx = tid; idx < lsd * K; idx += expm::kThreads) gW[b_idx * lsd * K + idx] = gW_s[idx];
-  if (tid < K) gb[b_idx * K + tid] = gb_s[tid];
-  if (tid < lsd) gq[b_idx * lsd + tid] = gq_s[tid];
-  if (tid < lod) {
-    gicu[b_idx * lod + tid] = gcu[tid];  // init_cu, init_cl broadcast over the batch
-    gicl[b_idx * lod + tid] = gcl[tid];
+  if (lead) {
+    for (int idx = tid; idx < lsd * K; idx += kThreads) gW[b_idx * lsd * K + idx] = gW_s[idx];
+    if (tid < K) gb[b_idx * K + tid] = gb_s[tid];
+    if (tid < lsd) gq[b_idx * lsd + tid] = gq_s[tid];
+    if (tid < lod) {
+      gicu[b_idx * lod + tid] = gcu[tid];  // init_cu, init_cl broadcast over the batch
+      gicl[b_idx * lod + tid] = gcl[tid];
+    }
   }
+  Team::sync();  // no CTA exits while a peer may still write its shared memory
+}
+
+// the dynamic shared memory of a launch, and whether the A_k fit in it
+int smem_bytes(int lod, int K, bool* a_in_smem) {
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int lsd = 2 * lod;
+  const int static_bytes = kWarps * static_cast<int>(sizeof(float));
+  *a_in_smem = Layout(lsd, K, true).total * static_cast<int>(sizeof(float)) + static_bytes <=
+               optin;
+  return Layout(lsd, K, *a_in_smem).total * static_cast<int>(sizeof(float));
+}
+
+template <int C>
+cudaError_t configure(int B, int bytes, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(cru_scan_bwd_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(B) * C);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int C>
+int active_clusters(int bytes, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure<C>(1, bytes, nullptr, &cfg, &attr);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, cru_scan_bwd_kernel<C>, &cfg);
+  return static_cast<int>(err);
+}
+
+template <int C, class... Args>
+int launch(int B, int bytes, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure<C>(B, bytes, stream, &cfg, &attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, cru_scan_bwd_kernel<C>, args...);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -347,36 +547,50 @@ cru_scan_bwd_kernel(const float* __restrict__ y, const float* __restrict__ yv,
 extern "C" int cru_scan_bwd_max_lod() { return kMaxLsd / 2; }
 extern "C" int cru_scan_bwd_max_k() { return kMaxK; }
 
+// *out = how many clusters of `cluster` CTAs (1, 2 or 4) the card holds at
+// once at this lod and K (one CTA a cluster rank; cudaOccupancyMaxActiveClusters)
+extern "C" int cru_scan_bwd_active_clusters(int lod, int K, int cluster, int* out) {
+  if (lod <= 0 || 2 * lod > kMaxLsd || K <= 0 || K > kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool a_in_smem = false;
+  const int bytes = smem_bytes(lod, K, &a_in_smem);
+  if (bytes < 0) return -bytes;
+  switch (cluster) {
+    case 1: return active_clusters<1>(bytes, out);
+    case 2: return active_clusters<2>(bytes, out);
+    case 4: return active_clusters<4>(bytes, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // y, yv [B,T,lod]; valid, dts [B,T]; W [2lod,K]; b [K]; A [K,2lod,2lod];
 // q [2lod]; res_m [B,T,2lod]; res_cu, res_cl, res_cs [B,T,lod]; g [B,T,2lod]
 // -> gy, gyv [B,T,lod]; per sample gW [B,2lod,K], gb [B,K],
 // gA [B,K,2lod,2lod], gq [B,2lod], gicu, gicl [B,lod]; float32, contiguous.
+// One sample a cluster of `cluster` CTAs (1, 2 or 4).
 extern "C" int cru_scan_backward(const float* y, const float* yv, const float* valid,
                                  const float* dts, const float* W, const float* b,
                                  const float* A, const float* q, const float* res_m,
                                  const float* res_cu, const float* res_cl, const float* res_cs,
                                  const float* g, float* gy, float* gyv, float* gW, float* gb,
                                  float* gA, float* gq, float* gicu, float* gicl, int B, int T,
-                                 int lod, int K, int max_squarings, void* stream) {
+                                 int lod, int K, int max_squarings, int cluster, void* stream) {
   if (B < 0 || T < 0 || lod <= 0 || 2 * lod > kMaxLsd || K <= 0 || K > kMaxK ||
-      max_squarings < 0)
+      max_squarings < 0 || (cluster != 1 && cluster != 2 && cluster != 4) ||
+      static_cast<long long>(B) * cluster > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int lsd = 2 * lod;
-  const int static_bytes = expm::kWarps * static_cast<int>(sizeof(float));
-  const bool a_in_smem = Layout(lsd, K, true).total * static_cast<int>(sizeof(float)) +
-                             static_bytes <= optin;
-  const int bytes = Layout(lsd, K, a_in_smem).total * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(cru_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cru_scan_bwd_kernel<<<B, expm::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      y, yv, valid, dts, W, b, A, q, res_m, res_cu, res_cl, res_cs, g, gy, gyv, gW, gb, gA, gq,
-      gicu, gicl, T, lod, K, max_squarings, a_in_smem ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  bool a_in_smem = false;
+  const int bytes = smem_bytes(lod, K, &a_in_smem);
+  if (bytes < 0) return -bytes;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int a_flag = a_in_smem ? 1 : 0;
+#define CRU_BWD_ARGS y, yv, valid, dts, W, b, A, q, res_m, res_cu, res_cl, res_cs, g, gy, gyv, \
+                     gW, gb, gA, gq, gicu, gicl, T, lod, K, max_squarings, a_flag
+  switch (cluster) {
+    case 1: return launch<1>(B, bytes, s, CRU_BWD_ARGS);
+    case 2: return launch<2>(B, bytes, s, CRU_BWD_ARGS);
+    default: return launch<4>(B, bytes, s, CRU_BWD_ARGS);
+  }
+#undef CRU_BWD_ARGS
 }

@@ -63,46 +63,69 @@ __device__ __forceinline__ float lane(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// this thread's 4 x 4 patch (rows ty*4.., columns tx*4..) of a buffer
-__device__ __forceinline__ void load_patch(const float* s, float p[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+// The threads that run one matrix function together, and how they share
+// its buffers. Block: the whole block of kThreads threads, each on a 4 x 4
+// patch (rows row0().., columns col0()..) of every 64 x 64 product, the
+// buffers in the block's own shared memory (kernels #4-#6). Another team
+// (csrc/cru_scan_bwd.cu splits each product over a thread-block cluster)
+// gives the same members: kRows patch rows a thread, row0() and col0(),
+// put() (a float4 of the thread's patch into every copy of a buffer),
+// sync() (every copy written before any is read), norm() (the inf-norm of
+// a buffer, the same value in every thread, synchronised on return) and
+// kFusedPair (frechet.cuh's pair products in one pass).
+struct Block {
+  static constexpr int kRows = 4;
+  static constexpr bool kFusedPair = false;
+  __device__ static int row0() { return (threadIdx.x / 16) * 4; }
+  __device__ static int col0() { return (threadIdx.x % 16) * 4; }
+  __device__ static void put(float* s, const float4& v) { *reinterpret_cast<float4*>(s) = v; }
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static float norm(const float* s, float* red);
+};
+
+// this thread's patch (rows row0().., columns col0()..) of a buffer
+template <class Team = Block>
+__device__ __forceinline__ void load_patch(const float* s, float p[Team::kRows][4]) {
+  const int r0 = Team::row0(), c0 = Team::col0();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(s + (ty * 4 + i) * kLd + tx * 4);
+  for (int i = 0; i < Team::kRows; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(s + (r0 + i) * kLd + c0);
 #pragma unroll
     for (int j = 0; j < 4; ++j) p[i][j] = lane(v, j);
   }
 }
 
-__device__ __forceinline__ void store_patch(float* s, const float p[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+template <class Team = Block>
+__device__ __forceinline__ void store_patch(float* s, const float p[Team::kRows][4]) {
+  const int r0 = Team::row0(), c0 = Team::col0();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(s + (ty * 4 + i) * kLd + tx * 4) =
-        make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
+  for (int i = 0; i < Team::kRows; ++i)
+    Team::put(s + (r0 + i) * kLd + c0, make_float4(p[i][0], p[i][1], p[i][2], p[i][3]));
 }
 
 // 1 on this thread's patch of the diagonal, 0 elsewhere
+template <class Team = Block>
 __device__ __forceinline__ float eye(int i, int j) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  return ty * 4 + i == tx * 4 + j ? 1.f : 0.f;
+  return Team::row0() + i == Team::col0() + j ? 1.f : 0.f;
 }
 
 // p += A B on this thread's patch (A, B full kN x kN buffers)
+template <class Team = Block>
 __device__ __forceinline__ void matmul_acc_patch(const float* __restrict__ A,
-                                                 const float* __restrict__ B, float p[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+                                                 const float* __restrict__ B,
+                                                 float p[Team::kRows][4]) {
+  const int r0 = Team::row0(), c0 = Team::col0();
 #pragma unroll 2
   for (int k = 0; k < kN; k += 4) {
-    float4 a[4];
+    float4 a[Team::kRows];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * kLd + k);
+    for (int i = 0; i < Team::kRows; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (r0 + i) * kLd + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(B + (k + kk) * kLd + tx * 4);
+      const float4 b = *reinterpret_cast<const float4*>(B + (k + kk) * kLd + c0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < Team::kRows; ++i) {
         const float av = lane(a[i], kk);
         p[i][0] = fmaf(av, b.x, p[i][0]);
         p[i][1] = fmaf(av, b.y, p[i][1]);
@@ -114,13 +137,15 @@ __device__ __forceinline__ void matmul_acc_patch(const float* __restrict__ A,
 }
 
 // p = A B on this thread's patch
+template <class Team = Block>
 __device__ __forceinline__ void matmul_patch(const float* __restrict__ A,
-                                             const float* __restrict__ B, float p[4][4]) {
+                                             const float* __restrict__ B,
+                                             float p[Team::kRows][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < Team::kRows; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
-  matmul_acc_patch(A, B, p);
+  matmul_acc_patch<Team>(A, B, p);
 }
 
 // max row sum of |M| over the kN x kN buffer; red holds kWarps floats.
@@ -147,6 +172,10 @@ __device__ __forceinline__ float inf_norm(const float* s, float* red) {
   return norm;
 }
 
+__device__ __forceinline__ float Block::norm(const float* s, float* red) {
+  return inf_norm(s, red);
+}
+
 // k = min(ceil(log2(max(norm, 1))), max_squarings), exactly: norm = m 2^e
 // with m in [0.5, 1), and ceil(log2(norm)) = e, or e - 1 when m = 0.5
 __device__ __forceinline__ int squarings(float norm, int max_squarings) {
@@ -159,97 +188,99 @@ __device__ __forceinline__ int squarings(float norm, int max_squarings) {
 
 // Overwrites buffer 0 of s (the zero-padded matrix M, visible to every
 // thread: the caller synchronises after writing it) with exp(M); buffers
-// 1-4 are scratch. All kThreads threads of the block must call it; it
-// returns synchronised. Returns -1 for the Taylor-4 tier, else the number
+// 1-4 are scratch. Every thread of the team must call it; it returns
+// synchronised. Returns -1 for the Taylor-4 tier, else the number
 // of squarings of the Taylor-12 tier.
+template <class Team = Block>
 __device__ inline int expm_inplace(float* s, float* red, int max_squarings) {
+  constexpr int R = Team::kRows;
   float* M = s;
   float* M2 = s + kMat;
   float* M3 = s + 2 * kMat;
   float* M4 = s + 3 * kMat;
   float* X = s + 4 * kMat;
-  float m[4][4], m2[4][4], m3[4][4], p[4][4];
+  float m[R][4], m2[R][4], m3[R][4], p[R][4];
 
-  const float norm = inf_norm(M, red);
+  const float norm = Team::norm(M, red);
   if (norm <= 1.f / 32.f) {
     // Taylor-4: c0 I + c1 M + c2 M2 + M2 (c3 M + c4 M2)
-    matmul_patch(M, M, p);
-    store_patch(M2, p);
-    __syncthreads();
-    load_patch(M, m);
-    load_patch(M2, m2);
+    matmul_patch<Team>(M, M, p);
+    store_patch<Team>(M2, p);
+    Team::sync();
+    load_patch<Team>(M, m);
+    load_patch<Team>(M2, m2);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) p[i][j] = coef(3) * m[i][j] + coef(4) * m2[i][j];
-    store_patch(X, p);
-    __syncthreads();
-    matmul_patch(M2, X, p);
+    store_patch<Team>(X, p);
+    Team::sync();
+    matmul_patch<Team>(M2, X, p);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        p[i][j] = coef(0) * eye(i, j) + coef(1) * m[i][j] + coef(2) * m2[i][j] + p[i][j];
-    store_patch(M, p);  // no thread reads M after the first product
-    __syncthreads();
+        p[i][j] = coef(0) * eye<Team>(i, j) + coef(1) * m[i][j] + coef(2) * m2[i][j] + p[i][j];
+    store_patch<Team>(M, p);  // no thread reads M after the first product
+    Team::sync();
     return -1;
   }
 
   // Taylor-12 on Ms = M / 2^k (exact: a power of two)
   const int k = squarings(norm, max_squarings);
   const float scale = ldexpf(1.f, -k);
-  load_patch(M, m);
+  load_patch<Team>(M, m);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) m[i][j] *= scale;
-  store_patch(M, m);  // each thread rescales its own patch
-  __syncthreads();
-  matmul_patch(M, M, p);
-  store_patch(M2, p);
-  __syncthreads();
-  matmul_patch(M2, M, p);
-  store_patch(M3, p);
-  matmul_patch(M2, M2, p);
-  store_patch(M4, p);
-  __syncthreads();
-  load_patch(M2, m2);
-  load_patch(M3, m3);
+  store_patch<Team>(M, m);  // each thread rescales its own patch
+  Team::sync();
+  matmul_patch<Team>(M, M, p);
+  store_patch<Team>(M2, p);
+  Team::sync();
+  matmul_patch<Team>(M2, M, p);
+  store_patch<Team>(M3, p);
+  matmul_patch<Team>(M2, M2, p);
+  store_patch<Team>(M4, p);
+  Team::sync();
+  load_patch<Team>(M2, m2);
+  load_patch<Team>(M3, m3);
   // Paterson-Stockmeyer, base M4: B0 + M4 (B1 + M4 (B2 + c12 M4))
-  float m4[4][4];
-  load_patch(M4, m4);
+  float m4[R][4];
+  load_patch<Team>(M4, m4);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      p[i][j] = coef(8) * eye(i, j) + coef(9) * m[i][j] + coef(10) * m2[i][j] +
+      p[i][j] = coef(8) * eye<Team>(i, j) + coef(9) * m[i][j] + coef(10) * m2[i][j] +
                 coef(11) * m3[i][j] + coef(12) * m4[i][j];
-  store_patch(X, p);
-  __syncthreads();
-  matmul_patch(M4, X, p);
-  __syncthreads();  // X is read by every thread before it is overwritten
+  store_patch<Team>(X, p);
+  Team::sync();
+  matmul_patch<Team>(M4, X, p);
+  Team::sync();  // X is read by every thread before it is overwritten
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      p[i][j] = coef(4) * eye(i, j) + coef(5) * m[i][j] + coef(6) * m2[i][j] +
+      p[i][j] = coef(4) * eye<Team>(i, j) + coef(5) * m[i][j] + coef(6) * m2[i][j] +
                 coef(7) * m3[i][j] + p[i][j];
-  store_patch(X, p);
-  __syncthreads();
-  matmul_patch(M4, X, p);
+  store_patch<Team>(X, p);
+  Team::sync();
+  matmul_patch<Team>(M4, X, p);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      p[i][j] = coef(0) * eye(i, j) + coef(1) * m[i][j] + coef(2) * m2[i][j] +
+      p[i][j] = coef(0) * eye<Team>(i, j) + coef(1) * m[i][j] + coef(2) * m2[i][j] +
                 coef(3) * m3[i][j] + p[i][j];
-  store_patch(M, p);  // nothing reads M after the products that made M2-M4
-  __syncthreads();
+  store_patch<Team>(M, p);  // nothing reads M after the products that made M2-M4
+  Team::sync();
   for (int step = 0; step < k; ++step) {
-    matmul_patch(M, M, p);
-    __syncthreads();
-    store_patch(M, p);
-    __syncthreads();
+    matmul_patch<Team>(M, M, p);
+    Team::sync();
+    store_patch<Team>(M, p);
+    Team::sync();
   }
   return k;
 }

@@ -14,7 +14,9 @@ the TPU kernel writes them for its backward. Plain version:
 each step recomputed, the expm's adjoint by the Frechet pair recursion.
 Returns (gy, gyv [B,T,lod], gW [lsd,K], gb [K], gA [K,lsd,lsd], gq [lsd],
 gicu, gicl [lod]); the kernel writes the last six per sample and the
-wrapper sums them over the batch. Plain version:
+wrapper sums them over the batch. Each sample runs on a thread-block
+cluster of `cluster_size(B, active)` CTAs, from the clusters the card holds
+at once (`cluster_plan`). Plain version:
 `ops.cru_scan.cru_scan_bwd_reference`.
 
 Each wrapper runs its plain version for CPU tensors and launches its
@@ -25,6 +27,7 @@ larger sizes raise.
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import torch
 
@@ -41,7 +44,8 @@ _SIGNATURES = {
     "cru_scan_max_k": ([], _I),
 }
 _BWD_SIGNATURES = {
-    "cru_scan_backward": ([_P] * 21 + [_I] * 5 + [_P], _I),
+    "cru_scan_backward": ([_P] * 21 + [_I] * 6 + [_P], _I),
+    "cru_scan_bwd_active_clusters": ([_I, _I, _I, ctypes.POINTER(ctypes.c_int)], _I),
     "cru_scan_bwd_max_lod": ([], _I),
     "cru_scan_bwd_max_k": ([], _I),
 }
@@ -74,6 +78,51 @@ def _checked(name, args, extra, max_squarings, max_lod, max_k):
             f"{name}: lod={lod}, K={K} exceed the kernel's lod <= {max_lod} "
             f"(a 64 x 64 Van Loan block) and K <= {max_k}")
     return B, T, lod, K
+
+
+CLUSTER_SIZES = (1, 2, 4)  # CTAs a sample of #7 may take: 64 / C rows each
+
+
+def cluster_size(B: int, active: dict) -> int:
+    """#7's cluster size at batch B, from `active` {C: clusters of C CTAs
+    the card holds at once}: the C whose waves, ceil(B / active[C]), cost
+    the least at 1/C of a one-CTA cluster's time each (a sample's products
+    split over C CTAs); the smaller C on a tie, since every product then
+    pays fewer cluster barriers and copies. An H100 holds 132, 66 and 30
+    clusters of 1, 2 and 4 CTAs (a cluster stays inside one GPC), so B 32
+    takes C = 2: clusters of 4 would run in two waves."""
+    if B <= 0:
+        return 1
+    costs = {C: Fraction(-(-B // n), C) for C, n in active.items() if n > 0}
+    if not costs:
+        raise ValueError(f"fused_cru_scan_backward: no cluster size fits on the card ({active})")
+    return min(costs, key=lambda C: (costs[C], C))
+
+
+_active: dict = {}  # (device index, lod, K) -> {C: resident clusters}
+
+
+def cluster_plan(B: int, lod: int, K: int, device) -> dict:
+    """The launch of #7 at (B, lod, K) on a CUDA device: cluster size C,
+    the clusters of C CTAs the card holds at once (from
+    cudaOccupancyMaxActiveClusters), and the SMs that hold a CTA (one CTA
+    an SM: its shared memory takes most of one)."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None else torch.cuda.current_device(), lod, K)
+    if key not in _active:
+        lib = _build.load("cru_scan_bwd", _BWD_SIGNATURES)
+        counts = {}
+        with torch.cuda.device(key[0]):
+            for C in CLUSTER_SIZES:
+                n = ctypes.c_int(0)
+                _build.check(lib.cru_scan_bwd_active_clusters(lod, K, C, ctypes.byref(n)),
+                             "cru_scan_bwd_active_clusters")
+                counts[C] = n.value
+        _active[key] = counts
+    active = _active[key]
+    C = cluster_size(B, active)
+    return {"cluster": C, "active_clusters": active[C], "active_by_size": dict(active),
+            "ctas": B * C, "sms_in_use": min(B, active[C]) * C}
 
 
 def _kernel_inputs(args):
@@ -115,10 +164,11 @@ def fused_cru_scan(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
 
 def fused_cru_scan_backward(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
                             trans_var, init_cu, init_cl, residuals, g,
-                            max_squarings: int = 7):
+                            max_squarings: int = 7, cluster: int | None = None):
     """The scan's inputs, #6's residuals (pm [B,T,lsd], pcu, pcl, pcs
     [B,T,lod]) and the cotangent g [B,T,lsd] of the post-means (float32)
-    -> (gy, gyv, gW, gb, gA, gq, gicu, gicl)."""
+    -> (gy, gyv, gW, gb, gA, gq, gicu, gicl). `cluster` (1, 2 or 4) sets
+    the CTAs a sample takes on the card; None: `cluster_plan`'s."""
     args = (y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis, trans_var, init_cu,
             init_cl)
     if y_mean.device.type == "cpu":
@@ -139,13 +189,18 @@ def fused_cru_scan_backward(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_b
     gy, gyv = empty(B, T, lod), empty(B, T, lod)
     gW, gb, gA, gq = empty(B, lsd, K), empty(B, K), empty(B, K, lsd, lsd), empty(B, lsd)
     gicu, gicl = empty(B, lod), empty(B, lod)
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"fused_cru_scan_backward: cluster must be one of {CLUSTER_SIZES}, "
+                         f"got {cluster}")
     if B > 0:
+        if cluster is None:
+            cluster = cluster_plan(B, lod, K, dev)["cluster"]
         ins = _kernel_inputs(args)[:8]  # init_cu, init_cl: the residuals hold them
         ins += [t.contiguous() for t in (pm, pcu, pcl, pcs, g)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.cru_scan_backward(*(t.data_ptr() for t in ins),
                                    *(t.data_ptr() for t in (gy, gyv, gW, gb, gA, gq, gicu, gicl)),
-                                   B, T, lod, K, max_squarings, stream)
+                                   B, T, lod, K, max_squarings, cluster, stream)
         _build.check(rc, "fused_cru_scan_backward")
         global backward_launches
         backward_launches += 1

@@ -23,11 +23,12 @@ import os
 import pytest
 import torch
 
-from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, check_scan,
+from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, bucket_lo, check_scan,
                         check_scan_bwd, compare_step, dropout_probe_inputs, expm_inputs,
                         expm_rel_err, ffn_inputs, frechet_inputs, frechet_rel_err,
                         recavg_inputs, scan_bwd_case, scan_inputs, training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
+from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 from imm_tsf_torch.ops.expm import expm as ops_expm
 from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_plain, expm_taylor12
 
@@ -116,6 +117,51 @@ def test_attn_kernel_matches_plain(dev, gen, B, H, T, D, lo):
     assert attn.launches == before + 1
     assert out.shape == (B, H, T, D)
     torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", EMBED_BUCKETS)
+def test_attn_kernel_at_every_bucket(dev, gen, T):
+    """Each embed_notes bucket, right-padded as it pads notes, with enough
+    (b, h) slices for several waves of blocks on the card."""
+    B, H = max(8, 16384 // T), 12
+    args = attn_inputs(B, H, T, 64, gen, dev, bucket_lo(T))
+    out = attn.fused_causal_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,D,lo", [
+    (5, 3, 1, 64, None),     # one token: four (b, h) slices a block
+    (7, 3, 31, 64, 1),       # two slices a block, one row short of the tile
+    (7, 3, 33, 64, 1),       # one slice a block, 64-row tiles
+    (3, 5, 65, 64, 2),       # two query tiles, the second one row
+    (9, 3, 16, 128, 1),      # four slices a block at the 128-column width
+    (4, 3, 32, 128, 1),      # two slices a block at the 128-column width
+    (2, 2, 1024, 128, 513),  # the 128-column width at the longest bucket
+])
+def test_attn_kernel_at_edge_lengths(dev, gen, B, H, T, D, lo):
+    args = attn_inputs(B, H, T, D, gen, dev, lo)
+    out = attn.fused_causal_attention(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, T, D)
+    torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 29, 200])
+def test_attn_kernel_fully_masked_rows_are_exact_zeros(dev, gen, T):
+    """Rows before a sample's first real token and samples without one:
+    exact zeros, at each block layout (4, 2 and 1 slices a block)."""
+    q, k, v, pad = attn_inputs(6, 4, T, 64, gen, dev)
+    pad[0, :3] = 0.0
+    pad[1] = 0.0
+    pad[2, T // 2:] = 0.0
+    out = attn.fused_causal_attention(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert bool((out[0, :, :3] == 0).all()) and bool((out[1] == 0).all())
+    torch.testing.assert_close(out, attn.attention_reference(q, k, v, pad), atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -280,6 +326,30 @@ def test_cru_scan_bwd_kernel_matches_plain(dev, gen, B, T, lod, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lod,K,cluster", [
+    (1, 72, 16, 15, None),   # one sample: the widest cluster
+    (33, 72, 16, 15, 4),     # more clusters of 4 than the card holds at once
+    (32, 72, 16, 15, 1),     # each cluster size at the trained batch (A_k staged)
+    (32, 72, 16, 15, 2),
+    (32, 72, 16, 15, 4),
+    (32, 72, 16, 32, None),  # K 32: A_k read from device memory (L2)
+    (4, 1, 16, 15, None),    # one step
+    (3, 9, 4, 5, 4),         # a small Van Loan block over a cluster of 4
+])
+def test_cru_scan_bwd_kernel_cluster_sizes(dev, gen, B, T, lod, K, cluster):
+    ins = scan_inputs(B, T, lod, K, gen, dev)
+    residuals, g = scan_bwd_case(ins, gen)
+    plan = cru_scan.cluster_plan(B, lod, K, dev)
+    before = cru_scan.backward_launches
+    got = cru_scan.fused_cru_scan_backward(**ins, residuals=residuals, g=g, cluster=cluster)
+    torch.cuda.synchronize()
+    assert cru_scan.backward_launches == before + 1
+    print(f"backward at {(B, T, lod, K)}, cluster {cluster or plan['cluster']} (plan {plan}):",
+          {k: (round(v["score"], 3), round(v["plain_score"], 3))
+           for k, v in check_scan_bwd(got, ins, residuals, g).items()})
+
+
+@pytest.mark.cuda
 def test_cru_scan_bwd_kernel_refuses_what_it_cannot_take(dev, gen):
     ins = scan_inputs(2, 4, 4, 3, gen, dev)
     residuals, g = scan_bwd_case(ins, gen)
@@ -287,6 +357,8 @@ def test_cru_scan_bwd_kernel_refuses_what_it_cannot_take(dev, gen):
         cru_scan.fused_cru_scan_backward(**ins, residuals=residuals, g=g.double())
     with pytest.raises(ValueError, match="float32"):
         cru_scan.fused_cru_scan_backward(**ins, residuals=residuals[:3] + (g,), g=g)
+    with pytest.raises(ValueError, match="cluster"):
+        cru_scan.fused_cru_scan_backward(**ins, residuals=residuals, g=g, cluster=3)
 
 
 @pytest.mark.cuda
