@@ -15,9 +15,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       |err| <= 1e-5 + 1e-5|ref| (float32, N-term sums in another order);
       fused FFN at M=8192, D=512, F=2048 (gelu, no dropout), relu with
       dropout (keep 0.9) and a ragged M=1000, to |err| <= 1e-4 + 1e-4|ref|
-      (float32, K=2048 sums in another order); with dropout the zero
-      patterns of both hash-dropout sites must equal the hash bits
-      exactly (structured inputs make them visible in the output);
+      (float32 by three TF32 passes, K=2048 sums in another order); with
+      dropout the zero patterns of both hash-dropout sites must equal the
+      hash bits exactly (structured inputs make them visible in the output);
       causal attention at the shape of each embed_notes bucket call at the
       token budget (T 32-1024: [1024,12,32,64] ... [64,12,1024,64],
       right-padded notes) and a ragged [3,2,13,64] (token 0 padded in one
@@ -34,8 +34,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       (1e-4 + 1e-4|ref|) (`check_scan`: float32 rounding alone reaches
       1.25 x there);
       the expm's Frechet derivative at the trained [32,64,64] with
-      inf-norms 0.01-80, a ragged [3,24,24] and M = 0 (exactly E), to 2e-5
-      of each matrix's largest entry; the scan's backward at the trained
+      inf-norms 0.01-80, a ragged [3,24,24], M = 0 (exactly E) and each
+      cluster size (1, 2, 4 CTAs a matrix) at norm 80, to 2e-5 of each
+      matrix's largest entry; the scan's backward at the trained
       (B 32, T 72, lod 16, K 15) on #6's residuals and g ~ N(0, 1),
       against its plain version run in float64 on the same residuals,
       within SCAN_BWD_SCORE_MAX x (1e-5 max|ref| + 1e-5|ref|) on every cotangent
@@ -101,9 +102,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     calls, beside matrix_exp of the 128-square block; the scan backward
     on that step's inputs) and print one JSON line {"kernels": [...]}
     (seven rows) with the bound each is held to (#4-#7 from the data's
-    own tiers and squarings; #3 at 3 x its FLOPs on the TF32 tensor cores,
-    its fp32-FMA bound beside it; #7 with its cluster size, the clusters
-    the card holds at once and the SMs in use, and its time at each
+    own tiers and squarings; #2 and #3 at 3 x their products' FLOPs on
+    the TF32 tensor cores, the fp32-FMA bound beside it as bound_fma_ms,
+    which #4 gives too; #4 and #7 with their cluster size, the clusters
+    the card holds at once and the SMs in use, and their time at each
     cluster size).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -134,6 +136,7 @@ from imm_tsf_torch.data.loader import parse_datasets
 from imm_tsf_torch.data.synthetic import make_synthetic_dataset
 from imm_tsf_torch.fusion.fusion_model import FusionModel
 from imm_tsf_torch.kernels import _build, attn, cru_scan, expm, ffn, recavg
+from imm_tsf_torch.kernels._cluster import CLUSTER_SIZES
 from imm_tsf_torch.layers.fast_dropout import Dropout, _keep_mask
 from imm_tsf_torch.layers.transformer import EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
@@ -652,6 +655,15 @@ def check_kernels(device, shapes, gen) -> dict:
         if case == "frechet at zero":
             assert torch.equal(got, E), "L_exp(0)[E] must be exactly E (the CRU's pad steps)"
         log(f"# check {case} {tuple(M.shape)}: max|err|/max|ref| {errs[case]:.3e}")
+    # each cluster size the wrapper may pick, at the most squarings (draws of
+    # their own, so the checks after these keep theirs)
+    gen_c = torch.Generator(device=device).manual_seed(SEED + 2)
+    for C in CLUSTER_SIZES:
+        case = f"frechet cluster {C}"
+        M, E = frechet_inputs(B, n, 80.0, gen_c, device)
+        errs[case] = frechet_rel_err(expm.batched_expm_frechet(M, E, MAX_SQUARINGS, cluster=C),
+                                     expm_frechet_taylor12(M, E, MAX_SQUARINGS))
+        log(f"# check {case} {tuple(M.shape)} norm 80: max|err|/max|ref| {errs[case]:.3e}")
 
     Bs, T, lod, K = shapes["cru_scan_bwd"]
     errs["cru_scan_bwd"] = 0.0
@@ -1368,7 +1380,8 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
     M, D, F = shapes["ffn"]
     fsets = [ffn_inputs(M, D, F, gen, device) for _ in range(3)]
     f_bytes = 4 * (2 * M * D + 2 * D * F + F + 3 * D)
-    f_flops = 4 * M * D * F + 10 * M * F + 10 * M * D
+    f_mm, f_ew = 4 * M * D * F, 10 * M * F + 10 * M * D  # the two products; the rest
+    f_flops = f_mm + f_ew
     rows = []
     for name, src, replaces, fn, plain, sets, nbytes, flops, err, per_rep in (
         ("recency_weighted_average", "imm_tsf_torch/csrc/recavg.cu",
@@ -1384,6 +1397,13 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "ok": True, "max_abs_err": err,
                      **timed(fn, plain, None, sets, nbytes, flops, per_rep)})
+    # #2's products run as 3 TF32 passes on the tensor cores, the rest in fp32
+    ffn_row = rows[-1]
+    ffn_row["bound_fma_ms"] = ffn_row["bound_ms"]
+    t_ops = (3 * f_mm / PEAK_TF32_FLOP_PER_S + f_ew / PEAK_FP32_FLOP_PER_S) * 1e3
+    t_bytes = f_bytes / PEAK_BYTES_PER_S * 1e3
+    ffn_row["bound_ms"] = max(t_ops, t_bytes)
+    ffn_row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
 
     by_shape = {}
     key = lambda shape: "[" + ",".join(map(str, shape)) + "]"
@@ -1512,25 +1532,34 @@ def measure_training(train) -> list[dict]:
                     "trans_var", "init_cu", "init_cl"), (a.detach() for a in args[:10])))
     b_bytes, b_flops = scan_bwd_work(ins, van_loan_blocks(ins))
     bwd = step["scan_bwd_check"]
-    plan, by_cluster = {}, {}
-    if args[0].device.type == "cuda":  # #7's launch plan exists on a card only
+    plan, by_cluster, f_plan, f_by_cluster = {}, {}, {}, {}
+    f_sets = [[M, G, MAX_SQUARINGS] for M, G in pairs]
+    if args[0].device.type == "cuda":  # the launch plans exist on a card only
         B, _, lod = ins["y_mean"].shape
         plan = cru_scan.cluster_plan(B, lod, ins["coeff_w"].shape[1], args[0].device)
         by_cluster = {C: device_ms(lambda *a, C=C: cru_scan.fused_cru_scan_backward(*a, cluster=C),
                                    [list(args)], per_rep=2)
-                      for C in cru_scan.CLUSTER_SIZES}
+                      for C in CLUSTER_SIZES}
         log(f"# fused_cru_scan_backward at B {B}: {plan}; device ms by cluster size "
             f"{by_cluster}")
+        f_plan = expm.frechet_plan(pairs[0][0].shape[0], args[0].device)
+        f_by_cluster = {C: device_ms(lambda *a, C=C: expm.batched_expm_frechet(*a, cluster=C),
+                                     f_sets, per_rep=len(pairs))
+                        for C in CLUSTER_SIZES}
+        log(f"# batched_expm_frechet at {list(pairs[0][0].shape)}: {f_plan}; device ms by "
+            f"cluster size {f_by_cluster}")
+    f_timed = timed(expm.batched_expm_frechet, expm_frechet_taylor12,
+                    (torch.linalg.matrix_exp, blocks), f_sets,
+                    sum(w[0] for w in work) / len(work), sum(w[1] for w in work) / len(work),
+                    len(pairs))
     return [
         {"name": "batched_expm_frechet", "route": "cuda",
          "source": "imm_tsf_torch/csrc/expm_frechet.cu",
          "replaces": "imm_tsf_tpu/ops/pallas/expm_kernel.py:179", "ok": True,
          "max_abs_err": f_abs, "max_rel_err": step["frechet_err"],
-         "shape": list(pairs[0][0].shape),
-         **timed(expm.batched_expm_frechet, expm_frechet_taylor12,
-                 (torch.linalg.matrix_exp, blocks), [[M, G, MAX_SQUARINGS] for M, G in pairs],
-                 sum(w[0] for w in work) / len(work), sum(w[1] for w in work) / len(work),
-                 len(pairs)),
+         "shape": list(pairs[0][0].shape), **f_timed,
+         # float32 FMA products (the 3xTF32 emulation strays past half of FRECHET_RTOL)
+         "bound_fma_ms": f_timed["bound_ms"], **f_plan, "ms_by_cluster": f_by_cluster,
          "launches": train["routes"]["default"]["launches"]["batched_expm_frechet"],
          "launches_per_step": len(pairs)},
         {"name": "fused_cru_scan_backward", "route": "cuda",

@@ -21,8 +21,9 @@
 // contract (|err| <= 2e-5 + 1e-5|ref|). Each float32 operand x is split
 // into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna's rounding), and a product takes
 // lo*hi, hi*lo and hi*hi, accumulated in float32 by the mma: the dropped
-// lo*lo term is below 2^-21 relative. tests/test_torch_attn_tf32x3.py
-// emulates the scheme on the CPU against the JAX package's reference.
+// lo*lo term is below 2^-21 relative (tf32x3.cuh).
+// tests/test_torch_attn_tf32x3.py emulates the scheme on the CPU against
+// the JAX package's reference.
 //
 // Design. A block of four warps takes a 64-row tile of query rows; a warp
 // owns 16 of them. Keys and values come 64 rows at a time, by 16-byte
@@ -55,7 +56,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::mma_3xtf32;
+using tf32x3::split;
+using tf32x3::split4;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -66,61 +76,6 @@ struct Tile {
   static constexpr int kLd = DP + 4;  // row stride in floats (16-byte rows)
   static constexpr int kFloats = kRows * kLd;
 };
-
-// the bits of cvt.rna.tf32.f32(x) for finite x (round the magnitude to 10
-// mantissa bits, ties away from zero) by two integer operations: the
-// conversion instruction issues at 16 a cycle on an SM, these at 64
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to about 2^-21 relative, both TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void split4(const float a[4], uint32_t ah[4], uint32_t al[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
-}
-
-// c[n] += a b[n] for N tiles, a and b[n] already split: lo*hi, hi*lo, then
-// hi*hi on each accumulator, each pass over all N tiles before the next, so
-// that N independent mma lie between two that share an accumulator
-template <int N>
-__device__ __forceinline__ void mma_3xtf32(float c[N][4], const uint32_t ah[4],
-                                           const uint32_t al[4], const uint32_t bh[N][2],
-                                           const uint32_t bl[N][2]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bl[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bh[n]);
-}
-
-// 16 bytes from global to shared memory; zeros when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -38,14 +38,14 @@
 // Bm^T), is split by rows: a CTA computes 64 / C rows (in a product a
 // thread a (4 / C) x 4 patch), writes them into the same buffer of every
 // CTA of the cluster over distributed shared memory, and one cluster
-// barrier makes them visible (expm.cuh's team interface, here `Cluster`).
+// barrier makes them visible (expm.cuh's team interface, team.cuh's `Cluster`).
 // The squaring count comes from each CTA's own copy of the matrix; the
 // copies are equal, so every CTA takes the same k and meets the same
 // barriers.
 //
 // A step is mostly shared-memory reads, not FMAs, so: the Frechet pair
-// products run their three matmuls in one pass over k (frechet.cuh,
-// kFusedPair: each row of X, dX, Y, dY read once); the Van Loan assembly
+// products run their three matmuls in one pass over k (frechet.cuh:
+// each row of X, dX, Y, dY read once); the Van Loan assembly
 // keeps up to eight of a thread's K-term sums side by side, and a warp
 // takes consecutive columns (conflict-free A_k reads). The per-step
 // scalar work (the Kalman update, the softmax, the covariance and mean
@@ -62,6 +62,7 @@
 
 #include "cru_step.cuh"
 #include "frechet.cuh"
+#include "team.cuh"
 
 namespace {
 
@@ -69,47 +70,11 @@ namespace cg = cooperative_groups;
 
 using cru::kMaxK;
 using cru::kMaxLsd;
+using expm::Cluster;
 
 constexpr int kThreads = expm::kThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 8;  // gA float4 reads a thread keeps in flight
-
-// expm.cuh's team over a cluster of C CTAs: CTA r owns rows
-// [r 64 / C, (r + 1) 64 / C) of every buffer, a thread a (4 / C) x 4 patch
-// (a cluster of one is a plain block: local stores, __syncthreads)
-template <int C>
-struct Cluster {
-  static constexpr int kRows = 4 / C;
-  static constexpr bool kFusedPair = true;
-  __device__ static int rank() {
-    if constexpr (C == 1) return 0;
-    else return static_cast<int>(cg::this_cluster().block_rank());
-  }
-  __device__ static int row0() { return rank() * (expm::kN / C) + (threadIdx.x / 16) * kRows; }
-  __device__ static int col0() { return (threadIdx.x % 16) * 4; }
-  template <class V>  // float or float4
-  __device__ static void put(float* s, const V& v) {
-    if constexpr (C == 1) {
-      *reinterpret_cast<V*>(s) = v;
-    } else {
-      cg::cluster_group cluster = cg::this_cluster();
-#pragma unroll
-      for (int r = 0; r < C; ++r)
-        *reinterpret_cast<V*>(cluster.map_shared_rank(s, static_cast<unsigned>(r))) = v;
-    }
-  }
-  __device__ static void sync() {
-    if constexpr (C == 1) __syncthreads();
-    else cg::this_cluster().sync();
-  }
-  // max row sum of |M| over this CTA's whole copy (equal in every CTA);
-  // ends with a cluster barrier, so no copy is written while one is read
-  __device__ static float norm(const float* s, float* red) {
-    const float norm = expm::inf_norm(s, red);
-    sync();
-    return norm;
-  }
-};
 
 struct Layout {  // dynamic shared memory, in floats
   int e, A, W, gW, m, cu, cl, cs, pm, pcu, pcl, pcs, den, qu, ql, r, gm, gcu, gcl, gcs, gpm,
@@ -503,45 +468,6 @@ int smem_bytes(int lod, int K, bool* a_in_smem) {
   return Layout(lsd, K, *a_in_smem).total * static_cast<int>(sizeof(float));
 }
 
-template <int C>
-cudaError_t configure(int B, int bytes, cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                      cudaLaunchAttribute* attr) {
-  cudaError_t err = cudaFuncSetAttribute(cru_scan_bwd_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(static_cast<unsigned>(B) * C);
-  cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = static_cast<size_t>(bytes);
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
-template <int C>
-int active_clusters(int bytes, int* out) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = configure<C>(1, bytes, nullptr, &cfg, &attr);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, cru_scan_bwd_kernel<C>, &cfg);
-  return static_cast<int>(err);
-}
-
-template <int C, class... Args>
-int launch(int B, int bytes, cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = configure<C>(B, bytes, stream, &cfg, &attr);
-  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, cru_scan_bwd_kernel<C>, args...);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  return static_cast<int>(err);
-}
-
 }  // namespace
 
 extern "C" int cru_scan_bwd_max_lod() { return kMaxLsd / 2; }
@@ -556,9 +482,9 @@ extern "C" int cru_scan_bwd_active_clusters(int lod, int K, int cluster, int* ou
   const int bytes = smem_bytes(lod, K, &a_in_smem);
   if (bytes < 0) return -bytes;
   switch (cluster) {
-    case 1: return active_clusters<1>(bytes, out);
-    case 2: return active_clusters<2>(bytes, out);
-    case 4: return active_clusters<4>(bytes, out);
+    case 1: return expm::active_clusters(cru_scan_bwd_kernel<1>, 1, kThreads, bytes, out);
+    case 2: return expm::active_clusters(cru_scan_bwd_kernel<2>, 2, kThreads, bytes, out);
+    case 4: return expm::active_clusters(cru_scan_bwd_kernel<4>, 4, kThreads, bytes, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -588,9 +514,15 @@ extern "C" int cru_scan_backward(const float* y, const float* yv, const float* v
 #define CRU_BWD_ARGS y, yv, valid, dts, W, b, A, q, res_m, res_cu, res_cl, res_cs, g, gy, gyv, \
                      gW, gb, gA, gq, gicu, gicl, T, lod, K, max_squarings, a_flag
   switch (cluster) {
-    case 1: return launch<1>(B, bytes, s, CRU_BWD_ARGS);
-    case 2: return launch<2>(B, bytes, s, CRU_BWD_ARGS);
-    default: return launch<4>(B, bytes, s, CRU_BWD_ARGS);
+    case 1:
+      return expm::launch_clusters(cru_scan_bwd_kernel<1>, 1, B, kThreads, bytes, s,
+                                   CRU_BWD_ARGS);
+    case 2:
+      return expm::launch_clusters(cru_scan_bwd_kernel<2>, 2, 2 * B, kThreads, bytes, s,
+                                   CRU_BWD_ARGS);
+    default:
+      return expm::launch_clusters(cru_scan_bwd_kernel<4>, 4, 4 * B, kThreads, bytes, s,
+                                   CRU_BWD_ARGS);
   }
 #undef CRU_BWD_ARGS
 }

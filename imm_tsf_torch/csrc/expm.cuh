@@ -71,11 +71,11 @@ __device__ __forceinline__ float lane(const float4& v, int j) {
 // gives the same members: kRows patch rows a thread, row0() and col0(),
 // put() (a float4 of the thread's patch into every copy of a buffer),
 // sync() (every copy written before any is read), norm() (the inf-norm of
-// a buffer, the same value in every thread, synchronised on return) and
-// kFusedPair (frechet.cuh's pair products in one pass).
+// a buffer, the same value in every thread, synchronised on return), and
+// for frechet.cuh kPingPong (its results into free buffers, one barrier a
+// product).
 struct Block {
   static constexpr int kRows = 4;
-  static constexpr bool kFusedPair = false;
   __device__ static int row0() { return (threadIdx.x / 16) * 4; }
   __device__ static int col0() { return (threadIdx.x % 16) * 4; }
   __device__ static void put(float* s, const float4& v) { *reinterpret_cast<float4*>(s) = v; }

@@ -1,7 +1,8 @@
-// Block-wide Frechet derivative of the matrix exponential of one matrix in
-// shared memory, shared by csrc/expm_frechet.cu (kernel #4, the batched
-// Frechet derivative) and csrc/cru_scan_bwd.cu (kernel #7, the fused CRU
-// scan backward, one Frechet derivative per step).
+// Frechet derivative of the matrix exponential of one matrix in shared
+// memory, by a team of threads (team.cuh's clusters), shared by
+// csrc/expm_frechet.cu (kernel #4, the batched Frechet derivative) and
+// csrc/cru_scan_bwd.cu (kernel #7, the fused CRU scan backward, one
+// Frechet derivative per step).
 //
 // The math of the TPU kernel's `frechet_value`
 // (imm_tsf_tpu/ops/pallas/expm_kernel.py:109-153): L_exp(M)[E] is the
@@ -14,6 +15,10 @@
 // and scales both halves by 2^-k (L is linear in E). There is no Taylor-4
 // tier. Per matrix: M^2, M^3, M^4 and two Paterson-Stockmeyer products,
 // then k squarings: (5 + k) pair products, 3 (5 + k) matrix products.
+//
+// A team with kPingPong (team.cuh's for kernel #4) writes each product's
+// result into a pair that no thread reads in that product, so a product
+// takes one barrier instead of two.
 //
 // Shared memory: eight 64 x kLd buffers (139,264 bytes), in this order:
 // X, dX (in: M and E zero-padded to 64 x 64; out: exp(M) and L), then
@@ -33,64 +38,57 @@ constexpr int kFrechetBuffers = 8;
 constexpr int kFrechetSmemFloats = kFrechetBuffers * kMat;
 constexpr int kFrechetSmemBytes = kFrechetSmemFloats * static_cast<int>(sizeof(float));
 
-// (pv, pd) = (X, dX) (Y, dY) on this thread's patch. A team with
-// kFusedPair runs the three products in one pass over k, so each row of X,
-// dX, Y and dY is read from shared memory once for all three (pd then sums
-// X dY and dX Y term by term); the others run them one after another.
-template <class Team = Block>
+// (pv, pd) = (X, dX) (Y, dY) on this thread's patch, the three products in
+// one pass over k: each row of X, dX, Y and dY is read from shared memory
+// once for all three (pd sums X dY and dX Y term by term).
+template <class Team>
 __device__ __forceinline__ void pair_product(const float* X, const float* dX, const float* Y,
                                              const float* dY, float pv[Team::kRows][4],
                                              float pd[Team::kRows][4]) {
-  if constexpr (Team::kFusedPair) {
-    constexpr int R = Team::kRows;
-    const int r0 = Team::row0(), c0 = Team::col0();
+  constexpr int R = Team::kRows;
+  const int r0 = Team::row0(), c0 = Team::col0();
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) pv[i][j] = pd[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) pv[i][j] = pd[i][j] = 0.f;
 #pragma unroll 2
-    for (int k = 0; k < kN; k += 4) {
-      float4 x[R], dx[R];
+  for (int k = 0; k < kN; k += 4) {
+    float4 x[R], dx[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      x[i] = *reinterpret_cast<const float4*>(X + (r0 + i) * kLd + k);
+      dx[i] = *reinterpret_cast<const float4*>(dX + (r0 + i) * kLd + k);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 y = *reinterpret_cast<const float4*>(Y + (k + kk) * kLd + c0);
+      const float4 dy = *reinterpret_cast<const float4*>(dY + (k + kk) * kLd + c0);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        x[i] = *reinterpret_cast<const float4*>(X + (r0 + i) * kLd + k);
-        dx[i] = *reinterpret_cast<const float4*>(dX + (r0 + i) * kLd + k);
-      }
+        const float a = lane(x[i], kk), da = lane(dx[i], kk);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 y = *reinterpret_cast<const float4*>(Y + (k + kk) * kLd + c0);
-        const float4 dy = *reinterpret_cast<const float4*>(dY + (k + kk) * kLd + c0);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float a = lane(x[i], kk), da = lane(dx[i], kk);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            pv[i][j] = fmaf(a, lane(y, j), pv[i][j]);
-            pd[i][j] = fmaf(a, lane(dy, j), pd[i][j]);
-            pd[i][j] = fmaf(da, lane(y, j), pd[i][j]);
-          }
+        for (int j = 0; j < 4; ++j) {
+          pv[i][j] = fmaf(a, lane(y, j), pv[i][j]);
+          pd[i][j] = fmaf(a, lane(dy, j), pd[i][j]);
+          pd[i][j] = fmaf(da, lane(y, j), pd[i][j]);
         }
       }
     }
-  } else {
-    matmul_patch<Team>(X, Y, pv);
-    matmul_patch<Team>(X, dY, pd);
-    matmul_acc_patch<Team>(dX, Y, pd);
   }
 }
 
 // row i of this thread's patch of a buffer
-template <class Team = Block>
+template <class Team>
 __device__ __forceinline__ float* patch_row(float* s, int i) {
   return s + (Team::row0() + i) * kLd + Team::col0();
 }
 
-template <class Team = Block>
+template <class Team>
 __device__ __forceinline__ float4 row4(const float* s, int i) {
   return *reinterpret_cast<const float4*>(s + (Team::row0() + i) * kLd + Team::col0());
 }
 
-template <class Team = Block>
+template <class Team>
 __device__ __forceinline__ void add_patch(const float* s, float p[Team::kRows][4]) {
   float q[Team::kRows][4];
   load_patch<Team>(s, q);
@@ -105,7 +103,7 @@ __device__ __forceinline__ void add_patch(const float* s, float p[Team::kRows][4
 // holds L_exp(M)[E] and buffer 0 exp(M) by Taylor-12; buffers 2-7 are
 // scratch. Every thread of the team (expm.cuh) must call it; it returns
 // synchronised. Returns the number of squarings.
-template <class Team = Block>
+template <class Team>
 __device__ inline int frechet_inplace(float* s, float* red, int max_squarings) {
   constexpr int R = Team::kRows;
   float* X = s;
@@ -175,6 +173,41 @@ __device__ inline int frechet_inplace(float* s, float* red, int max_squarings) {
   }
   Team::sync();
   pair_product<Team>(V4, D4, X, dX, pv, pd);  // mid = M^4 (B2 + c12 M^4)
+  if constexpr (Team::kPingPong) {
+    // B1 + mid over B1 (each thread reads and writes its own patch, which
+    // no other thread reads before the next barrier), then R = B0 + outer
+    // over B0 when k is odd, else over (X, dX), and the squarings
+    // alternate between the two pairs, ending in (X, dX): one barrier a
+    // product
+    add_patch<Team>(V3, pv);
+    add_patch<Team>(D3, pd);
+    store_patch<Team>(V3, pv);
+    store_patch<Team>(D3, pd);
+    Team::sync();
+    pair_product<Team>(V4, D4, V3, D3, pv, pd);  // outer = M^4 (B1 + mid)
+    add_patch<Team>(V2, pv);
+    add_patch<Team>(D2, pd);
+    float* src = k % 2 ? V2 : X;
+    float* dsrc = k % 2 ? D2 : dX;
+    float* dst = k % 2 ? X : V2;
+    float* ddst = k % 2 ? dX : D2;
+    store_patch<Team>(src, pv);
+    store_patch<Team>(dsrc, pd);
+    Team::sync();
+    for (int step = 0; step < k; ++step) {
+      pair_product<Team>(src, dsrc, src, dsrc, pv, pd);
+      store_patch<Team>(dst, pv);  // every thread read dst in the product before last
+      store_patch<Team>(ddst, pd);
+      Team::sync();
+      float* x = src;
+      src = dst;
+      dst = x;
+      x = dsrc;
+      dsrc = ddst;
+      ddst = x;
+    }
+    return k;
+  }
   Team::sync();                               // every thread has read X and dX
   add_patch<Team>(V3, pv);                    // B1 + mid
   add_patch<Team>(D3, pd);

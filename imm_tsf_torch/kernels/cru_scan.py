@@ -15,8 +15,8 @@ each step recomputed, the expm's adjoint by the Frechet pair recursion.
 Returns (gy, gyv [B,T,lod], gW [lsd,K], gb [K], gA [K,lsd,lsd], gq [lsd],
 gicu, gicl [lod]); the kernel writes the last six per sample and the
 wrapper sums them over the batch. Each sample runs on a thread-block
-cluster of `cluster_size(B, active)` CTAs, from the clusters the card holds
-at once (`cluster_plan`). Plain version:
+cluster of `_cluster.cluster_size(B, active)` CTAs, from the clusters the
+card holds at once (`cluster_plan`). Plain version:
 `ops.cru_scan.cru_scan_bwd_reference`.
 
 Each wrapper runs its plain version for CPU tensors and launches its
@@ -27,12 +27,12 @@ larger sizes raise.
 from __future__ import annotations
 
 import ctypes
-from fractions import Fraction
 
 import torch
 
 from ..ops.cru_scan import _build_A, cru_scan_bwd_reference, cru_scan_reference
-from . import _build
+from . import _build, _cluster
+from ._cluster import CLUSTER_SIZES
 
 launches = 0  # kernel launches through fused_cru_scan (#6)
 backward_launches = 0  # kernel launches through fused_cru_scan_backward (#7)
@@ -80,49 +80,16 @@ def _checked(name, args, extra, max_squarings, max_lod, max_k):
     return B, T, lod, K
 
 
-CLUSTER_SIZES = (1, 2, 4)  # CTAs a sample of #7 may take: 64 / C rows each
-
-
-def cluster_size(B: int, active: dict) -> int:
-    """#7's cluster size at batch B, from `active` {C: clusters of C CTAs
-    the card holds at once}: the C whose waves, ceil(B / active[C]), cost
-    the least at 1/C of a one-CTA cluster's time each (a sample's products
-    split over C CTAs); the smaller C on a tie, since every product then
-    pays fewer cluster barriers and copies. An H100 holds 132, 66 and 30
-    clusters of 1, 2 and 4 CTAs (a cluster stays inside one GPC), so B 32
-    takes C = 2: clusters of 4 would run in two waves."""
-    if B <= 0:
-        return 1
-    costs = {C: Fraction(-(-B // n), C) for C, n in active.items() if n > 0}
-    if not costs:
-        raise ValueError(f"fused_cru_scan_backward: no cluster size fits on the card ({active})")
-    return min(costs, key=lambda C: (costs[C], C))
-
-
-_active: dict = {}  # (device index, lod, K) -> {C: resident clusters}
-
-
 def cluster_plan(B: int, lod: int, K: int, device) -> dict:
-    """The launch of #7 at (B, lod, K) on a CUDA device: cluster size C,
-    the clusters of C CTAs the card holds at once (from
-    cudaOccupancyMaxActiveClusters), and the SMs that hold a CTA (one CTA
-    an SM: its shared memory takes most of one)."""
-    device = torch.device(device)
-    key = (device.index if device.index is not None else torch.cuda.current_device(), lod, K)
-    if key not in _active:
+    """#7's launch at (B, lod, K) on a CUDA device (_cluster.cluster_plan)."""
+    def count(C):
         lib = _build.load("cru_scan_bwd", _BWD_SIGNATURES)
-        counts = {}
-        with torch.cuda.device(key[0]):
-            for C in CLUSTER_SIZES:
-                n = ctypes.c_int(0)
-                _build.check(lib.cru_scan_bwd_active_clusters(lod, K, C, ctypes.byref(n)),
-                             "cru_scan_bwd_active_clusters")
-                counts[C] = n.value
-        _active[key] = counts
-    active = _active[key]
-    C = cluster_size(B, active)
-    return {"cluster": C, "active_clusters": active[C], "active_by_size": dict(active),
-            "ctas": B * C, "sms_in_use": min(B, active[C]) * C}
+        n = ctypes.c_int(0)
+        _build.check(lib.cru_scan_bwd_active_clusters(lod, K, C, ctypes.byref(n)),
+                     "cru_scan_bwd_active_clusters")
+        return n.value
+
+    return _cluster.cluster_plan(B, device, "cru_scan_bwd", (lod, K), count)
 
 
 def _kernel_inputs(args):

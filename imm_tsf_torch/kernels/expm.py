@@ -11,7 +11,9 @@ and agree to float32 rounding.
 
 #4 ports `expm_frechet_pallas`: L_exp(M)[E] of every pair of M, E
 [B, n, n] float32 by Taylor-12 and k squarings on (value, derivative)
-pairs (csrc/frechet.cuh). Its plain version is
+pairs (csrc/frechet.cuh), each matrix on a thread-block cluster of
+`_cluster.cluster_size(B, active)` CTAs, from the clusters the card holds
+at once (`frechet_plan`). Its plain version is
 `ops.expm.expm_frechet_taylor12`, the same recursion.
 
 Each wrapper runs its plain version for CPU tensors and launches its
@@ -25,7 +27,7 @@ import ctypes
 import torch
 
 from ..ops.expm import expm_frechet_taylor12, expm_taylor12
-from . import _build
+from . import _build, _cluster
 
 launches = 0  # kernel launches through batched_expm (#5)
 frechet_launches = 0  # kernel launches through batched_expm_frechet (#4)
@@ -36,7 +38,8 @@ _SIGNATURES = {
     "expm_max_n": ([], _I),
 }
 _FRECHET_SIGNATURES = {
-    "expm_frechet_forward": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "expm_frechet_forward": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "expm_frechet_active_clusters": ([_I, ctypes.POINTER(ctypes.c_int)], _I),
     "expm_frechet_max_n": ([], _I),
 }
 
@@ -78,23 +81,41 @@ def batched_expm(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
     return out
 
 
-def batched_expm_frechet(M: torch.Tensor, E: torch.Tensor,
-                         max_squarings: int = 7) -> torch.Tensor:
-    """M, E [B, n, n] float32 -> L_exp(M)[E] [B, n, n]."""
+def frechet_plan(B: int, device) -> dict:
+    """#4's launch at batch B on a CUDA device (_cluster.cluster_plan)."""
+    def count(C):
+        lib = _build.load("expm_frechet", _FRECHET_SIGNATURES)
+        n = ctypes.c_int(0)
+        _build.check(lib.expm_frechet_active_clusters(C, ctypes.byref(n)),
+                     "expm_frechet_active_clusters")
+        return n.value
+
+    return _cluster.cluster_plan(B, device, "expm_frechet", (), count)
+
+
+def batched_expm_frechet(M: torch.Tensor, E: torch.Tensor, max_squarings: int = 7,
+                         cluster: int | None = None) -> torch.Tensor:
+    """M, E [B, n, n] float32 -> L_exp(M)[E] [B, n, n]. `cluster` (1, 2 or
+    4) sets the CTAs a matrix takes on the card; None: `frechet_plan`'s."""
     if M.device.type == "cpu":
         return expm_frechet_taylor12(M, E, max_squarings)
     if M.device.type != "cuda":
         raise ValueError(f"batched_expm_frechet: unsupported device {M.device}")
     lib = _build.load("expm_frechet", _FRECHET_SIGNATURES)
     _check("batched_expm_frechet", {"M": M, "E": E}, max_squarings, lib.expm_frechet_max_n)
+    if cluster is not None and cluster not in _cluster.CLUSTER_SIZES:
+        raise ValueError(f"batched_expm_frechet: cluster must be one of "
+                         f"{_cluster.CLUSTER_SIZES}, got {cluster}")
     B, n, _ = M.shape
     M, E = M.contiguous(), E.contiguous()
     out = torch.empty_like(M)
     if B == 0:
         return out
+    if cluster is None:
+        cluster = frechet_plan(B, M.device)["cluster"]
     stream = torch.cuda.current_stream(M.device).cuda_stream
     rc = lib.expm_frechet_forward(M.data_ptr(), E.data_ptr(), out.data_ptr(), B, n,
-                                  max_squarings, stream)
+                                  max_squarings, cluster, stream)
     _build.check(rc, "batched_expm_frechet")
     global frechet_launches
     frechet_launches += 1

@@ -5,7 +5,8 @@ forward only):
 
     out = LayerNorm(x + drop(drop(act(x W1 + b1)) W2 + b2)) * gamma + beta
 
-with the hash-dropout bits of layers/fast_dropout.py. The wrapper runs
+with the hash-dropout bits of layers/fast_dropout.py; the kernel runs both
+products on the tensor cores as 3xTF32 (float32 accuracy). The wrapper runs
 the plain version for CPU tensors and launches the kernel for CUDA
 tensors; a shape the kernel cannot take raises instead of silently
 running unfused. The backward and the a1/r residual outputs come with
@@ -60,7 +61,8 @@ def ffn_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ffn_forward": ([_P] * 9 + [_I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _I, _P], _I),
+    "ffn_forward": ([_P] * 9 + [_I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _I, _I, _P],
+                    _I),
     "ffn_max_d": ([], _I),
 }
 
@@ -114,12 +116,14 @@ def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
     out = torch.empty_like(x)
     if M == 0:
         return out
+    # 16-byte copies of x and the weights when their rows allow them
+    vec = D % 4 == 0 and Fdim % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, w1t, w2t))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.ffn_forward(
         x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
         b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), salts_ptr,
         out.data_ptr(), M, D, Fdim, float(keep_prob), _thresh(keep_prob),
-        _ACTS[act], int(bool(apply_dropout)), stream)
+        _ACTS[act], int(bool(apply_dropout)), int(vec), stream)
     _build.check(rc, "fused_encoder_ffn")
     global launches
     launches += 1

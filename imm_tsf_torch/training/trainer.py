@@ -10,7 +10,12 @@ Parity with reference main.py:945-1176:
   - the loss is checked for NaN at every step.
 
 This is the JAX package's streaming loop (:794-829): one host batch at a
-time, moved to the device, one gradient step. Its device-resident epoch
+time, moved to the device, one gradient step; a batch that runs out of
+device memory before the optimizer step is skipped with a warning, as
+the reference skips it (:802-821). `profile_dir` traces one epoch with
+torch.profiler (the epoch the JAX trainer picks, :729-744) and
+`debug_nans` runs the training under autograd's anomaly mode (the JAX
+package's NaN trapping, :726-727). Its device-resident epoch
 loop (`device_loop`, training/device_loop.py) is not ported yet: the flag
 is accepted and ignored, and the JAX package tests the two loops as equal
 (tests/test_device_loop.py). Best weights go to
@@ -22,7 +27,9 @@ not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 
 import numpy as np
@@ -42,7 +49,16 @@ def make_forward(cfg: Config, model, fusion):
     `pred_y.float()`, then the fusion stack when the run has text.
     `batch` holds tensors on the modules' device; the modules' train or
     eval mode is the caller's (eval under `torch.inference_mode()` to
-    serve)."""
+    serve).
+
+    compute_dtype: "float32" and "highest" run every product in full
+    float32 (the port keeps TF32 off, device.py), which is what "highest"
+    asks for; "bfloat16" and "amp_bf16" are refused, where the JAX
+    package's make_forward would cast or refuse (:163-193)."""
+    if cfg.compute_dtype in ("bfloat16", "amp_bf16"):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port computes in float32 only; "
+            "bfloat16 compute is not ported yet (ROADMAP.md, Queue 1, item 18)")
 
     def forward(batch: dict):
         pred_y = model(batch["tp_to_predict"], batch["observed_data"],
@@ -82,6 +98,10 @@ class StepTimer:
         event.record()
         self._events.append(event)
 
+    def discard(self) -> None:
+        """Drop the marks of a step that did not finish."""
+        self._events = []
+
     def collect(self) -> None:
         ev, self._events = self._events, []
         for name, a, b in zip(self.PHASES, ev[:-1], ev[1:]):
@@ -91,20 +111,26 @@ class StepTimer:
 def make_grad_step(loss_fn, optimizer, params, clip_norm: float = 1.0,
                    timer: StepTimer | None = None):
     """grad_step(batch) -> loss (0-d, on the device): forward, backward,
-    clip, Adam step. `timer` marks the phases with CUDA events."""
+    clip, Adam step. `timer` marks the phases with CUDA events.
+    `grad_step.stepping` is True from the clip and optimizer step of the
+    latest call on: an error raised before it left the parameters and
+    Adam state untouched."""
     mark = timer.mark if timer is not None else (lambda: None)
 
     def grad_step(batch: dict):
+        grad_step.stepping = False
         optimizer.zero_grad(set_to_none=True)
         mark()
         loss = loss_fn(batch)
         mark()
         loss.backward()
         mark()
+        grad_step.stepping = True
         clip_and_step(optimizer, params, clip_norm)
         mark()
         return loss.detach()
 
+    grad_step.stepping = False
     return grad_step
 
 
@@ -133,8 +159,6 @@ def check_trainable(cfg: Config) -> None:
         (cfg.enable_text and not cfg.use_text_embeddings,
          "training on raw-text notes comes with the remaining LLM work "
          "(ROADMAP.md, Queue 1, slice 6)"),
-        (cfg.compute_dtype in ("bfloat16", "amp_bf16"),
-         f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32 only"),
         (bool(cfg.mesh_shape),
          "mesh_shape: multi-GPU training comes with the system layers "
          "(ROADMAP.md, Queue 1, slice 7)"),
@@ -223,62 +247,113 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0, timer)
 
     best_val_mse, best_iter, test_res, no_improve, history = np.inf, -1, None, 0, []
-    for itr in range(cfg.epoch):
-        st = time.time()
-        step_losses = []
-        for step, batch in enumerate(data_obj["train_dataloader"]):
-            loss = float(grad_step(to_device(batch, device)))
-            if timer is not None:
-                timer.collect()
-            if np.isnan(loss):
-                raise FloatingPointError(
-                    f"NaN loss at epoch {itr} step {step} "
-                    f"(model={cfg.model}, dataset={cfg.dataset})")
-            step_losses.append(loss)
-            if log_every and step % log_every == 0:
-                logger.info("epoch %d step %d loss %.5f", itr, step, loss)
-        _mark("train", time.time() - st)
-
-        t0 = time.time()
-        val_res = run_evaluation(forward, data_obj["val_dataloader"], device, modules)
-        _mark("val", time.time() - t0)
-        if best_val_mse - val_res["mse"] > cfg.early_stop_delta:
-            best_val_mse, best_iter, no_improve = val_res["mse"], itr, 0
-            if data_obj["test_dataloader"] is not None:
+    # profile_dir traces the epoch the JAX trainer traces: its second (the
+    # first is its compile), or the only one
+    profile_epoch = None if cfg.profile_dir is None else (1 if cfg.epoch > 1 else 0)
+    # debug_nans: anomaly mode raises where a backward first gives a NaN
+    anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
+               else contextlib.nullcontext())
+    with anomaly:
+        for itr in range(cfg.epoch):
+            st = time.time()
+            with (_trace(cfg.profile_dir, itr, device) if itr == profile_epoch
+                  else contextlib.nullcontext()):
+                step_losses = _train_epoch(cfg, itr, data_obj["train_dataloader"], grad_step,
+                                           timer, device, log_every)
+                _mark("train", time.time() - st)
                 t0 = time.time()
-                test_res = run_evaluation(forward, data_obj["test_dataloader"], device,
-                                          modules)
-                _mark("test", time.time() - t0)
-            else:  # no test split: the best epoch's val metrics
-                test_res = dict(val_res)
-            if checkpoint_dir is not None:
-                from .checkpoint import save_experiment
+                val_res = run_evaluation(forward, data_obj["val_dataloader"], device, modules)
+                _mark("val", time.time() - t0)
+            if best_val_mse - val_res["mse"] > cfg.early_stop_delta:
+                best_val_mse, best_iter, no_improve = val_res["mse"], itr, 0
+                if data_obj["test_dataloader"] is not None:
+                    t0 = time.time()
+                    test_res = run_evaluation(forward, data_obj["test_dataloader"], device,
+                                              modules)
+                    _mark("test", time.time() - t0)
+                else:  # no test split: the best epoch's val metrics
+                    test_res = dict(val_res)
+                if checkpoint_dir is not None:
+                    from .checkpoint import save_experiment
 
-                save_experiment(checkpoint_dir, cfg.replace(platform="auto"),
-                                model.state_dict(),
-                                fusion.state_dict() if fusion is not None else None, itr)
-        else:
-            no_improve += 1
+                    save_experiment(checkpoint_dir, cfg.replace(platform="auto"),
+                                    model.state_dict(),
+                                    fusion.state_dict() if fusion is not None else None, itr)
+            else:
+                no_improve += 1
 
-        epoch_secs = time.time() - st
-        n_windows = len(data_obj["train_dataloader"]) * cfg.batch_size
-        history.append(dict(epoch=itr, train_loss=step_losses[-1] if step_losses else np.nan,
-                            step_losses=step_losses, val=val_res, secs=epoch_secs,
-                            windows_per_sec=n_windows / max(epoch_secs, 1e-9)))
-        logger.info("- Epoch %03d | train loss %.5f | val mse %.5f mae %.5f | %.2fs"
-                    " | %.0f windows/s", itr, history[-1]["train_loss"], val_res["mse"],
-                    val_res["mae"], epoch_secs, history[-1]["windows_per_sec"])
-        if best_iter == itr:
-            logger.info("Test - best epoch %d, mse %.5f, mae %.5f",
-                        best_iter, test_res["mse"], test_res["mae"])
-        if no_improve >= cfg.patience:
-            logger.info("Exp has been early stopped!")
-            break
+            epoch_secs = time.time() - st
+            n_windows = len(data_obj["train_dataloader"]) * cfg.batch_size
+            history.append(dict(epoch=itr,
+                                train_loss=step_losses[-1] if step_losses else np.nan,
+                                step_losses=step_losses, val=val_res, secs=epoch_secs,
+                                windows_per_sec=n_windows / max(epoch_secs, 1e-9)))
+            logger.info("- Epoch %03d | train loss %.5f | val mse %.5f mae %.5f | %.2fs"
+                        " | %.0f windows/s", itr, history[-1]["train_loss"], val_res["mse"],
+                        val_res["mae"], epoch_secs, history[-1]["windows_per_sec"])
+            if best_iter == itr:
+                logger.info("Test - best epoch %d, mse %.5f, mae %.5f",
+                            best_iter, test_res["mse"], test_res["mae"])
+            if no_improve >= cfg.patience:
+                logger.info("Exp has been early stopped!")
+                break
 
     if timer is not None:
         timings["step_ms"] = timer.ms
     assert test_res is not None, "No test results available."
     return dict(test_res, best_iter=best_iter, history=history, model=model, fusion=fusion)
+
+
+def _train_epoch(cfg, itr, loader, grad_step, timer, device, log_every) -> list[float]:
+    """One epoch of gradient steps; returns the steps' losses. A batch that
+    runs out of device memory before the optimizer step is skipped with a
+    warning (reference main.py:1107-1110); at or after it, the error is
+    raised, since the parameters or Adam state may be partly updated."""
+    step_losses = []
+    for step, batch in enumerate(loader):
+        try:
+            loss = float(grad_step(to_device(batch, device)))
+        except torch.cuda.OutOfMemoryError as e:
+            if timer is not None:
+                timer.discard()
+            if grad_step.stepping:
+                raise RuntimeError(
+                    f"out of memory at epoch {itr} step {step} in the optimizer step: the "
+                    "parameters or Adam state may be partly updated, so the batch cannot "
+                    "be skipped; reduce batch_size or model size") from e
+            logger.warning("[OOM] epoch %d step %d: skipping batch", itr, step)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            continue
+        if timer is not None:
+            timer.collect()
+        if np.isnan(loss):
+            raise FloatingPointError(
+                f"NaN loss at epoch {itr} step {step} "
+                f"(model={cfg.model}, dataset={cfg.dataset})")
+        step_losses.append(loss)
+        if log_every and step % log_every == 0:
+            logger.info("epoch %d step %d loss %.5f", itr, step, loss)
+    return step_losses
+
+
+@contextlib.contextmanager
+def _trace(profile_dir: str, itr: int, device):
+    """torch.profiler over the block (host and, on cuda, device activity),
+    written as a Chrome trace to <profile_dir>/trace_epoch<itr>.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_epoch{itr}.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace (train+val epoch %d) -> %s", itr, path)
 
 
 class _EmbedNotesLoader:
@@ -344,6 +419,11 @@ def make_loader_wrappers(cfg: Config, device=None) -> list:
     wrappers = []
     if cfg.enable_text and not cfg.use_text_embeddings:
         from ..llm.loader import load_llm
+
+        if cfg.llm_tp > 1:  # the JAX package shards the LLM over llm_tp devices
+            raise NotImplementedError(
+                f"llm_tp={cfg.llm_tp}: the tensor-parallel LLM mesh comes with the system "
+                "layers (ROADMAP.md, Queue 1, item 16)")
 
         llm, tokenizer = load_llm(cfg.llm_model_fusion, cfg.llm_layers_fusion,
                                   device=device,

@@ -12,8 +12,8 @@ ATTN_TOL, the tolerance the kernel is held to on the card. With `-s` they
 print the error of one TF32 pass at the same shapes, which misses that
 tolerance (PERF.md).
 
-Also here: the pure-Python choice of the cluster size of the CRU scan
-backward (kernel #7)."""
+Also here: the pure-Python choice of the cluster size of the kernels that
+split a matrix over a thread-block cluster (#4 and #7)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,7 @@ import torch
 from chip_smoke import ATTN_TOL, attn_ragged_inputs, bucket_lo
 from imm_tsf_tpu.ops.pallas.attn_kernel import attention_reference as j_reference
 
-from imm_tsf_torch.kernels.cru_scan import cluster_size
+from imm_tsf_torch.kernels._cluster import cluster_size
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 
 torch.set_num_threads(1)

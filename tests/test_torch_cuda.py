@@ -7,16 +7,16 @@ has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: float32 with another summation order, |err| <= 1e-4 +
-1e-4|ref| for the FFN (K=2048 sums), 1e-5 + 1e-5|ref| for the recency
-average (N-term sums), 2e-5 + 1e-5|ref| for the causal attention (online
-softmax against the plain two-pass softmax); the expm to 1e-5 of each
-matrix's largest entry (tiered Taylor against Taylor-12, up to 7
-squarings); its Frechet derivative to 2e-5 of each matrix's largest entry
-(tests/test_ops_expm.py:117); the fused CRU scan and its backward against
-their plain versions run in float64, to 2.5 x (1e-4 + 1e-4|ref|) and
-SCAN_BWD_SCORE_MAX x (1e-5 max|ref| + 1e-5|ref|) (chip_smoke.check_scan and
-check_scan_bwd: T Kalman steps whose float32 rounding alone passes
-1e-4 + 1e-4|ref|)."""
+1e-4|ref| for the FFN (K=2048 sums, 3xTF32 products), 1e-5 + 1e-5|ref|
+for the recency average (N-term sums), 2e-5 + 1e-5|ref| for the causal
+attention (online softmax against the plain two-pass softmax); the expm
+to 1e-5 of each matrix's largest entry (tiered Taylor against Taylor-12,
+up to 7 squarings); its Frechet derivative to 2e-5 of each matrix's
+largest entry (tests/test_ops_expm.py:117), at each cluster size; the
+fused CRU scan and its backward against their plain versions run in
+float64, to 2.5 x (1e-4 + 1e-4|ref|) and SCAN_BWD_SCORE_MAX x (1e-5
+max|ref| + 1e-5|ref|) (chip_smoke.check_scan and check_scan_bwd: T Kalman
+steps whose float32 rounding alone passes 1e-4 + 1e-4|ref|)."""
 
 import os
 
@@ -54,6 +54,9 @@ def gen(dev):
     (200, 512, 2048, "relu", True),
     (37, 96, 200, "gelu", True),  # ragged D and F: masked columns
     (1, 512, 64, "relu", False),
+    (130, 64, 256, "gelu", True),    # one column tile of GEMM2's warps in use
+    (100, 256, 2048, "relu", False),
+    (77, 30, 70, "relu", True),      # D, F not multiples of 4: 4-byte copies
 ])
 def test_ffn_kernel_matches_plain(dev, gen, M, D, F, act, drop):
     args = ffn_inputs(M, D, F, gen, dev)
@@ -270,6 +273,22 @@ def test_frechet_kernel_matches_plain(dev, gen, B, n, norm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("B,n,norm", [(1, 64, 6.0), (3, 24, 3.0), (32, 64, 80.0), (32, 24, 0.5)])
+def test_frechet_kernel_at_each_cluster_size(dev, gen, B, n, norm, cluster):
+    """One matrix over 1, 2 or 4 CTAs: the same function; n 24 leaves the
+    rows of the last CTAs of a cluster all padding."""
+    M, E = frechet_inputs(B, n, norm, gen, dev)
+    before = expm.frechet_launches
+    out = expm.batched_expm_frechet(M, E, 7, cluster=cluster)
+    torch.cuda.synchronize()
+    assert expm.frechet_launches == before + 1
+    frechet_rel_err(out, expm_frechet_taylor12(M, E, 7))
+    plan = expm.frechet_plan(B, dev)
+    assert plan["active_by_size"][1] > 0 and plan["cluster"] in (1, 2, 4)
+
+
+@pytest.mark.cuda
 def test_frechet_kernel_at_zero_is_the_direction(dev, gen):
     """L_exp(0)[E] = E exactly: the CRU's pad steps have Bm = 0."""
     E = torch.randn((4, 64, 64), generator=gen, device=dev)
@@ -287,6 +306,8 @@ def test_frechet_kernel_refuses_what_it_cannot_take(dev, gen):
         expm.batched_expm_frechet(M, E.double())
     with pytest.raises(ValueError, match="float32"):
         expm.batched_expm_frechet(M, E[:1])
+    with pytest.raises(ValueError, match="cluster"):
+        expm.batched_expm_frechet(M, E, cluster=3)
 
 
 @pytest.mark.cuda
