@@ -27,12 +27,16 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       batched expm at [64,64,64] with inf-norms 0.01, 0.5, 6 and 80 (each
       tier: Taylor-4, Taylor-12, 3 and 7 squarings), a ragged [3,24,24]
       and an all-zero batch that must give exactly I, to 1e-5 of each
-      matrix's largest entry (tiered Taylor against Taylor-12);
+      matrix's largest entry (tiered Taylor against Taylor-12); then at
+      norms 0.5 and 80 on dense draws, block upper triangular ones (the
+      triangular form) and triangular ones with one lower-left entry set
+      (the dense form);
       fused CRU scan at the serving shape (B 64, T 72, lod 16, K 15) with
       repeat-padded tails and invalid steps, on post-means and all four
       residuals, against its plain version run in float64: within 2.5 x
       (1e-4 + 1e-4|ref|) (`check_scan`: float32 rounding alone reaches
-      1.25 x there);
+      1.25 x there); then at lod 12 (lsd 24, the Van Loan block laid out
+      at 32-offsets) on a draw of its own;
       the expm's Frechet derivative at the trained [32,64,64] with
       inf-norms 0.01-80, a ragged [3,24,24], M = 0 (exactly E) and each
       cluster size (1, 2, 4 CTAs a matrix) at norm 80, to 2e-5 of each
@@ -106,7 +110,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the TF32 tensor cores, the fp32-FMA bound beside it as bound_fma_ms,
     which #4 gives too; #4 and #7 with their cluster size, the clusters
     the card holds at once and the SMs in use, and their time at each
-    cluster size).
+    cluster size; #5 with the share of the served blocks that take its
+    triangular form; #3 also over the raw-text run's own launches, each
+    launched shape timed and bounded).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -382,11 +388,23 @@ def tier_shares(M) -> dict:
             "mean_squarings_when_squared": float(k[k > 0].mean()) if bool((k > 0).any()) else 0.0}
 
 
+def expm_tri_inputs(B, n, norm, gen, device):
+    """expm_inputs with the lower-left 32 x 32 block zeroed: block upper
+    triangular matrices, which #5 takes in its triangular form."""
+    M = torch.randn((B, n, n), generator=gen, device=device)
+    M[:, 32:, :32] = 0.0
+    return M / M.abs().sum(-1).amax(-1)[:, None, None] * norm
+
+
 def expm_work(M) -> tuple[int, int]:
     """(bytes, FLOPs) one batched_expm call needs on M [B, n, n]: M read
-    and exp(M) written once; each matrix's products at 2n^3 FLOPs."""
+    and exp(M) written once; each matrix's products at n^3 FLOPs where it
+    takes the block-triangular form (expm.takes_triangular: three of the
+    four (n/2)^3 block products are nonzero, as scan_work counts the Van
+    Loan blocks), 2n^3 otherwise."""
     B, n, _ = M.shape
-    return 8 * B * n * n, int(expm_tiers(M)[2].sum()) * 2 * n ** 3
+    per_product = torch.where(expm.takes_triangular(M), n ** 3, 2 * n ** 3)
+    return 8 * B * n * n, int((expm_tiers(M)[2] * per_product).sum())
 
 
 def expm_rel_err(got, want) -> float:
@@ -634,6 +652,23 @@ def check_kernels(device, shapes, gen) -> dict:
             assert torch.equal(got, eye), "exp(0) must be exactly I (the CRU's pad steps)"
         log(f"# check {case} {tuple(M.shape)}: tiers {tier_shares(M)}, "
             f"max|err|/max|ref| {errs[case]:.3e}")
+    # each form (dense, block triangular, one nonzero lower-left entry: the
+    # dense form), at one and at the most squarings (draws of their own, so
+    # the checks after these keep theirs)
+    gen_x = torch.Generator(device=device).manual_seed(SEED + 3)
+    for norm in (0.5, 80.0):
+        for form, make in (("dense", expm_inputs), ("triangular", expm_tri_inputs),
+                           ("one lower entry", expm_tri_inputs)):
+            case = f"expm {form} norm {norm}"
+            M = make(B, n, norm, gen_x, device)
+            if form == "one lower entry":
+                M[:, 40, 7] = norm / 8
+            want_tri = form == "triangular"
+            if bool((expm.takes_triangular(M) != want_tri).any()):
+                raise AssertionError(f"{case}: takes_triangular is not {want_tri}")
+            errs[case] = expm_rel_err(expm.batched_expm(M, MAX_SQUARINGS),
+                                      expm_taylor12(M, MAX_SQUARINGS))
+            log(f"# check {case} {tuple(M.shape)}: max|err|/max|ref| {errs[case]:.3e}")
 
     Bs, T, lod, K = shapes["cru_scan"]
     ins = scan_inputs(Bs, T, lod, K, gen, device)
@@ -641,7 +676,15 @@ def check_kernels(device, shapes, gen) -> dict:
     errs["cru_scan"] = max(v["max_abs_err"] for v in scan.values())
     blocks = torch.cat(van_loan_blocks(ins))
     log(f"# check cru_scan B={Bs} T={T} lod={lod} K={K} (repeat-padded tails, "
-        f"invalid steps; Van Loan tiers {tier_shares(blocks)}): {json.dumps(scan)}")
+        f"invalid steps; Van Loan tiers {tier_shares(blocks)}, triangular "
+        f"{float(expm.takes_triangular(blocks).float().mean())}): {json.dumps(scan)}")
+    # lsd 24: unpermuted, its -A^T block would cross row 32 (a draw of its own)
+    gen_s = torch.Generator(device=device).manual_seed(SEED + 4)
+    ins = scan_inputs(Bs, T, 12, K, gen_s, device)
+    scan = check_scan(cru_scan.fused_cru_scan(**ins, max_squarings=MAX_SQUARINGS), ins)
+    errs["cru_scan lod 12"] = max(v["max_abs_err"] for v in scan.values())
+    log(f"# check cru_scan B={Bs} T={T} lod=12 K={K}: "
+        f"{ {k: round(v['score'], 3) for k, v in scan.items()} }")
 
     B, n = shapes["frechet"]
     zero_point = torch.zeros((B, n, n), device=device)
@@ -901,12 +944,14 @@ def run_raw_text_serving(device, n_requests: int, seed: int, exp_dir: str,
         requests = make_requests(cfg, n_requests, seed, note=TextNotes(max_words))
         d0, calls0 = svc.metrics()["dispatches_total"], stage.llm_calls
         ffn.launches = recavg.launches = attn.launches = 0
+        attn.launches_by_shape = {}
         t0 = time.monotonic()
         answers = serve_requests(svc, requests)
         wall = time.monotonic() - t0
         launches = {"fused_encoder_ffn": ffn.launches,
                     "recency_weighted_average": recavg.launches,
                     "fused_causal_attention": attn.launches}
+        attn_shapes = [[list(k), n] for k, n in sorted(attn.launches_by_shape.items())]
         metrics = svc.metrics()
         dispatches = metrics["dispatches_total"] - d0
         for name, n in launches.items():
@@ -959,7 +1004,8 @@ def run_raw_text_serving(device, n_requests: int, seed: int, exp_dir: str,
             profile = profile_dispatch(svc, built, reset=stage._cache.clear)
             log(f"# one uncontended raw-text dispatch of 64 requests, every note new: "
                 f"{json.dumps(profile)}")
-        return {"launches": launches, "dispatches": dispatches,
+        return {"launches": launches, "attn_launches_by_shape": attn_shapes,
+                "dispatches": dispatches,
                 "requests_per_s": len(requests) / wall, "wall_s": wall,
                 "run_real_tokens": run_tokens,
                 "dispatch_ms": metrics["dispatch_latency_ms"], "embed": embed,
@@ -1430,7 +1476,8 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
     rows.append({"name": "fused_causal_attention", "route": "cuda",
                  "source": "imm_tsf_torch/csrc/attn.cu",
                  "replaces": "imm_tsf_tpu/ops/pallas/attn_kernel.py:109", "ok": True,
-                 **by_shape[head], "shape": head, "by_shape": by_shape})
+                 **by_shape[head], "shape": head, "by_shape": by_shape,
+                 "raw_text_run": attn_over_run(text, gen, device)})
     for row in rows:
         n = text["launches"][row["name"]]
         row["launches"] = n
@@ -1440,6 +1487,34 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
         for route, res in cru.items():
             row["launches_by_path"][f"cru_{route}"] = res["launches"].get(row["name"], 0)
     return rows + measure_cru(cru)
+
+
+def attn_over_run(text, gen, device) -> dict:
+    """#3 over the raw-text run's own launches (phase 4b): each launched
+    shape [rows, H, T, D] timed on inputs padded as its bucket pads them,
+    with its bound; summed over the run's launches of that shape, and
+    divided by the run's dispatches. `excess_ms` is the run's launches x
+    (ms - bound_ms), the quantity the redesign order ranks kernels by."""
+    shapes, total = {}, {"ms": 0.0, "bound_ms": 0.0, "excess_ms": 0.0}
+    for (Bq, H, Tq, Dq), n in text["attn_launches_by_shape"]:
+        sets = [attn_inputs(Bq, H, Tq, Dq, gen, device, bucket_lo(Tq)) for _ in range(2)]
+        work = [attn_work(a[3], H, Dq) for a in sets]
+        nbytes, flops = sum(w[0] for w in work) / 2, sum(w[1] for w in work) / 2
+        ms = (device_ms(attn.fused_causal_attention, sets, per_rep=20 if Tq <= 128 else 5)
+              if device.type == "cuda" else 0.0)
+        # the kernel's products run as 3 TF32 passes on the tensor cores
+        bound_ms = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)[0]
+        shapes[f"[{Bq},{H},{Tq},{Dq}]"] = {"launches": n, "ms": ms, "bound_ms": bound_ms}
+        total["ms"] += n * ms
+        total["bound_ms"] += n * bound_ms
+        total["excess_ms"] += n * (ms - bound_ms)
+    d = max(text["dispatches"], 1)
+    out = {"launches_by_shape": shapes, "dispatches": text["dispatches"],
+           "ms_per_dispatch": total["ms"] / d, "bound_ms_per_dispatch": total["bound_ms"] / d,
+           "excess_ms": total["excess_ms"]}
+    log(f"# attention over the raw-text run's {sum(v['launches'] for v in shapes.values())} "
+        f"launches: {json.dumps(out)}")
+    return out
 
 
 def measure_cru(cru) -> list[dict]:
@@ -1459,6 +1534,9 @@ def measure_cru(cru) -> list[dict]:
     sets = [[M, MAX_SQUARINGS] for M in blocks]
     s_bytes, s_flops = scan_work(ins, blocks)
     args = list(ins.values()) + [MAX_SQUARINGS]
+    triangular = float(torch.cat([expm.takes_triangular(M) for M in blocks]).float().mean())
+    log(f"# batched_expm: {triangular:.4f} of the served Van Loan blocks take the "
+        "block-triangular form")
     rows = [
         {"name": "batched_expm", "route": "cuda", "source": "imm_tsf_torch/csrc/expm.cu",
          "replaces": "imm_tsf_tpu/ops/pallas/expm_kernel.py:212", "ok": True,
@@ -1468,6 +1546,8 @@ def measure_cru(cru) -> list[dict]:
                  (torch.linalg.matrix_exp, [[M] for M in blocks]), sets,
                  sum(w[0] for w in work) / len(work), sum(w[1] for w in work) / len(work),
                  len(blocks)),
+         # the bound counts n^3 a product for a triangular matrix, 2n^3 otherwise
+         "triangular_share": triangular,
          "launches": cru["default"]["launches"]["batched_expm"]},
         {"name": "fused_cru_scan", "route": "cuda", "source": "imm_tsf_torch/csrc/cru_scan.cu",
          "replaces": "imm_tsf_tpu/ops/pallas/cru_scan_kernel.py:429", "ok": True,

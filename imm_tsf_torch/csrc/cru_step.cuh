@@ -41,13 +41,16 @@ __device__ __forceinline__ Update update(float m_u, float m_l, float c_u, float 
 }
 
 // Transition coefficients softmax(pm W + b) over K (CRUCell.py:440-500).
-// Warp 0 calls it; lane k < K writes coeff[k], the other lanes 0.
+// Warp 0 calls it; lane k < K writes coeff[k], the other lanes 0. The
+// lsd-term sum's loop is unrolled (its order stays), so its reads are
+// issued ahead of the FMA chain.
 __device__ __forceinline__ void coefficients(const float* pm, const float* W, const float* b,
                                              float* coeff, int lsd, int K) {
   const int lane = threadIdx.x;
   float logit = -INFINITY;
   if (lane < K) {
     float acc = 0.f;
+#pragma unroll 8
     for (int j = 0; j < lsd; ++j) acc = fmaf(pm[j], W[j * K + lane], acc);
     logit = acc + b[lane];
   }

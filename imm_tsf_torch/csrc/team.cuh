@@ -1,6 +1,7 @@
 // expm.cuh's team over a thread-block cluster, and the launch of a kernel
 // on clusters: shared by csrc/expm_frechet.cu (kernel #4, one matrix a
-// cluster) and csrc/cru_scan_bwd.cu (kernel #7, one sample a cluster).
+// cluster) and csrc/cru_scan_bwd.cu (kernel #7, one sample a cluster);
+// csrc/expm.cu (kernel #5) runs its dense form on a cluster of one.
 //
 // Cluster<C, PingPong, Threads>: C CTAs (1, 2 or 4) of Threads threads
 // (expm::kThreads or 128) run one matrix function together. Each CTA keeps
@@ -21,39 +22,6 @@
 #include "expm.cuh"
 
 namespace expm {
-
-// max row sum of |M| over a kN x kN buffer by a block of Threads threads
-// (kThreads: expm.cuh's inf_norm); red holds Threads / 32 floats. Every
-// thread returns the same value.
-template <int Threads>
-__device__ __forceinline__ float block_inf_norm(const float* s, float* red) {
-  if constexpr (Threads == kThreads) {
-    return inf_norm(s, red);
-  } else {
-    constexpr int kParts = Threads / kN;  // threads a row
-    static_assert(kParts >= 1 && kParts <= 4 && kN % (4 * kParts) == 0, "threads a row");
-    const int r = threadIdx.x / kParts, part = threadIdx.x % kParts;
-    const float4* row = reinterpret_cast<const float4*>(s + r * kLd + part * (kN / kParts));
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kN / kParts / 4; ++j) {
-      const float4 v = row[j];
-      sum += fabsf(v.x) + fabsf(v.y) + fabsf(v.z) + fabsf(v.w);
-    }
-#pragma unroll
-    for (int off = 1; off < kParts; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-    for (int off = kParts; off < 32; off <<= 1)
-      sum = fmaxf(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = sum;
-    __syncthreads();
-    float norm = red[0];
-#pragma unroll
-    for (int w = 1; w < Threads / 32; ++w) norm = fmaxf(norm, red[w]);
-    __syncthreads();  // red may be written again
-    return norm;
-  }
-}
 
 template <int C, bool PingPong = false, int Threads = kThreads>
 struct Cluster {

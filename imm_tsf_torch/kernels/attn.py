@@ -27,6 +27,7 @@ from ..layers.attention import masked_softmax
 from . import _build
 
 launches = 0  # kernel launches through fused_causal_attention
+launches_by_shape: dict = {}  # the same launches by (B, H, T, D)
 
 
 def attention_reference(q, k, v, pad) -> torch.Tensor:
@@ -91,4 +92,5 @@ def fused_causal_attention(q, k, v, pad) -> torch.Tensor:
     _build.check(rc, "fused_causal_attention")
     global launches
     launches += 1
+    launches_by_shape[(B, H, T, D)] = launches_by_shape.get((B, H, T, D), 0) + 1
     return out if D4 == D else out[..., :D].contiguous()

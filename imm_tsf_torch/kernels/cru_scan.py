@@ -7,7 +7,8 @@ for each sample, T sequential Kalman steps (update, softmax transition
 coefficients, Van Loan expm, covariance propagation) with the carry kept
 on chip. Returns (post_means [B,T,lsd], (pm [B,T,lsd], pcu, pcl, pcs
 [B,T,lod])), the residuals being the prior state entering each step, as
-the TPU kernel writes them for its backward. Plain version:
+the TPU kernel writes them for its backward. Each step's Van Loan expm
+runs in csrc/expm.cuh's block-triangular form. Plain version:
 `ops.cru_scan.cru_scan_reference`.
 
 #7 ports `cru_scan_bwd_pallas`: the reverse-time VJP on #6's residuals,

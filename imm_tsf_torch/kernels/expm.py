@@ -5,9 +5,12 @@ versions.
 #5 ports imm_tsf_tpu/ops/pallas/expm_kernel.py (`expm_pallas`): exp(M)
 of every matrix of M [B, n, n] float32, tiered Taylor (Taylor-4 at
 ||M||inf <= 1/32, else Taylor-12 on M/2^k and k squarings, k chosen per
-matrix; csrc/expm.cuh). Its plain version is `ops.expm.expm_taylor12`,
-the JAX package's path off the TPU: the two truncate below float32 eps
-and agree to float32 rounding.
+matrix; csrc/expm.cuh), one block of 128 threads a matrix. A matrix whose
+zero-padded lower-left 32 x 32 block is exactly zero (`takes_triangular`:
+every n <= 32, and the CRU's Van Loan blocks at lsd 32 or lsd <= 16)
+takes the block-triangular form, any other the dense one. Its plain
+version is `ops.expm.expm_taylor12`, the JAX package's path off the TPU:
+the two truncate below float32 eps and agree to float32 rounding.
 
 #4 ports `expm_frechet_pallas`: L_exp(M)[E] of every pair of M, E
 [B, n, n] float32 by Taylor-12 and k squarings on (value, derivative)
@@ -37,6 +40,7 @@ _SIGNATURES = {
     "expm_forward": ([_P, _P, _I, _I, _I, _P], _I),
     "expm_max_n": ([], _I),
 }
+HALF = 32  # the block size of the triangular form (64 / 2)
 _FRECHET_SIGNATURES = {
     "expm_frechet_forward": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "expm_frechet_active_clusters": ([_I, ctypes.POINTER(ctypes.c_int)], _I),
@@ -60,6 +64,19 @@ def _check(name: str, tensors: dict, max_squarings: int, max_n) -> None:
                          f"{max_n()} shared-memory matrices")
 
 
+def takes_triangular(M: torch.Tensor) -> torch.Tensor:
+    """Per matrix of M [..., n, n], n <= 64: whether #5 takes the
+    block-triangular form, i.e. the lower-left 32 x 32 block of M
+    zero-padded to 64 x 64 is exactly zero (a NaN is not zero). Always at
+    n <= 32. The CRU's Van Loan blocks [[A, Q], [0, -A^T]] dt (n = 2 lsd)
+    take it at lsd 32 and lsd <= 16; at 16 < lsd < 32 the -A^T block
+    crosses row 32 and they take the dense form. (#6 lays its blocks out
+    at 32-offsets, so every one of its steps is triangular.)"""
+    lower = M[..., HALF:, :HALF]
+    return (lower == 0).flatten(-2).all(-1) if lower.numel() else torch.ones(
+        M.shape[:-2], dtype=torch.bool, device=M.device)
+
+
 def batched_expm(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
     """M [B, n, n] float32 -> exp(M) [B, n, n]."""
     if M.device.type == "cpu":
@@ -70,6 +87,8 @@ def batched_expm(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
     _check("batched_expm", {"M": M}, max_squarings, lib.expm_max_n)
     B, n, _ = M.shape
     M = M.contiguous()
+    if M.data_ptr() % 16:  # the kernel reads 64-wide rows as float4
+        M = M.clone()
     out = torch.empty_like(M)
     if B == 0:
         return out

@@ -25,8 +25,9 @@ import torch
 
 from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, bucket_lo, check_scan,
                         check_scan_bwd, compare_step, dropout_probe_inputs, expm_inputs,
-                        expm_rel_err, ffn_inputs, frechet_inputs, frechet_rel_err,
-                        recavg_inputs, scan_bwd_case, scan_inputs, training_data)
+                        expm_rel_err, expm_tri_inputs, ffn_inputs, frechet_inputs,
+                        frechet_rel_err, recavg_inputs, scan_bwd_case, scan_inputs,
+                        training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 from imm_tsf_torch.ops.expm import expm as ops_expm
@@ -208,6 +209,43 @@ def test_expm_kernel_matches_plain(dev, gen, B, n, norm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,n,norm,form", [
+    (1, 64, 6.0, "dense"),
+    (1, 64, 6.0, "triangular"),
+    (3, 64, 80.0, "triangular"),  # 7 squarings: the result ends in buffer 4
+    (3, 64, 0.01, "triangular"),  # Taylor-4
+    (64, 64, 0.5, "triangular"),
+    (64, 64, 80.0, "dense"),
+    (3, 24, 3.0, "dense"),        # n <= 32 is always triangular once padded
+    (5, 1, 2.0, "dense"),
+    (2, 63, 1.5, "dense"),
+    (2, 63, 1.5, "triangular"),
+])
+def test_expm_kernel_in_each_form(dev, gen, B, n, norm, form):
+    """The dense and the block-triangular form: the same function."""
+    M = (expm_tri_inputs if form == "triangular" else expm_inputs)(B, n, norm, gen, dev)
+    assert bool(expm.takes_triangular(M).all()) == (form == "triangular" or n <= 32)
+    before = expm.launches
+    out = expm.batched_expm(M, 7)
+    torch.cuda.synchronize()
+    assert expm.launches == before + 1
+    expm_rel_err(out, expm_taylor12(M, 7))
+
+
+@pytest.mark.cuda
+def test_expm_kernel_one_lower_entry_takes_the_dense_form(dev, gen):
+    """A single nonzero in the lower-left 32 x 32 block: the triangular
+    form would drop it (an error of its size); the dense form's answer."""
+    M = expm_tri_inputs(4, 64, 1.0, gen, dev)
+    M[:, 47, 3] = 0.5
+    assert not bool(expm.takes_triangular(M).any())
+    out = expm.batched_expm(M, 7)
+    expm_rel_err(out, expm_taylor12(M, 7))
+    M[:, 47, 3] = 0.0
+    assert (out - expm_taylor12(M, 7)).abs().max() > 1e-2  # the entry matters
+
+
+@pytest.mark.cuda
 def test_expm_kernel_zero_is_exactly_identity(dev):
     out = expm.batched_expm(torch.zeros((4, 64, 64), device=dev))
     assert torch.equal(out, torch.eye(64, device=dev).expand(4, 64, 64))
@@ -226,9 +264,15 @@ def test_expm_kernel_refuses_what_it_cannot_take(dev, gen):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,lod,K", [
     (64, 72, 16, 15),  # the CRU preset at serving shape
-    (3, 9, 4, 5),      # a small Van Loan block, zero-padded to 64
+    (1, 72, 16, 15),
+    (3, 9, 4, 5),      # a small Van Loan block, laid out at 32-offsets
+    (3, 20, 12, 15),   # lsd 24: the -A^T block would cross row 32 unpermuted
+    (2, 9, 9, 3),
+    (2, 9, 15, 7),
     (2, 5, 1, 1),
     (1, 40, 16, 32),   # the most bases the softmax warp takes
+    (3, 40, 16, 32),
+    (2, 7, 16, 1),
 ])
 def test_cru_scan_kernel_matches_plain(dev, gen, B, T, lod, K):
     ins = scan_inputs(B, T, lod, K, gen, dev)
@@ -239,6 +283,20 @@ def test_cru_scan_kernel_matches_plain(dev, gen, B, T, lod, K):
     print(f"scores at {(B, T, lod, K)}:",
           {k: (round(v["score"], 3), round(v["plain_score"], 3))
            for k, v in check_scan(got, ins).items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lod", [16, 12, 4])
+def test_cru_scan_kernel_holds_its_state_over_pad_steps(dev, gen, lod):
+    """A tail of pad steps (dt = 0, invalid) is an exact identity step:
+    the post-means and the residual state stay as they were."""
+    ins = scan_inputs(4, 12, lod, 15, gen, dev)
+    ins["dts"][:, 6:] = 0.0
+    ins["valid"][:, 6:] = 0.0
+    out, (pm, pcu, pcl, pcs) = cru_scan.fused_cru_scan(**ins)
+    for res in (pm, pcu, pcl, pcs):
+        assert torch.equal(res[:, 7:], res[:, 6:7].expand_as(res[:, 7:]))
+    assert torch.equal(out[:, 7:], out[:, 6:7].expand_as(out[:, 7:]))
 
 
 @pytest.mark.cuda
@@ -331,6 +389,7 @@ def test_expm_backward_is_the_frechet_kernel(dev, gen, norm):
 @pytest.mark.parametrize("B,T,lod,K", [
     (32, 72, 16, 15),  # the CRU preset at the trained batch
     (3, 9, 4, 5),      # a small Van Loan block, zero-padded to 64
+    (3, 20, 12, 15),   # lsd 24, on #6's residuals
     (2, 5, 1, 1),
     (1, 40, 16, 32),   # the most bases: A_k read from device memory
 ])

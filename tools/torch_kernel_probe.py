@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""What bounds kernels #2 (the fused encoder FFN) and #4 (the expm's
-Frechet derivative) of the PyTorch/CUDA port, on one CUDA card.
+"""What bounds kernels #2 (the fused encoder FFN), #4 (the expm's Frechet
+derivative) and #5 (the batched expm) of the PyTorch/CUDA port, on one
+CUDA card.
 
     python tools/torch_kernel_probe.py
 
@@ -18,6 +19,10 @@ Prints one JSON line with:
 - `frechet_us`: #4 at [B, 64, 64] for B 32 and 64, at inf-norms 0.01, 6 and
   80 (5, 8 and 12 pair products a matrix), at each cluster size: the
   slope over the norms is the time of one pair product and its barrier.
+- `expm_us`: #5 at the served [64, 64, 64], dense and block triangular
+  draws (its two forms), at inf-norms 0.01, 0.5, 6 and 80 (2, 5, 8 and 12
+  products a matrix); `expm_us_per_product`, the least-squares slope over
+  those products: one product and its barrier.
 """
 
 from __future__ import annotations
@@ -81,6 +86,24 @@ def nvcc(src_path: str, out: str, csrc: str) -> None:
     subprocess.run(cmd, check=True, capture_output=True, text=True)
 
 
+def expm_probe(cs, expm, gen, dev) -> dict:
+    """#5 by form and norm, and the slope over products."""
+    times, slopes = {}, {}
+    products = {0.01: 2, 0.5: 5, 6.0: 8, 80.0: 12}
+    for form, inputs in (("dense", cs.expm_inputs), ("triangular", cs.expm_tri_inputs)):
+        xs, ys = [], []
+        for norm, n in products.items():
+            sets = [[inputs(64, 64, norm, gen, dev), cs.MAX_SQUARINGS] for _ in range(2)]
+            us = cs.device_ms(expm.batched_expm, sets) * 1e3
+            times[f"{form} norm {norm}"] = us
+            xs.append(n)
+            ys.append(us)
+        mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+        slopes[form] = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+                        / sum((x - mx) ** 2 for x in xs))
+    return {"expm_us": times, "expm_us_per_product": slopes}
+
+
 def main() -> int:
     import torch
 
@@ -96,7 +119,11 @@ def main() -> int:
     csrc = os.path.join(REPO, "imm_tsf_torch", "csrc")
     out_dir = os.path.join(REPO, "imm_tsf_torch", "_build", "probe")
     os.makedirs(out_dir, exist_ok=True)
-    out = {"device": torch.cuda.get_device_name(0)}
+    out = {"device": torch.cuda.get_device_name(0),
+           "power": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                    "--format=csv,noheader"], capture_output=True, text=True,
+                                   check=True).stdout.strip()}
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
 
     src = os.path.join(out_dir, "mma_rate.cu")
     with open(src, "w") as f:
@@ -128,7 +155,6 @@ def main() -> int:
             raise RuntimeError(f"ffn without products: cudaError_t {rc}")
         return y
 
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     sets = [cs.ffn_inputs(8192, 512, 2048, gen, dev) for _ in range(2)]
     out["ffn_ms"] = cs.device_ms(lambda *a: ffn.fused_encoder_ffn(*a, cs.KEEP, "gelu", False),
                                  sets, per_rep=10)
@@ -142,6 +168,7 @@ def main() -> int:
             for C in (1, 2, 4):
                 ms = cs.device_ms(lambda *a, C=C: expm.batched_expm_frechet(*a, cluster=C), fs)
                 out["frechet_us"][f"B {B} norm {norm} C {C}"] = ms * 1e3
+    out.update(expm_probe(cs, expm, gen, dev))
     print(json.dumps(out), flush=True)
     return 0
 
