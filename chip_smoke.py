@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       |err| <= 1e-5 + 1e-5|ref| (float32, N-term sums in another order);
       fused FFN at M=8192, D=512, F=2048 (gelu, no dropout), relu with
       dropout (keep 0.9) and a ragged M=1000, to |err| <= 1e-4 + 1e-4|ref|
-      (float32 by three TF32 passes, K=2048 sums in another order); with
-      dropout the zero patterns of both hash-dropout sites must equal the
-      hash bits exactly (structured inputs make them visible in the output);
+      (float32 by three TF32 passes, K=2048 sums in another order); its
+      training form at M=8192 with dropout (gelu): out, a1 and r to the
+      same; with dropout the zero patterns of both hash-dropout sites must
+      equal the hash bits exactly, in both forms (structured inputs make
+      them visible in the output and in r);
       causal attention at the shape of each embed_notes bucket call at the
       token budget (T 32-1024: [1024,12,32,64] ... [64,12,1024,64],
       right-padded notes) and a ragged [3,2,13,64] (token 0 padded in one
@@ -97,14 +99,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     plain path and a float64 plain run, #4 and #7 held to their plain
     versions on that step's own inputs, and one traced step per route;
     the trained shapes must equal those phase 3 checked;
- 5. (after 6 and 7) time each kernel and its plain version at the shapes
+ 8. train the main path: PatchTST + TTF_RecAvg + MMF_GR_Add through
+    `imm_tsf_torch.main.main([...])` (PATCH_TRAIN_ARGS: the PatchTST preset
+    at full width, d_model 512, d_ff 2048, 2 heads, 1 layer, dropout 0.1
+    hash, batch 32, two epochs) on phase 7's fixture, the kernel route
+    (`--use_pallas --use_fused_ffn`: #1 and #2) then the plain route
+    (`--use_pallas false`); each epoch's train loss, val MSE and windows/s
+    and each step's forward / backward / optimizer device ms printed;
+    every loss finite; launch counts exact (#1 once a forward, #2 once a
+    forward an encoder layer, its training form in the steps; nothing on
+    the plain route); then one step from seeded weights at the bench
+    headline's shape (B 64, L 48, Lp 24, C 8: the FFN at M 8192) three
+    ways under the same salts (`compare_patchtst_step`): the kernel route,
+    the plain route and a float64 plain run, loss to 1e-5 and every
+    gradient within GRAD_FACTOR x the plain route's distance from float64;
+    a traced step of each route and the time of #2's mask re-derivation;
+ 5. (after 6-8) time each kernel and its plain version at the shapes
     of its path (the attention at every bucket shape, beside
     scaled_dot_product_attention with the same boolean mask; the expm on
     the 72 Van Loan blocks of a served dispatch, beside
     torch.linalg.matrix_exp; the fused scan on that dispatch's scan
     inputs; the Frechet derivative on a training step's 72 [32,64,64]
     calls, beside matrix_exp of the 128-square block; the scan backward
-    on that step's inputs) and print one JSON line {"kernels": [...]}
+    on that step's inputs; #2's training form and its plain backward at
+    M 8192) and print one JSON line {"kernels": [...]}
     (seven rows) with the bound each is held to (#4-#7 from the data's
     own tiers and squarings; #2 and #3 at 3 x their products' FLOPs on
     the TF32 tensor cores, the fp32-FMA bound beside it as bound_fma_ms,
@@ -247,6 +265,15 @@ TRAIN_DATA = dict(n_entities=8, n_features=8, n_days=240, obs_per_day=3.25, note
 TRAIN_ARGS = ["--dataset", "EPA-Air", "--model", "CRU", "--overwrite_args", "--enable_text",
               "--use_text_embeddings", "--TTF_module", "TTF_RecAvg", "--MMF_module",
               "MMF_GR_Add", "--llm_model_fusion", "GPT2", "--epoch", "2", "--seed", str(SEED)]
+# phase 8 trains the bench headline experiment, PatchTST + TTF_RecAvg +
+# MMF_GR_Add, the same way on the same fixture: the PatchTST preset (2
+# heads, 1 layer) at the default full widths (d_model 512, d_ff 2048),
+# dropout 0.1 hash; the kernel route (#1 and #2's training form), then the
+# plain route (every kernel off, the FFN unfused: the JAX default)
+PATCH_TRAIN_ARGS = [a if a != "CRU" else "PatchTST" for a in TRAIN_ARGS]
+PATCH_ROUTES = {"kernel": ["--use_pallas", "true", "--use_fused_ffn", "true"],
+                "plain": ["--use_pallas", "false"]}
+PATCH_STEP_B = 64  # the compared step's batch: the FFN at M = 64 x 8 x 16 = 8192
 
 
 def log(msg: str) -> None:
@@ -606,6 +633,15 @@ def check_kernels(device, shapes, gen) -> dict:
         errs[case] = max_err(got, want, FFN_TOL)
         log(f"# check {case} M={m} D={D} F={F} {act} dropout={drop}: "
             f"max|err| {errs[case]:.3e}")
+    # the training form (out, a1 and r) with dropout, on a draw of its own so
+    # the checks after it keep theirs
+    args = ffn_inputs(M, D, F, torch.Generator(device=device).manual_seed(SEED + 5), device)
+    got = ffn._forward(*args, KEEP, "gelu", True, with_residuals=True)
+    want = ffn.ffn_forward_reference(*args, KEEP, "gelu", True, with_residuals=True)
+    errs["ffn training form"] = {name: max_err(g, w, FFN_TOL)
+                                 for name, g, w in zip(("out", "a1", "r"), got, want)}
+    log(f"# check ffn training form M={M} D={D} F={F} gelu dropout=True: max|err| "
+        f"{json.dumps(errs['ffn training form'])}")
     # the end buckets and the ragged case draw from gen as they always did, the
     # buckets between them from a generator of their own: so every later check
     # sees the draws its limit was set on (PERF.md)
@@ -630,14 +666,17 @@ def check_kernels(device, shapes, gen) -> dict:
         rows = ~expect.all(dim=1)
         got = (ffn.fused_encoder_ffn(*args, KEEP, "relu", True) > 0)[rows]
         want = (ffn.ffn_reference(*args, KEEP, "relu", True) > 0)[rows]
+        # the training form: its out, and r = drop_b(...) itself (x = 0)
+        train_out, _, train_r = ffn._forward(*args, KEEP, "relu", True, with_residuals=True)
+        forms = {"kernel": got, "plain": want, "kernel training form": (train_out > 0)[rows],
+                 "kernel training form r": (train_r > 0)[rows]}
         expect = expect[rows]
-        if not (torch.equal(got, expect) and torch.equal(want, expect)):
-            raise AssertionError(
-                f"dropout zero pattern at the {site} site differs: kernel "
-                f"{int((got != expect).sum())}, plain {int((want != expect).sum())} "
-                f"of {expect.numel()} elements")
-        log(f"# check ffn {site}-site dropout zeros: identical to the hash bits "
-            f"({int((~expect).sum())} dropped of {expect.numel()})")
+        wrong = {k: int((v != expect).sum()) for k, v in forms.items()}
+        if any(wrong.values()):
+            raise AssertionError(f"dropout zero pattern at the {site} site differs: {wrong} "
+                                 f"of {expect.numel()} elements")
+        log(f"# check ffn {site}-site dropout zeros, eval and training forms: identical to the "
+            f"hash bits ({int((~expect).sum())} dropped of {expect.numel()})")
 
     B, n = shapes["expm"]
     for case, M in ([(f"expm norm {norm}", expm_inputs(B, n, norm, gen, device))
@@ -1177,6 +1216,7 @@ def wall_ms(fn, *args, reps: int = 10, inference: bool = True) -> list[float]:
 # ---------------------------------------------------------------- phase 7
 KERNEL_COUNTS = {  # kernel -> (module, its launch counter)
     "recency_weighted_average": (recavg, "launches"),
+    "fused_encoder_ffn": (ffn, "launches"), "fused_encoder_ffn_train": (ffn, "train_launches"),
     "batched_expm": (expm, "launches"), "batched_expm_frechet": (expm, "frechet_launches"),
     "fused_cru_scan": (cru_scan, "launches"),
     "fused_cru_scan_backward": (cru_scan, "backward_launches")}
@@ -1208,10 +1248,10 @@ class cru_route:
             os.environ["IMM_TSF_CRU_FUSED"] = self.saved
 
 
-def training_data(root: str) -> dict:
+def training_data(root: str, args=TRAIN_ARGS) -> dict:
     """The resolved config and loaders of the trained run, as
-    imm_tsf_torch.main builds them from TRAIN_ARGS."""
-    cfg, _ = train_main.get_args_from_parser(TRAIN_ARGS + ["--data_root", root])
+    imm_tsf_torch.main builds them from `args`."""
+    cfg, _ = train_main.get_args_from_parser(list(args) + ["--data_root", root])
     cfg = resolve_max_length(apply_presets(cfg, train_main.fixed_params,
                                            train_main.tunable_params))
     return parse_datasets(cfg, verbose=False)
@@ -1225,11 +1265,52 @@ def expected_counts(route: str, T: int, steps: int, evals: int) -> dict:
     package's lax.scan runs it on a zero cotangent)."""
     fwd = steps + evals
     default = route == "default"
-    return {"recency_weighted_average": fwd,
+    return {"recency_weighted_average": fwd, "fused_encoder_ffn": 0, "fused_encoder_ffn_train": 0,
             "batched_expm": T * fwd if default else 0,
             "batched_expm_frechet": (T - 1) * steps if default else 0,
             "fused_cru_scan": 0 if default else fwd,
             "fused_cru_scan_backward": 0 if default else steps}
+
+
+def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n_test: int,
+                early_stop_delta: float, expected) -> dict:
+    """Train through imm_tsf_torch.main.main(args) with the launch counts
+    zeroed just before; every loss and metric must be finite and, on cuda,
+    the counts equal expected(steps, evals). Prints each epoch and the
+    step phases' device ms."""
+    timings: dict = {}
+    zero_counts()
+    t0 = time.monotonic()
+    res = train_main.main(list(args) + ["--data_root", root, "--save", exp_dir,
+                                        "--device", device.type], timings=timings)
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    hist = res["history"]
+    losses = [x for h in hist for x in h["step_losses"]]
+    metrics = [res[k] for k in ("mse", "mae", "rmse")] + [h["val"]["mse"] for h in hist]
+    if not np.isfinite(losses + metrics).all():
+        raise AssertionError(f"{label}: non-finite loss or metric")
+    best, tested = np.inf, 0  # the epochs that improved ran the test split
+    for h in hist:
+        if best - h["val"]["mse"] > early_stop_delta:
+            best, tested = h["val"]["mse"], tested + 1
+    want = expected(len(losses), len(hist) * n_val + tested * n_test)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"training {label} launched {launches}, expected {want}")
+    epochs = [{"epoch": h["epoch"], "train_loss": h["train_loss"],
+               "val_mse": h["val"]["mse"], "windows_per_s": h["windows_per_sec"]}
+              for h in hist]
+    step_ms = {k: float(np.median(v)) for k, v in timings.get("step_ms", {}).items()}
+    per_step = {k: v / len(losses) for k, v in launches.items()}
+    each = {k: [round(x, 3) for x in v] for k, v in timings.get("step_ms", {}).items()}
+    log(f"# trained {label}, {len(losses)} steps in {wall:.2f} s: epochs "
+        f"{json.dumps(epochs)}; device ms of each step by CUDA events {each}, medians "
+        f"{step_ms}; "
+        f"launches {launches} ({per_step} a step, eval batches included); test "
+        f"{json.dumps({k: res[k] for k in ('mse', 'mae', 'best_iter')})}")
+    return {"launches": launches, "steps": len(losses), "wall_s": wall, "epochs": epochs,
+            "step_ms": step_ms, "step_ms_each": timings.get("step_ms", {}),
+            "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")}}
 
 
 def run_training(device, root: str, exp_dir: str) -> dict:
@@ -1243,39 +1324,10 @@ def run_training(device, root: str, exp_dir: str) -> dict:
                                "test": n_test}, "routes": {}}
     log(f"# training data: T = {cfg.input_len} + {cfg.pred_len} = {T}, batches {out['batches']}")
     for route in ("default", "fused"):
-        timings: dict = {}
         with cru_route(route == "fused"):
-            zero_counts()
-            t0 = time.monotonic()
-            res = train_main.main(TRAIN_ARGS + ["--data_root", root, "--save", exp_dir,
-                                                "--device", device.type], timings=timings)
-            wall = time.monotonic() - t0
-            launches = read_counts()
-        hist = res["history"]
-        losses = [x for h in hist for x in h["step_losses"]]
-        metrics = [res[k] for k in ("mse", "mae", "rmse")] + [h["val"]["mse"] for h in hist]
-        if not np.isfinite(losses + metrics).all():
-            raise AssertionError(f"{route} route: non-finite loss or metric")
-        best, tested = np.inf, 0  # the epochs that improved ran the test split
-        for h in hist:
-            if best - h["val"]["mse"] > cfg.early_stop_delta:
-                best, tested = h["val"]["mse"], tested + 1
-        want = expected_counts(route, T, len(losses), len(hist) * n_val + tested * n_test)
-        if device.type == "cuda" and launches != want:
-            raise AssertionError(f"training on the {route} route launched {launches}, "
-                                 f"expected {want}")
-        epochs = [{"epoch": h["epoch"], "train_loss": h["train_loss"],
-                   "val_mse": h["val"]["mse"], "windows_per_s": h["windows_per_sec"]}
-                  for h in hist]
-        step_ms = {k: float(np.median(v)) for k, v in timings.get("step_ms", {}).items()}
-        per_step = {k: v / len(losses) for k, v in launches.items()}
-        log(f"# trained the {route} route, {len(losses)} steps in {wall:.2f} s: epochs "
-            f"{json.dumps(epochs)}; per step (median device ms by CUDA events) {step_ms}; "
-            f"launches {launches} ({per_step} a step, eval batches included); test "
-            f"{json.dumps({k: res[k] for k in ('mse', 'mae', 'best_iter')})}")
-        out["routes"][route] = {"launches": launches, "steps": len(losses), "wall_s": wall,
-                                "epochs": epochs, "step_ms": step_ms,
-                                "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")}}
+            out["routes"][route] = train_route(
+                device, TRAIN_ARGS, root, exp_dir, f"the {route} route", n_val, n_test,
+                cfg.early_stop_delta, lambda steps, evals: expected_counts(route, T, steps, evals))
     out["step"] = compare_step(cfg, data, device)
     return out
 
@@ -1393,6 +1445,176 @@ def compare_step(cfg, data, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+def patchtst_counts(route: str, e_layers: int, steps: int, evals: int) -> dict:
+    """Launches of a PatchTST run of `steps` gradient steps and `evals`
+    eval batches: on the kernel route #1 once a forward and #2 once a
+    forward an encoder layer (its training form in the steps); nothing on
+    the plain route."""
+    counts = dict.fromkeys(KERNEL_COUNTS, 0)
+    if route == "kernel":
+        counts.update(recency_weighted_average=steps + evals,
+                      fused_encoder_ffn=e_layers * (steps + evals),
+                      fused_encoder_ffn_train=e_layers * steps)
+    return counts
+
+
+def run_patchtst_training(device, root: str, exp_dir: str) -> dict:
+    """Phase 8: train PatchTST + TTF_RecAvg + MMF_GR_Add through
+    imm_tsf_torch.main on the kernel route, then the plain route, then one
+    step at the bench headline's shape held kernels vs plain
+    (compare_patchtst_step)."""
+    data = training_data(root, PATCH_TRAIN_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    out = {"batches": {"train": len(data["train_dataloader"]), "val": n_val, "test": n_test},
+           "widths": {k: getattr(cfg, k) for k in ("d_model", "d_ff", "n_heads", "e_layers",
+                                                   "dropout", "dropout_impl")},
+           "routes": {}}
+    log(f"# PatchTST training data: L {cfg.input_len}, Lp {cfg.pred_len}, batches "
+        f"{out['batches']}, widths {out['widths']}")
+    for route in ("kernel", "plain"):
+        out["routes"][route] = train_route(
+            device, PATCH_TRAIN_ARGS + PATCH_ROUTES[route], root, exp_dir,
+            f"PatchTST on the {route} route", n_val, n_test, cfg.early_stop_delta,
+            lambda steps, evals: patchtst_counts(route, cfg.e_layers, steps, evals))
+    out["step"] = compare_patchtst_step(device)
+    return out
+
+
+def headline_batch(cfg, B: int, gen, device) -> dict:
+    """A training batch at the configuration's full shape: B windows of
+    input_len observed steps (a fifth of the values missing) and pred_len
+    forecast steps over input_dim channels, times normalised as
+    standard_collate does, 8 note slots of d_txt (about 70 % filled)."""
+    L, Lp, C, N = cfg.input_len, cfg.pred_len, cfg.input_dim, 8
+    span = cfg.history + cfg.pred_window
+    u = lambda *shape: torch.rand(shape, generator=gen)
+    mask, pmask = (u(B, L, C) < 0.8).float(), (u(B, Lp, C) < 0.8).float()
+    batch = {"observed_tp": torch.sort(u(B, L) * cfg.history / span, dim=1).values,
+             "observed_data": torch.randn((B, L, C), generator=gen) * mask,
+             "observed_mask": mask,
+             "tp_to_predict": torch.sort(cfg.history / span + u(B, Lp) * cfg.pred_window / span,
+                                         dim=1).values,
+             "data_to_predict": torch.randn((B, Lp, C), generator=gen) * pmask,
+             "mask_predicted_data": pmask, "tau": u(B, N) * cfg.history,
+             "notes_embeddings": torch.randn((B, N, cfg.d_txt), generator=gen),
+             "notes_mask": (u(B, N) < 0.7).float()}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def compare_patchtst_step(device) -> dict:
+    """One gradient step of the full-width PatchTST experiment (SERVE_CFG,
+    hash dropout 0.1) from seeded weights on a batch at the bench headline's
+    shape (B 64, L 48, Lp 24, C 8: the FFN at M = 64 x 8 x 16 = 8192), three
+    ways under the same salts (one generator, reseeded before each run):
+    the kernel route, the plain route and the plain route in float64. The
+    losses agree to TRAIN_LOSS_RTOL, and each gradient's error on the
+    kernel route (max |g - g64| / max |g64|) is at most GRAD_FACTOR times
+    the plain route's plus GRAD_FLOOR. Launch counts of the step are exact.
+    Then one full step of each route (optimizer included) is traced, and
+    the re-derivation of #2's two dropout masks at the step's M is timed."""
+    cfg = Config(**dict(SERVE_CFG, dropout=0.1))
+    gen = torch.Generator().manual_seed(SEED)
+    model, fusion = get_model(cfg), FusionModel(cfg)
+    seeded_weights(model, gen)
+    seeded_weights(fusion, gen)
+    batch = headline_batch(cfg, PATCH_STEP_B, torch.Generator().manual_seed(SEED + 1), device)
+    layers = [m for m in model.modules() if isinstance(m, EncoderLayer)]
+    ffn_rows = []
+    record = lambda _, a: ffn_rows.append(a[0].shape[0] * a[0].shape[1])  # x [B C, P, D]
+    hooks = [m.register_forward_pre_hook(record) for m in layers]
+
+    def set_route(model, fusion, kernels):
+        for m in model.modules():
+            if isinstance(m, EncoderLayer):
+                m.use_fused_ffn = kernels
+        fusion.ttf.use_pallas = kernels
+
+    def grads(model, fusion, batch, kernels):
+        set_route(model, fusion, kernels)
+        salts = torch.Generator().manual_seed(SEED)  # the same salts, so the same masks
+        for m in [*model.modules(), *fusion.modules()]:
+            if isinstance(m, Dropout):
+                m.generator = salts
+        model.zero_grad(set_to_none=True)
+        fusion.zero_grad(set_to_none=True)
+        loss = make_loss_fn(make_forward(cfg, model, fusion))(batch)
+        loss.backward()
+        named = [*model.named_parameters(), *fusion.named_parameters()]
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in named}
+
+    model64, fusion64 = (copy.deepcopy(m).double().to(device).train() for m in (model, fusion))
+    batch64 = {k: v.double() for k, v in batch.items()}
+    loss64, g64 = grads(model64, fusion64, batch64, False)
+    model, fusion = model.to(device).train(), fusion.to(device).train()
+    out = {"batch": {k: list(v.shape) for k, v in batch.items()}, "loss_float64": loss64}
+    zero_counts()
+    loss_p, g_p = grads(model, fusion, batch, False)
+    plain_launches = read_counts()
+    zero_counts()
+    loss_k, g_k = grads(model, fusion, batch, True)
+    launches = read_counts()
+    for h in hooks:
+        h.remove()
+    M = ffn_rows[-1]
+    for route, got in (("plain", plain_launches), ("kernel", launches)):
+        want = patchtst_counts(route, len(layers), 1, 0)
+        if device.type == "cuda" and got != want:
+            raise AssertionError(f"one PatchTST step on the {route} route launched {got}, "
+                                 f"expected {want}")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"PatchTST step loss: kernel route {loss_k} vs plain {loss_p}")
+    # a gradient that vanishes in exact arithmetic (the key projection's bias:
+    # the softmax over keys ignores a shift common to all keys) has no
+    # relative error; it must stay within GRAD_FLOOR of the step's largest
+    # gradient entry on both routes
+    top = max(float(r.abs().max()) for r in g64.values())
+    vanishing = sorted(n for n, r in g64.items() if float(r.abs().max()) <= 1e-9 * top)
+    zero_err = {n: (float(g_k[n].abs().max()) / top, float(g_p[n].abs().max()) / top)
+                for n in vanishing}
+    rel = lambda g, r: float((g.double() - r).abs().max() / r.abs().max())
+    plain_err = {n: rel(g_p[n], r) for n, r in g64.items() if n not in zero_err}
+    errs = {n: rel(g_k[n], g64[n]) for n in plain_err}
+    bad = {n: (e, plain_err[n]) for n, e in errs.items()
+           if not e <= GRAD_FACTOR * plain_err[n] + GRAD_FLOOR}
+    bad.update({n: e for n, e in zero_err.items() if not max(e) <= GRAD_FLOOR})
+    if bad:
+        raise AssertionError(f"PatchTST step gradients farther from float64 than allowed "
+                             f"against the plain route's: {bad}")
+    worst = max(errs, key=lambda n: errs[n] / (plain_err[n] + 1e-6))
+    out.update(ffn_rows=M, loss_kernel=loss_k, loss_plain=loss_p, launches=launches,
+               worst_grad={worst: (errs[worst], plain_err[worst])}, vanishing_grads=zero_err,
+               largest_grad_err={"kernel": max(errs.values()), "plain": max(plain_err.values())},
+               ffn_grad_err={n: (errs[n], plain_err[n]) for n in errs
+                             if ".conv1." in n or ".conv2." in n or ".norm2." in n})
+    log(f"# one PatchTST step, seeded weights, B {PATCH_STEP_B} at the headline shape (FFN M "
+        f"{M}): {json.dumps(out)}")
+
+    if device.type == "cuda":  # one whole step of each route, optimizer included, traced
+        params = trainable_parameters(model, fusion)
+        step = make_grad_step(make_loss_fn(make_forward(cfg, model, fusion)),
+                              make_optimizer(params, cfg.lr, cfg.w_decay), params)
+        out["profile"] = {}
+        for route in ("kernel", "plain"):
+            set_route(model, fusion, route == "kernel")
+            wall_ms(step, batch, reps=1, inference=False)  # warm
+            step_ms = float(np.median(wall_ms(step, batch, reps=5, inference=False)))
+            out["profile"][route] = {"step_ms": step_ms,
+                                     **trace(lambda: step(batch), 3, step_ms, inference=False)}
+            log(f"# one traced PatchTST {route}-route training step: "
+                f"{json.dumps(out['profile'][route])}")
+        salts = torch.tensor([[1, 2], [3, 4]])
+        mask_ms = device_ms(lambda: ffn._masks(salts, KEEP, M, cfg.d_model, cfg.d_ff, device),
+                            [[]], per_rep=10)
+        busy = out["profile"]["kernel"]["device_busy_ms"]
+        out["ffn_mask_ms"] = {"ms": mask_ms, "share_of_kernel_step_busy": mask_ms / busy}
+        log(f"# #2's two dropout masks re-derived at M {M} ([M, {cfg.d_ff}] and "
+            f"[M, {cfg.d_model}]): {mask_ms:.4f} ms, {mask_ms / busy:.3f} of the kernel "
+            "route's busy step")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -1414,11 +1636,14 @@ def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     return float(np.median(times))
 
 
-def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
-    """One row per kernel. For kernels #1-#3 `launches` counts the raw-text
-    path (phase 4b), which runs all three; `launches_by_path` adds the
-    embedding path (phase 4) and both CRU routes (phase 6). Kernels #5
-    and #6: measure_cru."""
+def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
+    """One row per kernel. For kernels #1 and #2 `launches` counts the
+    PatchTST training run on the kernel route (phase 8), for #3 the
+    raw-text path (phase 4b), which runs all three; `launches_by_path` adds
+    the raw-text and embedding paths (phase 4) and both CRU routes (phase
+    6). #2's row also times its training form and the plain backward at
+    the same shape (dropout on, as PatchTST trains). Kernels #5 and #6:
+    measure_cru."""
     B, N, T, d = shapes["recavg"]
     rsets = [recavg_inputs(B, N, T, d, gen, device) for _ in range(4)]
     r_bytes = 4 * (B * N * 2 + B * T + B * N * d + 1 + B * T * d)
@@ -1450,6 +1675,27 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
     t_bytes = f_bytes / PEAK_BYTES_PER_S * 1e3
     ffn_row["bound_ms"] = max(t_ops, t_bytes)
     ffn_row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    # the training form: the same operations, a1 [M, F] and r [M, D] written
+    # once more; the plain backward on its residuals (four products over the
+    # same K, the LayerNorm and dropout backward; not bounded here)
+    train = lambda *a: ffn._forward(*a, KEEP, "gelu", True, with_residuals=True)
+    ffn_row["train_ms"] = device_ms(train, fsets, per_rep=10)
+    ffn_row["train_plain_ms"] = device_ms(
+        lambda *a: ffn.ffn_forward_reference(*a, KEEP, "gelu", True, with_residuals=True),
+        fsets, per_rep=10)
+    t_bytes_train = (f_bytes + 4 * (M * F + M * D)) / PEAK_BYTES_PER_S * 1e3
+    ffn_row["train_bound_ms"] = max(t_ops, t_bytes_train)
+    ffn_row["train_bound_by"] = "bytes" if t_bytes_train >= t_ops else "operations"
+    gen_g = torch.Generator(device=device).manual_seed(SEED + 6)
+    bsets = []
+    for a in fsets:
+        _, a1, r = train(*a)
+        g = torch.randn((M, D), generator=gen_g, device=device)
+        bsets.append([a[0], a[1], a[3], a[5], a[7], a1, r, g])
+    ffn_row["backward_plain_ms"] = device_ms(
+        lambda *a: ffn.ffn_backward_reference(*a, KEEP, "gelu", True), bsets, per_rep=5)
+    ffn_row["train_max_abs_err"] = errs["ffn training form"]
+    del bsets
 
     by_shape = {}
     key = lambda shape: "[" + ",".join(map(str, shape)) + "]"
@@ -1486,6 +1732,10 @@ def measure(device, shapes, gen, errs, serving, text, cru) -> list[dict]:
                                    "embeddings": serving["launches"].get(row["name"], 0)}
         for route, res in cru.items():
             row["launches_by_path"][f"cru_{route}"] = res["launches"].get(row["name"], 0)
+    for row in rows[:2]:  # #1 and #2: this slice's path, PatchTST training
+        n = patch["routes"]["kernel"]["launches"][row["name"]]
+        row["launches"] = row["launches_by_path"]["patchtst_training"] = n
+    rows[1]["train_launches"] = patch["routes"]["kernel"]["launches"]["fused_encoder_ffn_train"]
     return rows + measure_cru(cru)
 
 
@@ -1764,14 +2014,28 @@ def main() -> int:
         raise AssertionError(f"trained shapes {trained} != checked "
                              f"{ {k: shapes[k] for k in trained} }")
 
+    # phase 8: train PatchTST + TTF_RecAvg + MMF_GR_Add through
+    # imm_tsf_torch.main, kernel route then plain route, and one compared step
+    try:
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        patch = run_patchtst_training(device, root, exp_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    if patch["step"]["ffn_rows"] != shapes["ffn"][0]:
+        raise AssertionError(f"the compared PatchTST step's FFN M {patch['step']['ffn_rows']} "
+                             f"!= checked {shapes['ffn'][0]}")
+
     # phase 5: timings
-    rows = measure(device, shapes, gen, errs, serving, text, cru) + measure_training(train)
+    rows = measure(device, shapes, gen, errs, serving, text, cru, patch) + measure_training(train)
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
         f"{cru['default']['requests_per_s']:.1f} / fused {cru['fused']['requests_per_s']:.1f} "
         f"requests/s; CRU training {train['routes']['default']['wall_s']:.1f} / "
-        f"{train['routes']['fused']['wall_s']:.1f} s; total {time.monotonic() - t_start:.1f} s")
+        f"{train['routes']['fused']['wall_s']:.1f} s; PatchTST training "
+        f"{patch['routes']['kernel']['wall_s']:.1f} / {patch['routes']['plain']['wall_s']:.1f} s; "
+        f"total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
                    for route, res in cru.items()}
@@ -1782,7 +2046,8 @@ def main() -> int:
                       "forward_ms": serving["forward_ms"],
                       "dispatch_profile": serving["dispatch_profile"],
                       "raw_text": text, "cru": cru_summary,
-                      "cru_route_err": route_err, "training": train_summary}), flush=True)
+                      "cru_route_err": route_err, "training": train_summary,
+                      "patchtst_training": patch}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,20 +1,27 @@
-// Fused post-norm encoder FFN, forward only, on the tensor cores in
-// float32 accuracy (3xTF32).
+// Fused post-norm encoder FFN on the tensor cores in float32 accuracy
+// (3xTF32), in the TPU kernel's two forms: eval and training.
 //
 // Replaces the TPU kernel imm_tsf_tpu/ops/pallas/ffn_kernel.py
 // (fused_encoder_ffn -> _ffn_forward_pallas -> _ffn_kernel):
 //
-//     h   = drop_a(act(x W1 + b1))          # [M, F], never in device memory
-//     out = LayerNorm(x + drop_b(h W2 + b2)) * gamma + beta
+//     a1  = x W1 + b1                       # [M, F]
+//     h   = drop_a(act(a1))                 # [M, F], never in device memory
+//     r   = x + drop_b(h W2 + b2)           # [M, D]
+//     out = LayerNorm(r) * gamma + beta
 //
 // with act = relu or tanh-approximate GELU, the hash-dropout bits of
 // layers/fast_dropout.py computed inline (index row*n_cols + col in
 // wrapping uint32 arithmetic, as the TPU kernel does), and the one-pass
-// LayerNorm variance E[r^2] - mu^2 with eps 1e-5.
+// LayerNorm variance E[r^2] - mu^2 with eps 1e-5. The training form
+// (kResiduals) also writes a1 and r, the residuals of the backward
+// (plain PyTorch, kernels/ffn.py:ffn_backward_reference), from the
+// registers that hold them; the eval form writes out only, as the JAX
+// package skips the residuals in eval.
 //
 // Bound on an H100: operations. At the serving shape (M=8192, D=512,
 // F=2048) the two products are 34.4 GFLOP against 34 MB of compulsory
-// traffic. Both run as three TF32 passes on the tensor cores (tf32x3.cuh:
+// traffic (the training form adds 84 MB of a1 and r: 0.025 ms at 3.35
+// TB/s). Both run as three TF32 passes on the tensor cores (tf32x3.cuh:
 // float32 accuracy), so the floor is 3 x 34.4 GFLOP at the 495 TFLOP/s
 // TF32 peak, ~0.21 ms (plain fp32 FMA: ~0.51 ms).
 //
@@ -39,8 +46,8 @@
 // and normalises each row: a quad of lanes, then the four warps that share
 // a row, sum r and r^2 through shared memory. Rows past M are masked, so
 // ragged M needs no host padding; columns past D and hidden units past F
-// are zero-filled. A training epilogue that also writes a1 and r would
-// store them from the same registers.
+// are zero-filled. The training form's stores are a thread's two adjacent
+// columns of an mma tile, one 8-byte store where the row allows it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,6 +150,21 @@ __device__ __forceinline__ void load_b(const float* s, int ld, int g, int t, uin
   split(v.y, bh[1], bl[1]);
 }
 
+// dst[row, col] and dst[row, col + 1] (col even) of a row-major rows x cols
+// matrix, the parts inside it: one 8-byte store when cols is even (then
+// col + 1 < cols and the address is 8-byte aligned), else one store each
+__device__ __forceinline__ void store_pair(float* dst, long long row, int col, long long rows,
+                                           int cols, float v0, float v1) {
+  if (row >= rows || col >= cols) return;
+  float* p = dst + row * cols + col;
+  if ((cols & 1) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    p[0] = v0;
+    if (col + 1 < cols) p[1] = v1;
+  }
+}
+
 // c[mi][n0 + n] += a[mi] b[n] (n < N) in three passes, each over all 2 N
 // accumulators before the next
 template <int N, int NC>
@@ -163,13 +185,16 @@ __device__ __forceinline__ void mma_block(float c[2][NC][4], int n0, const uint3
     for (int mi = 0; mi < 2; ++mi) mma_tf32(c[mi][n0 + n], ah[mi], bh[n]);
 }
 
+// kResiduals: the training form, which also writes a1 [M, F] and r [M, D]
+template <bool kResiduals>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
            const float* __restrict__ b1, const float* __restrict__ w2t,
            const float* __restrict__ b2, const float* __restrict__ gamma,
-           const float* __restrict__ beta, const long long* __restrict__ salts,
-           float* __restrict__ out, int M, int D, int F, float keep_prob,
-           uint32_t thresh, int act, int apply_dropout, int vec) {
+           const float* __restrict__ beta, float* __restrict__ out,
+           float* __restrict__ a1_out, float* __restrict__ r_out, int M, int D, int F,
+           float keep_prob, uint32_t thresh, uint32_t s0a, uint32_t s1a, uint32_t s0b,
+           uint32_t s1b, int act, int apply_dropout, int vec) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [kBM][kXLd]  x tile
   float* hs = xs + kBM * kXLd;                  // [kBM][kHLd]  hidden chunk
@@ -181,14 +206,6 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / 4, wn = warp % 4;  // rows 32 wm.., GEMM1 columns 32 wn.., GEMM2 128 wn..
   const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
-
-  uint32_t s0a = 0, s1a = 0, s0b = 0, s1b = 0;
-  if (apply_dropout) {
-    s0a = static_cast<uint32_t>(salts[0]);
-    s1a = static_cast<uint32_t>(salts[1]);
-    s0b = static_cast<uint32_t>(salts[2]);
-    s1b = static_cast<uint32_t>(salts[3]);
-  }
 
   const int n1 = (D + kK1 - 1) / kK1;              // W1 tiles a chunk
   const int per_chunk = n1 + kFC / kK2;            // and 16 W2 tiles
@@ -261,24 +278,33 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
         mma_block<kNT1, kNT1>(acc1, 0, ah, al, bh, bl);
       }
       if (j == n1 - 1) {
-        // bias, activation, hidden dropout into hs; hidden units past F are 0
+        // bias (the training form stores a1 here), activation, hidden
+        // dropout into hs; hidden units past F are 0
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
           for (int n = 0; n < kNT1; ++n)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = 32 * wm + 16 * mi + g + 8 * (e >> 1);
-              const int col = 32 * wn + 8 * n + 2 * t + (e & 1), f = f0 + col;
-              float v = 0.f;
-              if (f < F) {
-                v = activation(acc1[mi][n][e] + b1[f], act);
-                if (apply_dropout)
-                  v = keep_bit(static_cast<uint32_t>(row0 + r) * static_cast<uint32_t>(F) +
-                                   static_cast<uint32_t>(f), s0a, s1a, thresh)
-                          ? v / keep_prob : 0.f;
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = 32 * wm + 16 * mi + g + 8 * hh;
+              const int col = 32 * wn + 8 * n + 2 * t, f = f0 + col;
+              float a[2];
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                a[q] = f + q < F ? acc1[mi][n][2 * hh + q] + b1[f + q] : 0.f;
+              if (kResiduals) store_pair(a1_out, row0 + r, f, M, F, a[0], a[1]);
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                float v = 0.f;
+                if (f + q < F) {
+                  v = activation(a[q], act);
+                  if (apply_dropout)
+                    v = keep_bit(static_cast<uint32_t>(row0 + r) * static_cast<uint32_t>(F) +
+                                     static_cast<uint32_t>(f + q), s0a, s1a, thresh)
+                            ? v / keep_prob : 0.f;
+                }
+                hs[r * kHLd + col + q] = v;
               }
-              hs[r * kHLd + col] = v;
             }
       }
     } else {
@@ -322,6 +348,16 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
         sum[mi][e >> 1] += rv;
         sq[mi][e >> 1] += rv * rv;
       }
+  if (kResiduals) {  // the training form: r, before the LayerNorm
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < kNT2; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          store_pair(r_out, row0 + 32 * wm + 16 * mi + g + 8 * hh, 128 * wn + 8 * n + 2 * t, M,
+                     D, acc2[mi][n][2 * hh], acc2[mi][n][2 * hh + 1]);
+  }
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -365,24 +401,29 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 extern "C" int ffn_max_d() { return kMaxD; }
 
 // x [M, D], w1t [F, D], w2t [D, F], b1 [F], b2, gamma, beta [D], out [M, D]
-// float32, contiguous; salts int64 [2, 2] (read when apply_dropout). vec:
-// D and F are multiples of 4 and every pointer is 16-byte aligned.
+// float32, contiguous; a1 [M, F] and r [M, D] both null (the eval form) or
+// both set (the training form writes them). Salts: the hidden site's
+// (s0a, s1a) and the output site's (s0b, s1b), read when apply_dropout.
+// vec: D and F are multiples of 4 and x, w1t and w2t are 16-byte aligned.
 extern "C" int ffn_forward(const float* x, const float* w1t, const float* b1,
-                           const float* w2t, const float* b2,
-                           const float* gamma, const float* beta,
-                           const long long* salts, float* out, int M, int D,
-                           int F, float keep_prob, unsigned int thresh, int act,
+                           const float* w2t, const float* b2, const float* gamma,
+                           const float* beta, float* out, float* a1, float* r, int M, int D,
+                           int F, float keep_prob, unsigned int thresh, unsigned int s0a,
+                           unsigned int s1a, unsigned int s0b, unsigned int s1b, int act,
                            int apply_dropout, int vec, void* stream) {
-  if (D < 1 || D > kMaxD || F < 1 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > kMaxD || F < 1 || M < 0 || (a1 == nullptr) != (r == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const int bytes = kSmemFloats * static_cast<int>(sizeof(float));
+  const bool train = a1 != nullptr;
+  auto kernel = train ? ffn_kernel<true> : ffn_kernel<false>;
   // set on every call: the attribute belongs to the current device's context
   const cudaError_t e =
-      cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (M + kBM - 1) / kBM;
-  ffn_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w1t, b1, w2t, b2, gamma, beta, salts, out, M, D, F, keep_prob, thresh, act,
-      apply_dropout, vec);
+  kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh, s0a, s1a, s0b,
+      s1b, act, apply_dropout, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,13 @@ encoder FFN (conv1 -> act -> dropout -> conv2 -> dropout -> residual ->
 norm2) runs through kernels/ffn.py: the fused CUDA kernel when
 `use_fused_ffn` is set (cfg.use_pallas and cfg.use_fused_ffn), its plain
 version otherwise. Both read the same conv1/conv2/norm2 parameters, so
-the state dict is identical either way.
+the state dict is identical either way, and both train: in train mode
+the FFN's two hash-dropout sites take one [2, 2] salt pair a forward from
+the layer's dropout generator, drawn the same way on both routes, so
+with one seed the routes train under identical masks. (The JAX package's
+two routes draw different streams, transformer.py:150-152; its unfused
+route's masks are those of `_keep_mask` over the flattened [M, F] and
+[M, D], which the plain route computes.)
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from torch import nn
 
 from ..kernels.ffn import ffn_reference, fused_encoder_ffn
 from .attention import masked_softmax
-from .fast_dropout import Dropout
+from .fast_dropout import Dropout, draw_salts
 
 
 class FullAttention(nn.Module):
@@ -90,17 +96,18 @@ class EncoderLayer(nn.Module):
         self.use_fused_ffn = use_fused_ffn
 
     def forward(self, x, attn_mask=None):
-        if self.training and self.dropout.rate > 0:
-            raise NotImplementedError(
-                "training the encoder (its FFN's two hash-dropout sites) comes with "
-                "PatchTST training (ROADMAP.md, Queue 1)")
         x = self.norm1(x + self.dropout(self.attention(x, x, x, attn_mask=attn_mask)))
+        apply_dropout = self.training and self.dropout.rate > 0
+        salts = None
+        if apply_dropout:  # rows: the hidden site's salts, the output site's
+            salts = torch.tensor([draw_salts(self.dropout.generator),
+                                  draw_salts(self.dropout.generator)])
         ffn = fused_encoder_ffn if self.use_fused_ffn else ffn_reference
         lead, D = x.shape[:-1], x.shape[-1]
         out = ffn(x.reshape(-1, D), self.conv1.weight.t(), self.conv1.bias,
                   self.conv2.weight.t(), self.conv2.bias, self.norm2.weight,
-                  self.norm2.bias, None, 1.0 - self.dropout.rate,
-                  self.activation, False)
+                  self.norm2.bias, salts, 1.0 - self.dropout.rate,
+                  self.activation, apply_dropout)
         return out.reshape(*lead, D)
 
 

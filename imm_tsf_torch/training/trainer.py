@@ -1,6 +1,13 @@
 """Training harness: the reference's trainable() protocol (after
 imm_tsf_tpu/training/trainer.py:163-314, 349-446, 502-906).
 
+It trains CRU and PatchTST, each with the fusion stack on precomputed
+note embeddings, on the kernels' routes and the plain ones: CRU's default
+and fused scans (kernels #4-#7), PatchTST's fused FFN (kernel #2, its
+training form and hand backward) or the unfused one, and kernel #1's
+recency average with its backward. `check_trainable` refuses what is not
+ported.
+
 Parity with reference main.py:945-1176:
   - Adam(lr, weight_decay) after clipping the gradients to a global norm
     of 1.0 (:1024, :1092-1101; training/optim.py);
@@ -144,15 +151,9 @@ def check_trainable(cfg: Config) -> None:
     """Refuse a configuration whose kernels have no backward yet, or whose
     training path is not ported: nothing drops to a plain version unsaid."""
     refusals = [
-        (cfg.model == "PatchTST",
-         "PatchTST training (the backward of kernels #1 and #2 and the FFN's dropout) is "
-         "not ported yet (ROADMAP.md, Queue 1)"),
         (cfg.dropout_impl != "hash",
          f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
          "(ROADMAP.md, Queue 1, slice 4)"),
-        (cfg.use_pallas and cfg.use_fused_ffn,
-         "use_fused_ffn: kernel #2 (fused_encoder_ffn) has no backward yet; it comes "
-         "with PatchTST training (ROADMAP.md, Queue 1)"),
         (cfg.use_pallas and cfg.use_fused_attn,
          "use_fused_attn: kernel #3 (fused_causal_attention) has no backward yet; it "
          "comes with TimeLLM training (ROADMAP.md, Queue 1, slice 6)"),

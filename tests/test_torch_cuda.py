@@ -79,6 +79,70 @@ def test_ffn_kernel_dropout_bits_are_the_hash_bits(dev, gen, site):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,D,F,act,drop", [
+    (8192, 512, 2048, "gelu", True),  # the bench headline's PatchTST shape
+    (200, 512, 2048, "relu", True),
+    (37, 96, 200, "gelu", True),      # ragged D and F: masked columns
+    (45, 31, 67, "gelu", True),       # odd D and F: one 4-byte store a column
+    (130, 64, 256, "relu", False),
+])
+def test_ffn_training_form_matches_plain(dev, gen, M, D, F, act, drop):
+    """The training form's out, a1 and r against the plain training form."""
+    args = ffn_inputs(M, D, F, gen, dev)
+    before = (ffn.launches, ffn.train_launches)
+    got = ffn._forward(*args, KEEP, act, drop, with_residuals=True)
+    torch.cuda.synchronize()
+    assert (ffn.launches, ffn.train_launches) == (before[0] + 1, before[1] + 1)
+    want = ffn.ffn_forward_reference(*args, KEEP, act, drop, with_residuals=True)
+    for name, g, w in zip(("out", "a1", "r"), got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["output", "hidden"])
+def test_ffn_training_form_dropout_bits_are_the_hash_bits(dev, gen, site):
+    salts = ffn_inputs(8, 8, 8, gen, dev)[-1]
+    args, expect = dropout_probe_inputs(300, 512, 1024, site, salts, dev)
+    out, _, r = ffn._forward(*args, KEEP, "relu", True, with_residuals=True)
+    assert torch.equal(out > 0, expect)
+    assert torch.equal(r > 0, expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,act,drop", [(1000, "gelu", True), (333, "gelu", False),
+                                        (333, "relu", True)])
+def test_ffn_training_form_gradients_match_plain(dev, gen, M, act, drop):
+    """fused_encoder_ffn's gradients: the hand backward on the training
+    form's own residuals (the autograd plumbing: each gradient reaches its
+    input), and, for the smooth GELU, autograd through the plain forward
+    within 1e-4 of each gradient's largest entry. (relu' is a step: where
+    the kernel's a1 and the plain a1 straddle 0 within their rounding, a
+    whole dh entry moves, so relu is held by the first check only.)"""
+    args = ffn_inputs(M, 512, 2048, gen, dev)
+    g = torch.randn((M, 512), generator=gen, device=dev)
+    params = [a.detach().clone().requires_grad_() for a in args[:7]]
+    before = ffn.train_launches
+    got = torch.autograd.grad(ffn.fused_encoder_ffn(*params, args[7], KEEP, act, drop),
+                              params, g)
+    assert ffn.train_launches == before + 1
+    _, a1, r = ffn._forward(*args, KEEP, act, drop, with_residuals=True)
+    hand = ffn.ffn_backward_reference(args[0], args[1], args[3], args[5], args[7], a1, r, g,
+                                      KEEP, act, drop)
+    names = ("x", "w1", "b1", "w2", "b2", "gamma", "beta")
+    for name, gt, w in zip(names, got, hand):
+        torch.testing.assert_close(gt, w, atol=1e-6 * float(w.abs().max()), rtol=1e-6,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    if act != "gelu":
+        return
+    plain = [a.detach().clone().requires_grad_() for a in args[:7]]
+    want = torch.autograd.grad(ffn.ffn_reference(*plain, args[7], KEEP, act, drop), plain, g)
+    for name, gt, w in zip(names, got, want):
+        torch.testing.assert_close(gt, w, atol=1e-4 * float(w.abs().max()), rtol=1e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
 def test_ffn_kernel_refuses_what_it_cannot_take(dev, gen):
     args = ffn_inputs(16, 640, 64, gen, dev)
     with pytest.raises(ValueError, match="accumulator"):

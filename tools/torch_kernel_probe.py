@@ -148,8 +148,8 @@ def main() -> int:
     def without_products(x, w1, b1, w2, b2, gamma, beta, salts):
         w1t, w2t, y = w1.t().contiguous(), w2.t().contiguous(), torch.empty_like(x)
         rc = bare(x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-                  gamma.data_ptr(), beta.data_ptr(), None, y.data_ptr(), x.shape[0],
-                  x.shape[1], w1.shape[1], cs.KEEP, _thresh(cs.KEEP), 1, 0, 1,
+                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), None, None, x.shape[0],
+                  x.shape[1], w1.shape[1], cs.KEEP, _thresh(cs.KEEP), 0, 0, 0, 0, 1, 0, 1,
                   torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"ffn without products: cudaError_t {rc}")
