@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
  2. build the seven CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
     (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
-      recency average at the serving shape (B=64, N=8, T=24, d=768) and a
-      ragged case (B=3, N=5, T=7, one sample without notes), to
-      |err| <= 1e-5 + 1e-5|ref| (float32, N-term sums in another order);
+      recency average at the serving shape (B=64, N=8, T=24, d=768), a
+      ragged case (B=3, N=5, T=7, one sample without notes), the PatchTST
+      training shape (B=32, N=8, T=36), V 4 bytes off 16-byte alignment,
+      d=1024, d=767 (4k+3), N=0 (E exactly 0) and N=70 (several chunks of
+      notes), to |err| <= 1e-5 + 1e-5|ref| (float32, N-term sums in another
+      order);
       fused FFN at M=8192, D=512, F=2048 (gelu, no dropout), relu with
       dropout (keep 0.9) and a ragged M=1000, to |err| <= 1e-4 + 1e-4|ref|
       (float32 by three TF32 passes, K=2048 sums in another order); its
@@ -114,8 +117,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the plain route and a float64 plain run, loss to 1e-5 and every
     gradient within GRAD_FACTOR x the plain route's distance from float64;
     a traced step of each route and the time of #2's mask re-derivation;
+    then the fusion stack on GPT2M's 1024-wide notes into d_txt 768
+    (`compare_wide_notes`): one forward and backward at the serving shape
+    on the kernel route (#1 once) against the plain route, outputs to
+    |err| <= 1e-4 + 1e-4|ref| and gradients as the step's;
  5. (after 6-8) time each kernel and its plain version at the shapes
-    of its path (the attention at every bucket shape, beside
+    of its path (#1 also at the training shape, beside its previous design
+    and an empty kernel launched on its grid, the launch floor; the
+    attention at every bucket shape, beside
     scaled_dot_product_attention with the same boolean mask; the expm on
     the 72 Van Loan blocks of a served dispatch, beside
     torch.linalg.matrix_exp; the fused scan on that dispatch's scan
@@ -164,7 +173,7 @@ from imm_tsf_torch.kernels._cluster import CLUSTER_SIZES
 from imm_tsf_torch.layers.fast_dropout import Dropout, _keep_mask
 from imm_tsf_torch.layers.transformer import EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
-from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes
+from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes, get_d_model
 from imm_tsf_torch.models import get_model
 from imm_tsf_torch.models.cru import CRU
 from imm_tsf_torch.ops import cru_scan as cru_ops
@@ -293,10 +302,12 @@ def max_err(got, want, tol) -> float:
 
 
 # ----------------------------------------------------------------- inputs
-def recavg_inputs(B, N, T, d, gen, device, empty_sample=False):
+def recavg_inputs(B, N, T, d, gen, device, empty_sample=False, offset=0):
+    """offset: V is a contiguous view that many floats into its storage
+    (1: 4 bytes off 16-byte alignment)."""
     tau = torch.rand((B, N), generator=gen, device=device) * 7.0   # raw note days
     t_hat = 0.5 + 0.5 * torch.rand((B, T), generator=gen, device=device)
-    V = torch.randn((B, N, d), generator=gen, device=device)
+    V = torch.randn((B * N * d + offset,), generator=gen, device=device)[offset:].view(B, N, d)
     mask = (torch.rand((B, N), generator=gen, device=device) < 0.8).float()
     if empty_sample:
         mask[-1] = 0.0
@@ -613,15 +624,25 @@ def scan_work(ins: dict, blocks) -> tuple[int, int]:
 def check_kernels(device, shapes, gen) -> dict:
     """Each kernel against its plain version; returns max errors by case."""
     errs = {}
-    for case, (B, N, T, d), empty in (("recavg serving", shapes["recavg"], False),
-                                      ("recavg ragged", (3, 5, 7, 300), True)):
-        args = recavg_inputs(B, N, T, d, gen, device, empty_sample=empty)
+    for case, (B, N, T, d), empty, offset in (
+            ("recavg serving", shapes["recavg"], False, 0),
+            ("recavg ragged", (3, 5, 7, 300), True, 0),
+            ("recavg training", shapes["recavg_train"], False, 0),
+            ("recavg unaligned", shapes["recavg"], False, 1),  # V 4 bytes off 16-byte alignment
+            ("recavg d 1024", (64, 8, 24, 1024), False, 0),
+            ("recavg d 4k+3", (64, 8, 24, 767), True, 0),
+            ("recavg no notes", (8, 0, 24, 768), False, 0),
+            ("recavg 70 notes", (4, 70, 24, 768), True, 0)):
+        args = recavg_inputs(B, N, T, d, gen, device, empty_sample=empty, offset=offset)
         got = recavg.recency_weighted_average(*args)
         want = recavg.recavg_reference(*args)
         errs[case] = max_err(got, want, RECAVG_TOL)
         if empty:
-            assert bool((got[-1] == 0).all()), "no-notes sample must give E = 0"
-        log(f"# check {case} {tuple(args[2].shape)} T={T}: max|err| {errs[case]:.3e}")
+            assert bool((got[-1] == 0).all()), "a sample without notes must give E = 0"
+        if N == 0:
+            assert bool((got == 0).all()), "N = 0 must give E = 0"
+        log(f"# check {case} {tuple(args[2].shape)} T={T} (V at byte "
+            f"{args[2].data_ptr() % 16} of 16): max|err| {errs[case]:.3e}")
 
     M, D, F = shapes["ffn"]
     for case, m, act, drop in (("ffn serving", M, "gelu", False),
@@ -1446,6 +1467,76 @@ def compare_step(cfg, data, device) -> dict:
 
 
 # ---------------------------------------------------------------- phase 8
+def held_grads(g_k, g_p, g64, what: str):
+    """Hold the kernel route's gradients g_k to float64's g64 against the
+    plain route's g_p: each error max |g - g64| / max |g64| at most
+    GRAD_FACTOR times the plain route's plus GRAD_FLOOR. A gradient that
+    vanishes in exact arithmetic (at most 1e-9 of the largest entry; the
+    key projection's bias: the softmax over keys ignores a shift common to
+    all keys) has no relative error: it must stay within GRAD_FLOOR of the
+    largest entry on both routes. Returns (errs, plain_errs, vanishing)."""
+    top = max(float(r.abs().max()) for r in g64.values())
+    vanishing = sorted(n for n, r in g64.items() if float(r.abs().max()) <= 1e-9 * top)
+    zero_err = {n: (float(g_k[n].abs().max()) / top, float(g_p[n].abs().max()) / top)
+                for n in vanishing}
+    rel = lambda g, r: float((g.double() - r).abs().max() / r.abs().max())
+    plain_err = {n: rel(g_p[n], r) for n, r in g64.items() if n not in zero_err}
+    errs = {n: rel(g_k[n], g64[n]) for n in plain_err}
+    bad = {n: (e, plain_err[n]) for n, e in errs.items()
+           if not e <= GRAD_FACTOR * plain_err[n] + GRAD_FLOOR}
+    bad.update({n: e for n, e in zero_err.items() if not max(e) <= GRAD_FLOOR})
+    if bad:
+        raise AssertionError(f"{what} gradients farther from float64 than allowed "
+                             f"against the plain route's: {bad}")
+    return errs, plain_err, zero_err
+
+
+def compare_wide_notes(device) -> dict:
+    """The fusion stack on notes wider than d_txt: FusionModel of SERVE_CFG
+    with GPT2M's 1024-wide note embeddings into d_txt 768, seeded weights,
+    one forward and backward of sum(out * g) at the serving shape (B 64,
+    N 8, T 24) on the kernel route (#1), the plain route and the plain
+    route in float64: outputs to SERVE_TOL, gradients as held_grads holds
+    a training step's, #1 launched once."""
+    cfg = Config(**dict(SERVE_CFG, llm_model_fusion="GPT2M"))
+    d_notes = get_d_model(cfg.llm_model_fusion)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    fusion = FusionModel(cfg, d_notes=d_notes)
+    seeded_weights(fusion, gen)
+    B, N, T = PATCH_STEP_B, 8, cfg.pred_len
+    nmask = (torch.rand((B, N), generator=gen) < 0.7).float()
+    nmask[-1] = 0.0  # a sample without notes
+    ins = [torch.randn((B, N, d_notes), generator=gen) * nmask[:, :, None],
+           torch.rand((B, N), generator=gen),  # times where the weights vary
+           0.5 + 0.5 * torch.sort(torch.rand((B, T), generator=gen), dim=1).values,
+           torch.randn((B, T, cfg.input_dim), generator=gen), nmask]
+    g = torch.randn((B, T, cfg.input_dim), generator=gen)
+
+    def run(module, dtype, kernels):
+        module.ttf.use_pallas = kernels
+        module.zero_grad(set_to_none=True)
+        out = module(*(x.to(device, dtype) for x in ins))
+        (out * g.to(device, dtype)).sum().backward()
+        return out.detach(), {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+
+    fusion64 = copy.deepcopy(fusion).double().to(device).eval()
+    _, g64 = run(fusion64, torch.float64, False)
+    fusion = fusion.to(device).eval()
+    out_p, g_p = run(fusion, torch.float32, False)
+    zero_counts()
+    out_k, g_k = run(fusion, torch.float32, True)
+    launches = read_counts()["recency_weighted_average"]
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"the wide-notes fusion forward launched #1 {launches} times")
+    out = {"notes": [B, N, d_notes], "d_txt": cfg.d_txt, "launches": launches,
+           "max_abs_err": max_err(out_k, out_p, SERVE_TOL)}
+    errs, plain_err, _ = held_grads(g_k, g_p, g64, "wide-notes fusion")
+    out["grad_err"] = {n: (errs[n], plain_err[n]) for n in errs}
+    log(f"# fusion on {d_notes}-wide notes into d_txt {cfg.d_txt}, kernel vs plain route: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def patchtst_counts(route: str, e_layers: int, steps: int, evals: int) -> dict:
     """Launches of a PatchTST run of `steps` gradient steps and `evals`
     eval batches: on the kernel route #1 once a forward and #2 once a
@@ -1479,6 +1570,7 @@ def run_patchtst_training(device, root: str, exp_dir: str) -> dict:
             f"PatchTST on the {route} route", n_val, n_test, cfg.early_stop_delta,
             lambda steps, evals: patchtst_counts(route, cfg.e_layers, steps, evals))
     out["step"] = compare_patchtst_step(device)
+    out["wide_notes"] = compare_wide_notes(device)
     return out
 
 
@@ -1565,23 +1657,7 @@ def compare_patchtst_step(device) -> dict:
                                  f"expected {want}")
     if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
         raise AssertionError(f"PatchTST step loss: kernel route {loss_k} vs plain {loss_p}")
-    # a gradient that vanishes in exact arithmetic (the key projection's bias:
-    # the softmax over keys ignores a shift common to all keys) has no
-    # relative error; it must stay within GRAD_FLOOR of the step's largest
-    # gradient entry on both routes
-    top = max(float(r.abs().max()) for r in g64.values())
-    vanishing = sorted(n for n, r in g64.items() if float(r.abs().max()) <= 1e-9 * top)
-    zero_err = {n: (float(g_k[n].abs().max()) / top, float(g_p[n].abs().max()) / top)
-                for n in vanishing}
-    rel = lambda g, r: float((g.double() - r).abs().max() / r.abs().max())
-    plain_err = {n: rel(g_p[n], r) for n, r in g64.items() if n not in zero_err}
-    errs = {n: rel(g_k[n], g64[n]) for n in plain_err}
-    bad = {n: (e, plain_err[n]) for n, e in errs.items()
-           if not e <= GRAD_FACTOR * plain_err[n] + GRAD_FLOOR}
-    bad.update({n: e for n, e in zero_err.items() if not max(e) <= GRAD_FLOOR})
-    if bad:
-        raise AssertionError(f"PatchTST step gradients farther from float64 than allowed "
-                             f"against the plain route's: {bad}")
+    errs, plain_err, zero_err = held_grads(g_k, g_p, g64, "PatchTST step")
     worst = max(errs, key=lambda n: errs[n] / (plain_err[n] + 1e-6))
     out.update(ffn_rows=M, loss_kernel=loss_k, loss_plain=loss_p, launches=launches,
                worst_grad={worst: (errs[worst], plain_err[worst])}, vanishing_grads=zero_err,
@@ -1646,8 +1722,7 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
     measure_cru."""
     B, N, T, d = shapes["recavg"]
     rsets = [recavg_inputs(B, N, T, d, gen, device) for _ in range(4)]
-    r_bytes = 4 * (B * N * 2 + B * T + B * N * d + 1 + B * T * d)
-    r_flops = B * N * T * 8 + 2 * B * N * T * d + B * T * d
+    r_bytes, r_flops = recavg_work(B, N, T, d)
     M, D, F = shapes["ffn"]
     fsets = [ffn_inputs(M, D, F, gen, device) for _ in range(3)]
     f_bytes = 4 * (2 * M * D + 2 * D * F + F + 3 * D)
@@ -1668,6 +1743,27 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "ok": True, "max_abs_err": err,
                      **timed(fn, plain, None, sets, nbytes, flops, per_rep)})
+    # #1: its previous design and the launch floor under both, at the same
+    # shape; then the PatchTST training shape
+    rec_row = rows[0]
+    rec_row["previous_design_ms"] = device_ms(recavg.tiled_forward, rsets, per_rep=200)
+    rec_row["launch_floor_ms"] = device_ms(lambda: recavg.empty_launch(B, T, d, device),
+                                           [[]], per_rep=200)
+    rec_row["launch_config"] = recavg.launch_config(T)
+    Bt, Nt, Tt, dt = shapes["recavg_train"]
+    tsets = [recavg_inputs(Bt, Nt, Tt, dt, gen, device) for _ in range(4)]
+    t_bytes, t_flops = recavg_work(Bt, Nt, Tt, dt)
+    rec_row["training_shape"] = {
+        "shape": [Bt, Nt, Tt, dt], "max_abs_err": errs["recavg training"],
+        **timed(recavg.recency_weighted_average, recavg.recavg_reference, None, tsets,
+                t_bytes, t_flops, 200),
+        "previous_design_ms": device_ms(recavg.tiled_forward, tsets, per_rep=200),
+        "launch_floor_ms": device_ms(lambda: recavg.empty_launch(Bt, Tt, dt, device), [[]],
+                                     per_rep=200)}
+    log(f"# recency average at {[B, N, T, d]}: {rec_row['ms']:.5f} ms (previous design "
+        f"{rec_row['previous_design_ms']:.5f}, empty launch {rec_row['launch_floor_ms']:.5f}, "
+        f"bound {rec_row['bound_ms']:.5f}); at {[Bt, Nt, Tt, dt]}: "
+        f"{json.dumps(rec_row['training_shape'])}")
     # #2's products run as 3 TF32 passes on the tensor cores, the rest in fp32
     ffn_row = rows[-1]
     ffn_row["bound_fma_ms"] = ffn_row["bound_ms"]
@@ -1905,6 +2001,14 @@ def measure_training(train) -> list[dict]:
     ]
 
 
+def recavg_work(B, N, T, d) -> tuple[int, int]:
+    """#1's (bytes, flops): tau, mask, t_hat, V and sigma read once, E
+    written once; the weights (8 a (n, t)), the weighted sums and the
+    scaling."""
+    return (4 * (B * N * 2 + B * T + B * N * d + 1 + B * T * d),
+            B * N * T * 8 + 2 * B * N * T * d + B * T * d)
+
+
 def bound(nbytes, flops, flop_rate=PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the larger of nbytes at the card's
     memory rate and flops at flop_rate."""
@@ -1959,7 +2063,8 @@ def main() -> int:
     # expm and cru_scan: the CRU preset's [64, 64, 64] Van Loan blocks and its
     # scan at B=64, T=48+24, lod=16, K=15, as served; frechet and cru_scan_bwd:
     # the trained batch of phase 7, B=32, T=36+36
-    shapes = {"recavg": (64, 8, 24, 768), "ffn": (8192, 512, 2048),
+    shapes = {"recavg": (64, 8, 24, 768), "recavg_train": (32, 8, 36, 768),
+              "ffn": (8192, 512, 2048),
               "attn": tuple((bucket_rows(T), 12, T, 64) for T in EMBED_BUCKETS),
               "expm": (64, 64), "cru_scan": (64, 72, 16, 15),
               "frechet": (32, 64), "cru_scan_bwd": (32, 72, 16, 15)}

@@ -26,7 +26,10 @@ def _check_ported(name: str, known: tuple, ported: str) -> None:
 
 
 class FusionModel(nn.Module):
-    def __init__(self, cfg: Config):
+    """d_notes: the notes' width (d_txt when None); the JAX package takes it
+    from its init batch."""
+
+    def __init__(self, cfg: Config, d_notes: int | None = None):
         super().__init__()
         _check_ported(cfg.TTF_module, TTF_MODULES, "TTF_RecAvg")
         _check_ported(cfg.MMF_module, MMF_MODULES, "MMF_GR_Add")
@@ -34,7 +37,8 @@ class FusionModel(nn.Module):
         d_txt = cfg.d_txt if cfg.d_txt is not None else d_model_llm
         self.ttf = TTF_RecAvg(d_txt=d_txt, d_model_llm=d_model_llm,
                               recency_sigma=cfg.recency_sigma,
-                              dropout=cfg.dropout, use_pallas=cfg.use_pallas)
+                              dropout=cfg.dropout, use_pallas=cfg.use_pallas,
+                              d_notes=d_notes)
         self.mmf = MMF_GR_Add(d_txt=d_txt, C=cfg.input_dim,
                               hidden_dim=cfg.input_dim, dropout=cfg.dropout)
 

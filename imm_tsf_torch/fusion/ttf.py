@@ -29,12 +29,19 @@ class TTF_RecAvg(nn.Module):
     otherwise through its plain version."""
 
     def __init__(self, d_txt: int, d_model_llm: int, recency_sigma: float = 1.0,
-                 dropout: float = 0.1, use_pallas: bool = False):
+                 dropout: float = 0.1, use_pallas: bool = False, d_notes: int | None = None):
         super().__init__()
         self.use_pallas = use_pallas
-        # the batch carries notes at width d_txt; the JAX package draws this
-        # layer's init from the LLM width d_model_llm (equal for the aliases)
-        self.input_proj = nn.Linear(d_txt, d_txt)
+        # notes arrive d_notes wide (d_txt unless given), and input_proj maps
+        # them to d_txt. Its weight and bias are drawn from U(+-1/sqrt(d_model_llm)),
+        # the fan-in the JAX package gives this Dense whatever the notes' width
+        # (reference TTF_RecAvg.py:36-41)
+        d_notes = d_txt if d_notes is None else d_notes
+        self.input_proj = nn.utils.skip_init(nn.Linear, d_notes, d_txt)
+        bound = 1.0 / math.sqrt(d_model_llm)
+        with torch.no_grad():
+            self.input_proj.weight.uniform_(-bound, bound)
+            self.input_proj.bias.uniform_(-bound, bound)
         self.log_recency_sigma = nn.Parameter(
             torch.tensor(math.log(recency_sigma), dtype=torch.float32))
         self.layer_norm = nn.LayerNorm(d_txt, eps=1e-5)

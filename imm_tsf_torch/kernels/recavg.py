@@ -8,11 +8,14 @@ Port of imm_tsf_tpu/ops/pallas/fusion_kernels.py
     E = w^T V / max(sum_n w, 1e-6)                            # [B, T, d]
 
 The wrapper runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors, for any B, N, T and d. It is differentiable: its
-backward is `recavg_backward_reference`, the plain PyTorch transcription
-of the JAX package's hand VJP (`_bwd`, fusion_kernels.py:120-140), which
-is XLA there and not a Pallas kernel. Gradients go to tau, t_hat, V and
-sigma; mask is data.
+kernel for CUDA tensors, for any B, N, T and d and any V the kernel can
+read (a V whose data is not 16-byte aligned, or d not a multiple of 4,
+takes the kernel's 4-byte form). A block owns one sample, a slab of
+columns and a few forecast times (`launch_config`). It is
+differentiable: its backward is `recavg_backward_reference`, the plain
+PyTorch transcription of the JAX package's hand VJP (`_bwd`,
+fusion_kernels.py:120-140), which is XLA there and not a Pallas kernel.
+Gradients go to tau, t_hat, V and sigma; mask is data.
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ def recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"recavg_forward": ([_P] * 6 + [_I, _I, _I, _I, _P], _I)}
+_SIGNATURES = {"recavg_forward": ([_P] * 6 + [_I] * 6 + [_P], _I),
+               "recavg_forward_tiled": ([_P] * 6 + [_I] * 4 + [_P], _I),
+               "recavg_empty": ([_I] * 5 + [_P], _I)}
 
 
 def _library() -> ctypes.CDLL:
@@ -80,10 +85,19 @@ def recency_weighted_average(tau, t_hat, V, mask, sigma) -> torch.Tensor:
     return _RecencyAverage.apply(tau, t_hat, V, mask, sigma)
 
 
-def _forward(tau, t_hat, V, mask, sigma) -> torch.Tensor:
-    """Kernel #1 for CUDA tensors, the plain version for CPU tensors."""
-    if V.device.type == "cpu":
-        return recavg_reference(tau, t_hat, V, mask, sigma)
+def launch_config(T: int) -> tuple[int, int]:
+    """(threads a block, forecast times a block) of the kernel: 64 threads
+    of 4 columns, and T split evenly into blocks of at most 8 times, so that
+    at N <= 8 the weights take one round of the block's 8 lane groups. The
+    fastest measured on an H100 at the serving and training shapes, within
+    0.1 us (tools/torch_kernel_probe.py, PERF.md)."""
+    splits = -(-T // 8)
+    return 64, -(-T // splits)
+
+
+def _checked(tau, t_hat, V, mask, sigma):
+    """The inputs as the kernel takes them (float32 on V's CUDA device,
+    tau, t_hat and mask contiguous), or raise."""
     if V.device.type != "cuda":
         raise ValueError(f"recency_weighted_average: unsupported device {V.device}")
     B, N, d = V.shape
@@ -97,19 +111,49 @@ def _forward(tau, t_hat, V, mask, sigma) -> torch.Tensor:
                 f"{V.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if sigma.numel() != 1:
         raise ValueError("recency_weighted_average: sigma must hold one value")
-    if T > 65535 * 8:
-        raise ValueError(f"recency_weighted_average: T={T} exceeds the grid")
+    return tuple(t.contiguous() for t in (tau, t_hat, V, mask, sigma))
+
+
+def _forward(tau, t_hat, V, mask, sigma, config=None) -> torch.Tensor:
+    """Kernel #1 for CUDA tensors, the plain version for CPU tensors.
+    config: (threads, t_per_block) instead of launch_config's."""
+    if V.device.type == "cpu":
+        return recavg_reference(tau, t_hat, V, mask, sigma)
+    tau, t_hat, V, mask, sigma = _checked(tau, t_hat, V, mask, sigma)
+    B, N, d = V.shape
+    T = t_hat.shape[1]
     lib = _library()
-    tau, t_hat, V, mask = (t.contiguous() for t in (tau, t_hat, V, mask))
-    sigma = sigma.contiguous()
     E = torch.empty((B, T, d), dtype=torch.float32, device=V.device)
     if E.numel() == 0:
         return E
-    stream = torch.cuda.current_stream(V.device).cuda_stream
-    rc = lib.recavg_forward(tau.data_ptr(), t_hat.data_ptr(), V.data_ptr(),
-                            mask.data_ptr(), sigma.data_ptr(), E.data_ptr(),
-                            B, N, T, d, stream)
+    threads, t_per_block = config or launch_config(T)
+    rc = lib.recavg_forward(tau.data_ptr(), t_hat.data_ptr(), V.data_ptr(), mask.data_ptr(),
+                            sigma.data_ptr(), E.data_ptr(), B, N, T, d, threads, t_per_block,
+                            torch.cuda.current_stream(V.device).cuda_stream)
     _build.check(rc, "recency_weighted_average")
     global launches
     launches += 1
     return E
+
+
+def tiled_forward(tau, t_hat, V, mask, sigma) -> torch.Tensor:
+    """The kernel's previous design (`recavg_forward_tiled`), on CUDA
+    tensors: timed beside the kernel, never on the path."""
+    tau, t_hat, V, mask, sigma = _checked(tau, t_hat, V, mask, sigma)
+    B, N, d = V.shape
+    T = t_hat.shape[1]
+    E = torch.empty((B, T, d), dtype=torch.float32, device=V.device)
+    rc = _library().recavg_forward_tiled(
+        tau.data_ptr(), t_hat.data_ptr(), V.data_ptr(), mask.data_ptr(), sigma.data_ptr(),
+        E.data_ptr(), B, N, T, d, torch.cuda.current_stream(V.device).cuda_stream)
+    _build.check(rc, "recavg_forward_tiled")
+    return E
+
+
+def empty_launch(B: int, T: int, d: int, device) -> None:
+    """An empty kernel on the grid the kernel takes at (B, T, d): the
+    launch floor under its time."""
+    threads, t_per_block = launch_config(T)
+    rc = _library().recavg_empty(B, T, d, threads, t_per_block,
+                                 torch.cuda.current_stream(device).cuda_stream)
+    _build.check(rc, "recavg_empty")

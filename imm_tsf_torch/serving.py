@@ -309,7 +309,16 @@ class ForecastService(_MetricsMixin):
         self.model.load_state_dict(state["model"])
         self.fusion = None
         if cfg.enable_text:
-            self.fusion = FusionModel(cfg).to(self.device).eval()
+            # the notes' width the experiment was trained on, as its input_proj
+            # holds it; a request's embeddings must still be d_txt wide
+            # (_build_chunk), the JAX package's rule
+            d_notes = state["fusion"]["ttf.input_proj.weight"].shape[1]
+            if cfg.use_text_embeddings and d_notes != d_txt:
+                raise ValueError(
+                    f"this experiment was trained on notes {d_notes} wide, but a request's "
+                    f"note embedding must be d_txt={d_txt} wide: neither package can serve "
+                    "it (ROADMAP.md, Queue 3)")
+            self.fusion = FusionModel(cfg, d_notes=d_notes).to(self.device).eval()
             self.fusion.load_state_dict(state["fusion"])
         self.step = int(state["step"])
         self._forward = make_forward(cfg, self.model, self.fusion)

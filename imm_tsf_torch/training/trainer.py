@@ -220,15 +220,20 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
 
     # the JAX trainer draws one sample batch for its init (trainer.py:556),
     # which advances the shuffle stream: draw it too, so the batch order
-    # stays the JAX package's for the same seed
-    next(iter(data_obj["train_dataloader"]))
+    # stays the JAX package's for the same seed. Flax takes the notes' width
+    # from that batch; so does the fusion model here
+    sample = next(iter(data_obj["train_dataloader"]))
     torch.manual_seed(cfg.seed)
     model = get_model(cfg)
     fusion = None
     if cfg.enable_text:
         from ..fusion.fusion_model import FusionModel
+        from ..llm.loader import get_d_model
 
-        fusion = FusionModel(cfg)
+        # raw-text notes come out of the embedding LLM at its width
+        d_notes = (int(sample["notes_embeddings"].shape[-1]) if "notes_embeddings" in sample
+                   else get_d_model(cfg.llm_model_fusion))
+        fusion = FusionModel(cfg, d_notes=d_notes)
     if initial_state is not None:
         model.load_state_dict(initial_state[0])
         if fusion is not None:

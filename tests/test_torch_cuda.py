@@ -153,13 +153,21 @@ def test_ffn_kernel_refuses_what_it_cannot_take(dev, gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,T,d,empty", [
-    (64, 8, 24, 768, False),
-    (3, 5, 7, 300, True),
-    (2, 70, 9, 1, False),  # notes over several shared-memory chunks
+@pytest.mark.parametrize("B,N,T,d,empty,offset", [
+    (64, 8, 24, 768, False, 0),
+    (3, 5, 7, 300, True, 0),
+    (2, 70, 9, 1, False, 0),   # notes over several chunks, 4-byte form
+    (32, 8, 36, 768, False, 0),  # the PatchTST training shape
+    (64, 8, 24, 1024, False, 0),
+    (5, 8, 24, 767, True, 0),    # d = 4k + 3: the 4-byte form
+    (64, 8, 24, 768, False, 1),  # V 4 bytes off 16-byte alignment: the 4-byte form
+    (8, 0, 24, 768, False, 0),   # no notes at all: E = 0
+    (4, 70, 24, 768, False, 0),  # several chunks of 32 notes, 16-byte form
+    (3, 12, 130, 64, True, 0),   # T over several blocks of times; 16-note chunks
 ])
-def test_recavg_kernel_matches_plain(dev, gen, B, N, T, d, empty):
-    args = recavg_inputs(B, N, T, d, gen, dev, empty_sample=empty)
+def test_recavg_kernel_matches_plain(dev, gen, B, N, T, d, empty, offset):
+    args = recavg_inputs(B, N, T, d, gen, dev, empty_sample=empty, offset=offset)
+    assert (args[2].data_ptr() % 16 != 0) == (offset != 0)
     before = recavg.launches
     out = recavg.recency_weighted_average(*args)
     torch.cuda.synchronize()
@@ -167,6 +175,21 @@ def test_recavg_kernel_matches_plain(dev, gen, B, N, T, d, empty):
     torch.testing.assert_close(out, recavg.recavg_reference(*args), atol=1e-5, rtol=1e-5)
     if empty:
         assert bool((out[-1] == 0).all())
+    if N == 0:
+        assert bool((out == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads,t_per_block", [(32, 24), (64, 24), (64, 8), (128, 5),
+                                                 (32, 64)])
+def test_recavg_kernel_at_every_launch_config(dev, gen, threads, t_per_block):
+    """The kernel's answer does not depend on how the host cuts the grid."""
+    args = recavg_inputs(6, 11, 70, 520, gen, dev, empty_sample=True)
+    out = recavg._forward(*args, config=(threads, t_per_block))
+    torch.testing.assert_close(out, recavg.recavg_reference(*args), atol=1e-5, rtol=1e-5)
+    assert bool((out[-1] == 0).all())
+    torch.testing.assert_close(recavg.tiled_forward(*args), recavg.recavg_reference(*args),
+                               atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's kernels #2-#7 of one checkout on one CUDA
+"""Time the PyTorch/CUDA port's kernels #1-#7 of one checkout on one CUDA
 card, at the main paths' shapes.
 
     python tools/torch_kernel_ab.py [--root DIR] [--tag NAME] [--save FILE]
@@ -10,9 +10,11 @@ script lies in); its `chip_smoke.py` and `imm_tsf_torch/` are imported, and
 its kernels built, from there, so the same inputs (seeded as chip_smoke
 seeds them) go through that checkout's kernels. To compare two commits, run
 it for each in turns on one card (A, B, B, A). Prints one JSON line:
-{"tag", "root", "device", "power", "ffn_ms", "attn": {shape: ms},
-"frechet_ms", "expm_ms", "expm_dense_ms", "scan_ms", "scan_bwd_ms"}:
-device ms (chip_smoke.device_ms) of #2 at M 8192, D 512, F 2048 (gelu, no
+{"tag", "root", "device", "power", "recavg_ms": {shape: ms}, "ffn_ms",
+"attn": {shape: ms}, "frechet_ms", "expm_ms", "expm_dense_ms", "scan_ms",
+"scan_bwd_ms"}: device ms (chip_smoke.device_ms) of #1 at the serving
+shape [B 64, N 8, T 24, d 768] and the PatchTST training shape [32, 8, 36,
+768], #2 at M 8192, D 512, F 2048 (gelu, no
 dropout), #3 at each embed_notes bucket call ([rows, 12, T, 64],
 right-padded notes), #4 at the trained [32, 64, 64] (one call at each of
 chip_smoke's inf-norms 0.01, 0.5, 6 and 80, in turn), #5 at the served
@@ -52,7 +54,7 @@ def main() -> int:
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn
+    from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -62,6 +64,11 @@ def main() -> int:
                            check=True).stdout.strip()
     out = {"tag": args.tag, "root": root, "device": torch.cuda.get_device_name(0),
            "power": power}
+    out["recavg_ms"] = {}
+    for shape in ((64, 8, 24, 768), (32, 8, 36, 768)):
+        sets = [cs.recavg_inputs(*shape, gen, dev) for _ in range(4)]
+        out["recavg_ms"][str(list(shape))] = cs.device_ms(recavg.recency_weighted_average, sets,
+                                                          per_rep=200)
     sets = [cs.ffn_inputs(8192, 512, 2048, gen, dev) for _ in range(2)]
     out["ffn_ms"] = cs.device_ms(lambda *a: ffn.fused_encoder_ffn(*a, cs.KEEP, "gelu", False),
                                  sets, per_rep=10)

@@ -1,11 +1,25 @@
 #!/usr/bin/env python3
-"""What bounds kernels #2 (the fused encoder FFN), #4 (the expm's Frechet
-derivative) and #5 (the batched expm) of the PyTorch/CUDA port, on one
-CUDA card.
+"""What bounds kernels #1 (the recency average), #2 (the fused encoder
+FFN), #4 (the expm's Frechet derivative) and #5 (the batched expm) of the
+PyTorch/CUDA port, on one CUDA card.
 
-    python tools/torch_kernel_probe.py
+    python tools/torch_kernel_probe.py [--only recavg]
 
 Prints one JSON line with:
+
+- `recavg`: #1 at the serving shape [B 64, N 8, T 24, d 768] and the
+  PatchTST training shape [32, 8, 36, 768], at each launch config
+  (threads a block 32, 64, 128; T cut into 1, 2, 3, 4 or 6 blocks of
+  times), each beside an empty kernel launched on the same grid (the
+  launch floor), `launch_config`'s choice, the previous design
+  (`recavg.tiled_forward`) and `fill_ms`, torch's fill of an E-sized
+  tensor (a kernel that only writes E's bytes), and copies of
+  `csrc/recavg.cu` built with parts of the work taken out
+  (`RECAVG_VARIANTS`: streaming stores; no weights, so no loads of tau,
+  t_hat, mask or sigma and no exps; no loads of V; both; the loop over times
+  unrolled by 2 or 8 instead of 4; programmatic dependent
+  launch, which lets each launch start while the one before it runs),
+  each at the default config beside its empty kernel. `--only recavg` stops there.
 
 - `mma_sync_tflops`: the rate of `mma.sync.m16n8k8` TF32 on the card, from
   a kernel that runs nothing else (528 blocks of 8 warps, 8 independent
@@ -104,14 +118,134 @@ def expm_probe(cs, expm, gen, dev) -> dict:
     return {"expm_us": times, "expm_us_per_product": slopes}
 
 
-def main() -> int:
+# copies of csrc/recavg.cu with parts of its work taken out or changed, by
+# (text, replacement)
+RECAVG_STORE = "        *out = acc;\n"
+RECAVG_WEIGHTS = ("      const float z = fmaxf(th - tau_k, 0.f) / sigma;\n",
+                  "      const float w = expf(-(z * z)) * mask_k;\n")
+RECAVG_V = "      if (live && j < nc) v[j] = ldg("
+# programmatic dependent launch: each launch may start while the one before
+# it runs; the kernel waits for it (griddepcontrol.wait) before touching memory
+RECAVG_PDL_LAUNCH = r"""
+template <typename... KArgs, typename... Args>
+void pdl_launch(dim3 grid, int threads, cudaStream_t stream, void (*kernel)(KArgs...),
+                Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int W>
+void launch("""
+RECAVG_VARIANTS = {
+    "streaming stores": [(RECAVG_STORE, "        __stcs(out, acc);\n")],
+    "no weights": [(RECAVG_WEIGHTS[0], ""), (RECAVG_WEIGHTS[1], "      const float w = 0.125f;\n")],
+    "no V loads": [(RECAVG_V, "      if (false) v[j] = ldg(")],
+    **{f"times unrolled by {u}": [("#pragma unroll 4\n      for (int t = 0; t < nt; ++t) {",
+                                   f"#pragma unroll {u}\n      for (int t = 0; t < nt; ++t) {{")]
+       for u in (2, 8)},
+    "PDL": [("  for (int n0 = 0;; n0 += NC) {\n",
+             '  asm volatile("griddepcontrol.wait;" ::: "memory");\n'
+             '  asm volatile("griddepcontrol.launch_dependents;");\n'
+             "  for (int n0 = 0;; n0 += NC) {\n"),
+            ("\ntemplate <int W>\nvoid launch(", RECAVG_PDL_LAUNCH),
+            *[(f"recavg_kernel<W, {t}><<<grid, threads, 0, stream>>>(",
+               f"pdl_launch(grid, threads, stream, recavg_kernel<W, {t}>, ")
+              for t in ("8, false", "16, false", "32, false", "32, true")],
+            ("empty_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>();",
+             "pdl_launch(grid, threads, static_cast<cudaStream_t>(stream), empty_kernel);")],
+}
+RECAVG_VARIANTS["stores only"] = RECAVG_VARIANTS["no weights"] + RECAVG_VARIANTS["no V loads"]
+
+
+def recavg_variant_libs(recavg, out_dir: str, csrc: str) -> dict:
+    """Build each RECAVG_VARIANTS copy (all nvcc processes at once) and
+    load it with the kernel's signatures."""
+    from imm_tsf_torch.kernels import _build
+
+    text, procs = open(os.path.join(csrc, "recavg.cu")).read(), {}
+    for name, edits in RECAVG_VARIANTS.items():
+        src = text
+        for line, repl in edits:
+            if src.count(line) != 1:
+                raise RuntimeError(f"recavg.cu changed: no single line {line!r} to replace")
+            src = src.replace(line, repl)
+        tag = name.replace(" ", "_")
+        path = os.path.join(out_dir, f"recavg_{tag}.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        lib = os.path.join(out_dir, f"librecavg_{tag}.so")
+        procs[name] = (lib, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}",
+                                              "-o", lib, path]))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for the recavg variant {name!r}")
+        libs[name] = ctypes.CDLL(path)
+        for fn, (argtypes, restype) in recavg._SIGNATURES.items():
+            getattr(libs[name], fn).argtypes = argtypes
+            getattr(libs[name], fn).restype = restype
+    return libs
+
+
+def recavg_probe(cs, recavg, gen, dev, variants: dict) -> dict:
+    """#1 by launch config, beside the empty kernel on each grid; and each
+    variant of `variants` (name -> library) at the default config."""
     import torch
+
+    lib, out = recavg._library(), {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for B, N, T, d in ((64, 8, 24, 768), (32, 8, 36, 768)):
+        sets = [cs.recavg_inputs(B, N, T, d, gen, dev) for _ in range(4)]
+        E = torch.empty((B, T, d), device=dev)
+        res = {"launch_config": recavg.launch_config(T),
+               "ms": cs.device_ms(recavg.recency_weighted_average, sets, per_rep=200),
+               "previous_design_ms": cs.device_ms(recavg.tiled_forward, sets, per_rep=200),
+               "fill_ms": cs.device_ms(lambda: E.fill_(1.0), [[]], per_rep=200),
+               "by_config": {}}
+        for threads in (32, 64, 128):
+            for splits in (1, 2, 3, 4, 6):
+                tpb = -(-T // splits)
+                run = lambda *a, c=(threads, tpb): recavg._forward(*a, config=c)
+                empty = lambda c=(threads, tpb): lib.recavg_empty(B, T, d, *c, stream)
+                blocks = B * -(-d // (4 * threads)) * -(-T // tpb)
+                res["by_config"][f"threads {threads} times {tpb}"] = {
+                    "blocks": blocks, "ms": cs.device_ms(run, sets, per_rep=200),
+                    "empty_ms": cs.device_ms(empty, [[]], per_rep=200)}
+        library = recavg._library
+        for name, vlib in variants.items():
+            recavg._library = lambda vlib=vlib: vlib
+            try:
+                res[f"{name} ms"] = cs.device_ms(recavg._forward, sets, per_rep=200)
+                res[f"{name} empty ms"] = cs.device_ms(
+                    lambda: recavg.empty_launch(B, T, d, dev), [[]], per_rep=200)
+            finally:
+                recavg._library = library
+        out[str([B, N, T, d])] = res
+    return out
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=["recavg"], default=None)
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("torch_kernel_probe: CUDA is not available", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from imm_tsf_torch.kernels import expm, ffn
+    from imm_tsf_torch.kernels import expm, ffn, recavg
     from imm_tsf_torch.layers.fast_dropout import _thresh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,6 +258,11 @@ def main() -> int:
                                     "--format=csv,noheader"], capture_output=True, text=True,
                                    check=True).stdout.strip()}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    out["recavg"] = recavg_probe(cs, recavg, gen, dev,
+                                 recavg_variant_libs(recavg, out_dir, csrc))
+    if args.only == "recavg":
+        print(json.dumps(out), flush=True)
+        return 0
 
     src = os.path.join(out_dir, "mma_rate.cu")
     with open(src, "w") as f:
