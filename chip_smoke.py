@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       training form at M=8192 with dropout (gelu): out, a1 and r to the
       same; with dropout the zero patterns of both hash-dropout sites must
       equal the hash bits exactly, in both forms (structured inputs make
-      them visible in the output and in r);
+      them visible in the output and in r); and at Informer's three FFN
+      sites (M 3072, 1600, 1536), eval form and training form with dropout;
       causal attention at the shape of each embed_notes bucket call at the
       token budget (T 32-1024: [1024,12,32,64] ... [64,12,1024,64],
       right-padded notes) and a ragged [3,2,13,64] (token 0 padded in one
@@ -121,7 +122,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     (`compare_wide_notes`): one forward and backward at the serving shape
     on the kernel route (#1 once) against the plain route, outputs to
     |err| <= 1e-4 + 1e-4|ref| and gradients as the step's;
- 5. (after 6-8) time each kernel and its plain version at the shapes
+ 9. Informer and the default fusion pair: (a) serve the Informer preset
+    at full width (d_model 512, d_ff 2048, 2 heads, e_layers 2 with distil,
+    d_layers 1, factor 3) + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded
+    weights and BatchNorm statistics away from (0, 1), 512 requests from 8
+    threads on the kernel route: answers finite with their rows, launch
+    counts exact (3 of #2's eval form and 1 of #1 a dispatch), one
+    dispatch kernels vs plain to |err| <= 1e-4 + 1e-4|ref|, one traced;
+    (b) train it through `imm_tsf_torch.main.main([...])`
+    (INFORMER_TRAIN_ARGS: hash dropout 0.1, batch 32, two epochs on phase
+    7's fixture) on the kernel route and the plain route, counts exact (#2
+    3 a forward, its training form in the steps, #1 once a forward, nothing
+    plain), the trained checkpoint carrying moved BatchNorm statistics;
+    then `compare_informer_step`: one step at B 64, L 48, Lp 24 kernel vs
+    plain vs float64 under the same salts, ProbSparse samples and max-pool
+    choices (`pinned_pools`), loss to 1e-5, gradients by `held_grads`,
+    running statistics across routes to 1e-5, a traced step per route;
+    (c) DLinear + TTF_T2V_XAttn + MMF_XAttn_Add (the config's default pair;
+    no kernel): 256 requests on the card (no launch, one dispatch against
+    the same modules on the CPU to 1e-4 + 1e-4|ref|) and two epochs of
+    training, every answer and loss finite;
+ 5. (after 6-9) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -131,7 +152,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     inputs; the Frechet derivative on a training step's 72 [32,64,64]
     calls, beside matrix_exp of the 128-square block; the scan backward
     on that step's inputs; #2's training form and its plain backward at
-    M 8192) and print one JSON line {"kernels": [...]}
+    M 8192, and both forms at Informer's three sites) and print one JSON
+    line {"kernels": [...]}
     (seven rows) with the bound each is held to (#4-#7 from the data's
     own tiers and squarings; #2 and #3 at 3 x their products' FLOPs on
     the TF32 tensor cores, the fp32-FMA bound beside it as bound_fma_ms,
@@ -171,7 +193,9 @@ from imm_tsf_torch.fusion.fusion_model import FusionModel
 from imm_tsf_torch.kernels import _build, attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.kernels._cluster import CLUSTER_SIZES
 from imm_tsf_torch.layers.fast_dropout import Dropout, _keep_mask
-from imm_tsf_torch.layers.transformer import EncoderLayer
+from imm_tsf_torch.layers import transformer as transformer_layers
+from imm_tsf_torch.layers.prob_attention import ProbAttention
+from imm_tsf_torch.layers.transformer import BatchNorm, DecoderLayer, EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes, get_d_model
 from imm_tsf_torch.models import get_model
@@ -283,6 +307,21 @@ PATCH_TRAIN_ARGS = [a if a != "CRU" else "PatchTST" for a in TRAIN_ARGS]
 PATCH_ROUTES = {"kernel": ["--use_pallas", "true", "--use_fused_ffn", "true"],
                 "plain": ["--use_pallas", "false"]}
 PATCH_STEP_B = 64  # the compared step's batch: the FFN at M = 64 x 8 x 16 = 8192
+# phase 9: Informer, the preset (e_layers 2 with distil, d_layers 1, factor
+# 3) at the full widths of the first cell (d_model 512, d_ff 2048, 2 heads)
+# behind TTF_RecAvg + MMF_GR_Add, EPA-Air 48 + 24 steps: #2 at three FFN
+# sites a forward (M = 64 x 48, then 64 x 25 after the distilling conv, and
+# the decoder's 64 x 24 at a full dispatch), #1 once
+INFORMER_CFG = dict(SERVE_CFG, model="Informer", **MODEL_PRESETS["Informer"])
+N_INFORMER_REQUESTS = 512
+INFORMER_TRAIN_ARGS = [a if a != "CRU" else "Informer" for a in TRAIN_ARGS]
+# the config's default fusion pair (TTF_T2V_XAttn + MMF_XAttn_Add) behind
+# DLinear: no kernel runs on this path
+DEFAULT_PAIR = {"TTF_RecAvg": "TTF_T2V_XAttn", "MMF_GR_Add": "MMF_XAttn_Add", "CRU": "DLinear"}
+DEFAULT_PAIR_CFG = dict(SERVE_CFG, model="DLinear", TTF_module="TTF_T2V_XAttn",
+                        MMF_module="MMF_XAttn_Add")
+DEFAULT_PAIR_TRAIN_ARGS = [DEFAULT_PAIR.get(a, a) for a in TRAIN_ARGS]
+N_DEFAULT_PAIR_REQUESTS = 256
 
 
 def log(msg: str) -> None:
@@ -780,6 +819,22 @@ def check_kernels(device, shapes, gen) -> dict:
                                                               for v in bwd.values()])
         log(f"# check cru_scan_bwd B={Bs} T={T} lod={lod} K={K} draw {draw} against float64, "
             f"g ~ N(0, 1): {json.dumps(bwd)}")
+
+    # #2 at Informer's three FFN sites (phase 9), eval form and training form
+    # with dropout (a generator of its own: the checks above keep their draws)
+    gen_i = torch.Generator(device=device).manual_seed(SEED + 9)
+    for m, D, F in shapes.get("ffn_informer", ()):
+        args = ffn_inputs(m, D, F, gen_i, device)
+        errs[f"ffn informer M {m}"] = max_err(ffn.fused_encoder_ffn(*args, KEEP, "gelu", False),
+                                              ffn.ffn_reference(*args, KEEP, "gelu", False),
+                                              FFN_TOL)
+        got = ffn._forward(*args, KEEP, "gelu", True, with_residuals=True)
+        want = ffn.ffn_forward_reference(*args, KEEP, "gelu", True, with_residuals=True)
+        errs[f"ffn informer M {m} training form"] = {
+            name: max_err(g, w, FFN_TOL) for name, g, w in zip(("out", "a1", "r"), got, want)}
+        log(f"# check ffn at Informer's M={m} D={D} F={F} gelu: eval form max|err| "
+            f"{errs[f'ffn informer M {m}']:.3e}, training form with dropout "
+            f"{json.dumps(errs[f'ffn informer M {m} training form'])}")
     if device.type == "cuda":
         torch.cuda.synchronize()
     return errs
@@ -787,8 +842,10 @@ def check_kernels(device, shapes, gen) -> dict:
 
 # ---------------------------------------------------------------- phase 4
 def seeded_weights(module, gen) -> None:
-    """Fill every parameter from `gen`: Linear at torch's init scale,
-    LayerNorm (and CRU's raw LayerNorm tensors) near identity, GRU tensors
+    """Fill every parameter from `gen`: Linear and Conv1d at torch's init
+    scale, LayerNorm (and CRU's raw LayerNorm tensors) near identity, the
+    distilling BatchNorm near identity with running statistics away from 0
+    and 1 (so eval reads them), TTF_T2V_XAttn's query N(0, 1), GRU tensors
     U(+/-1/sqrt(H)), sigma near 1, CRU's banded bases N(0, BASIS_STD^2)
     (at their zero init every Van Loan block would be tiny and nilpotent,
     and only the Taylor-4 tier would run)."""
@@ -802,12 +859,25 @@ def seeded_weights(module, gen) -> None:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
                 m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+            elif isinstance(m, nn.Conv1d):
+                b = 1.0 / math.sqrt(m.in_channels * m.kernel_size[0])
+                m.weight.copy_((torch.rand(m.weight.shape, generator=gen) * 2 - 1) * b)
+                if m.bias is not None:
+                    m.bias.copy_((torch.rand(m.bias.shape, generator=gen) * 2 - 1) * b)
+            elif isinstance(m, BatchNorm):
+                n = m.weight.shape
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.3 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
         for name, p in module.named_parameters():
             if name.split(".")[-1].startswith("gru_"):
                 H = p.shape[-1] // 3
                 p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(H))
             elif name.endswith("log_recency_sigma"):
                 p.fill_(math.log(1.5))
+            elif name.endswith("Q_param"):
+                p.copy_(torch.randn(p.shape, generator=gen))
             elif re.fullmatch(r"tm_\d\d_basis", name):
                 p.copy_(BASIS_STD * torch.randn(p.shape, generator=gen))
             elif re.fullmatch(r"\w+_ln\d_scale", name):
@@ -905,7 +975,7 @@ def set_kernels(svc, on: bool) -> None:
     """Route the service's modules through the kernels (on) or their plain
     versions (off); the parameters are the same tensors either way."""
     for m in svc.model.modules():
-        if isinstance(m, EncoderLayer):
+        if isinstance(m, (EncoderLayer, DecoderLayer)):
             m.use_fused_ffn = on
         elif isinstance(m, CRU):
             m.use_pallas = on
@@ -1537,17 +1607,28 @@ def compare_wide_notes(device) -> dict:
     return out
 
 
-def patchtst_counts(route: str, e_layers: int, steps: int, evals: int) -> dict:
-    """Launches of a PatchTST run of `steps` gradient steps and `evals`
-    eval batches: on the kernel route #1 once a forward and #2 once a
-    forward an encoder layer (its training form in the steps); nothing on
-    the plain route."""
+def ffn_counts(route: str, ffn_sites: int, steps: int, evals: int) -> dict:
+    """Launches of a run of `steps` gradient steps and `evals` eval batches
+    of a model with `ffn_sites` FFN layers behind TTF_RecAvg: on the kernel
+    route #1 once a forward and #2 once a forward an FFN site (its training
+    form in the steps); nothing on the plain route."""
     counts = dict.fromkeys(KERNEL_COUNTS, 0)
     if route == "kernel":
         counts.update(recency_weighted_average=steps + evals,
-                      fused_encoder_ffn=e_layers * (steps + evals),
-                      fused_encoder_ffn_train=e_layers * steps)
+                      fused_encoder_ffn=ffn_sites * (steps + evals),
+                      fused_encoder_ffn_train=ffn_sites * steps)
     return counts
+
+
+def ffn_site_rows(model):
+    """Forward pre-hooks on every EncoderLayer and DecoderLayer that record
+    the rows its FFN takes (the leading dims of its input); returns (the
+    list they append to, a function that removes them)."""
+    rows: list = []
+    record = lambda _, a: rows.append(a[0].shape[0] * a[0].shape[1])
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, (EncoderLayer, DecoderLayer))]
+    return rows, lambda: [h.remove() for h in hooks]
 
 
 def run_patchtst_training(device, root: str, exp_dir: str) -> dict:
@@ -1568,7 +1649,7 @@ def run_patchtst_training(device, root: str, exp_dir: str) -> dict:
         out["routes"][route] = train_route(
             device, PATCH_TRAIN_ARGS + PATCH_ROUTES[route], root, exp_dir,
             f"PatchTST on the {route} route", n_val, n_test, cfg.early_stop_delta,
-            lambda steps, evals: patchtst_counts(route, cfg.e_layers, steps, evals))
+            lambda steps, evals: ffn_counts(route, cfg.e_layers, steps, evals))
     out["step"] = compare_patchtst_step(device)
     out["wide_notes"] = compare_wide_notes(device)
     return out
@@ -1595,77 +1676,133 @@ def headline_batch(cfg, B: int, gen, device) -> dict:
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def compare_patchtst_step(device) -> dict:
-    """One gradient step of the full-width PatchTST experiment (SERVE_CFG,
-    hash dropout 0.1) from seeded weights on a batch at the bench headline's
-    shape (B 64, L 48, Lp 24, C 8: the FFN at M = 64 x 8 x 16 = 8192), three
-    ways under the same salts (one generator, reseeded before each run):
-    the kernel route, the plain route and the plain route in float64. The
-    losses agree to TRAIN_LOSS_RTOL, and each gradient's error on the
-    kernel route (max |g - g64| / max |g64|) is at most GRAD_FACTOR times
-    the plain route's plus GRAD_FLOOR. Launch counts of the step are exact.
-    Then one full step of each route (optimizer included) is traced, and
-    the re-derivation of #2's two dropout masks at the step's M is timed."""
-    cfg = Config(**dict(SERVE_CFG, dropout=0.1))
+class pinned_pools:
+    """Within the block, the distilling convs' max-pools (the F.max_pool1d
+    of imm_tsf_torch/layers/transformer.py) take, in every run after the
+    first, the windows' argmax the first run took, call by call
+    (`next_run()` starts a run). The max's gradient is a step: where two
+    elements of a window agree to within rounding, another rounding order
+    may pick the other one, and a whole gradient entry moves to its
+    neighbour. `flips[r]` counts the windows where run r + 1's own argmax
+    differed from the pinned one. The forward value changes by the near
+    tie's difference only."""
+
+    def __init__(self):
+        self.records, self.flips, self.run, self.call = [], [], 0, 0
+
+    def __getattr__(self, name):  # the rest of torch.nn.functional
+        return getattr(torch.nn.functional, name)
+
+    def __enter__(self):
+        self.saved = transformer_layers.F
+        transformer_layers.F = self
+        return self
+
+    def __exit__(self, *exc):
+        transformer_layers.F = self.saved
+
+    def next_run(self) -> None:
+        self.run, self.call = self.run + 1, 0
+        self.flips.append(0)
+
+    def max_pool1d(self, x, kernel_size, stride, padding=0):
+        out, idx = torch.nn.functional.max_pool1d(x, kernel_size, stride, padding=padding,
+                                                  return_indices=True)
+        if self.run == 0:
+            self.records.append(idx)
+            return out
+        pinned = self.records[self.call]
+        self.call += 1
+        self.flips[-1] += int((idx != pinned).sum())
+        return torch.gather(x, 2, pinned)
+
+
+def compare_fused_step(device, cfg, label: str, time_masks: bool = False) -> dict:
+    """One gradient step of a full-width experiment with FFN layers (cfg,
+    hash dropout) from seeded weights on a batch at the bench headline's
+    shape (B 64, L 48, Lp 24, C 8), three ways under the same salts and the
+    same ProbSparse key samples (one CPU generator for the salts and one
+    device generator for the samples, both reseeded before each run), from
+    the same BatchNorm running statistics: the kernel route, the plain route
+    and the plain route in float64, the later two with the float64 run's
+    max-pool choices (pinned_pools). The losses agree to TRAIN_LOSS_RTOL,
+    each gradient's error on the kernel route (max |g - g64| / max |g64|) is
+    at most GRAD_FACTOR times the plain route's plus GRAD_FLOOR, the running
+    statistics after the step agree across routes to 1e-5 + 1e-5|ref|, and
+    the step's launch counts are exact. Then one full step of each route
+    (optimizer included) is traced, and with `time_masks` the
+    re-derivation of #2's two dropout masks at the first site's M is timed."""
     gen = torch.Generator().manual_seed(SEED)
     model, fusion = get_model(cfg), FusionModel(cfg)
     seeded_weights(model, gen)
     seeded_weights(fusion, gen)
     batch = headline_batch(cfg, PATCH_STEP_B, torch.Generator().manual_seed(SEED + 1), device)
-    layers = [m for m in model.modules() if isinstance(m, EncoderLayer)]
-    ffn_rows = []
-    record = lambda _, a: ffn_rows.append(a[0].shape[0] * a[0].shape[1])  # x [B C, P, D]
-    hooks = [m.register_forward_pre_hook(record) for m in layers]
+    n_sites = sum(isinstance(m, (EncoderLayer, DecoderLayer)) for m in model.modules())
+    rows, remove_hooks = ffn_site_rows(model)
+    initial = {n: b.clone() for n, b in model.named_buffers()}
 
     def set_route(model, fusion, kernels):
         for m in model.modules():
-            if isinstance(m, EncoderLayer):
+            if isinstance(m, (EncoderLayer, DecoderLayer)):
                 m.use_fused_ffn = kernels
         fusion.ttf.use_pallas = kernels
 
     def grads(model, fusion, batch, kernels):
         set_route(model, fusion, kernels)
         salts = torch.Generator().manual_seed(SEED)  # the same salts, so the same masks
+        samples = torch.Generator(device=device).manual_seed(SEED)  # and the same samples
         for m in [*model.modules(), *fusion.modules()]:
             if isinstance(m, Dropout):
                 m.generator = salts
+            elif isinstance(m, ProbAttention):
+                m.generator = samples
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(initial[n])
         model.zero_grad(set_to_none=True)
         fusion.zero_grad(set_to_none=True)
         loss = make_loss_fn(make_forward(cfg, model, fusion))(batch)
         loss.backward()
         named = [*model.named_parameters(), *fusion.named_parameters()]
-        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in named}
+        return (float(loss.detach()), {n: p.grad.detach().clone() for n, p in named},
+                {n: b.detach().clone() for n, b in model.named_buffers()})
 
     model64, fusion64 = (copy.deepcopy(m).double().to(device).train() for m in (model, fusion))
     batch64 = {k: v.double() for k, v in batch.items()}
-    loss64, g64 = grads(model64, fusion64, batch64, False)
-    model, fusion = model.to(device).train(), fusion.to(device).train()
-    out = {"batch": {k: list(v.shape) for k, v in batch.items()}, "loss_float64": loss64}
-    zero_counts()
-    loss_p, g_p = grads(model, fusion, batch, False)
-    plain_launches = read_counts()
-    zero_counts()
-    loss_k, g_k = grads(model, fusion, batch, True)
-    launches = read_counts()
-    for h in hooks:
-        h.remove()
-    M = ffn_rows[-1]
+    with pinned_pools() as pools:
+        loss64, g64, _ = grads(model64, fusion64, batch64, False)
+        model, fusion = model.to(device).train(), fusion.to(device).train()
+        initial = {n: b.to(device) for n, b in initial.items()}
+        out = {"batch": {k: list(v.shape) for k, v in batch.items()}, "loss_float64": loss64}
+        pools.next_run()
+        zero_counts()
+        loss_p, g_p, buf_p = grads(model, fusion, batch, False)
+        plain_launches = read_counts()
+        pools.next_run()
+        zero_counts()
+        loss_k, g_k, buf_k = grads(model, fusion, batch, True)
+        launches = read_counts()
+    remove_hooks()
+    out["pool_argmax_flips"] = {"plain": pools.flips[0], "kernel": pools.flips[1],
+                                "windows": sum(int(r.numel()) for r in pools.records)}
     for route, got in (("plain", plain_launches), ("kernel", launches)):
-        want = patchtst_counts(route, len(layers), 1, 0)
+        want = ffn_counts(route, n_sites, 1, 0)
         if device.type == "cuda" and got != want:
-            raise AssertionError(f"one PatchTST step on the {route} route launched {got}, "
+            raise AssertionError(f"one {label} step on the {route} route launched {got}, "
                                  f"expected {want}")
     if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
-        raise AssertionError(f"PatchTST step loss: kernel route {loss_k} vs plain {loss_p}")
-    errs, plain_err, zero_err = held_grads(g_k, g_p, g64, "PatchTST step")
+        raise AssertionError(f"{label} step loss: kernel route {loss_k} vs plain {loss_p}")
+    errs, plain_err, zero_err = held_grads(g_k, g_p, g64, f"{label} step")
     worst = max(errs, key=lambda n: errs[n] / (plain_err[n] + 1e-6))
-    out.update(ffn_rows=M, loss_kernel=loss_k, loss_plain=loss_p, launches=launches,
+    out.update(ffn_rows=rows[-n_sites:], loss_kernel=loss_k, loss_plain=loss_p,
+               launches=launches,
                worst_grad={worst: (errs[worst], plain_err[worst])}, vanishing_grads=zero_err,
                largest_grad_err={"kernel": max(errs.values()), "plain": max(plain_err.values())},
                ffn_grad_err={n: (errs[n], plain_err[n]) for n in errs
-                             if ".conv1." in n or ".conv2." in n or ".norm2." in n})
-    log(f"# one PatchTST step, seeded weights, B {PATCH_STEP_B} at the headline shape (FFN M "
-        f"{M}): {json.dumps(out)}")
+                             if re.search(r"\.(conv1|conv2|norm2|norm3)\.", n)},
+               running_stats_err={n: max_err(buf_k[n], buf_p[n], (1e-5, 1e-5)) for n in buf_p})
+    log(f"# one {label} step, seeded weights, B {PATCH_STEP_B} at the headline shape (FFN M "
+        f"{out['ffn_rows']}): {json.dumps(out)}")
 
     if device.type == "cuda":  # one whole step of each route, optimizer included, traced
         params = trainable_parameters(model, fusion)
@@ -1678,17 +1815,183 @@ def compare_patchtst_step(device) -> dict:
             step_ms = float(np.median(wall_ms(step, batch, reps=5, inference=False)))
             out["profile"][route] = {"step_ms": step_ms,
                                      **trace(lambda: step(batch), 3, step_ms, inference=False)}
-            log(f"# one traced PatchTST {route}-route training step: "
+            log(f"# one traced {label} {route}-route training step: "
                 f"{json.dumps(out['profile'][route])}")
-        salts = torch.tensor([[1, 2], [3, 4]])
-        mask_ms = device_ms(lambda: ffn._masks(salts, KEEP, M, cfg.d_model, cfg.d_ff, device),
-                            [[]], per_rep=10)
-        busy = out["profile"]["kernel"]["device_busy_ms"]
-        out["ffn_mask_ms"] = {"ms": mask_ms, "share_of_kernel_step_busy": mask_ms / busy}
-        log(f"# #2's two dropout masks re-derived at M {M} ([M, {cfg.d_ff}] and "
-            f"[M, {cfg.d_model}]): {mask_ms:.4f} ms, {mask_ms / busy:.3f} of the kernel "
-            "route's busy step")
+        if time_masks:
+            M = out["ffn_rows"][0]
+            salts = torch.tensor([[1, 2], [3, 4]])
+            mask_ms = device_ms(lambda: ffn._masks(salts, KEEP, M, cfg.d_model, cfg.d_ff, device),
+                                [[]], per_rep=10)
+            busy = out["profile"]["kernel"]["device_busy_ms"]
+            out["ffn_mask_ms"] = {"ms": mask_ms, "share_of_kernel_step_busy": mask_ms / busy}
+            log(f"# #2's two dropout masks re-derived at M {M} ([M, {cfg.d_ff}] and "
+                f"[M, {cfg.d_model}]): {mask_ms:.4f} ms, {mask_ms / busy:.3f} of the kernel "
+                "route's busy step")
     return out
+
+
+def compare_informer_step(device) -> dict:
+    """Phase 9b's compared step: the full-width Informer experiment
+    (INFORMER_CFG, hash dropout 0.1), #2 at M 3072, 1600 and 1536."""
+    return compare_fused_step(device, Config(**dict(INFORMER_CFG, dropout=0.1)), "Informer")
+
+
+def compare_patchtst_step(device) -> dict:
+    """Phase 8's compared step: the full-width PatchTST experiment
+    (SERVE_CFG, hash dropout 0.1), the FFN at M = 64 x 8 x 16 = 8192."""
+    return compare_fused_step(device, Config(**dict(SERVE_CFG, dropout=0.1)), "PatchTST",
+                              time_masks=True)
+
+
+
+# ---------------------------------------------------------------- phase 9
+def informer_ffn_shapes(cfg_kw: dict, B: int = 64) -> tuple:
+    """(M, D, F) of Informer's FFN sites at a batch of B: the encoder's
+    layers (the time axis after each distilling conv: L -> (L + 1)//2 + 1),
+    then the decoder's."""
+    L, D, F = cfg_kw["input_len"], cfg_kw["d_model"], cfg_kw["d_ff"]
+    rows = []
+    for _ in range(cfg_kw["e_layers"]):
+        rows.append(B * L)
+        L = (L + 1) // 2 + 1
+    rows += [B * cfg_kw["pred_len"]] * cfg_kw["d_layers"]
+    return tuple((m, D, F) for m in rows)
+
+
+def run_informer_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
+    """Phase 9a: the Informer experiment (INFORMER_CFG, seeded weights and
+    BatchNorm running statistics) through ForecastService on the kernel
+    route: launch counts exact (#2's eval form at 3 sites and #1 once a
+    dispatch), every answer finite with its rows, one dispatch's batch
+    kernels vs plain versions, one uncontended dispatch traced."""
+    cfg = make_experiment(exp_dir, INFORMER_CFG, seed)
+    svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
+    try:
+        bn = [b for n, b in svc.model.named_buffers() if n.endswith("running_var")]
+        if not bn or any(bool((b == 1).any()) for b in bn):
+            raise AssertionError("the service did not load the seeded BatchNorm statistics")
+        n_sites = sum(isinstance(m, (EncoderLayer, DecoderLayer)) for m in svc.model.modules())
+        requests = make_requests(cfg, n_requests, seed)
+        d0 = svc.metrics()["dispatches_total"]
+        zero_counts()
+        t0 = time.monotonic()
+        answers = serve_requests(svc, requests)
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        metrics = svc.metrics()
+        dispatches = metrics["dispatches_total"] - d0
+        want = ffn_counts("kernel", n_sites, 0, dispatches)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"serving Informer launched {launches}, expected {want}")
+        for inst, ans in zip(requests, answers):
+            y = np.asarray(ans["prediction"])
+            if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+                raise AssertionError(f"bad answer shape {y.shape} or non-finite values")
+        log(f"# served Informer: {len(requests)} requests in {dispatches} dispatches, "
+            f"{wall:.3f} s: {len(requests) / wall:.1f} requests/s, dispatch p50 "
+            f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
+            f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}")
+
+        built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
+        batch = svc.to_device(svc._collate([b[0] for b in built]))
+        rows, remove_hooks = ffn_site_rows(svc.model)
+        with torch.inference_mode():
+            got = svc._forward(batch)
+            remove_hooks()
+            set_kernels(svc, False)
+            try:
+                want_y = svc._forward(batch)
+            finally:
+                set_kernels(svc, True)
+        err = max_err(got, want_y, SERVE_TOL)
+        log(f"# Informer dispatch batch {tuple(batch['observed_data'].shape)}, FFN rows {rows}: "
+            f"kernels vs plain max|err| {err:.3e}")
+        profile = None
+        if device.type == "cuda":
+            profile = profile_dispatch(svc, built)
+            log(f"# one uncontended Informer dispatch of 64 requests: {json.dumps(profile)}")
+        return {"launches": launches, "dispatches": dispatches,
+                "requests_per_s": len(requests) / wall,
+                "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
+                "dispatch_profile": profile, "ffn_rows": rows}
+    finally:
+        svc.close()
+
+
+def run_informer_training(device, root: str, exp_dir: str) -> dict:
+    """Phase 9b: train the Informer preset at full width through
+    imm_tsf_torch.main on the kernel route, then the plain route (exact
+    launch counts), check that the trained checkpoint carries moved
+    BatchNorm statistics, then one step held kernels vs plain vs float64
+    (compare_fused_step)."""
+    from imm_tsf_torch.training.checkpoint import load_weights
+
+    data = training_data(root, INFORMER_TRAIN_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    out = {"batches": {"train": len(data["train_dataloader"]), "val": n_val, "test": n_test},
+           "widths": {k: getattr(cfg, k) for k in ("d_model", "d_ff", "n_heads", "e_layers",
+                                                   "d_layers", "factor", "distil", "dropout",
+                                                   "dropout_impl")},
+           "routes": {}}
+    log(f"# Informer training data: L {cfg.input_len}, Lp {cfg.pred_len}, batches "
+        f"{out['batches']}, widths {out['widths']}")
+    for route in ("kernel", "plain"):
+        out["routes"][route] = train_route(
+            device, INFORMER_TRAIN_ARGS + PATCH_ROUTES[route], root, exp_dir,
+            f"Informer on the {route} route", n_val, n_test, cfg.early_stop_delta,
+            lambda steps, evals: ffn_counts(route, cfg.e_layers + cfg.d_layers, steps, evals))
+    saved = [load_weights(os.path.join(exp_dir, d, "best"))["model"]
+             for d in sorted(os.listdir(exp_dir)) if d.startswith("experiment_")]
+    var = [st["encoder.conv_layers.0.norm.running_var"] for st in saved]
+    if not var or any(bool((v == 1).all()) for v in var):
+        raise AssertionError("a trained Informer checkpoint lacks its moved BatchNorm statistics")
+    out["step"] = compare_informer_step(device)
+    return out
+
+
+def run_default_pair(device, n_requests: int, seed: int, root: str, exp_dir: str) -> dict:
+    """Phase 9c: DLinear + TTF_T2V_XAttn + MMF_XAttn_Add (the config's
+    default fusion pair; no kernel runs): served on the card (no launch,
+    finite answers, one dispatch against the same modules on the CPU),
+    then trained two epochs through imm_tsf_torch.main."""
+    cfg = make_experiment(exp_dir, DEFAULT_PAIR_CFG, seed)
+    svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
+    try:
+        requests = make_requests(cfg, n_requests, seed)
+        d0 = svc.metrics()["dispatches_total"]
+        zero_counts()
+        t0 = time.monotonic()
+        answers = serve_requests(svc, requests)
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        if any(launches.values()):
+            raise AssertionError(f"the default pair launched {launches}")
+        for inst, ans in zip(requests, answers):
+            y = np.asarray(ans["prediction"])
+            if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+                raise AssertionError(f"bad answer shape {y.shape} or non-finite values")
+        metrics = svc.metrics()
+        out = svc._collate([_build_chunk(r, cfg, svc.d_txt)[0] for r in requests[:64]])
+        cpu = torch.device("cpu")
+        model, fusion = copy.deepcopy(svc.model).to(cpu), copy.deepcopy(svc.fusion).to(cpu)
+        with torch.inference_mode():
+            got = svc._forward(svc.to_device(out)).cpu()
+            want = make_forward(svc.cfg, model, fusion)(to_device(out, cpu))
+        err = max_err(got, want, SERVE_TOL)
+        serving = {"dispatches": metrics["dispatches_total"] - d0,
+                   "requests_per_s": len(requests) / wall,
+                   "dispatch_ms": metrics["dispatch_latency_ms"], "card_vs_cpu_err": err}
+        log(f"# served DLinear + TTF_T2V_XAttn + MMF_XAttn_Add: {json.dumps(serving)}")
+    finally:
+        svc.close()
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    data = training_data(root, DEFAULT_PAIR_TRAIN_ARGS)
+    train = train_route(device, DEFAULT_PAIR_TRAIN_ARGS, root, exp_dir,
+                        "DLinear + TTF_T2V_XAttn + MMF_XAttn_Add", len(data["val_dataloader"]),
+                        len(data["test_dataloader"]), data["cfg"].early_stop_delta,
+                        lambda steps, evals: dict.fromkeys(KERNEL_COUNTS, 0))
+    return {"serving": serving, "training": train}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1712,14 +2015,27 @@ def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     return float(np.median(times))
 
 
-def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
+def ffn_bound(M: int, D: int, F: int, residuals: bool = False) -> tuple[float, str]:
+    """#2's bound at [M, D] x [D, F]: its products as 3 TF32 passes on the
+    tensor cores, the rest (activation, dropout, LayerNorm) at the fp32
+    peak, against x, the weights and out moved once (the training form also
+    writes a1 [M, F] and r [M, D])."""
+    nbytes = 4 * (2 * M * D + 2 * D * F + F + 3 * D) + (4 * (M * F + M * D) if residuals else 0)
+    t_ops = (3 * 4 * M * D * F / PEAK_TF32_FLOP_PER_S
+             + (10 * M * F + 10 * M * D) / PEAK_FP32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure(device, shapes, gen, errs, serving, text, cru, patch, informer) -> list[dict]:
     """One row per kernel. For kernels #1 and #2 `launches` counts the
-    PatchTST training run on the kernel route (phase 8), for #3 the
+    Informer training run on the kernel route (phase 9b), for #3 the
     raw-text path (phase 4b), which runs all three; `launches_by_path` adds
-    the raw-text and embedding paths (phase 4) and both CRU routes (phase
-    6). #2's row also times its training form and the plain backward at
-    the same shape (dropout on, as PatchTST trains). Kernels #5 and #6:
-    measure_cru."""
+    the raw-text and embedding paths (phase 4), both CRU routes (phase 6),
+    the PatchTST training run (phase 8) and the Informer service (phase
+    9a). #2's row also times its training form and the plain backward at
+    the same shape (dropout on, as PatchTST trains), and both forms at
+    Informer's three FFN sites. Kernels #5 and #6: measure_cru."""
     B, N, T, d = shapes["recavg"]
     rsets = [recavg_inputs(B, N, T, d, gen, device) for _ in range(4)]
     r_bytes, r_flops = recavg_work(B, N, T, d)
@@ -1767,10 +2083,7 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
     # #2's products run as 3 TF32 passes on the tensor cores, the rest in fp32
     ffn_row = rows[-1]
     ffn_row["bound_fma_ms"] = ffn_row["bound_ms"]
-    t_ops = (3 * f_mm / PEAK_TF32_FLOP_PER_S + f_ew / PEAK_FP32_FLOP_PER_S) * 1e3
-    t_bytes = f_bytes / PEAK_BYTES_PER_S * 1e3
-    ffn_row["bound_ms"] = max(t_ops, t_bytes)
-    ffn_row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    ffn_row["bound_ms"], ffn_row["bound_by"] = ffn_bound(M, D, F)
     # the training form: the same operations, a1 [M, F] and r [M, D] written
     # once more; the plain backward on its residuals (four products over the
     # same K, the LayerNorm and dropout backward; not bounded here)
@@ -1779,9 +2092,7 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
     ffn_row["train_plain_ms"] = device_ms(
         lambda *a: ffn.ffn_forward_reference(*a, KEEP, "gelu", True, with_residuals=True),
         fsets, per_rep=10)
-    t_bytes_train = (f_bytes + 4 * (M * F + M * D)) / PEAK_BYTES_PER_S * 1e3
-    ffn_row["train_bound_ms"] = max(t_ops, t_bytes_train)
-    ffn_row["train_bound_by"] = "bytes" if t_bytes_train >= t_ops else "operations"
+    ffn_row["train_bound_ms"], ffn_row["train_bound_by"] = ffn_bound(M, D, F, residuals=True)
     gen_g = torch.Generator(device=device).manual_seed(SEED + 6)
     bsets = []
     for a in fsets:
@@ -1828,10 +2139,35 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch) -> list[dict]:
                                    "embeddings": serving["launches"].get(row["name"], 0)}
         for route, res in cru.items():
             row["launches_by_path"][f"cru_{route}"] = res["launches"].get(row["name"], 0)
-    for row in rows[:2]:  # #1 and #2: this slice's path, PatchTST training
-        n = patch["routes"]["kernel"]["launches"][row["name"]]
-        row["launches"] = row["launches_by_path"]["patchtst_training"] = n
-    rows[1]["train_launches"] = patch["routes"]["kernel"]["launches"]["fused_encoder_ffn_train"]
+    for row in rows[:2]:  # #1 and #2: this slice's path, Informer training
+        by_path = row["launches_by_path"]
+        by_path["patchtst_training"] = patch["routes"]["kernel"]["launches"][row["name"]]
+        by_path["informer_serving"] = informer["serving"]["launches"][row["name"]]
+        n = informer["training"]["routes"]["kernel"]["launches"][row["name"]]
+        row["launches"] = by_path["informer_training"] = n
+    rows[1]["train_launches"] = (
+        informer["training"]["routes"]["kernel"]["launches"]["fused_encoder_ffn_train"])
+    # #2 at Informer's FFN sites, both forms (inputs of their own)
+    gen_i = torch.Generator(device=device).manual_seed(SEED + 10)
+    ffn_row["informer_shapes"] = {}
+    for m, D, F in shapes["ffn_informer"]:
+        sets = [ffn_inputs(m, D, F, gen_i, device) for _ in range(3)]
+        (b, by), (tb, tby) = ffn_bound(m, D, F), ffn_bound(m, D, F, residuals=True)
+        ffn_row["informer_shapes"][str(m)] = {
+            "ms": device_ms(lambda *a: ffn.fused_encoder_ffn(*a, KEEP, "gelu", False), sets,
+                            per_rep=10),
+            "plain_ms": device_ms(lambda *a: ffn.ffn_reference(*a, KEEP, "gelu", False), sets,
+                                  per_rep=10),
+            "bound_ms": b, "bound_by": by,
+            "train_ms": device_ms(lambda *a: ffn._forward(*a, KEEP, "gelu", True,
+                                                          with_residuals=True), sets, per_rep=10),
+            "train_plain_ms": device_ms(lambda *a: ffn.ffn_forward_reference(
+                *a, KEEP, "gelu", True, with_residuals=True), sets, per_rep=10),
+            "train_bound_ms": tb, "train_bound_by": tby,
+            "max_abs_err": errs[f"ffn informer M {m}"],
+            "train_max_abs_err": errs[f"ffn informer M {m} training form"]}
+        log(f"# fused FFN at Informer's M {m}: {json.dumps(ffn_row['informer_shapes'][str(m)])}")
+        del sets
     return rows + measure_cru(cru)
 
 
@@ -2067,7 +2403,8 @@ def main() -> int:
               "ffn": (8192, 512, 2048),
               "attn": tuple((bucket_rows(T), 12, T, 64) for T in EMBED_BUCKETS),
               "expm": (64, 64), "cru_scan": (64, 72, 16, 15),
-              "frechet": (32, 64), "cru_scan_bwd": (32, 72, 16, 15)}
+              "frechet": (32, 64), "cru_scan_bwd": (32, 72, 16, 15),
+              "ffn_informer": informer_ffn_shapes(INFORMER_CFG)}
     errs = check_kernels(device, shapes, gen)
 
     # phase 4: serving
@@ -2127,12 +2464,31 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
-    if patch["step"]["ffn_rows"] != shapes["ffn"][0]:
+    if patch["step"]["ffn_rows"] != [shapes["ffn"][0]]:
         raise AssertionError(f"the compared PatchTST step's FFN M {patch['step']['ffn_rows']} "
                              f"!= checked {shapes['ffn'][0]}")
 
+    # phase 9: Informer served and trained on both routes, then the default
+    # fusion pair behind DLinear
+    informer = {}
+    try:
+        informer["serving"] = run_informer_serving(device, N_INFORMER_REQUESTS, SEED, exp_dir)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        informer["training"] = run_informer_training(device, root, exp_dir)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        default_pair = run_default_pair(device, N_DEFAULT_PAIR_REQUESTS, SEED, root, exp_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    checked = [m for m, _, _ in shapes["ffn_informer"]]
+    for where in (informer["serving"], informer["training"]["step"]):
+        if where["ffn_rows"] != checked:
+            raise AssertionError(f"Informer's FFN rows {where['ffn_rows']} != checked {checked}")
+
     # phase 5: timings
-    rows = measure(device, shapes, gen, errs, serving, text, cru, patch) + measure_training(train)
+    rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer)
+            + measure_training(train))
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
@@ -2140,6 +2496,9 @@ def main() -> int:
         f"requests/s; CRU training {train['routes']['default']['wall_s']:.1f} / "
         f"{train['routes']['fused']['wall_s']:.1f} s; PatchTST training "
         f"{patch['routes']['kernel']['wall_s']:.1f} / {patch['routes']['plain']['wall_s']:.1f} s; "
+        f"Informer {informer['serving']['requests_per_s']:.1f} requests/s, training "
+        f"{informer['training']['routes']['kernel']['wall_s']:.1f} / "
+        f"{informer['training']['routes']['plain']['wall_s']:.1f} s; "
         f"total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
@@ -2152,7 +2511,8 @@ def main() -> int:
                       "dispatch_profile": serving["dispatch_profile"],
                       "raw_text": text, "cru": cru_summary,
                       "cru_route_err": route_err, "training": train_summary,
-                      "patchtst_training": patch}), flush=True)
+                      "patchtst_training": patch, "informer": informer,
+                      "default_pair": default_pair}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -23,7 +23,7 @@ On-disk contract (reference README.md:41-53):
       {"embeddings": [N_notes, d_txt], "rel_times": [N_notes]}  (.npz also accepted)
 
 The chunker is the JAX package's NumPy loop; its native two-pointer core
-(imm_tsf_tpu/native/chunker.cpp) is not ported yet (ROADMAP.md).
+(imm_tsf_tpu/native/chunker.cpp) is not ported yet (ROADMAP.md, Queue 1, item 4).
 """
 
 from __future__ import annotations

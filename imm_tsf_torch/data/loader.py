@@ -11,7 +11,7 @@ Split semantics match the JAX package's exactly:
 
 `BatchIterator` shuffles with the same np.random.default_rng(seed)
 stream, so batch order matches the JAX package's for the same seed. The
-double-buffered `PrefetchIterator` is not ported yet (ROADMAP.md).
+double-buffered `PrefetchIterator` is not ported yet (ROADMAP.md, Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -131,7 +131,8 @@ def parse_datasets(cfg, verbose: bool = True) -> dict:
     with the backbones that use them."""
     if cfg.model in ("tPatchGNN", "LatentODE"):
         raise NotImplementedError(
-            f"the {cfg.model} collate is not ported to imm_tsf_torch yet (ROADMAP.md, Queue 1)")
+            f"the {cfg.model} collate is not ported to imm_tsf_torch yet "
+            "(ROADMAP.md, Queue 1, item 8)")
     base = cfg.data_root if os.path.isabs(cfg.data_root) else os.path.abspath(cfg.data_root)
     ds = ChunkedTimeSeriesDataset(
         root=os.path.join(base, cfg.dataset), history=cfg.history,

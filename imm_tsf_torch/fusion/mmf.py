@@ -1,9 +1,11 @@
 """MMF (multimodal fusion): correct the numeric forecast with the aligned
 text signal (after imm_tsf_tpu/fusion/mmf.py; reference
-fusions/MMF_GR_Add.py:9-61).
+fusions/MMF_GR_Add.py:9-61, MMF_XAttn_Add.py:10-103).
 
-forward(Y_ts [B,T,C], E_txt [B,T,d_txt], M_txt [B,1]) -> [B,T,C].
-MMF_XAttn_Add is not ported yet.
+  MMF_GR_Add    — GRU residual + sigmoid gate
+  MMF_XAttn_Add — cross-attention residual + fixed-kappa convex blend
+
+Both: forward(Y_ts [B,T,C], E_txt [B,T,d_txt], M_txt [B,1]) -> [B,T,C].
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..layers.attention import MultiHeadAttention
 from ..layers.fast_dropout import Dropout
 
 
@@ -61,3 +64,34 @@ class MMF_GR_Add(nn.Module):
         g = torch.sigmoid(self.gate_net(x))
         g = torch.where(M_txt[:, :, None], g, 1.0)  # no text -> base forecast
         return g * Y_ts + (1 - g) * (Y_ts + delta)
+
+
+class MMF_XAttn_Add(nn.Module):
+    """The forecast's steps attend over the aligned text (d_attn wide,
+    FusionModel passes d_txt); the attention's residual, normalised over
+    the C channels, is blended in as (Y + kappa delta) / (1 + kappa).
+    Samples without notes pad every key, so the safe softmax gives zeros
+    there (the reference NaN-nukes instead, MMF_XAttn_Add.py:78-80), and
+    they return Y_ts / (1 + kappa) + 0."""
+
+    def __init__(self, d_txt: int, C: int, d_attn: int, n_heads_fusion: int = 1,
+                 dropout: float = 0.1, kappa: float = 1.0):
+        super().__init__()
+        self.kappa = kappa
+        self.proj_q = nn.Linear(C, d_attn, bias=False)
+        self.proj_k = nn.Linear(d_txt, d_attn, bias=False)
+        self.proj_v = nn.Linear(d_txt, d_attn, bias=False)
+        self.attn = MultiHeadAttention(d_attn, n_heads_fusion, dropout)
+        self.residual_head = nn.Linear(d_attn, C)
+        self.layer_norm = nn.LayerNorm(C, eps=1e-5)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, Y_ts, E_txt, M_txt):
+        B, T, C = Y_ts.shape
+        has_text = (M_txt > 0)[:, :, None]  # [B, 1, 1]
+        attn_out = self.attn(self.proj_q(Y_ts), self.proj_k(E_txt), self.proj_v(E_txt),
+                             key_padding_mask=~has_text[:, :, 0].expand(B, T))
+        attn_out = torch.where(has_text, attn_out, 0.0)
+        delta = self.dropout(self.layer_norm(self.residual_head(attn_out)))
+        delta = torch.where(has_text, delta, 0.0)
+        return (Y_ts + self.kappa * delta) / (1.0 + self.kappa)

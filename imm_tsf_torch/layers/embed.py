@@ -1,8 +1,10 @@
 """Embedding layers (after imm_tsf_tpu/layers/embed.py): the positional
-table and the patch embedding PatchTST uses."""
+table, the circular token conv and the data embedding (Informer), and the
+patch embedding (PatchTST)."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -26,6 +28,60 @@ def sinusoidal_pe(L: int, d_model: int) -> torch.Tensor:
     return torch.from_numpy(pe[None])
 
 
+@functools.lru_cache(maxsize=64)
+def pe_table(L: int, d_model: int, device: torch.device) -> torch.Tensor:
+    """sinusoidal_pe(L, d_model) on `device`, made once (read only; a normal
+    tensor even when first made under inference mode, so training can use
+    it)."""
+    with torch.inference_mode(False):
+        return sinusoidal_pe(L, d_model).to(device)
+
+
+class TokenEmbedding(nn.Module):
+    """Circular kernel-3 conv over time, no bias (reference Embed.py:29-43):
+    [B, L, C] -> [B, L, d_model]. jnp.pad(mode="wrap") by 1 and a VALID
+    conv is torch's circular padding 1."""
+
+    def __init__(self, c_in: int, d_model: int):
+        super().__init__()
+        self.tokenConv = nn.Conv1d(c_in, d_model, 3, padding=1, padding_mode="circular",
+                                   bias=False)
+        nn.init.kaiming_normal_(self.tokenConv.weight, mode="fan_in",
+                                nonlinearity="leaky_relu")
+
+    def forward(self, x):
+        return self.tokenConv(x.permute(0, 2, 1)).permute(0, 2, 1)
+
+
+class TimeFeatureEmbedding(nn.Module):
+    def __init__(self, d_inp: int, d_model: int):
+        super().__init__()
+        self.embed = nn.Linear(d_inp, d_model, bias=False)
+
+    def forward(self, x_mark):
+        return self.embed(x_mark)
+
+
+class DataEmbedding(nn.Module):
+    """token conv + positional (+ timeF temporal when `d_mark` is given and
+    x_mark passed) + dropout (reference Embed.py:109-127)."""
+
+    def __init__(self, c_in: int, d_model: int, dropout: float = 0.1,
+                 d_mark: int | None = None):
+        super().__init__()
+        self.d_model = d_model
+        self.value_embedding = TokenEmbedding(c_in, d_model)
+        self.temporal_embedding = (TimeFeatureEmbedding(d_mark, d_model)
+                                   if d_mark is not None else None)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x, x_mark=None):
+        out = self.value_embedding(x) + pe_table(x.shape[1], self.d_model, x.device)
+        if x_mark is not None:
+            out = out + self.temporal_embedding(x_mark)
+        return self.dropout(out)
+
+
 def unfold_patches(x: torch.Tensor, patch_len: int, stride: int) -> torch.Tensor:
     """torch .unfold over the last axis: [.., L] -> [.., P, patch_len] with
     P = (L - patch_len)//stride + 1."""
@@ -44,13 +100,6 @@ class PatchEmbedding(nn.Module):
         self.stride, self.padding = stride, padding
         self.value_embedding = nn.Linear(patch_len, d_model, bias=False)
         self.dropout = Dropout(dropout)
-        self._pe: dict = {}  # (P, device) -> [1, P, d_model] table
-
-    def _pe_table(self, P: int, device: torch.device) -> torch.Tensor:
-        key = (P, str(device))
-        if key not in self._pe:
-            self._pe[key] = sinusoidal_pe(P, self.d_model).to(device)
-        return self._pe[key]
 
     def forward(self, x: torch.Tensor):
         B, C, L = x.shape
@@ -59,5 +108,5 @@ class PatchEmbedding(nn.Module):
         x = unfold_patches(x, self.patch_len, self.stride)  # [B, C, P, plen]
         P = x.shape[2]
         x = x.reshape(B * C, P, self.patch_len)
-        x = self.value_embedding(x) + self._pe_table(P, x.device)
+        x = self.value_embedding(x) + pe_table(P, self.d_model, x.device)
         return self.dropout(x), C

@@ -171,7 +171,7 @@ def load_llm(alias: str, llm_layers: int | None = None,
     if not alias.startswith("GPT2"):
         if alias in ALIAS:
             raise NotImplementedError(
-                f"LLM {alias!r} is not ported to imm_tsf_torch yet (ROADMAP.md, Queue 1)")
+                f"LLM {alias!r} is not ported to imm_tsf_torch yet (ROADMAP.md, Queue 1, item 12)")
         raise ValueError(f"Unknown LLM alias {alias}")
     from .gpt2 import GPT2_SIZES, GPT2Model, convert_hf_gpt2
 
@@ -233,7 +233,8 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
     stats_out, if given, gets real_tokens / processed_tokens / n_notes."""
     if mesh is not None:
         raise NotImplementedError(
-            "tensor-parallel note embedding waits for the multi-GPU slice (ROADMAP.md)")
+            "tensor-parallel note embedding waits for the multi-GPU layers "
+            "(ROADMAP.md, Queue 1, item 16)")
     B = len(notes_text)
     N_max = max((len(s) for s in notes_text), default=1) or 1
     flat, note_mask = [], np.zeros((B, N_max), bool)

@@ -85,10 +85,10 @@ def main(argv=None, timings: dict | None = None) -> dict:
         cfg = resolve_max_length(cfg)  # main.py:968-969
     if cfg.load is not None:
         raise NotImplementedError("--load: resuming a run from full-state checkpoints is "
-                                  "not ported yet (ROADMAP.md, Queue 1)")
+                                  "not ported yet (ROADMAP.md, Queue 1, item 3)")
     if cfg.vmap_seeds > 1 or cfg.vmap_lrs:
         raise NotImplementedError("stacked-replica sweeps come with the system layers "
-                                  "(ROADMAP.md, Queue 1, slice 7)")
+                                  "(ROADMAP.md, Queue 1, item 15)")
     experiment_id = int(random.SystemRandom().random() * 100000)
     logger.info("ExpID %s | %s", experiment_id, cfg.to_json())
     res = trainable(cfg, checkpoint_dir=f"{cfg.save.rstrip('/')}/experiment_{experiment_id}",

@@ -4,17 +4,29 @@ Every model takes the reference's single interface:
 
     model(tp_to_predict, observed_data, observed_tp, observed_mask) -> [B, Lp, C]
 
-PatchTST and CRU are ported so far; the other backbones are queued in
-ROADMAP.md.
+PatchTST, CRU, DLinear and Informer are ported so far; the other
+backbones are queued in ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
 
 from ..config import MODELS, Config
 
+# the ROADMAP.md Queue 1 item of each backbone still to port (TimesNet and
+# TimeMixer: item 7)
+_QUEUED = {"tPatchGNN": 8, "LatentODE": 8, "NeuralFlow": 8, "TimeLLM": 10, "TTM": 11}
+
 
 def get_model(cfg: Config):
     name = cfg.model
+    if name == "DLinear":
+        from .dlinear import DLinear
+
+        return DLinear(cfg)
+    if name == "Informer":
+        from .informer import Informer
+
+        return Informer(cfg)
     if name == "PatchTST":
         from .patchtst import PatchTST
 
@@ -26,5 +38,5 @@ def get_model(cfg: Config):
     if name in MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported to imm_tsf_torch yet "
-            "(see ROADMAP.md, Queue 1)")
+            f"(ROADMAP.md, Queue 1, item {_QUEUED.get(name, 7)})")
     raise ValueError(f"Unknown model: {name}")

@@ -181,8 +181,8 @@ def collate_chunks(cfg: Config, chunks: list[Chunk], d_txt: int,
                    time_max: float, pad_to: int,
                    n_notes: int | None = None) -> dict:
     """Collate request chunks through the training-time collate for cfg's
-    model family (CRU: raw, repeat-padded times; the others ported so far:
-    the standard collate), batch-padded to the static size `pad_to`.
+    model family (CRU: raw, repeat-padded times; PatchTST, Informer and
+    DLinear: the standard collate), batch-padded to the static size `pad_to`.
     n_notes pins the notes axis (None: the bucket of the batch's largest
     note count)."""
     if cfg.model == "CRU":

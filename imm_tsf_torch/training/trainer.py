@@ -1,12 +1,14 @@
 """Training harness: the reference's trainable() protocol (after
 imm_tsf_tpu/training/trainer.py:163-314, 349-446, 502-906).
 
-It trains CRU and PatchTST, each with the fusion stack on precomputed
-note embeddings, on the kernels' routes and the plain ones: CRU's default
-and fused scans (kernels #4-#7), PatchTST's fused FFN (kernel #2, its
-training form and hand backward) or the unfused one, and kernel #1's
-recency average with its backward. `check_trainable` refuses what is not
-ported.
+It trains CRU, PatchTST, DLinear and Informer, each with either fusion
+pair on precomputed note embeddings, on the kernels' routes and the
+plain ones: CRU's default and fused scans (kernels #4-#7), PatchTST's and
+Informer's fused FFN (kernel #2, its training form and hand backward) or
+the unfused one, and kernel #1's recency average with its backward.
+Informer's distilling BatchNorms update their running statistics in the
+training steps (the JAX trainer's `stats`), which the checkpoint keeps.
+`check_trainable` refuses what is not ported.
 
 Parity with reference main.py:945-1176:
   - Adam(lr, weight_decay) after clipping the gradients to a global norm
@@ -45,6 +47,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from ..layers.fast_dropout import Dropout
+from ..layers.prob_attention import ProbAttention
 from .evaluation import evaluation, masked_mse_loss
 from .optim import clip_and_step, make_optimizer, trainable_parameters
 
@@ -153,16 +156,15 @@ def check_trainable(cfg: Config) -> None:
     refusals = [
         (cfg.dropout_impl != "hash",
          f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
-         "(ROADMAP.md, Queue 1, slice 4)"),
+         "(ROADMAP.md, Queue 1, item 19)"),
         (cfg.use_pallas and cfg.use_fused_attn,
          "use_fused_attn: kernel #3 (fused_causal_attention) has no backward yet; it "
-         "comes with TimeLLM training (ROADMAP.md, Queue 1, slice 6)"),
+         "comes with TimeLLM training (ROADMAP.md, Queue 1, item 10; Queue 2, item 2)"),
         (cfg.enable_text and not cfg.use_text_embeddings,
-         "training on raw-text notes comes with the remaining LLM work "
-         "(ROADMAP.md, Queue 1, slice 6)"),
+         "training on raw-text notes is not ported yet (ROADMAP.md, Queue 1, item 9)"),
         (bool(cfg.mesh_shape),
          "mesh_shape: multi-GPU training comes with the system layers "
-         "(ROADMAP.md, Queue 1, slice 7)"),
+         "(ROADMAP.md, Queue 1, item 16)"),
     ]
     for refused, why in refusals:
         if refused:
@@ -240,11 +242,15 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
             fusion.load_state_dict(initial_state[1])
     modules = [m for m in (model, fusion) if m is not None]
     salts = torch.Generator().manual_seed(cfg.seed)  # the hash dropout's salt stream
+    # ProbSparse attention's train-mode key samples, drawn on the device
+    samples = torch.Generator(device=device).manual_seed(cfg.seed)
     for mod in modules:
         mod.to(device).train()
         for m in mod.modules():
             if isinstance(m, Dropout):
                 m.generator = salts
+            elif isinstance(m, ProbAttention):
+                m.generator = samples
 
     params = trainable_parameters(model, fusion)
     optimizer = make_optimizer(params, cfg.lr, cfg.w_decay)

@@ -540,3 +540,105 @@ def test_training_step_on_each_route_kernels_vs_plain(dev, tmp_path):
     data = training_data(str(tmp_path))
     out = compare_step(data["cfg"], data, dev)
     print("one training step:", {r: v["worst_grad"] for r, v in out["routes"].items()})
+
+
+# ------------------------------------------------------------ Informer
+def _decoder_layer(dev, d, F, fused, train):
+    from imm_tsf_torch.layers.prob_attention import ProbAttention
+    from imm_tsf_torch.layers.transformer import AttentionLayer, DecoderLayer
+
+    torch.manual_seed(0)  # the same weights on both routes
+    prob = lambda mask_flag: AttentionLayer(ProbAttention(mask_flag, 3, attention_dropout=0.1),
+                                            d, 2)
+    layer = DecoderLayer(prob(True), prob(False), d, F, dropout=0.1, use_fused_ffn=fused)
+    return layer.to(dev).train(train)
+
+
+def _reseed(module, dev):
+    """The same salts and ProbSparse samples on both routes."""
+    from imm_tsf_torch.layers.fast_dropout import Dropout
+    from imm_tsf_torch.layers.prob_attention import ProbAttention
+
+    salts, samples = torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0)
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = salts
+        elif isinstance(m, ProbAttention):
+            m.generator = samples
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_decoder_layer_ffn_kernel_matches_plain(dev, gen, train):
+    """DecoderLayer's FFN (ending in norm3) on the kernel route launches #2
+    once (its training form with a gradient in flight) and agrees with the
+    plain route: output to FFN_TOL, gradients within 1e-4 of the largest."""
+    d, F = 512, 2048
+    x = torch.randn((8, 24, d), generator=gen, device=dev)
+    cross = torch.randn((8, 25, d), generator=gen, device=dev)
+    outs, grads, launches = {}, {}, {}
+    for fused in (False, True):
+        layer = _decoder_layer(dev, d, F, fused, train)
+        _reseed(layer, dev)
+        ffn.launches = ffn.train_launches = 0
+        with torch.set_grad_enabled(train):
+            out = layer(x, cross)
+            if train:
+                (out * out).mean().backward()
+                grads[fused] = {n: p.grad for n, p in layer.named_parameters()}
+        torch.cuda.synchronize()
+        launches[fused] = (ffn.launches, ffn.train_launches)
+        outs[fused] = out.detach()
+    assert launches == {False: (0, 0), True: (1, int(train))}
+    err = (outs[True] - outs[False]).abs()
+    assert bool((err <= 1e-4 + 1e-4 * outs[False].abs()).all()), float(err.max())
+    if train:
+        top = max(float(g.abs().max()) for g in grads[False].values())
+        for n, g in grads[False].items():
+            assert float((grads[True][n] - g).abs().max()) <= 1e-4 * top, n
+
+
+@pytest.mark.cuda
+def test_fused_route_raises_where_the_kernel_cannot_go(dev, gen):
+    """d_model above the kernel's 512 columns: the fused route raises on a
+    CUDA tensor instead of running the plain FFN unsaid."""
+    layer = _decoder_layer(dev, 640, 1024, True, False)
+    x = torch.randn((2, 6, 640), generator=gen, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        with torch.no_grad():
+            layer(x, x)
+
+
+@pytest.mark.cuda
+def test_small_informer_forward_kernels_vs_plain(dev, gen):
+    from imm_tsf_torch.config import Config
+    from imm_tsf_torch.models import get_model
+
+    kw = dict(model="Informer", input_dim=4, input_len=36, pred_len=12, d_model=128, d_ff=256,
+              n_heads=2, e_layers=2, d_layers=1, factor=3)
+    B = 16
+    mask = (torch.rand((B, 36, 4), generator=gen, device=dev) < 0.8).float()
+    ins = (torch.sort(0.5 + 0.5 * torch.rand((B, 12), generator=gen, device=dev), 1).values,
+           torch.randn((B, 36, 4), generator=gen, device=dev) * mask,
+           torch.sort(0.5 * torch.rand((B, 36), generator=gen, device=dev), 1).values, mask)
+    outs = {}
+    for fused in (False, True):
+        torch.manual_seed(0)
+        model = get_model(Config(**kw, use_pallas=fused, use_fused_ffn=fused)).to(dev).eval()
+        ffn.launches = 0
+        with torch.inference_mode():
+            outs[fused] = model(*ins)
+        torch.cuda.synchronize()
+        assert ffn.launches == (3 if fused else 0)
+    err = (outs[True] - outs[False]).abs()
+    assert bool((err <= 1e-4 + 1e-4 * outs[False].abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_prob_attention_eval_sample_on_the_card_is_the_cpu_sample(dev):
+    from imm_tsf_torch.layers.prob_attention import eval_sample
+
+    for L_Q, U, L_K in ((48, 12, 48), (24, 12, 25), (24, 12, 24)):
+        got = eval_sample(L_Q, U, L_K, dev)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), eval_sample(L_Q, U, L_K, "cpu"))

@@ -150,7 +150,7 @@ def test_refused_configurations_name_their_slice():
                        "kernel #3"),
                       (dict(use_fused_attn=True), "kernel #3"),
                       (dict(use_text_embeddings=False), "raw-text"),
-                      (dict(mesh_shape=(2,)), "slice 7")):
+                      (dict(mesh_shape=(2,)), "Queue 1, item 16")):
         with pytest.raises(NotImplementedError, match=match):
             check_trainable(TConfig(**dict(base, **kw)))
     check_trainable(TConfig(**base))
