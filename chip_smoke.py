@@ -29,7 +29,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
       right-padded notes) and a ragged [3,2,13,64] (token 0 padded in one
       sample, every token in another: exact zeros there), to |err| <= 2e-5
       + 1e-5|ref| (float32 by three TF32 passes, online softmax against the
-      two-pass plain version);
+      two-pass plain version); its backward (the kernel's forward, the plain
+      hand backward) at TimeLLM's trained shapes [32,12,68,64] and
+      [32,12,160,64] and the ragged case, g ~ N(0, 1), dq, dk and dv against
+      autograd of the plain forward to the same tolerance (exact zeros where
+      nothing is kept);
       batched expm at [64,64,64] with inf-norms 0.01, 0.5, 6 and 80 (each
       tier: Taylor-4, Taylor-12, 3 and 7 squarings), a ragged [3,24,24]
       and an all-zero batch that must give exactly I, to 1e-5 of each
@@ -142,7 +146,26 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     no kernel): 256 requests on the card (no launch, one dispatch against
     the same modules on the CPU to 1e-4 + 1e-4|ref|) and two epochs of
     training, every answer and loss finite;
- 5. (after 6-9) time each kernel and its plain version at the shapes
+10. TimeLLM and raw-text training: (a) serve the TimeLLM preset at full
+    width (d_model 32, d_ff 128, patches of 16, 6 GPT-2 blocks 768 wide,
+    ts_vocab_size 1000) + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded
+    weights, 256 ragged requests from 8 threads on the kernel route: answers
+    finite with their rows, launch counts exact (#3 once a GPT-2 block and
+    #1 once a dispatch), one dispatch kernels vs plain to 1e-4 + 1e-4|ref|,
+    one traced; (b) train it through `imm_tsf_torch.main.main([...])`
+    (TIMELLM_TRAIN_ARGS: hash dropout 0.1, batch 32, two epochs on phase 7's
+    fixture) on the kernel route, the plain route and the kernel route with
+    the exact prompt: every loss finite, counts exact (#3 once a block a
+    forward, its backward once a block a step, #1 once a forward, nothing
+    plain), the frozen GPT-2 bit for bit as drawn; (c)
+    `compare_timellm_step`: one step at B 32 kernel vs plain vs float64
+    under the same salts and lags (`pinned_lags`), loss to 1e-5, gradients
+    by `held_grads`, a traced step per route; (d) PatchTST + TTF_RecAvg +
+    MMF_GR_Add on raw-text notes (RAW_TEXT_TRAIN_ARGS) on the attention
+    kernel's route and the plain attention: #3 launched in the embedding
+    stage on the kernel route only, the first epoch's losses of the two
+    routes to 1e-4 relative;
+ 5. (after 6-10) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -161,7 +184,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the card holds at once and the SMs in use, and their time at each
     cluster size; #5 with the share of the served blocks that take its
     triangular form; #3 also over the raw-text run's own launches, each
-    launched shape timed and bounded).
+    launched shape timed and bounded; at TimeLLM's two shapes its forward,
+    its plain backward (bound: five products to the forward's two) and
+    SDPA's autograd backward beside it).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -199,6 +224,7 @@ from imm_tsf_torch.layers.transformer import BatchNorm, DecoderLayer, EncoderLay
 from imm_tsf_torch.llm.gpt2 import GPT2Block
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes, get_d_model
 from imm_tsf_torch.models import get_model
+from imm_tsf_torch.models import timellm
 from imm_tsf_torch.models.cru import CRU
 from imm_tsf_torch.ops import cru_scan as cru_ops
 from imm_tsf_torch.ops import expm as ops_expm
@@ -322,6 +348,28 @@ DEFAULT_PAIR_CFG = dict(SERVE_CFG, model="DLinear", TTF_module="TTF_T2V_XAttn",
                         MMF_module="MMF_XAttn_Add")
 DEFAULT_PAIR_TRAIN_ARGS = [DEFAULT_PAIR.get(a, a) for a in TRAIN_ARGS]
 N_DEFAULT_PAIR_REQUESTS = 256
+# phase 10: TimeLLM, the preset (d_model 32, d_ff 128, patches of 16, 6 GPT-2
+# blocks 768 wide, ts_vocab_size 1000) behind TTF_RecAvg + MMF_GR_Add (d_txt
+# 768), EPA-Air 48 + 24 steps, on the attention kernel's route: #3 in each of
+# GPT-2's 6 blocks, [B, 12, 36 + 6 x 8, 64] on the fast prompt and [B, 12,
+# 128 + 48, 64] on the exact one; #1 once
+TIMELLM_CFG = dict(SERVE_CFG, model="TimeLLM", use_fused_attn=True, **MODEL_PRESETS["TimeLLM"])
+N_TIMELLM_REQUESTS = 256
+TIMELLM_TRAIN_ARGS = [a if a != "CRU" else "TimeLLM" for a in TRAIN_ARGS]
+ATTN_ROUTES = {"kernel": ["--use_pallas", "true", "--use_fused_attn", "true"],
+               "plain": ["--use_pallas", "false"]}
+EXACT_PROMPT = ["--timellm_exact_prompt", "true"]
+# the windows TimeLLM trains on (phase 7's fixture, T = 36 + 36) and the
+# compared step's batch: #3 at [32, 12, 68, 64] and [32, 12, 160, 64]
+TIMELLM_TRAINED = dict(input_len=36, pred_len=36)
+TIMELLM_STEP_B = 32
+# PatchTST + TTF_RecAvg + MMF_GR_Add on raw-text notes (phase 8's run, the
+# notes through the 6-block GPT-2 in the loader stage): the attention
+# kernel's route against the plain attention, everything else alike
+RAW_TEXT_TRAIN_ARGS = PATCH_TRAIN_ARGS + ["--use_text_embeddings", "false"]
+RAW_TEXT_ROUTES = {"kernel": ["--use_pallas", "true", "--use_fused_attn", "true"],
+                   "plain attention": ["--use_pallas", "true", "--use_fused_attn", "false"]}
+RAW_TEXT_LOSS_RTOL = 1e-4  # the first epoch's losses, notes embedded by either attention
 
 
 def log(msg: str) -> None:
@@ -439,6 +487,34 @@ def attn_work(pad, H, D) -> tuple[int, int]:
     kept = torch.minimum(idx[None], kv_len[:, None]).sum()
     kv_rows = int(kv_len.sum())
     return 4 * (2 * B * H * T * D + 2 * H * D * kv_rows + B * T), 4 * H * D * int(kept)
+
+
+def attn_grads(args, g, kernel: bool) -> list:
+    """dq, dk, dv of sum(out * g): through fused_causal_attention (the
+    kernel's forward and its hand backward) or autograd of the plain
+    forward."""
+    q, k, v, pad = args
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fn = attn.fused_causal_attention if kernel else attn.attention_reference
+    fn(*leaves, pad).backward(g)
+    return [t.grad for t in leaves]
+
+
+def check_attn_backward(args, g) -> tuple[dict, list]:
+    """#3's backward against autograd of the plain forward, to ATTN_TOL:
+    ({"dq", "dk", "dv": max |err|}, the kernel route's gradients)."""
+    got, want = attn_grads(args, g, True), attn_grads(args, g, False)
+    return {n: max_err(a, b, ATTN_TOL) for n, a, b in zip(("dq", "dk", "dv"), got, want)}, got
+
+
+def attn_backward_work(pad, H, D) -> tuple[int, int]:
+    """(bytes, FLOPs) of #3's backward: q, k, v, g and pad read once, dq,
+    dk and dv written once; five products over the kept (query, key) pairs
+    (the probabilities recomputed, dV, dP, dQ, dK) against the forward's
+    two."""
+    B, T = pad.shape
+    _, fwd_flops = attn_work(pad, H, D)
+    return 4 * (7 * B * H * T * D + B * T), fwd_flops * 5 // 2
 
 
 def expm_inputs(B, n, norm, gen, device):
@@ -719,6 +795,28 @@ def check_kernels(device, shapes, gen) -> dict:
             assert bool((got[0, :, 0] == 0).all()), "a row with no kept key must give 0"
             assert bool((got[1] == 0).all()), "a sample without tokens must give 0"
         log(f"# check {case} {tuple(args[0].shape)}: max|err| {errs[case]:.3e}")
+    # #3's backward (the plain hand backward behind the kernel's forward) at
+    # TimeLLM's two shapes (no pad: GPT-2 gets no mask there) and the ragged
+    # case, against autograd of the plain forward (a generator of its own)
+    gen_b = torch.Generator(device=device).manual_seed(SEED + 11)
+    for shape in (*shapes.get("attn_timellm", ()), None):
+        case = f"attn backward {list(shape)}" if shape else "attn backward ragged"
+        args = attn_inputs(*shape, gen_b, device) if shape else attn_ragged_inputs(gen_b, device)
+        g = torch.randn(args[0].shape, generator=gen_b, device=device)
+        if shape:
+            errs[f"attn {list(shape)}"] = max_err(attn.fused_causal_attention(*args),
+                                                  attn.attention_reference(*args), ATTN_TOL)
+        calls = attn.backward_calls
+        errs[case], (dq, dk, dv) = check_attn_backward(args, g)
+        if attn.backward_calls != calls + 1:
+            raise AssertionError(f"{case}: the backward ran {attn.backward_calls - calls} times")
+        if shape is None:
+            assert all(bool((d[0, :, 0] == 0).all()) for d in (dq, dk, dv)), \
+                "a row or key with nothing kept must give exact zeros"
+            assert all(bool((d[1] == 0).all()) for d in (dq, dk, dv)), \
+                "a sample without tokens must give exact zeros"
+        log(f"# check {case} {tuple(args[0].shape)}, g ~ N(0, 1): max|err| "
+            f"{json.dumps(errs[case])}")
     salts = ffn_inputs(8, 8, 8, gen, device)[-1]
     for site in ("output", "hidden"):
         args, expect = dropout_probe_inputs(M, D, F, site, salts, device)
@@ -859,6 +957,9 @@ def seeded_weights(module, gen) -> None:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen))
                 m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+            elif isinstance(m, nn.Embedding):  # TimeLLM's frozen GPT-2 tables
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               / math.sqrt(m.embedding_dim))
             elif isinstance(m, nn.Conv1d):
                 b = 1.0 / math.sqrt(m.in_channels * m.kernel_size[0])
                 m.weight.copy_((torch.rand(m.weight.shape, generator=gen) * 2 - 1) * b)
@@ -979,6 +1080,8 @@ def set_kernels(svc, on: bool) -> None:
             m.use_fused_ffn = on
         elif isinstance(m, CRU):
             m.use_pallas = on
+        elif isinstance(m, GPT2Block):  # TimeLLM's frozen GPT-2
+            m.use_fused_attn = on
     svc.fusion.ttf.use_pallas = on
     llm = getattr(svc._stage_top, "llm", None)
     if llm is not None:
@@ -1310,7 +1413,9 @@ KERNEL_COUNTS = {  # kernel -> (module, its launch counter)
     "fused_encoder_ffn": (ffn, "launches"), "fused_encoder_ffn_train": (ffn, "train_launches"),
     "batched_expm": (expm, "launches"), "batched_expm_frechet": (expm, "frechet_launches"),
     "fused_cru_scan": (cru_scan, "launches"),
-    "fused_cru_scan_backward": (cru_scan, "backward_launches")}
+    "fused_cru_scan_backward": (cru_scan, "backward_launches"),
+    "fused_causal_attention": (attn, "launches"),
+    "fused_causal_attention_backward": (attn, "backward_calls")}
 
 
 def zero_counts() -> None:
@@ -1356,19 +1461,21 @@ def expected_counts(route: str, T: int, steps: int, evals: int) -> dict:
     package's lax.scan runs it on a zero cotangent)."""
     fwd = steps + evals
     default = route == "default"
-    return {"recency_weighted_average": fwd, "fused_encoder_ffn": 0, "fused_encoder_ffn_train": 0,
-            "batched_expm": T * fwd if default else 0,
-            "batched_expm_frechet": (T - 1) * steps if default else 0,
-            "fused_cru_scan": 0 if default else fwd,
-            "fused_cru_scan_backward": 0 if default else steps}
+    return dict(dict.fromkeys(KERNEL_COUNTS, 0), recency_weighted_average=fwd,
+                batched_expm=T * fwd if default else 0,
+                batched_expm_frechet=(T - 1) * steps if default else 0,
+                fused_cru_scan=0 if default else fwd,
+                fused_cru_scan_backward=0 if default else steps)
 
 
 def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n_test: int,
-                early_stop_delta: float, expected) -> dict:
+                early_stop_delta: float, expected, free=(), inspect=None) -> dict:
     """Train through imm_tsf_torch.main.main(args) with the launch counts
     zeroed just before; every loss and metric must be finite and, on cuda,
-    the counts equal expected(steps, evals). Prints each epoch and the
-    step phases' device ms."""
+    the counts equal expected(steps, evals), but for the counters named in
+    `free` (the caller checks those). Prints each epoch and the step
+    phases' device ms. inspect(result), when given, sees trainable()'s
+    result (the trained modules too)."""
     timings: dict = {}
     zero_counts()
     t0 = time.monotonic()
@@ -1385,9 +1492,12 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
     for h in hist:
         if best - h["val"]["mse"] > early_stop_delta:
             best, tested = h["val"]["mse"], tested + 1
-    want = expected(len(losses), len(hist) * n_val + tested * n_test)
+    want = dict(expected(len(losses), len(hist) * n_val + tested * n_test),
+                **{k: launches[k] for k in free})
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"training {label} launched {launches}, expected {want}")
+    if inspect is not None:
+        inspect(res)
     epochs = [{"epoch": h["epoch"], "train_loss": h["train_loss"],
                "val_mse": h["val"]["mse"], "windows_per_s": h["windows_per_sec"]}
               for h in hist]
@@ -1399,7 +1509,8 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
         f"{step_ms}; "
         f"launches {launches} ({per_step} a step, eval batches included); test "
         f"{json.dumps({k: res[k] for k in ('mse', 'mae', 'best_iter')})}")
-    return {"launches": launches, "steps": len(losses), "wall_s": wall, "epochs": epochs,
+    return {"launches": launches, "steps": len(losses), "step_losses": losses,
+            "wall_s": wall, "epochs": epochs,
             "step_ms": step_ms, "step_ms_each": timings.get("step_ms", {}),
             "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")}}
 
@@ -1676,19 +1787,37 @@ def headline_batch(cfg, B: int, gen, device) -> dict:
     return {k: v.to(device) for k, v in batch.items()}
 
 
-class pinned_pools:
-    """Within the block, the distilling convs' max-pools (the F.max_pool1d
-    of imm_tsf_torch/layers/transformer.py) take, in every run after the
-    first, the windows' argmax the first run took, call by call
-    (`next_run()` starts a run). The max's gradient is a step: where two
-    elements of a window agree to within rounding, another rounding order
-    may pick the other one, and a whole gradient entry moves to its
-    neighbour. `flips[r]` counts the windows where run r + 1's own argmax
-    differed from the pinned one. The forward value changes by the near
-    tie's difference only."""
+class _Pinned:
+    """A choice that rounding may flip (a max-pool's argmax, a top-k's
+    order), pinned across compared runs: the first run records it call by
+    call, every later run takes the first run's (`next_run()` starts a
+    run), and `flips[r]` counts the elements where run r + 1's own choice
+    differed."""
 
     def __init__(self):
         self.records, self.flips, self.run, self.call = [], [], 0, 0
+
+    def next_run(self) -> None:
+        self.run, self.call = self.run + 1, 0
+        self.flips.append(0)
+
+    def pinned(self, choice):
+        if self.run == 0:
+            self.records.append(choice)
+            return choice
+        pinned = self.records[self.call]
+        self.call += 1
+        self.flips[-1] += int((choice != pinned).sum())
+        return pinned
+
+
+class pinned_pools(_Pinned):
+    """Within the block, the distilling convs' max-pools (the F.max_pool1d
+    of imm_tsf_torch/layers/transformer.py) take the first run's argmax.
+    The max's gradient is a step: where two elements of a window agree to
+    within rounding, another rounding order may pick the other one, and a
+    whole gradient entry moves to its neighbour. The forward value changes
+    by the near tie's difference only."""
 
     def __getattr__(self, name):  # the rest of torch.nn.functional
         return getattr(torch.nn.functional, name)
@@ -1701,20 +1830,11 @@ class pinned_pools:
     def __exit__(self, *exc):
         transformer_layers.F = self.saved
 
-    def next_run(self) -> None:
-        self.run, self.call = self.run + 1, 0
-        self.flips.append(0)
-
     def max_pool1d(self, x, kernel_size, stride, padding=0):
         out, idx = torch.nn.functional.max_pool1d(x, kernel_size, stride, padding=padding,
                                                   return_indices=True)
-        if self.run == 0:
-            self.records.append(idx)
-            return out
-        pinned = self.records[self.call]
-        self.call += 1
-        self.flips[-1] += int((idx != pinned).sum())
-        return torch.gather(x, 2, pinned)
+        pinned = self.pinned(idx)
+        return out if self.run == 0 else torch.gather(x, 2, pinned)
 
 
 def compare_fused_step(device, cfg, label: str, time_masks: bool = False) -> dict:
@@ -1994,6 +2114,284 @@ def run_default_pair(device, n_requests: int, seed: int, root: str, exp_dir: str
     return {"serving": serving, "training": train}
 
 
+# --------------------------------------------------------------- phase 10
+def timellm_attn_shapes(cfg_kw: dict, B: int) -> tuple:
+    """#3's [B, 12, T, 64] in TimeLLM's GPT-2 at a batch of B: T the fast
+    prompt's 36 tokens (or the exact prompt's timellm_prompt_len) plus
+    the patches of every channel."""
+    cfg = Config(**cfg_kw)
+    tokens = timellm.n_patches(cfg) * cfg.input_dim
+    fast = timellm.N_PROMPT_TOKENS + timellm.N_STAT_TOKENS + tokens
+    return ((B, 12, fast, 64), (B, 12, cfg.timellm_prompt_len + tokens, 64))
+
+
+def attn_counts(route: str, layers: int, steps: int, evals: int) -> dict:
+    """Launches of a TimeLLM run with fusion: on the kernel route #1 once a
+    forward, #3 once a GPT-2 block a forward and its backward once a block
+    a step; nothing on the plain route."""
+    counts = dict.fromkeys(KERNEL_COUNTS, 0)
+    if route == "kernel":
+        counts.update(recency_weighted_average=steps + evals,
+                      fused_causal_attention=layers * (steps + evals),
+                      fused_causal_attention_backward=layers * steps)
+    return counts
+
+
+def run_timellm_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
+    """Phase 10a: the TimeLLM experiment (TIMELLM_CFG, seeded weights)
+    through ForecastService on the kernel route: 256 ragged requests from
+    8 threads, every answer finite with its rows, launch counts exact (#3
+    in each GPT-2 block and #1 once a dispatch, no backward), one
+    dispatch's batch kernels vs plain versions, one uncontended dispatch
+    traced."""
+    cfg = make_experiment(exp_dir, TIMELLM_CFG, seed)
+    t0 = time.monotonic()
+    svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
+    log(f"# TimeLLM service up in {time.monotonic() - t0:.2f} s (includes one warmup dispatch)")
+    try:
+        layers = len(svc.model.frozen_llm.h)
+        requests = make_requests(cfg, n_requests, seed)
+        d0 = svc.metrics()["dispatches_total"]
+        zero_counts()
+        attn.launches_by_shape = {}
+        t0 = time.monotonic()
+        answers = serve_requests(svc, requests)
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        metrics = svc.metrics()
+        dispatches = metrics["dispatches_total"] - d0
+        want = attn_counts("kernel", layers, 0, dispatches)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"serving TimeLLM launched {launches}, expected {want}")
+        for inst, ans in zip(requests, answers):
+            y = np.asarray(ans["prediction"])
+            if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+                raise AssertionError(f"bad answer shape {y.shape} or non-finite values")
+        shapes = sorted(attn.launches_by_shape)
+        log(f"# served TimeLLM: {len(requests)} requests in {dispatches} dispatches, "
+            f"{wall:.3f} s: {len(requests) / wall:.1f} requests/s, dispatch p50 "
+            f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
+            f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}; #3 at {shapes}")
+
+        built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
+        batch = svc.to_device(svc._collate([b[0] for b in built]))
+        with torch.inference_mode():
+            got = svc._forward(batch)
+            set_kernels(svc, False)
+            try:
+                want_y = svc._forward(batch)
+            finally:
+                set_kernels(svc, True)
+        err = max_err(got, want_y, SERVE_TOL)
+        log(f"# TimeLLM dispatch batch {tuple(batch['observed_data'].shape)}: kernels vs plain "
+            f"max|err| {err:.3e}")
+        profile = None
+        if device.type == "cuda":
+            profile = profile_dispatch(svc, built)
+            log(f"# one uncontended TimeLLM dispatch of 64 requests: {json.dumps(profile)}")
+        return {"launches": launches, "dispatches": dispatches, "attn_shapes": shapes,
+                "requests_per_s": len(requests) / wall,
+                "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
+                "dispatch_profile": profile}
+    finally:
+        svc.close()
+
+
+def frozen_unchanged(cfg):
+    """inspect(result) for train_route: the trained frozen GPT-2 equals,
+    bit for bit, the one trainable() drew (torch.manual_seed(cfg.seed),
+    then get_model)."""
+
+    def check(res):
+        torch.manual_seed(cfg.seed)
+        drawn = get_model(cfg).frozen_llm.state_dict()
+        trained = res["model"].frozen_llm.state_dict()
+        moved = [k for k, v in drawn.items() if not torch.equal(trained[k].cpu(), v)]
+        if moved or not drawn:
+            raise AssertionError(f"training moved the frozen GPT-2: {moved[:3]}")
+
+    return check
+
+
+def run_timellm_training(device, root: str, exp_dir: str) -> dict:
+    """Phase 10b and 10c: train TimeLLM + TTF_RecAvg + MMF_GR_Add through
+    imm_tsf_torch.main (TIMELLM_TRAIN_ARGS: the presets, hash dropout 0.1,
+    batch 32, two epochs) on the kernel route, the plain route, then the
+    kernel route with the exact prompt; launch counts exact (#3 and its
+    backward once a GPT-2 block a forward and a step), the frozen GPT-2
+    unchanged; then one step held kernels vs plain vs float64
+    (compare_timellm_step)."""
+    out = {"routes": {}}
+    for label, route, extra in (("kernel", "kernel", []), ("plain", "plain", []),
+                                ("kernel, exact prompt", "kernel", EXACT_PROMPT)):
+        args = TIMELLM_TRAIN_ARGS + ATTN_ROUTES[route] + extra
+        data = training_data(root, args)
+        cfg = data["cfg"]
+        n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+        attn.launches_by_shape = {}
+        res = train_route(
+            device, args, root, exp_dir, f"TimeLLM on the {label} route", n_val, n_test,
+            cfg.early_stop_delta,
+            lambda steps, evals: attn_counts(route, cfg.llm_layers_timellm, steps, evals),
+            inspect=frozen_unchanged(cfg))
+        res["attn_shapes"] = sorted(attn.launches_by_shape)
+        out["routes"][label] = res
+        out.setdefault("widths", {k: getattr(cfg, k) for k in (
+            "d_model", "d_ff", "n_heads", "input_token_len", "stride", "llm_layers_timellm",
+            "ts_vocab_size", "timellm_prompt_len", "dropout", "dropout_impl")})
+        out.setdefault("batches", {"train": len(data["train_dataloader"]), "val": n_val,
+                                   "test": n_test, "L": cfg.input_len, "Lp": cfg.pred_len})
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    log(f"# TimeLLM training data: {out['batches']}, widths {out['widths']}")
+    out["step"] = compare_timellm_step(device)
+    return out
+
+
+class pinned_lags(_Pinned):
+    """Within the block, TimeLLM's fast prompt takes the first run's lags.
+    They are the top_k of an autocorrelation whose pairs corr[k], corr[L -
+    k] are equal in exact arithmetic, so float32 and float64 rank a pair
+    by their rounding."""
+
+    def __enter__(self):
+        self.saved = timellm.top_lags
+        timellm.top_lags = lambda corr, k: self.pinned(self.saved(corr, k))
+        return self
+
+    def __exit__(self, *exc):
+        timellm.top_lags = self.saved
+
+
+def compare_timellm_step(device) -> dict:
+    """One gradient step of the full-width TimeLLM experiment (TIMELLM_CFG,
+    hash dropout 0.1) from seeded weights on a batch at the trained shape
+    (B 32, L 36, Lp 36, C 8), three ways under the same salts: the kernel
+    route (#3 forward and backward, #1), the plain route and the plain
+    route in float64, the later two with the float64 run's lags
+    (pinned_lags). The losses agree to TRAIN_LOSS_RTOL, the gradients as
+    held_grads holds them, the frozen GPT-2 gets none, and the step's
+    launch counts are exact. Then one full step of each route (optimizer
+    included) is traced."""
+    cfg = Config(**dict(TIMELLM_CFG, **TIMELLM_TRAINED, dropout=0.1))
+    gen = torch.Generator().manual_seed(SEED)
+    model, fusion = get_model(cfg), FusionModel(cfg)
+    seeded_weights(model, gen)
+    seeded_weights(fusion, gen)
+    batch = headline_batch(cfg, TIMELLM_STEP_B, torch.Generator().manual_seed(SEED + 1), device)
+    layers = len(model.frozen_llm.h)
+
+    def set_route(model, fusion, kernels):
+        for m in model.modules():
+            if isinstance(m, GPT2Block):
+                m.use_fused_attn = kernels
+        fusion.ttf.use_pallas = kernels
+
+    def grads(model, fusion, batch, kernels):
+        set_route(model, fusion, kernels)
+        salts = torch.Generator().manual_seed(SEED)  # the same salts, so the same masks
+        for m in [*model.modules(), *fusion.modules()]:
+            if isinstance(m, Dropout):
+                m.generator = salts
+        model.zero_grad(set_to_none=True)
+        fusion.zero_grad(set_to_none=True)
+        loss = make_loss_fn(make_forward(cfg, model, fusion))(batch)
+        loss.backward()
+        if any(p.grad is not None for p in model.frozen_llm.parameters()):
+            raise AssertionError("the frozen GPT-2 took a gradient")
+        named = [*model.named_parameters(), *fusion.named_parameters()]
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in named
+                                      if p.requires_grad}
+
+    model64, fusion64 = (copy.deepcopy(m).double().to(device).train() for m in (model, fusion))
+    batch64 = {k: v.double() for k, v in batch.items()}
+    with pinned_lags() as lags:
+        loss64, g64 = grads(model64, fusion64, batch64, False)
+        del model64, fusion64
+        model, fusion = model.to(device).train(), fusion.to(device).train()
+        lags.next_run()
+        zero_counts()
+        loss_p, g_p = grads(model, fusion, batch, False)
+        plain_launches = read_counts()
+        lags.next_run()
+        zero_counts()
+        loss_k, g_k = grads(model, fusion, batch, True)
+        launches = read_counts()
+    out = {"batch": {k: list(v.shape) for k, v in batch.items()}, "loss_float64": loss64,
+           "loss_plain": loss_p, "loss_kernel": loss_k, "launches": launches,
+           "lag_flips": {"plain": lags.flips[0], "kernel": lags.flips[1],
+                         "lags": sum(int(r.numel()) for r in lags.records)}}
+    for route, got in (("plain", plain_launches), ("kernel", launches)):
+        want = attn_counts(route, layers, 1, 0)
+        if device.type == "cuda" and got != want:
+            raise AssertionError(f"one TimeLLM step on the {route} route launched {got}, "
+                                 f"expected {want}")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"TimeLLM step loss: kernel route {loss_k} vs plain {loss_p}")
+    errs, plain_err, zero_err = held_grads(g_k, g_p, g64, "TimeLLM step")
+    worst = max(errs, key=lambda n: errs[n] / (plain_err[n] + 1e-6))
+    out.update(worst_grad={worst: (errs[worst], plain_err[worst])}, vanishing_grads=zero_err,
+               largest_grad_err={"kernel": max(errs.values()), "plain": max(plain_err.values())})
+    log(f"# one TimeLLM step, seeded weights, B {TIMELLM_STEP_B}: {json.dumps(out)}")
+
+    if device.type == "cuda":  # one whole step of each route, optimizer included, traced
+        params = trainable_parameters(model, fusion)
+        step = make_grad_step(make_loss_fn(make_forward(cfg, model, fusion)),
+                              make_optimizer(params, cfg.lr, cfg.w_decay), params)
+        out["profile"] = {}
+        for route in ("kernel", "plain"):
+            set_route(model, fusion, route == "kernel")
+            wall_ms(step, batch, reps=1, inference=False)  # warm
+            step_ms = float(np.median(wall_ms(step, batch, reps=5, inference=False)))
+            out["profile"][route] = {"step_ms": step_ms,
+                                     **trace(lambda: step(batch), 3, step_ms, inference=False)}
+            log(f"# one traced TimeLLM {route}-route training step: "
+                f"{json.dumps(out['profile'][route])}")
+    return out
+
+
+def run_raw_text_training(device, root: str, exp_dir: str) -> dict:
+    """Phase 10d: PatchTST + TTF_RecAvg + MMF_GR_Add on raw-text notes
+    (RAW_TEXT_TRAIN_ARGS: phase 8's run, the notes through the 6-block
+    GPT-2 in the loader stage) on the attention kernel's route, then on the
+    plain attention: every loss finite, #3 launched in the embedding stage
+    (a multiple of the blocks, never backward) on the kernel route only,
+    #1 once a forward on both, and the first epoch's losses of the two
+    routes within RAW_TEXT_LOSS_RTOL."""
+    data = training_data(root, RAW_TEXT_TRAIN_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    out = {"batches": {"train": len(data["train_dataloader"]), "val": n_val, "test": n_test},
+           "llm_layers": cfg.llm_layers_fusion, "routes": {}}
+    for route, extra in RAW_TEXT_ROUTES.items():
+        attn.launches_by_shape = {}
+        res = train_route(
+            device, RAW_TEXT_TRAIN_ARGS + extra, root, exp_dir,
+            f"PatchTST on raw-text notes, {route} route", n_val, n_test, cfg.early_stop_delta,
+            lambda steps, evals: dict(dict.fromkeys(KERNEL_COUNTS, 0),
+                                      recency_weighted_average=steps + evals),
+            free=("fused_causal_attention",))
+        n = res["launches"]["fused_causal_attention"]
+        if device.type == "cuda" and (route == "kernel") != (n > 0):
+            raise AssertionError(f"raw-text training, {route} route: #3 launched {n} times")
+        if n % cfg.llm_layers_fusion:
+            raise AssertionError(f"#3 launched {n} times, not a multiple of the GPT-2 blocks")
+        res["attn_launches_by_shape"] = [[list(k), c] for k, c in
+                                         sorted(attn.launches_by_shape.items())]
+        out["routes"][route] = res
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    first = {r: res["step_losses"][:out["batches"]["train"]] for r, res in out["routes"].items()}
+    k, p = (np.asarray(first[r]) for r in RAW_TEXT_ROUTES)
+    gap = float((np.abs(k - p) / np.abs(p)).max())
+    if not gap <= RAW_TEXT_LOSS_RTOL:
+        raise AssertionError(f"raw-text training: the first epoch's losses differ by {gap:.3e} "
+                             "between the attention routes")
+    out["first_epoch_loss_gap"] = gap
+    log(f"# raw-text training: #3 by shape on the kernel route "
+        f"{out['routes']['kernel']['attn_launches_by_shape']}; first epoch's losses, kernel vs "
+        f"plain attention, max relative gap {gap:.3e}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -2027,13 +2425,17 @@ def ffn_bound(M: int, D: int, F: int, residuals: bool = False) -> tuple[float, s
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def measure(device, shapes, gen, errs, serving, text, cru, patch, informer) -> list[dict]:
+def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
+            timellm_run) -> list[dict]:
     """One row per kernel. For kernels #1 and #2 `launches` counts the
     Informer training run on the kernel route (phase 9b), for #3 the
-    raw-text path (phase 4b), which runs all three; `launches_by_path` adds
-    the raw-text and embedding paths (phase 4), both CRU routes (phase 6),
-    the PatchTST training run (phase 8) and the Informer service (phase
-    9a). #2's row also times its training form and the plain backward at
+    TimeLLM training run on the kernel route (phase 10b, fast prompt);
+    `launches_by_path` adds the raw-text path (phase 4b), which runs all
+    three, the embedding path (phase 4), both CRU routes (phase 6), the
+    PatchTST training run (phase 8), the Informer service (phase 9a) and
+    for #3 the TimeLLM service, the exact-prompt training and the raw-text
+    training (phase 10); #3's row also counts its backward's calls and
+    times it at TimeLLM's shapes (attn_timellm_timings). #2's row also times its training form and the plain backward at
     the same shape (dropout on, as PatchTST trains), and both forms at
     Informer's three FFN sites. Kernels #5 and #6: measure_cru."""
     B, N, T, d = shapes["recavg"]
@@ -2125,12 +2527,11 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer) -> l
         log(f"# attention at {key((Bq, H, Tq, Dq))}: kernel {t['ms']:.4f} ms, SDPA "
             f"{t['library_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
             f"({t['bound_by']}; fp32 FMA {t['bound_fma_ms']:.4f})")
-    head = key(shapes["attn"][-1])  # the bucket-1024 call gives the row's headline numbers
+    # the row's headline numbers: TimeLLM's shape, below
     rows.append({"name": "fused_causal_attention", "route": "cuda",
                  "source": "imm_tsf_torch/csrc/attn.cu",
                  "replaces": "imm_tsf_tpu/ops/pallas/attn_kernel.py:109", "ok": True,
-                 **by_shape[head], "shape": head, "by_shape": by_shape,
-                 "raw_text_run": attn_over_run(text, gen, device)})
+                 "by_shape": by_shape, "raw_text_run": attn_over_run(text, gen, device)})
     for row in rows:
         n = text["launches"][row["name"]]
         row["launches"] = n
@@ -2147,6 +2548,26 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer) -> l
         row["launches"] = by_path["informer_training"] = n
     rows[1]["train_launches"] = (
         informer["training"]["routes"]["kernel"]["launches"]["fused_encoder_ffn_train"])
+    # #3 on this slice's paths: TimeLLM served and trained, raw-text training
+    attn_row, trained = rows[2], timellm_run["training"]["routes"]
+    paths = {"timellm_serving": timellm_run["serving"]["launches"],
+             "timellm_training": trained["kernel"]["launches"],
+             "timellm_training_exact_prompt": trained["kernel, exact prompt"]["launches"],
+             "raw_text_training": timellm_run["raw_text_training"]["routes"]["kernel"]["launches"]}
+    for path, counts in paths.items():
+        attn_row["launches_by_path"][path] = counts["fused_causal_attention"]
+    attn_row["backward_calls_by_path"] = {
+        path: counts["fused_causal_attention_backward"] for path, counts in paths.items()}
+    attn_row["launches"] = attn_row["launches_by_path"]["timellm_training"]
+    attn_row["backward_calls"] = attn_row["backward_calls_by_path"]["timellm_training"]
+    rec_row["launches_by_path"]["timellm_training"] = (
+        trained["kernel"]["launches"]["recency_weighted_average"])
+    # the row's headline: TimeLLM's trained fast-prompt shape, where its
+    # launches are counted
+    attn_row["timellm_shapes"] = attn_timellm_timings(shapes["attn_timellm"], gen, device, errs)
+    attn_row["shape"] = key(shapes["attn_timellm"][0])
+    attn_row.update({k: v for k, v in attn_row["timellm_shapes"][attn_row["shape"]].items()
+                     if k not in ("library_train_ms", "train_ms")})
     # #2 at Informer's FFN sites, both forms (inputs of their own)
     gen_i = torch.Generator(device=device).manual_seed(SEED + 10)
     ffn_row["informer_shapes"] = {}
@@ -2169,6 +2590,51 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer) -> l
         log(f"# fused FFN at Informer's M {m}: {json.dumps(ffn_row['informer_shapes'][str(m)])}")
         del sets
     return rows + measure_cru(cru)
+
+
+def attn_timellm_timings(attn_shapes, gen, device, errs) -> dict:
+    """#3 at TimeLLM's shapes (no pad): the kernel's forward, its plain
+    version and SDPA with the same boolean mask, each with its bound (3
+    TF32 passes on the tensor cores, the fp32-FMA bound beside); the plain
+    backward (attention_backward_reference) with its bound (five products
+    to the forward's two) and SDPA's autograd backward (its forward and
+    backward, less its forward); and the port's training path, the
+    kernel's forward and the plain backward under autograd."""
+    key = lambda shape: "[" + ",".join(map(str, shape)) + "]"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for Bq, H, Tq, Dq in attn_shapes:
+        sets = [attn_inputs(Bq, H, Tq, Dq, gen, device) for _ in range(2)]
+        causal = torch.ones((Tq, Tq), dtype=torch.bool, device=device).tril()
+        masks = [causal[None, None] & (a[3] > 0)[:, None, None, :] for a in sets]
+        nbytes, flops = attn_work(sets[0][3], H, Dq)
+        t = timed(attn.fused_causal_attention, attn.attention_reference,
+                  (lambda q, k, v, m: sdpa(q, k, v, attn_mask=m),
+                   [a[:3] + [m] for a, m in zip(sets, masks)]), sets, nbytes, flops, 20)
+        t["bound_fma_ms"] = t["bound_ms"]
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+        gs = [torch.randn(a[0].shape, generator=gen, device=device) for a in sets]
+        b_bytes, b_flops = attn_backward_work(sets[0][3], H, Dq)
+        t["backward_plain_ms"] = device_ms(attn.attention_backward_reference,
+                                           [a + [g] for a, g in zip(sets, gs)], per_rep=10)
+        t["backward_bound_ms"], t["backward_bound_by"] = bound(b_bytes, 3 * b_flops,
+                                                               PEAK_TF32_FLOP_PER_S)
+        t["backward_bound_fma_ms"] = bound(b_bytes, b_flops)[0]
+        leaves = [[x.detach().clone().requires_grad_() for x in a[:3]] for a in sets]
+        t["library_train_ms"] = device_ms(
+            lambda q, k, v, m, g: torch.autograd.grad(sdpa(q, k, v, attn_mask=m), (q, k, v), g),
+            [lv + [m, g] for lv, m, g in zip(leaves, masks, gs)], per_rep=10)
+        t["library_backward_ms"] = t["library_train_ms"] - t["library_ms"]
+        t["train_ms"] = device_ms(
+            lambda q, k, v, pad, g: torch.autograd.grad(
+                attn.fused_causal_attention(q, k, v, pad), (q, k, v), g),
+            [lv + [a[3], g] for lv, a, g in zip(leaves, sets, gs)], per_rep=10)
+        t["max_abs_err"] = errs[f"attn {[Bq, H, Tq, Dq]}"]
+        t["backward_max_abs_err"] = errs[f"attn backward {[Bq, H, Tq, Dq]}"]
+        out[key((Bq, H, Tq, Dq))] = t
+        log(f"# attention at TimeLLM's {key((Bq, H, Tq, Dq))}: {json.dumps(t)}")
+        del sets, leaves, gs
+    return out
 
 
 def attn_over_run(text, gen, device) -> dict:
@@ -2404,7 +2870,9 @@ def main() -> int:
               "attn": tuple((bucket_rows(T), 12, T, 64) for T in EMBED_BUCKETS),
               "expm": (64, 64), "cru_scan": (64, 72, 16, 15),
               "frechet": (32, 64), "cru_scan_bwd": (32, 72, 16, 15),
-              "ffn_informer": informer_ffn_shapes(INFORMER_CFG)}
+              "ffn_informer": informer_ffn_shapes(INFORMER_CFG),
+              "attn_timellm": timellm_attn_shapes(dict(TIMELLM_CFG, **TIMELLM_TRAINED),
+                                                  TIMELLM_STEP_B)}
     errs = check_kernels(device, shapes, gen)
 
     # phase 4: serving
@@ -2486,8 +2954,25 @@ def main() -> int:
         if where["ffn_rows"] != checked:
             raise AssertionError(f"Informer's FFN rows {where['ffn_rows']} != checked {checked}")
 
+    # phase 10: TimeLLM served and trained (both routes, both prompts), one
+    # compared step, then raw-text training
+    try:
+        timellm_run = {"serving": run_timellm_serving(device, N_TIMELLM_REQUESTS, SEED, exp_dir)}
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        timellm_run["training"] = run_timellm_training(device, root, exp_dir)
+        timellm_run["raw_text_training"] = run_raw_text_training(device, root, exp_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    routes = timellm_run["training"]["routes"]
+    for checked, route in zip(shapes["attn_timellm"], ("kernel", "kernel, exact prompt")):
+        if device.type == "cuda" and checked not in routes[route]["attn_shapes"]:
+            raise AssertionError(f"TimeLLM's {route} training launched #3 at "
+                                 f"{routes[route]['attn_shapes']}, not at the checked {checked}")
+
     # phase 5: timings
-    rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer)
+    rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
@@ -2498,8 +2983,10 @@ def main() -> int:
         f"{patch['routes']['kernel']['wall_s']:.1f} / {patch['routes']['plain']['wall_s']:.1f} s; "
         f"Informer {informer['serving']['requests_per_s']:.1f} requests/s, training "
         f"{informer['training']['routes']['kernel']['wall_s']:.1f} / "
-        f"{informer['training']['routes']['plain']['wall_s']:.1f} s; "
-        f"total {time.monotonic() - t_start:.1f} s")
+        f"{informer['training']['routes']['plain']['wall_s']:.1f} s; TimeLLM "
+        f"{timellm_run['serving']['requests_per_s']:.1f} requests/s, training "
+        + " / ".join(f"{r['wall_s']:.1f}" for r in routes.values())
+        + f" s; total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
                    for route, res in cru.items()}
@@ -2512,7 +2999,7 @@ def main() -> int:
                       "raw_text": text, "cru": cru_summary,
                       "cru_route_err": route_err, "training": train_summary,
                       "patchtst_training": patch, "informer": informer,
-                      "default_pair": default_pair}), flush=True)
+                      "default_pair": default_pair, "timellm": timellm_run}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

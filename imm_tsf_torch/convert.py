@@ -29,6 +29,11 @@ PatchTST's and Informer's encoder layers and their attention under
 decoder layer's self- and cross-attention (two blocks a layer, in that
 order) under `decoder.layers.<j>`.
 
+TimeLLM's frozen GPT-2 (`frozen_llm.h_<i>`) nests as `frozen_llm.h.<i>`,
+as `gpt2_params_from_jax` renames it; its `mapping_layer` kernel [vocab,
+ts_vocab] becomes a weight [ts_vocab, vocab] like any Dense kernel; a
+bfloat16 leaf (`frozen_param_dtype`) converts exactly to float32.
+
 `gpt2_params_from_jax` carries a flax `GPT2Model` param tree (the JAX
 package's frozen LLM) into the port's `llm.gpt2.GPT2Model` state dict:
 Embed `embedding` -> `weight` (not transposed), blocks `h_<i>` -> `h.<i>`.
@@ -45,6 +50,7 @@ _LAYER_RENAMES = (
     (re.compile(r"^enc_layer_(\d+)\."), r"encoder.layers.\1."),
     (re.compile(r"^conv_layer_(\d+)\."), r"encoder.conv_layers.\1."),
     (re.compile(r"^dec_layer_(\d+)\."), r"decoder.layers.\1."),
+    (re.compile(r"^frozen_llm\.h_(\d+)\."), r"frozen_llm.h.\1."),  # TimeLLM's GPT-2
 )
 _STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
 _GPT2_RENAMES = ((re.compile(r"^h_(\d+)\."), r"h.\1."),)
@@ -104,9 +110,15 @@ def _convert(tree: dict, renames=()) -> dict:
 
 def _convert_stats(collections: dict, renames) -> dict:
     """A component's flax state collections ({"batch_stats": ...}) -> torch
-    buffers: BatchNorm `mean`/`var` -> `running_mean`/`running_var`."""
+    buffers: BatchNorm `mean`/`var` -> `running_mean`/`running_var`;
+    the `constants` collection (TimeLLM's `domain_prompt_ids`) keeps its
+    names and integer dtype."""
     state = {}
-    for tree in collections.values():
+    for kind, tree in collections.items():
+        if kind == "constants":
+            state.update((path, torch.from_numpy(np.array(leaf)))
+                         for path, leaf in _flatten(tree))
+            continue
         for key, t in _convert(tree, renames).items():
             module, _, name = key.rpartition(".")
             state[f"{module}.{_STATS_NAMES.get(name, name)}"] = t

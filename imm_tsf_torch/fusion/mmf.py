@@ -17,6 +17,7 @@ from torch import nn
 
 from ..layers.attention import MultiHeadAttention
 from ..layers.fast_dropout import Dropout
+from ..models.base import dense
 
 
 class MMF_GR_Add(nn.Module):
@@ -78,9 +79,10 @@ class MMF_XAttn_Add(nn.Module):
                  dropout: float = 0.1, kappa: float = 1.0):
         super().__init__()
         self.kappa = kappa
-        self.proj_q = nn.Linear(C, d_attn, bias=False)
-        self.proj_k = nn.Linear(d_txt, d_attn, bias=False)
-        self.proj_v = nn.Linear(d_txt, d_attn, bias=False)
+        # flax's default Dense kernel: lecun normal
+        self.proj_q = dense(C, d_attn, bias=False, kernel="lecun")
+        self.proj_k = dense(d_txt, d_attn, bias=False, kernel="lecun")
+        self.proj_v = dense(d_txt, d_attn, bias=False, kernel="lecun")
         self.attn = MultiHeadAttention(d_attn, n_heads_fusion, dropout)
         self.residual_head = nn.Linear(d_attn, C)
         self.layer_norm = nn.LayerNorm(C, eps=1e-5)

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.base import variance_scaling_
 from .fast_dropout import Dropout
 
 
@@ -44,10 +45,10 @@ class TokenEmbedding(nn.Module):
 
     def __init__(self, c_in: int, d_model: int):
         super().__init__()
-        self.tokenConv = nn.Conv1d(c_in, d_model, 3, padding=1, padding_mode="circular",
-                                   bias=False)
-        nn.init.kaiming_normal_(self.tokenConv.weight, mode="fan_in",
-                                nonlinearity="leaky_relu")
+        self.tokenConv = nn.utils.skip_init(nn.Conv1d, c_in, d_model, 3, padding=1,
+                                            padding_mode="circular", bias=False)
+        # flax's kaiming_normal: truncated at 2 sigma, variance 2 / fan_in
+        variance_scaling_(self.tokenConv.weight, 2.0, 3 * c_in)
 
     def forward(self, x):
         return self.tokenConv(x.permute(0, 2, 1)).permute(0, 2, 1)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ffn import ffn_reference, fused_encoder_ffn
+from ..models.base import dense, variance_scaling_
 from .attention import masked_softmax
 from .fast_dropout import Dropout, draw_salts
 
@@ -65,10 +66,10 @@ class AttentionLayer(nn.Module):
         super().__init__()
         self.inner, self.n_heads = inner, n_heads
         d_k = d_model // n_heads
-        self.query_projection = nn.Linear(d_model, d_k * n_heads)
-        self.key_projection = nn.Linear(d_model, d_k * n_heads)
-        self.value_projection = nn.Linear(d_model, d_k * n_heads)
-        self.out_projection = nn.Linear(d_k * n_heads, d_model)
+        self.query_projection = dense(d_model, d_k * n_heads)
+        self.key_projection = dense(d_model, d_k * n_heads)
+        self.value_projection = dense(d_model, d_k * n_heads)
+        self.out_projection = dense(d_k * n_heads, d_model)
 
     def forward(self, queries, keys, values, attn_mask=None):
         B, L, _ = queries.shape
@@ -110,8 +111,8 @@ class EncoderLayer(nn.Module):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.attention = attention
-        self.conv1 = nn.Linear(d_model, d_ff)
-        self.conv2 = nn.Linear(d_ff, d_model)
+        self.conv1 = dense(d_model, d_ff)
+        self.conv2 = dense(d_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)
@@ -164,7 +165,11 @@ class ConvLayer(nn.Module):
 
     def __init__(self, c_in: int):
         super().__init__()
-        self.downConv = nn.Conv1d(c_in, c_in, 3, padding=2, padding_mode="circular")
+        self.downConv = nn.utils.skip_init(nn.Conv1d, c_in, c_in, 3, padding=2,
+                                           padding_mode="circular")
+        variance_scaling_(self.downConv.weight, 1.0, 3 * c_in)  # flax Conv's lecun normal
+        with torch.no_grad():
+            self.downConv.bias.zero_()
         self.norm = BatchNorm(c_in)
 
     def forward(self, x):
@@ -207,8 +212,8 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d_ff = d_ff or 4 * d_model
         self.self_attention, self.cross_attention = self_attention, cross_attention
-        self.conv1 = nn.Linear(d_model, d_ff)
-        self.conv2 = nn.Linear(d_ff, d_model)
+        self.conv1 = dense(d_model, d_ff)
+        self.conv2 = dense(d_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
@@ -232,7 +237,7 @@ class Decoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(d_model, eps=1e-5) if use_norm else None
-        self.projection = (nn.Linear(d_model, projection_dim)
+        self.projection = (dense(d_model, projection_dim)
                            if projection_dim is not None else None)
 
     def forward(self, x, cross, x_mask=None, cross_mask=None):

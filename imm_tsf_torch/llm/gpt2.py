@@ -6,10 +6,19 @@ with `ln_1`, `c_attn`, `c_attn_proj`, `ln_2`, `c_fc`, `c_mlp_proj`, and
 `ln_f`), so `convert.gpt2_params_from_jax` only renames `h_<i>` and
 transposes kernels; `convert_hf_gpt2` reads a Hugging Face checkpoint.
 
-With `use_fused_attn` the attention goes through
+It serves two callers: the raw-text note embedding (llm/loader.py) and
+TimeLLM's frozen backbone (models/timellm.py), which reads the token
+table through `get_input_embeddings` and `word_embedding_table` and
+passes its gradient through the blocks to the reprogramming layer. With
+`use_fused_attn` the attention goes through
 kernels/attn.fused_causal_attention (the CUDA kernel for CUDA tensors,
-its plain version for CPU ones); otherwise through the einsum +
-masked_softmax path.
+its plain version for CPU ones; differentiable, with the plain hand
+backward); otherwise through the einsum + masked_softmax path.
+
+Weights may be stored narrower than the activations (TimeLLM's
+`frozen_param_dtype="bfloat16"`): each use upcasts them to the
+activations' dtype, so the arithmetic is float32 on bf16-rounded
+weights, as JAX's type promotion computes it.
 """
 
 from __future__ import annotations
@@ -41,6 +50,20 @@ GPT2_SIZES = {
 }
 
 
+def _up(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w in the promoted dtype of w and x (a bf16 weight meets float32
+    activations as float32)."""
+    return w if w.dtype == x.dtype else w.to(torch.promote_types(w.dtype, x.dtype))
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, _up(lin.weight, x), _up(lin.bias, x))
+
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x, ln.normalized_shape, _up(ln.weight, x), _up(ln.bias, x), ln.eps)
+
+
 class GPT2Block(nn.Module):
     def __init__(self, cfg: GPT2Config, use_fused_attn: bool = False):
         super().__init__()
@@ -58,15 +81,15 @@ class GPT2Block(nn.Module):
         """x [B, T, E]; attn_mask [B, T], True (or > 0) = real token."""
         B, T, E = x.shape
         H = self.n_head
-        q, k, v = self.c_attn(self.ln_1(x)).split(E, dim=-1)
+        q, k, v = _linear(self.c_attn, _layer_norm(self.ln_1, x)).split(E, dim=-1)
         q, k, v = (z.reshape(B, T, H, E // H).transpose(1, 2) for z in (q, k, v))
         pad = (attn_mask.to(torch.float32) if attn_mask is not None
                else x.new_ones((B, T), dtype=torch.float32))
         attend = fused_causal_attention if self.use_fused_attn else attention_reference
         out = attend(q, k, v, pad)
-        x = x + self.c_attn_proj(out.transpose(1, 2).reshape(B, T, E))
-        h = F.gelu(self.c_fc(self.ln_2(x)), approximate="tanh")
-        return x + self.c_mlp_proj(h)
+        x = x + _linear(self.c_attn_proj, out.transpose(1, 2).reshape(B, T, E))
+        h = F.gelu(_linear(self.c_fc, _layer_norm(self.ln_2, x)), approximate="tanh")
+        return x + _linear(self.c_mlp_proj, h)
 
 
 class GPT2Model(nn.Module):
@@ -83,6 +106,14 @@ class GPT2Model(nn.Module):
         self.h = nn.ModuleList(GPT2Block(cfg, use_fused_attn) for _ in range(n))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon)
 
+    def get_input_embeddings(self, input_ids) -> torch.Tensor:
+        """The token embeddings of input_ids, in the table's dtype."""
+        return self.wte(input_ids)
+
+    def word_embedding_table(self) -> torch.Tensor:
+        """The token table [vocab, n_embd]."""
+        return self.wte.weight
+
     def forward(self, input_ids=None, inputs_embeds=None, attn_mask=None):
         if inputs_embeds is None:
             inputs_embeds = self.wte(input_ids)
@@ -90,7 +121,7 @@ class GPT2Model(nn.Module):
         x = inputs_embeds + self.wpe(torch.arange(T, device=inputs_embeds.device))[None]
         for block in self.h:
             x = block(x, attn_mask=attn_mask)
-        return self.ln_f(x)
+        return _layer_norm(self.ln_f, x)
 
 
 _HF_LINEARS = {"attn.c_attn": "c_attn", "attn.c_proj": "c_attn_proj",

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..models.base import variance_scaling_
 
 ALIAS = {
     # reference fusions/load_llm.py:5-13
@@ -147,8 +148,7 @@ def _flax_init_(model: nn.Module, gen: torch.Generator) -> None:
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+                variance_scaling_(m.weight, 1.0, m.in_features, gen)
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, math.sqrt(1.0 / m.embedding_dim), generator=gen)

@@ -4,8 +4,8 @@ Every model takes the reference's single interface:
 
     model(tp_to_predict, observed_data, observed_tp, observed_mask) -> [B, Lp, C]
 
-PatchTST, CRU, DLinear and Informer are ported so far; the other
-backbones are queued in ROADMAP.md, Queue 1.
+PatchTST, CRU, DLinear, Informer and TimeLLM (with GPT-2) are ported
+so far; the other backbones are queued in ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from ..config import MODELS, Config
 
 # the ROADMAP.md Queue 1 item of each backbone still to port (TimesNet and
 # TimeMixer: item 7)
-_QUEUED = {"tPatchGNN": 8, "LatentODE": 8, "NeuralFlow": 8, "TimeLLM": 10, "TTM": 11}
+_QUEUED = {"tPatchGNN": 8, "LatentODE": 8, "NeuralFlow": 8, "TTM": 11}
 
 
 def get_model(cfg: Config):
@@ -35,6 +35,10 @@ def get_model(cfg: Config):
         from .cru import CRU
 
         return CRU(cfg)
+    if name == "TimeLLM":
+        from .timellm import TimeLLM
+
+        return TimeLLM(cfg)
     if name in MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported to imm_tsf_torch yet "

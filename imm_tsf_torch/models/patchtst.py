@@ -16,7 +16,7 @@ from ..config import Config
 from ..layers.embed import PatchEmbedding
 from ..layers.fast_dropout import Dropout
 from ..layers.transformer import AttentionLayer, Encoder, EncoderLayer, FullAttention
-from .base import pad_time
+from .base import dense, pad_time
 
 
 class PatchTST(nn.Module):
@@ -38,7 +38,7 @@ class PatchTST(nn.Module):
         ]
         self.encoder = Encoder(layers, cfg.d_model)
         P = (3 * cfg.input_len + stride - patch_len) // stride + 1
-        self.head_linear = nn.Linear(cfg.d_model * P + cfg.pred_len, cfg.pred_len)
+        self.head_linear = dense(cfg.d_model * P + cfg.pred_len, cfg.pred_len)
         self.head_dropout = Dropout(cfg.dropout)
 
     def forward(self, tp_to_predict, observed_data, observed_tp, observed_mask):

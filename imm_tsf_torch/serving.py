@@ -5,7 +5,8 @@ A `ForecastService` restores an experiment directory (the resolved
 `config.json` and `best/weights.pt`), builds the backbone and fusion
 stack on `device` (cuda unless the caller asks for the CPU), and serves
 ragged client requests through the training-time collate of the model's
-family (standard, or CRU's raw repeat-padded times).
+family (standard, or CRU's raw repeat-padded times) and the trainer's
+loader stages (raw-text note embedding, TimeLLM's exact prompts).
 Every batch is padded to `max_batch` and the obs/pred axes to the
 experiment's ceilings, so the device sees one batch shape.
 
@@ -293,6 +294,7 @@ class ForecastService(_MetricsMixin):
         from .llm.loader import get_d_model
         from .models import get_model
         from .training.checkpoint import load_weights
+        from .training.optim import cast_frozen
         from .training.trainer import make_forward, make_loader_wrappers
 
         d_txt = 0
@@ -306,6 +308,7 @@ class ForecastService(_MetricsMixin):
         state = load_weights(os.path.join(checkpoint_dir, "best"),
                              map_location=self.device)
         self.model = get_model(cfg).to(self.device).eval()
+        cast_frozen(self.model, cfg.frozen_param_dtype)  # TimeLLM's bf16 GPT-2, if asked
         self.model.load_state_dict(state["model"])
         self.fusion = None
         if cfg.enable_text:

@@ -21,6 +21,17 @@ def trainable_parameters(*modules) -> list[torch.nn.Parameter]:
             if FROZEN_SUBTREE not in name.split(".")]
 
 
+def cast_frozen(module: torch.nn.Module, frozen_param_dtype: str) -> None:
+    """Store every FROZEN_SUBTREE submodule's floats in bfloat16 when
+    frozen_param_dtype is "bfloat16" (the JAX package's
+    `_cast_frozen_params`): they take no updates, and each use upcasts them
+    (llm/gpt2.py), so the arithmetic stays float32 on bf16-rounded weights."""
+    if frozen_param_dtype == "bfloat16":
+        for name, sub in module.named_modules():
+            if name.split(".")[-1] == FROZEN_SUBTREE:
+                sub.to(torch.bfloat16)
+
+
 def make_optimizer(params, lr: float, w_decay: float) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=w_decay)
 

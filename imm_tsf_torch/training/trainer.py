@@ -1,13 +1,18 @@
 """Training harness: the reference's trainable() protocol (after
-imm_tsf_tpu/training/trainer.py:163-314, 349-446, 502-906).
+imm_tsf_tpu/training/trainer.py:163-314, 349-500, 502-906).
 
-It trains CRU, PatchTST, DLinear and Informer, each with either fusion
-pair on precomputed note embeddings, on the kernels' routes and the
-plain ones: CRU's default and fused scans (kernels #4-#7), PatchTST's and
-Informer's fused FFN (kernel #2, its training form and hand backward) or
-the unfused one, and kernel #1's recency average with its backward.
-Informer's distilling BatchNorms update their running statistics in the
-training steps (the JAX trainer's `stats`), which the checkpoint keeps.
+It trains CRU, PatchTST, DLinear, Informer and TimeLLM (GPT-2, both
+prompt modes), each with either fusion pair, on precomputed note
+embeddings or on raw-text notes (embedded by the frozen LLM in a loader
+stage, wrap_data_loaders), on the kernels' routes and the plain ones:
+CRU's default and fused scans (kernels #4-#7), PatchTST's and Informer's
+fused FFN (kernel #2, its training form and hand backward) or the unfused
+one, GPT-2's fused attention (kernel #3 with its hand backward, in
+TimeLLM's steps and in the raw-text embedding stage) or the plain one,
+and kernel #1's recency average with its backward. Informer's distilling
+BatchNorms update their running statistics in the training steps (the
+JAX trainer's `stats`), which the checkpoint keeps. TimeLLM's frozen
+GPT-2 is stored in bfloat16 under `frozen_param_dtype="bfloat16"`.
 `check_trainable` refuses what is not ported.
 
 Parity with reference main.py:945-1176:
@@ -49,14 +54,15 @@ from ..device import resolve_device
 from ..layers.fast_dropout import Dropout
 from ..layers.prob_attention import ProbAttention
 from .evaluation import evaluation, masked_mse_loss
-from .optim import clip_and_step, make_optimizer, trainable_parameters
+from .optim import cast_frozen, clip_and_step, make_optimizer, trainable_parameters
 
 logger = logging.getLogger("imm_tsf_torch")
 
 
 def make_forward(cfg: Config, model, fusion):
-    """forward(batch) -> pred_y [B, Lp, C]: the backbone, then
-    `pred_y.float()`, then the fusion stack when the run has text.
+    """forward(batch) -> pred_y [B, Lp, C]: the backbone (given the batch's
+    TimeLLM `prompt_ids` when it carries them), then `pred_y.float()`, then
+    the fusion stack when the run has text.
     `batch` holds tensors on the modules' device; the modules' train or
     eval mode is the caller's (eval under `torch.inference_mode()` to
     serve).
@@ -71,8 +77,9 @@ def make_forward(cfg: Config, model, fusion):
             "bfloat16 compute is not ported yet (ROADMAP.md, Queue 1, item 18)")
 
     def forward(batch: dict):
+        extra = {"prompt_ids": batch["prompt_ids"]} if "prompt_ids" in batch else {}
         pred_y = model(batch["tp_to_predict"], batch["observed_data"],
-                       batch["observed_tp"], batch["observed_mask"]).float()
+                       batch["observed_tp"], batch["observed_mask"], **extra).float()
         if fusion is not None:
             pred_y = fusion(batch["notes_embeddings"], batch["tau"],
                             batch["tp_to_predict"], pred_y, batch["notes_mask"])
@@ -151,17 +158,12 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 
 def check_trainable(cfg: Config) -> None:
-    """Refuse a configuration whose kernels have no backward yet, or whose
-    training path is not ported: nothing drops to a plain version unsaid."""
+    """Refuse a configuration whose training path is not ported: nothing
+    drops to a plain version unsaid."""
     refusals = [
         (cfg.dropout_impl != "hash",
          f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
          "(ROADMAP.md, Queue 1, item 19)"),
-        (cfg.use_pallas and cfg.use_fused_attn,
-         "use_fused_attn: kernel #3 (fused_causal_attention) has no backward yet; it "
-         "comes with TimeLLM training (ROADMAP.md, Queue 1, item 10; Queue 2, item 2)"),
-        (cfg.enable_text and not cfg.use_text_embeddings,
-         "training on raw-text notes is not ported yet (ROADMAP.md, Queue 1, item 9)"),
         (bool(cfg.mesh_shape),
          "mesh_shape: multi-GPU training comes with the system layers "
          "(ROADMAP.md, Queue 1, item 16)"),
@@ -220,6 +222,10 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
         _mark("parse", time.time() - t0)
     cfg = data_obj["cfg"]
 
+    # the loader stages (raw-text note embedding, TimeLLM's exact prompts) go
+    # on a copy of data_obj, as the JAX trainer installs them (:542)
+    data_obj = wrap_data_loaders(cfg, data_obj, device)
+
     # the JAX trainer draws one sample batch for its init (trainer.py:556),
     # which advances the shuffle stream: draw it too, so the batch order
     # stays the JAX package's for the same seed. Flax takes the notes' width
@@ -240,6 +246,7 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
         model.load_state_dict(initial_state[0])
         if fusion is not None:
             fusion.load_state_dict(initial_state[1])
+    cast_frozen(model, cfg.frozen_param_dtype)
     modules = [m for m in (model, fusion) if m is not None]
     salts = torch.Generator().manual_seed(cfg.seed)  # the hash dropout's salt stream
     # ProbSparse attention's train-mode key samples, drawn on the device
@@ -427,7 +434,8 @@ class _EmbedNotesLoader:
 def make_loader_wrappers(cfg: Config, device=None) -> list:
     """Host-side loader stages a run needs, as loader -> loader callables
     (outermost last): raw-text note embedding through the frozen LLM on
-    `device` (cuda unless the caller asks for the CPU). Apply once."""
+    `device` (cuda unless the caller asks for the CPU) and TimeLLM's exact
+    prompts. Shared by trainable() and the service. Apply once."""
     wrappers = []
     if cfg.enable_text and not cfg.use_text_embeddings:
         from ..llm.loader import load_llm
@@ -441,4 +449,44 @@ def make_loader_wrappers(cfg: Config, device=None) -> list:
                                   device=device,
                                   use_fused_attn=cfg.use_pallas and cfg.use_fused_attn)
         wrappers.append(lambda ld: _EmbedNotesLoader(ld, llm, tokenizer, cfg.max_length))
+    if cfg.model == "TimeLLM" and cfg.timellm_exact_prompt:
+        # the reference's prompt: statistics to text to ids on the host, a batch at a time
+        from ..llm.loader import load_tokenizer
+
+        alias = {"GPT2": "GPT2", "BERT": "BERT", "LLAMA": "Llama"}[cfg.llm_model_timellm]
+        prompt_tok = load_tokenizer(alias)
+        wrappers.append(lambda ld: _TimeLLMPromptLoader(ld, cfg, prompt_tok))
     return wrappers
+
+
+def wrap_data_loaders(cfg: Config, data_obj: dict, device=None) -> dict:
+    """make_loader_wrappers(cfg, device) installed on the three split
+    loaders of a shallow copy of data_obj: the caller's stays unwrapped,
+    so a second trainable() on it does not stack the stages (each stacked
+    _EmbedNotesLoader would embed every note again into an empty cache)."""
+    data_obj = dict(data_obj)
+    for wrap in make_loader_wrappers(cfg, device):
+        for split in ("train_dataloader", "val_dataloader", "test_dataloader"):
+            if data_obj[split] is not None:
+                data_obj[split] = wrap(data_obj[split])
+    return data_obj
+
+
+class _TimeLLMPromptLoader:
+    """Adds TimeLLM's exact prompt ids to each batch (cfg.timellm_exact_prompt;
+    models/timellm.build_timellm_prompt_ids), cfg.timellm_prompt_len long."""
+
+    def __init__(self, base, cfg: Config, tokenizer):
+        self.base, self.cfg, self.tokenizer = base, cfg, tokenizer
+
+    def __len__(self):
+        return len(self.base)
+
+    def __iter__(self):
+        from ..models.timellm import build_timellm_prompt_ids
+
+        for batch in self.base:
+            batch = dict(batch)
+            batch["prompt_ids"] = build_timellm_prompt_ids(
+                self.cfg, batch, self.tokenizer, pad_to=self.cfg.timellm_prompt_len)
+            yield batch

@@ -9,7 +9,8 @@ has only PyTorch:
 Tolerances: float32 with another summation order, |err| <= 1e-4 +
 1e-4|ref| for the FFN (K=2048 sums, 3xTF32 products), 1e-5 + 1e-5|ref|
 for the recency average (N-term sums), 2e-5 + 1e-5|ref| for the causal
-attention (online softmax against the plain two-pass softmax); the expm
+attention (online softmax against the plain two-pass softmax) and for its
+backward's dq, dk and dv against autograd of the plain forward; the expm
 to 1e-5 of each matrix's largest entry (tiered Taylor against Taylor-12,
 up to 7 squarings); its Frechet derivative to 2e-5 of each matrix's
 largest entry (tests/test_ops_expm.py:117), at each cluster size; the
@@ -23,8 +24,9 @@ import os
 import pytest
 import torch
 
-from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, bucket_lo, check_scan,
-                        check_scan_bwd, compare_step, dropout_probe_inputs, expm_inputs,
+from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, bucket_lo,
+                        check_attn_backward, check_scan, check_scan_bwd, compare_step,
+                        compare_timellm_step, dropout_probe_inputs, expm_inputs,
                         expm_rel_err, expm_tri_inputs, ffn_inputs, frechet_inputs,
                         frechet_rel_err, recavg_inputs, scan_bwd_case, scan_inputs,
                         training_data)
@@ -273,6 +275,35 @@ def test_attn_kernel_refuses_what_it_cannot_take(dev, gen):
     q, k, v, pad = attn_inputs(1, 1, 8, 64, gen, dev)
     with pytest.raises(ValueError, match="float32"):
         attn.fused_causal_attention(q.double(), k, v, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (32, 12, 68, 64),   # TimeLLM's fast prompt as trained (36 + 4 patches x 8)
+    (32, 12, 160, 64),  # its exact prompt (128 + 32)
+    (4, 3, 13, 16),     # a narrow head
+    None,               # ragged: token 0 padded in one sample, none real in another
+])
+def test_attn_backward_matches_autograd_of_plain(dev, gen, shape):
+    args = attn_inputs(*shape, gen, dev) if shape else attn_ragged_inputs(gen, dev)
+    g = torch.randn(args[0].shape, generator=gen, device=dev)
+    launches, calls = attn.launches, attn.backward_calls
+    _, (dq, dk, dv) = check_attn_backward(args, g)  # raises beyond 2e-5 + 1e-5|ref|
+    torch.cuda.synchronize()
+    assert (attn.launches, attn.backward_calls) == (launches + 1, calls + 1)
+    if shape is None:
+        for d in (dq, dk, dv):
+            assert bool((d[0, :, 0] == 0).all()) and bool((d[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_timellm_step_kernel_route_matches_plain(dev):
+    """One full-width TimeLLM step (the preset, 6 GPT-2 blocks, B 32):
+    kernel route vs plain vs float64, exact launch counts
+    (chip_smoke.compare_timellm_step raises otherwise)."""
+    out = compare_timellm_step(dev)
+    assert out["launches"]["fused_causal_attention"] == 6
+    assert out["launches"]["fused_causal_attention_backward"] == 6
 
 
 @pytest.mark.cuda

@@ -144,16 +144,15 @@ def test_dropout_is_bit_identical_to_jax_hash_dropout(rate):
 
 def test_refused_configurations_name_their_slice():
     base = dict(model="CRU", enable_text=True, use_text_embeddings=True)
-    for kw, match in ((dict(dropout_impl="flax"), "hash"),
-                      # PatchTST trains on the fused FFN; #3 still has no backward
-                      (dict(model="PatchTST", use_fused_ffn=True, use_fused_attn=True),
-                       "kernel #3"),
-                      (dict(use_fused_attn=True), "kernel #3"),
-                      (dict(use_text_embeddings=False), "raw-text"),
+    for kw, match in ((dict(dropout_impl="flax"), "Queue 1, item 19"),
                       (dict(mesh_shape=(2,)), "Queue 1, item 16")):
         with pytest.raises(NotImplementedError, match=match):
             check_trainable(TConfig(**dict(base, **kw)))
-    check_trainable(TConfig(**base))
+    # kernel #3 has its backward and raw-text notes have their loader stage
+    for kw in ({}, dict(model="PatchTST", use_fused_ffn=True, use_fused_attn=True),
+               dict(use_fused_attn=True), dict(use_text_embeddings=False),
+               dict(model="TimeLLM", use_fused_attn=True, timellm_exact_prompt=True)):
+        check_trainable(TConfig(**dict(base, **kw)))
 
 
 # ------------------------------------------------------------ the slice
