@@ -165,7 +165,28 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     kernel's route and the plain attention: #3 launched in the embedding
     stage on the kernel route only, the first epoch's losses of the two
     routes to 1e-4 relative;
- 5. (after 6-10) time each kernel and its plain version at the shapes
+11. TimesNet, TimeMixer and TTM, and resume: (a) serve each preset at
+    full width (MTS_MODELS, mts_cfg: TimesNet d_model 16, d_ff 32, top_k 5,
+    2 blocks; TimeMixer d_model 16, d_ff 32, 3 avg downsamplings; TTM
+    d_model 1024, 3 adaptive-patch levels of 3 layers, a 2-layer decoder 64
+    wide, patches of 1 at the dataset stride 7) + TTF_RecAvg + MMF_GR_Add
+    (d_txt 768), seeded weights, 256 ragged requests from 8 threads: answers
+    finite with their rows, #1 exactly once a dispatch and nothing else,
+    one dispatch kernels vs plain to 1e-4 + 1e-4|ref|, one traced; (b)
+    train each through `imm_tsf_torch.main.main([...])` (MTS_TRAIN_ARGS:
+    hash dropout 0.1, batch 32, two epochs on phase 7's fixture, #1 on):
+    every loss finite, #1 exactly once a forward; (c) `compare_mts_step`:
+    one step at B 32 kernel vs plain vs float64 under the same salts,
+    TimesNet's routes on the float64 run's frequency bins
+    (`pinned_periods`, flips printed), loss to 1e-5, gradients by
+    `held_grads`, a traced step per route; (d) `run_resume`: phase 8's
+    kernel route as `--load resume --epoch 1` (nothing to resume: trained
+    from scratch), then `--load resume --epoch 2`, launches exact a run,
+    held to phase 8's uninterrupted two epochs bit for bit (per-step
+    losses, val MSEs, test metrics, final weights); the ops torch's
+    deterministic mode names over one step are printed, and only such an
+    op may explain a gap, within RESUME_RTOL;
+ 5. (after 6-11) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -224,14 +245,14 @@ from imm_tsf_torch.layers.transformer import BatchNorm, DecoderLayer, EncoderLay
 from imm_tsf_torch.llm.gpt2 import GPT2Block
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes, get_d_model
 from imm_tsf_torch.models import get_model
-from imm_tsf_torch.models import timellm
+from imm_tsf_torch.models import timellm, timesnet
 from imm_tsf_torch.models.cru import CRU
 from imm_tsf_torch.ops import cru_scan as cru_ops
 from imm_tsf_torch.ops import expm as ops_expm
 from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_taylor12
 from imm_tsf_torch.serving import ForecastService, _build_chunk
 from imm_tsf_torch.training.checkpoint import save_experiment
-from imm_tsf_torch.training.optim import make_optimizer, trainable_parameters
+from imm_tsf_torch.training.optim import FROZEN_SUBTREE, make_optimizer, trainable_parameters
 from imm_tsf_torch.training.trainer import make_forward, make_grad_step, make_loss_fn, to_device
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -370,6 +391,21 @@ RAW_TEXT_TRAIN_ARGS = PATCH_TRAIN_ARGS + ["--use_text_embeddings", "false"]
 RAW_TEXT_ROUTES = {"kernel": ["--use_pallas", "true", "--use_fused_attn", "true"],
                    "plain attention": ["--use_pallas", "true", "--use_fused_attn", "false"]}
 RAW_TEXT_LOSS_RTOL = 1e-4  # the first epoch's losses, notes embedded by either attention
+# phase 11: TimesNet, TimeMixer and TTM, each its preset (config.py:372-397:
+# TimesNet d_model 16, d_ff 32, top_k 5, 2 blocks; TimeMixer d_model 16, d_ff
+# 32, 3 avg downsamplings by 2, 2 blocks; TTM d_model 1024, 3 adaptive-patch
+# levels of 3 layers, a 2-layer decoder 64 wide, patches of history // 4)
+# behind TTF_RecAvg + MMF_GR_Add (d_txt 768), EPA-Air 48 + 24 steps served
+# and 36 + 36 trained; #1 once a forward and nothing else
+MTS_MODELS = ("TimesNet", "TimeMixer", "TTM")
+N_MTS_REQUESTS = 256
+MTS_TRAIN_ARGS = {m: [a if a != "CRU" else m for a in TRAIN_ARGS] + ["--use_pallas", "true"]
+                  for m in MTS_MODELS}
+MTS_STEP_B = 32
+# phase 11d resumes phase 8's kernel route as experiment "resume": one epoch,
+# then --load resume --epoch 2, held to phase 8's two epochs bit for bit
+RESUME_ARGS = PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + ["--load", "resume"]
+RESUME_RTOL = 1e-6  # only where an op with atomics (named by the run) breaks bitwise equality
 
 
 def log(msg: str) -> None:
@@ -985,6 +1021,11 @@ def seeded_weights(module, gen) -> None:
                 p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen))
             elif re.fullmatch(r"\w+_ln\d_bias", name):
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif re.fullmatch(r"conv\d_kernel_\d+", name.split(".")[-1]):  # TimesNet's
+                k, _, c_in, _ = p.shape  # inception kernels, flax's [k, k, in, out]
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(k * k * c_in))
+            elif re.fullmatch(r"conv\d_bias_\d+", name.split(".")[-1]):
+                p.copy_(0.1 * (torch.rand(p.shape, generator=gen) * 2 - 1))
 
 
 def make_experiment(exp_dir: str, cfg_kw: dict, seed: int):
@@ -1742,11 +1783,18 @@ def ffn_site_rows(model):
     return rows, lambda: [h.remove() for h in hooks]
 
 
-def run_patchtst_training(device, root: str, exp_dir: str) -> dict:
+def final_weights(res) -> dict:
+    """The trained modules' state dicts (CPU copies) of trainable()'s result."""
+    return {mod: {k: v.detach().cpu().clone() for k, v in res[mod].state_dict().items()}
+            for mod in ("model", "fusion") if res[mod] is not None}
+
+
+def run_patchtst_training(device, root: str, exp_dir: str, kept: dict | None = None) -> dict:
     """Phase 8: train PatchTST + TTF_RecAvg + MMF_GR_Add through
     imm_tsf_torch.main on the kernel route, then the plain route, then one
     step at the bench headline's shape held kernels vs plain
-    (compare_patchtst_step)."""
+    (compare_patchtst_step). `kept`, when given, gets the kernel route's
+    final weights under "weights" (phase 11d holds a resumed run to them)."""
     data = training_data(root, PATCH_TRAIN_ARGS)
     cfg = data["cfg"]
     n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
@@ -1756,11 +1804,13 @@ def run_patchtst_training(device, root: str, exp_dir: str) -> dict:
            "routes": {}}
     log(f"# PatchTST training data: L {cfg.input_len}, Lp {cfg.pred_len}, batches "
         f"{out['batches']}, widths {out['widths']}")
+    keep = (lambda res: kept.update(weights=final_weights(res))) if kept is not None else None
     for route in ("kernel", "plain"):
         out["routes"][route] = train_route(
             device, PATCH_TRAIN_ARGS + PATCH_ROUTES[route], root, exp_dir,
             f"PatchTST on the {route} route", n_val, n_test, cfg.early_stop_delta,
-            lambda steps, evals: ffn_counts(route, cfg.e_layers, steps, evals))
+            lambda steps, evals: ffn_counts(route, cfg.e_layers, steps, evals),
+            inspect=keep if route == "kernel" else None)
     out["step"] = compare_patchtst_step(device)
     out["wide_notes"] = compare_wide_notes(device)
     return out
@@ -2137,19 +2187,19 @@ def attn_counts(route: str, layers: int, steps: int, evals: int) -> dict:
     return counts
 
 
-def run_timellm_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
-    """Phase 10a: the TimeLLM experiment (TIMELLM_CFG, seeded weights)
-    through ForecastService on the kernel route: 256 ragged requests from
-    8 threads, every answer finite with its rows, launch counts exact (#3
-    in each GPT-2 block and #1 once a dispatch, no backward), one
-    dispatch's batch kernels vs plain versions, one uncontended dispatch
-    traced."""
-    cfg = make_experiment(exp_dir, TIMELLM_CFG, seed)
+def serve_experiment(device, cfg_kw: dict, label: str, n_requests: int, seed: int,
+                     exp_dir: str, expected) -> dict:
+    """`label`'s experiment (cfg_kw, seeded weights) through ForecastService
+    on the kernel route: ragged requests from 8 threads, every answer
+    finite with its rows, launch counts exactly expected(svc, dispatches),
+    #3's shapes recorded, one dispatch's batch kernels vs plain versions to
+    SERVE_TOL, one uncontended dispatch traced."""
+    cfg = make_experiment(exp_dir, cfg_kw, seed)
     t0 = time.monotonic()
     svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
-    log(f"# TimeLLM service up in {time.monotonic() - t0:.2f} s (includes one warmup dispatch)")
+    up_s = time.monotonic() - t0
+    log(f"# {label} service up in {up_s:.2f} s (includes one warmup dispatch)")
     try:
-        layers = len(svc.model.frozen_llm.h)
         requests = make_requests(cfg, n_requests, seed)
         d0 = svc.metrics()["dispatches_total"]
         zero_counts()
@@ -2160,15 +2210,15 @@ def run_timellm_serving(device, n_requests: int, seed: int, exp_dir: str) -> dic
         launches = read_counts()
         metrics = svc.metrics()
         dispatches = metrics["dispatches_total"] - d0
-        want = attn_counts("kernel", layers, 0, dispatches)
+        want = expected(svc, dispatches)
         if device.type == "cuda" and launches != want:
-            raise AssertionError(f"serving TimeLLM launched {launches}, expected {want}")
+            raise AssertionError(f"serving {label} launched {launches}, expected {want}")
         for inst, ans in zip(requests, answers):
             y = np.asarray(ans["prediction"])
             if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
-                raise AssertionError(f"bad answer shape {y.shape} or non-finite values")
+                raise AssertionError(f"{label}: bad answer shape {y.shape} or non-finite values")
         shapes = sorted(attn.launches_by_shape)
-        log(f"# served TimeLLM: {len(requests)} requests in {dispatches} dispatches, "
+        log(f"# served {label}: {len(requests)} requests in {dispatches} dispatches, "
             f"{wall:.3f} s: {len(requests) / wall:.1f} requests/s, dispatch p50 "
             f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
             f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}; #3 at {shapes}")
@@ -2183,18 +2233,26 @@ def run_timellm_serving(device, n_requests: int, seed: int, exp_dir: str) -> dic
             finally:
                 set_kernels(svc, True)
         err = max_err(got, want_y, SERVE_TOL)
-        log(f"# TimeLLM dispatch batch {tuple(batch['observed_data'].shape)}: kernels vs plain "
-            f"max|err| {err:.3e}")
+        log(f"# {label} dispatch batch {tuple(batch['observed_data'].shape)}: kernels vs "
+            f"plain max|err| {err:.3e}")
         profile = None
         if device.type == "cuda":
             profile = profile_dispatch(svc, built)
-            log(f"# one uncontended TimeLLM dispatch of 64 requests: {json.dumps(profile)}")
+            log(f"# one uncontended {label} dispatch of 64 requests: {json.dumps(profile)}")
         return {"launches": launches, "dispatches": dispatches, "attn_shapes": shapes,
-                "requests_per_s": len(requests) / wall,
+                "service_up_s": up_s, "requests_per_s": len(requests) / wall,
                 "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
                 "dispatch_profile": profile}
     finally:
         svc.close()
+
+
+def run_timellm_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
+    """Phase 10a: the TimeLLM experiment (TIMELLM_CFG) on the kernel route,
+    #3 once a GPT-2 block and #1 once a dispatch, no backward."""
+    return serve_experiment(device, TIMELLM_CFG, "TimeLLM", n_requests, seed, exp_dir,
+                            lambda svc, dispatches: attn_counts(
+                                "kernel", len(svc.model.frozen_llm.h), 0, dispatches))
 
 
 def frozen_unchanged(cfg):
@@ -2262,23 +2320,23 @@ class pinned_lags(_Pinned):
         timellm.top_lags = self.saved
 
 
-def compare_timellm_step(device) -> dict:
-    """One gradient step of the full-width TimeLLM experiment (TIMELLM_CFG,
-    hash dropout 0.1) from seeded weights on a batch at the trained shape
-    (B 32, L 36, Lp 36, C 8), three ways under the same salts: the kernel
-    route (#3 forward and backward, #1), the plain route and the plain
-    route in float64, the later two with the float64 run's lags
-    (pinned_lags). The losses agree to TRAIN_LOSS_RTOL, the gradients as
-    held_grads holds them, the frozen GPT-2 gets none, and the step's
-    launch counts are exact. Then one full step of each route (optimizer
-    included) is traced."""
-    cfg = Config(**dict(TIMELLM_CFG, **TIMELLM_TRAINED, dropout=0.1))
+def compare_model_step(device, cfg, label: str, B: int, pin, expected) -> dict:
+    """One gradient step of `label`'s full-width experiment (cfg, hash
+    dropout) from seeded weights on a batch of B windows at cfg's lengths,
+    three ways under the same salts: the kernel route, the plain route and
+    the plain route in float64, the later two with the float64 run's
+    rounding-sensitive choices (`pin`, a _Pinned context; its flips are
+    returned). The losses agree to TRAIN_LOSS_RTOL, the gradients as
+    held_grads holds them (parameters without a gradient are skipped: a
+    frozen LLM's, which must take none, and TimeMixer's last block's finer
+    scales, which feed no output), and the step's launch counts equal
+    expected(route). Then one full step of each route (optimizer included)
+    is traced."""
     gen = torch.Generator().manual_seed(SEED)
     model, fusion = get_model(cfg), FusionModel(cfg)
     seeded_weights(model, gen)
     seeded_weights(fusion, gen)
-    batch = headline_batch(cfg, TIMELLM_STEP_B, torch.Generator().manual_seed(SEED + 1), device)
-    layers = len(model.frozen_llm.h)
+    batch = headline_batch(cfg, B, torch.Generator().manual_seed(SEED + 1), device)
 
     def set_route(model, fusion, kernels):
         for m in model.modules():
@@ -2296,42 +2354,44 @@ def compare_timellm_step(device) -> dict:
         fusion.zero_grad(set_to_none=True)
         loss = make_loss_fn(make_forward(cfg, model, fusion))(batch)
         loss.backward()
-        if any(p.grad is not None for p in model.frozen_llm.parameters()):
-            raise AssertionError("the frozen GPT-2 took a gradient")
         named = [*model.named_parameters(), *fusion.named_parameters()]
+        if any(p.grad is not None for n, p in named if FROZEN_SUBTREE in n.split(".")):
+            raise AssertionError(f"{label}: the frozen LLM took a gradient")
         return float(loss.detach()), {n: p.grad.detach().clone() for n, p in named
-                                      if p.requires_grad}
+                                      if p.grad is not None}
 
     model64, fusion64 = (copy.deepcopy(m).double().to(device).train() for m in (model, fusion))
     batch64 = {k: v.double() for k, v in batch.items()}
-    with pinned_lags() as lags:
+    with pin:
         loss64, g64 = grads(model64, fusion64, batch64, False)
         del model64, fusion64
         model, fusion = model.to(device).train(), fusion.to(device).train()
-        lags.next_run()
+        pin.next_run()
         zero_counts()
         loss_p, g_p = grads(model, fusion, batch, False)
         plain_launches = read_counts()
-        lags.next_run()
+        pin.next_run()
         zero_counts()
         loss_k, g_k = grads(model, fusion, batch, True)
         launches = read_counts()
     out = {"batch": {k: list(v.shape) for k, v in batch.items()}, "loss_float64": loss64,
            "loss_plain": loss_p, "loss_kernel": loss_k, "launches": launches,
-           "lag_flips": {"plain": lags.flips[0], "kernel": lags.flips[1],
-                         "lags": sum(int(r.numel()) for r in lags.records)}}
+           "pinned_flips": {"plain": pin.flips[0], "kernel": pin.flips[1],
+                            "choices": sum(int(r.numel()) for r in pin.records)},
+           "parameters": sum(int(g.numel()) for g in g64.values()),
+           "without_gradient": sum(1 for _ in model.parameters()) + sum(
+               1 for _ in fusion.parameters()) - len(g64)}
     for route, got in (("plain", plain_launches), ("kernel", launches)):
-        want = attn_counts(route, layers, 1, 0)
-        if device.type == "cuda" and got != want:
-            raise AssertionError(f"one TimeLLM step on the {route} route launched {got}, "
-                                 f"expected {want}")
+        if device.type == "cuda" and got != expected(route):
+            raise AssertionError(f"one {label} step on the {route} route launched {got}, "
+                                 f"expected {expected(route)}")
     if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
-        raise AssertionError(f"TimeLLM step loss: kernel route {loss_k} vs plain {loss_p}")
-    errs, plain_err, zero_err = held_grads(g_k, g_p, g64, "TimeLLM step")
+        raise AssertionError(f"{label} step loss: kernel route {loss_k} vs plain {loss_p}")
+    errs, plain_err, zero_err = held_grads(g_k, g_p, g64, f"{label} step")
     worst = max(errs, key=lambda n: errs[n] / (plain_err[n] + 1e-6))
     out.update(worst_grad={worst: (errs[worst], plain_err[worst])}, vanishing_grads=zero_err,
                largest_grad_err={"kernel": max(errs.values()), "plain": max(plain_err.values())})
-    log(f"# one TimeLLM step, seeded weights, B {TIMELLM_STEP_B}: {json.dumps(out)}")
+    log(f"# one {label} step, seeded weights, B {B}: {json.dumps(out)}")
 
     if device.type == "cuda":  # one whole step of each route, optimizer included, traced
         params = trainable_parameters(model, fusion)
@@ -2344,9 +2404,19 @@ def compare_timellm_step(device) -> dict:
             step_ms = float(np.median(wall_ms(step, batch, reps=5, inference=False)))
             out["profile"][route] = {"step_ms": step_ms,
                                      **trace(lambda: step(batch), 3, step_ms, inference=False)}
-            log(f"# one traced TimeLLM {route}-route training step: "
+            log(f"# one traced {label} {route}-route training step: "
                 f"{json.dumps(out['profile'][route])}")
     return out
+
+
+def compare_timellm_step(device) -> dict:
+    """Phase 10c's compared step: the full-width TimeLLM experiment
+    (TIMELLM_CFG, hash dropout 0.1) at the trained shape (B 32, L 36, Lp
+    36, C 8): #3 forward and backward once a GPT-2 block and #1 on the
+    kernel route, the float64 run's lags on the others (pinned_lags)."""
+    cfg = Config(**dict(TIMELLM_CFG, **TIMELLM_TRAINED, dropout=0.1))
+    return compare_model_step(device, cfg, "TimeLLM", TIMELLM_STEP_B, pinned_lags(),
+                              lambda route: attn_counts(route, cfg.llm_layers_timellm, 1, 0))
 
 
 def run_raw_text_training(device, root: str, exp_dir: str) -> dict:
@@ -2389,6 +2459,170 @@ def run_raw_text_training(device, root: str, exp_dir: str) -> dict:
     log(f"# raw-text training: #3 by shape on the kernel route "
         f"{out['routes']['kernel']['attn_launches_by_shape']}; first epoch's losses, kernel vs "
         f"plain attention, max relative gap {gap:.3e}")
+    return out
+
+
+# --------------------------------------------------------------- phase 11
+def mts_cfg(model: str) -> dict:
+    """Phase 11's served experiment of `model`: its preset at full width
+    behind TTF_RecAvg + MMF_GR_Add, EPA-Air 48 + 24 steps (TTM's patch is
+    history // 4, as apply_presets sets it)."""
+    kw = dict(SERVE_CFG, model=model, **MODEL_PRESETS[model])
+    if model == "TTM":
+        kw["patch_size"] = kw["history"] // 4
+    return kw
+
+
+def recavg_only(steps: int, evals: int) -> dict:
+    """Launches of a run whose only kernel is #1, once a forward."""
+    return dict(dict.fromkeys(KERNEL_COUNTS, 0), recency_weighted_average=steps + evals)
+
+
+def run_mts_serving(device, model: str, n_requests: int, seed: int, exp_dir: str) -> dict:
+    """Phase 11a: `model`'s experiment (mts_cfg), #1 exactly once a dispatch
+    and nothing else."""
+    return serve_experiment(device, mts_cfg(model), model, n_requests, seed, exp_dir,
+                            lambda svc, dispatches: recavg_only(0, dispatches))
+
+
+def run_mts_training(device, root: str, exp_dir: str, model: str) -> dict:
+    """Phase 11b and 11c: train `model` + TTF_RecAvg + MMF_GR_Add through
+    imm_tsf_torch.main (MTS_TRAIN_ARGS: the presets, hash dropout 0.1, batch
+    32, two epochs, #1 on), every loss finite and #1 exactly once a
+    forward; then one step held kernels vs plain vs float64
+    (compare_mts_step)."""
+    data = training_data(root, MTS_TRAIN_ARGS[model])
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    out = {"batches": {"train": len(data["train_dataloader"]), "val": n_val, "test": n_test,
+                       "L": cfg.input_len, "Lp": cfg.pred_len},
+           "widths": {k: getattr(cfg, k) for k in ("d_model", "d_ff", "e_layers", "d_layers",
+                                                   "top_k", "patch_size", "stride",
+                                                   "AP_levels", "d_d_model",
+                                                   "down_sampling_layers", "dropout",
+                                                   "dropout_impl")}}
+    log(f"# {model} training data: {out['batches']}, widths {out['widths']}")
+    out["kernel"] = train_route(device, MTS_TRAIN_ARGS[model], root, exp_dir,
+                                f"{model} on the kernel route", n_val, n_test,
+                                cfg.early_stop_delta, recavg_only)
+    t0 = time.monotonic()
+    out["step"] = compare_mts_step(device, model, dict(input_len=cfg.input_len,
+                                                       pred_len=cfg.pred_len))
+    out["step"]["wall_s"] = time.monotonic() - t0  # three routes and the traces
+    return out
+
+
+class pinned_periods(_Pinned):
+    """Within the block, TimesNet's blocks take the first run's frequency
+    bins: the top_k of mean FFT amplitudes, which float32 and float64 may
+    rank differently where two are close."""
+
+    def __enter__(self):
+        self.saved = timesnet.top_lags
+        timesnet.top_lags = lambda freq, k: self.pinned(self.saved(freq, k))
+        return self
+
+    def __exit__(self, *exc):
+        timesnet.top_lags = self.saved
+
+
+def compare_mts_step(device, model: str, trained: dict) -> dict:
+    """Phase 11c's compared step: `model`'s experiment (mts_cfg at the
+    trained lengths, hash dropout 0.1) at B MTS_STEP_B, #1 once on the
+    kernel route, TimesNet's bins the float64 run's (pinned_periods)."""
+    cfg = Config(**dict(mts_cfg(model), **trained, dropout=0.1))
+    return compare_model_step(device, cfg, model, MTS_STEP_B, pinned_periods(),
+                              lambda route: recavg_only(int(route == "kernel"), 0))
+
+
+def nondeterministic_ops(device) -> list[str]:
+    """What torch's deterministic mode (warn_only) reports over one PatchTST
+    kernel-route training step (SERVE_CFG, hash dropout 0.1, B 32): the ops
+    whose results may change from run to run, such as atomic adds; each
+    message once, cut to 160 characters."""
+    import warnings
+
+    cfg = Config(**dict(SERVE_CFG, dropout=0.1))
+    torch.manual_seed(SEED)
+    net, fusion = get_model(cfg).to(device).train(), FusionModel(cfg).to(device).train()
+    batch = headline_batch(cfg, MTS_STEP_B, torch.Generator().manual_seed(SEED + 1), device)
+    params = trainable_parameters(net, fusion)
+    step = make_grad_step(make_loss_fn(make_forward(cfg, net, fusion)),
+                          make_optimizer(params, cfg.lr, cfg.w_decay), params)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:160] for w in caught})
+
+
+def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: dict) -> dict:
+    """Phase 11d: phase 8's kernel route (#1, #2's training form, hash
+    salts) as experiment "resume": `--load resume --epoch 1` (no state yet:
+    it trains from scratch and saves epoch 0's), then `--load resume --epoch
+    2` (resumes at epoch 1). Each epoch's launches are exact. The per-step
+    losses, val MSEs, test metrics and final weights must equal phase 8's
+    uninterrupted two epochs (`uninterrupted`, `weights`) bit for bit;
+    where they do not, the ops that torch's deterministic mode names
+    (nondeterministic_ops) must explain it and every gap stay within
+    RESUME_RTOL, else the phase fails."""
+    data = training_data(root, RESUME_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    runs = []
+    for epochs in (1, 2):
+        zero_counts()
+        t0 = time.monotonic()
+        res = train_main.main(RESUME_ARGS + ["--epoch", str(epochs), "--data_root", root,
+                                             "--save", exp_dir, "--device", device.type])
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        h = res["history"][-1]
+        evals = n_val + (n_test if res["best_iter"] == h["epoch"] else 0)
+        want = ffn_counts("kernel", cfg.e_layers, len(h["step_losses"]), evals)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"resume run {epochs} launched {launches}, expected {want}")
+        runs.append({"epochs": [x["epoch"] for x in res["history"]], "wall_s": wall,
+                     "launches": launches})
+    exp = os.path.join(exp_dir, "experiment_resume")
+    states = sorted(f for f in os.listdir(exp) if f.startswith("train_state_"))
+    if runs[0]["epochs"] != [0] or runs[1]["epochs"] != [0, 1] or states != [
+            "train_state_0.pt", "train_state_1.pt"]:
+        raise AssertionError(f"resume: epochs {[r['epochs'] for r in runs]}, states {states}")
+    hist = res["history"]
+    got = {"step_losses": [x for h in hist for x in h["step_losses"]],
+           "val_mse": [h["val"]["mse"] for h in hist],
+           "test": [res[k] for k in ("mse", "mae", "rmse")] + [res["best_iter"]]}
+    want = {"step_losses": uninterrupted["step_losses"],
+            "val_mse": [e["val_mse"] for e in uninterrupted["epochs"]],
+            "test": [uninterrupted["test"][k] for k in ("mse", "mae", "rmse", "best_iter")]}
+    mine = final_weights(res)
+    gaps = {k: float(np.max(np.abs(np.subtract(got[k], want[k])) / np.maximum(
+        np.abs(want[k]), 1e-30))) for k in got}
+    moved = {f"{mod}.{n}": float(((v - weights[mod][n]).abs().max()
+                                  / weights[mod][n].abs().max().clamp(min=1e-30)))
+             for mod in weights for n, v in mine[mod].items()
+             if not torch.equal(v, weights[mod][n])}
+    bitwise = not moved and all(g == 0.0 for g in gaps.values())
+    ops = nondeterministic_ops(device)
+    out = {"runs": runs, "bitwise": bitwise, "gaps": gaps, "weights_moved": len(moved),
+           "largest_weight_gap": max(moved.values(), default=0.0),
+           "nondeterministic_ops": ops}
+    log(f"# resume on the card: {json.dumps(out)}")
+    if not bitwise:
+        # cuBLAS's own notice (a workspace setting for several streams) names no op
+        named = [m for m in ops if "CuBLAS" not in m]
+        worst = max([*gaps.values(), out["largest_weight_gap"]])
+        if not named or worst > RESUME_RTOL:
+            raise AssertionError(f"the resumed run differs from the uninterrupted one: gaps "
+                                 f"{gaps}, {len(moved)} weights (largest {worst:.3e}); ops "
+                                 f"with atomics named: {named}")
+        log(f"# resume within {RESUME_RTOL} relative, not bitwise: ops with atomics {named}")
     return out
 
 
@@ -2926,9 +3160,10 @@ def main() -> int:
 
     # phase 8: train PatchTST + TTF_RecAvg + MMF_GR_Add through
     # imm_tsf_torch.main, kernel route then plain route, and one compared step
+    kept: dict = {}  # the kernel route's final weights, for phase 11d
     try:
         make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
-        patch = run_patchtst_training(device, root, exp_dir)
+        patch = run_patchtst_training(device, root, exp_dir, kept)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
@@ -2971,6 +3206,24 @@ def main() -> int:
             raise AssertionError(f"TimeLLM's {route} training launched #3 at "
                                  f"{routes[route]['attn_shapes']}, not at the checked {checked}")
 
+    # phase 11: TimesNet, TimeMixer and TTM served, trained and one compared
+    # step each; then phase 8's kernel route resumed from its train state
+    mts: dict = {}
+    try:
+        for model in MTS_MODELS:
+            mts[model] = {"serving": run_mts_serving(device, model, N_MTS_REQUESTS, SEED,
+                                                     exp_dir)}
+            shutil.rmtree(exp_dir, ignore_errors=True)
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        for model in MTS_MODELS:
+            mts[model]["training"] = run_mts_training(device, root, exp_dir, model)
+            shutil.rmtree(exp_dir, ignore_errors=True)
+        mts["resume"] = run_resume(device, root, exp_dir, patch["routes"]["kernel"],
+                                   kept["weights"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
@@ -2986,7 +3239,11 @@ def main() -> int:
         f"{informer['training']['routes']['plain']['wall_s']:.1f} s; TimeLLM "
         f"{timellm_run['serving']['requests_per_s']:.1f} requests/s, training "
         + " / ".join(f"{r['wall_s']:.1f}" for r in routes.values())
-        + f" s; total {time.monotonic() - t_start:.1f} s")
+        + " s; " + "; ".join(f"{m} {mts[m]['serving']['requests_per_s']:.1f} requests/s, "
+                             f"training {mts[m]['training']['kernel']['wall_s']:.1f} s"
+                             for m in MTS_MODELS)
+        + "; resume " + " + ".join(f"{r['wall_s']:.1f}" for r in mts["resume"]["runs"]) + " s"
+        + f"; total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
                    for route, res in cru.items()}
@@ -2999,7 +3256,8 @@ def main() -> int:
                       "raw_text": text, "cru": cru_summary,
                       "cru_route_err": route_err, "training": train_summary,
                       "patchtst_training": patch, "informer": informer,
-                      "default_pair": default_pair, "timellm": timellm_run}), flush=True)
+                      "default_pair": default_pair, "timellm": timellm_run,
+                      "mts": mts}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -29,6 +29,14 @@ PatchTST's and Informer's encoder layers and their attention under
 decoder layer's self- and cross-attention (two blocks a layer, in that
 order) under `decoder.layers.<j>`.
 
+TimesNet, TimeMixer and TTM need no rename: the port's modules carry
+flax's names (`times_block_<i>`, `pdm_block_<b>.season_down_<i>`,
+`encoder.ap_block_<j>.mixer_<i>.patch_mixer...`). TimesNet's inception
+leaves `conv{1,2}_kernel_<i>` [k, k, in, out] keep their flax layout; its
+forward takes the fused kernel to torch's Conv2d [out, in, kh, kw] by
+permute(3, 2, 0, 1), a layout change and no flip. TimeMixer's
+`down_conv_<i>` kernel [3, in, out] is a Conv like any other.
+
 TimeLLM's frozen GPT-2 (`frozen_llm.h_<i>`) nests as `frozen_llm.h.<i>`,
 as `gpt2_params_from_jax` renames it; its `mapping_layer` kernel [vocab,
 ts_vocab] becomes a weight [ts_vocab, vocab] like any Dense kernel; a

@@ -9,10 +9,9 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..models.base import variance_scaling_
+from ..models.base import pad_edge, variance_scaling_
 from .fast_dropout import Dropout
 
 
@@ -104,8 +103,7 @@ class PatchEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor):
         B, C, L = x.shape
-        # jnp.pad(mode="edge") on the last axis == torch "replicate"
-        x = F.pad(x, (0, self.padding), mode="replicate")
+        x = pad_edge(x, 0, self.padding)  # jnp.pad(mode="edge") on the last axis
         x = unfold_patches(x, self.patch_len, self.stride)  # [B, C, P, plen]
         P = x.shape[2]
         x = x.reshape(B * C, P, self.patch_len)

@@ -10,8 +10,12 @@ Every Config field is a flag `--<name> <value>` (bools also bare);
 `--overwrite_args` applies the fixed / tunable / dataset / model preset
 overlays in the reference order. `--device` (default cuda) picks where it
 runs. Best weights and config.json go to <save>/experiment_<id>/, which
-`python -m imm_tsf_torch.serve --load` serves. The final test metrics are
-printed as one JSON line.
+`python -m imm_tsf_torch.serve --load` serves, with the full training
+state of the latest two epochs. `--load <id>` names the experiment
+(<save>/experiment_<id>/) and resumes it from its latest state at the
+next epoch, up to `--epoch` epochs in all; with no state there it trains
+from scratch under that id. The final test metrics are printed as one
+JSON line.
 """
 
 from __future__ import annotations
@@ -83,13 +87,10 @@ def main(argv=None, timings: dict | None = None) -> dict:
     cfg = apply_presets(cfg, fixed_params, tunable_params)
     if cfg.enable_text:
         cfg = resolve_max_length(cfg)  # main.py:968-969
-    if cfg.load is not None:
-        raise NotImplementedError("--load: resuming a run from full-state checkpoints is "
-                                  "not ported yet (ROADMAP.md, Queue 1, item 3)")
     if cfg.vmap_seeds > 1 or cfg.vmap_lrs:
         raise NotImplementedError("stacked-replica sweeps come with the system layers "
                                   "(ROADMAP.md, Queue 1, item 15)")
-    experiment_id = int(random.SystemRandom().random() * 100000)
+    experiment_id = cfg.load or int(random.SystemRandom().random() * 100000)
     logger.info("ExpID %s | %s", experiment_id, cfg.to_json())
     res = trainable(cfg, checkpoint_dir=f"{cfg.save.rstrip('/')}/experiment_{experiment_id}",
                     timings=timings, device=device)

@@ -4,17 +4,17 @@ Every model takes the reference's single interface:
 
     model(tp_to_predict, observed_data, observed_tp, observed_mask) -> [B, Lp, C]
 
-PatchTST, CRU, DLinear, Informer and TimeLLM (with GPT-2) are ported
-so far; the other backbones are queued in ROADMAP.md, Queue 1.
+Eight of the eleven are ported: PatchTST, CRU, DLinear, Informer,
+TimesNet, TimeMixer, TimeLLM (with GPT-2) and TTM, the whole MTS and LMTS
+families. The IMTS backbones are queued in ROADMAP.md, Queue 1, item 8.
 """
 
 from __future__ import annotations
 
 from ..config import MODELS, Config
 
-# the ROADMAP.md Queue 1 item of each backbone still to port (TimesNet and
-# TimeMixer: item 7)
-_QUEUED = {"tPatchGNN": 8, "LatentODE": 8, "NeuralFlow": 8, "TTM": 11}
+# the ROADMAP.md Queue 1 item of each backbone still to port
+_QUEUED = {"tPatchGNN": 8, "LatentODE": 8, "NeuralFlow": 8}
 
 
 def get_model(cfg: Config):
@@ -39,8 +39,20 @@ def get_model(cfg: Config):
         from .timellm import TimeLLM
 
         return TimeLLM(cfg)
-    if name in MODELS:
+    if name == "TimesNet":
+        from .timesnet import TimesNet
+
+        return TimesNet(cfg)
+    if name == "TimeMixer":
+        from .timemixer import TimeMixer
+
+        return TimeMixer(cfg)
+    if name == "TTM":
+        from .ttm import TTM
+
+        return TTM(cfg)
+    if name in _QUEUED:
         raise NotImplementedError(
             f"model {name!r} is not ported to imm_tsf_torch yet "
-            f"(ROADMAP.md, Queue 1, item {_QUEUED.get(name, 7)})")
+            f"(ROADMAP.md, Queue 1, item {_QUEUED[name]})")
     raise ValueError(f"Unknown model: {name}")

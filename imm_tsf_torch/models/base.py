@@ -21,6 +21,19 @@ def pad_time(x: torch.Tensor, target_len: int) -> torch.Tensor:
     return F.pad(x, pad_cfg)
 
 
+def pad_edge(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """Edge-pad the last axis (jnp.pad mode="edge", F.pad mode="replicate")
+    by concatenating expanded copies of the end values. The gradient of
+    the copies is a sum, the same on every run, where F.pad's replicate
+    backward adds them with atomics on the card, whose order changes from
+    run to run (a resumed run would not retrace the uninterrupted one)."""
+    parts = [x[..., :1].expand(*x.shape[:-1], before)] if before else []
+    parts.append(x)
+    if after:
+        parts.append(x[..., -1:].expand(*x.shape[:-1], after))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else x
+
+
 def masked_norm(observed_data: torch.Tensor, observed_mask: torch.Tensor, eps: float = 1e-5):
     """Masked per-(batch, channel) standardization over time
     (reference models/DLinear.py:84-90). Returns (x, means, stdev): the

@@ -1,10 +1,11 @@
 """Training harness: the reference's trainable() protocol (after
 imm_tsf_tpu/training/trainer.py:163-314, 349-500, 502-906).
 
-It trains CRU, PatchTST, DLinear, Informer and TimeLLM (GPT-2, both
-prompt modes), each with either fusion pair, on precomputed note
-embeddings or on raw-text notes (embedded by the frozen LLM in a loader
-stage, wrap_data_loaders), on the kernels' routes and the plain ones:
+It trains CRU, PatchTST, DLinear, Informer, TimesNet, TimeMixer, TTM and
+TimeLLM (GPT-2, both prompt modes), each with either fusion pair, on
+precomputed note embeddings or on raw-text notes (embedded by the frozen
+LLM in a loader stage, wrap_data_loaders), on the kernels' routes and the
+plain ones:
 CRU's default and fused scans (kernels #4-#7), PatchTST's and Informer's
 fused FFN (kernel #2, its training form and hand backward) or the unfused
 one, GPT-2's fused attention (kernel #3 with its hand backward, in
@@ -35,8 +36,13 @@ is accepted and ignored, and the JAX package tests the two loops as equal
 (tests/test_device_loop.py). Best weights go to
 `<checkpoint_dir>/best/weights.pt` beside `config.json`
 (training/checkpoint.save_experiment), which `python -m
-imm_tsf_torch.serve --load <checkpoint_dir>` serves; full-state resume is
-not ported yet.
+imm_tsf_torch.serve --load <checkpoint_dir>` serves. The full training
+state goes to `<checkpoint_dir>/train_state_<epoch>.pt` after every epoch
+(the latest two kept), and `cfg.load` resumes from it (:571-612,
+:860-880): weights, BatchNorm statistics, Adam's moments and step, the
+counters and history, the train loader's shuffle state and the port's
+random streams (the hash-dropout salts, ProbSparse's samples), so a
+resumed run equals the uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -173,6 +179,52 @@ def check_trainable(cfg: Config) -> None:
             raise NotImplementedError(why)
 
 
+def _find_shuffler(loader):
+    """The BatchIterator under the loader stages (`.base` of each wrapper)
+    that holds the shuffle stream, or None (imm_tsf_tpu/training/
+    trainer.py:41-48)."""
+    for _ in range(8):
+        if loader is None or hasattr(loader, "_rng"):
+            break
+        loader = getattr(loader, "base", None)
+    return loader if hasattr(loader, "_rng") else None
+
+
+def _restore(checkpoint_dir: str, model, fusion, optimizer, generators, shuffler):
+    """Load the latest train state into the modules (on their device), the
+    optimizer, the generators ({name: torch.Generator}) and the shuffler;
+    returns its meta, or None when there is none to resume (the JAX
+    trainer trains from scratch then). A state that does not fit the
+    modules raises the JAX trainer's RuntimeError."""
+    from .checkpoint import load_train_state
+
+    try:
+        model_state, fusion_state, opt_state, meta, step = load_train_state(checkpoint_dir)
+    except (FileNotFoundError, KeyError) as e:
+        logger.info("No resumable checkpoint at %s (%s); training from scratch",
+                    checkpoint_dir, e)
+        return None
+    try:
+        if (fusion_state is None) != (fusion is None):
+            raise ValueError("the fusion stack is present in only one of them")
+        model.load_state_dict(model_state)
+        if fusion is not None:
+            fusion.load_state_dict(fusion_state)
+        optimizer.load_state_dict(opt_state)
+    except (RuntimeError, ValueError, KeyError) as e:
+        raise RuntimeError(
+            f"Checkpoint at {checkpoint_dir} does not match the current model/fusion "
+            "configuration (param tree mismatch) — resume with the same "
+            "--model/--enable_text/fusion settings the experiment was trained with, or "
+            "drop --load") from e
+    for name, gen in generators.items():
+        gen.set_state(meta[f"{name}_rng_state"])
+    if meta["data_rng_state"] is not None and shuffler is not None:
+        shuffler._rng.bit_generator.state = meta["data_rng_state"]
+    logger.info("Resumed full train state (epoch %d) from %s", step, checkpoint_dir)
+    return meta
+
+
 def run_evaluation(forward, loader, device, modules) -> dict:
     """Streaming evaluation with the modules in eval mode; back to train
     mode after."""
@@ -203,6 +255,9 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     initial_state: (model_state_dict, fusion_state_dict or None) to start
     from, e.g. the JAX package's init through convert.params_from_jax;
     otherwise torch's init under torch.manual_seed(cfg.seed).
+    checkpoint_dir, if given, gets the best weights and a train state after
+    every epoch; with cfg.load set, the run resumes from the latest train
+    state there at the epoch after it (from scratch when there is none).
     timings, if given, gets wall seconds by phase (parse, train per
     epoch, val, test) and, on cuda, "step_ms": each step's forward,
     backward and optimizer device ms (CUDA events)."""
@@ -266,6 +321,19 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0, timer)
 
     best_val_mse, best_iter, test_res, no_improve, history = np.inf, -1, None, 0, []
+    start_epoch = 0
+    generators = {"salt": salts, "sample": samples}
+    shuffler = _find_shuffler(data_obj["train_dataloader"])
+    # --load: resume after the sample batch above, which advanced the
+    # shuffle stream in the saved run too; Adam's state after the
+    # parameters went to the device
+    meta = (_restore(checkpoint_dir, model, fusion, optimizer, generators, shuffler)
+            if cfg.load is not None and checkpoint_dir is not None else None)
+    if meta is not None:
+        start_epoch = int(meta["epoch"]) + 1
+        best_val_mse, best_iter = float(meta["best_val_mse"]), int(meta["best_iter"])
+        no_improve, test_res, history = (int(meta["no_improve"]), meta["test_res"],
+                                         list(meta["history"]))
     # profile_dir traces the epoch the JAX trainer traces: its second (the
     # first is its compile), or the only one
     profile_epoch = None if cfg.profile_dir is None else (1 if cfg.epoch > 1 else 0)
@@ -273,7 +341,7 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
                else contextlib.nullcontext())
     with anomaly:
-        for itr in range(cfg.epoch):
+        for itr in range(start_epoch, cfg.epoch):
             st = time.time()
             with (_trace(cfg.profile_dir, itr, device) if itr == profile_epoch
                   else contextlib.nullcontext()):
@@ -307,6 +375,17 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                                 train_loss=step_losses[-1] if step_losses else np.nan,
                                 step_losses=step_losses, val=val_res, secs=epoch_secs,
                                 windows_per_sec=n_windows / max(epoch_secs, 1e-9)))
+            if checkpoint_dir is not None:
+                from .checkpoint import save_train_state
+
+                meta = dict(epoch=itr, best_val_mse=float(best_val_mse), best_iter=best_iter,
+                            no_improve=no_improve, test_res=test_res, history=history,
+                            data_rng_state=(shuffler._rng.bit_generator.state
+                                            if shuffler is not None else None),
+                            **{f"{k}_rng_state": g.get_state() for k, g in generators.items()})
+                save_train_state(checkpoint_dir, model.state_dict(),
+                                 fusion.state_dict() if fusion is not None else None,
+                                 optimizer.state_dict(), meta, itr)
             logger.info("- Epoch %03d | train loss %.5f | val mse %.5f mae %.5f | %.2fs"
                         " | %.0f windows/s", itr, history[-1]["train_loss"], val_res["mse"],
                         val_res["mae"], epoch_secs, history[-1]["windows_per_sec"])

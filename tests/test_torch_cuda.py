@@ -24,11 +24,12 @@ import os
 import pytest
 import torch
 
-from chip_smoke import (TRAIN_DATA, attn_inputs, attn_ragged_inputs, bucket_lo,
-                        check_attn_backward, check_scan, check_scan_bwd, compare_step,
-                        compare_timellm_step, dropout_probe_inputs, expm_inputs,
-                        expm_rel_err, expm_tri_inputs, ffn_inputs, frechet_inputs,
-                        frechet_rel_err, recavg_inputs, scan_bwd_case, scan_inputs,
+from chip_smoke import (MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_inputs,
+                        attn_ragged_inputs, bucket_lo, check_attn_backward, check_scan,
+                        check_scan_bwd, compare_step, compare_timellm_step,
+                        dropout_probe_inputs, expm_inputs, expm_rel_err, expm_tri_inputs,
+                        ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
+                        recavg_inputs, run_mts_serving, scan_bwd_case, scan_inputs,
                         training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
@@ -673,3 +674,39 @@ def test_prob_attention_eval_sample_on_the_card_is_the_cpu_sample(dev):
         got = eval_sample(L_Q, U, L_K, dev)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), eval_sample(L_Q, U, L_K, "cpu"))
+
+
+# ------------------------------------------------- TimesNet, TimeMixer, TTM
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", MTS_MODELS)
+def test_served_dispatch_kernels_vs_plain(dev, tmp_path, model):
+    """chip_smoke.run_mts_serving with 16 requests: the preset at full width
+    behind TTF_RecAvg + MMF_GR_Add, #1 exactly once a dispatch, one
+    dispatch kernels vs plain to 1e-4 + 1e-4|ref|."""
+    out = run_mts_serving(dev, model, 16, 0, str(tmp_path / "exp"))
+    assert out["launches"]["recency_weighted_average"] == out["dispatches"] > 0
+
+
+@pytest.mark.cuda
+def test_resumed_run_equals_uninterrupted_on_the_kernel_route(dev, tmp_path):
+    """PatchTST + TTF_RecAvg + MMF_GR_Add on the kernel route (#1, #2's
+    training form, hash dropout 0.1) on a small fixture (4 entities, 120
+    days): one epoch, then `--load` to two, equals two epochs in one run
+    bit for bit (per-step losses, val MSEs, final weights)."""
+    from imm_tsf_torch import main as train_main
+    from imm_tsf_torch.data.synthetic import make_synthetic_dataset
+
+    root = str(tmp_path / "data")
+    make_synthetic_dataset(os.path.join(root, "EPA-Air"),
+                           **dict(TRAIN_DATA, n_entities=4, n_days=120))
+    common = ["--data_root", root, "--save", str(tmp_path / "exp"), "--device", "cuda"]
+    whole = train_main.main(RESUME_ARGS[:-2] + ["--epoch", "2"] + common)
+    train_main.main(RESUME_ARGS + ["--epoch", "1"] + common)
+    resumed = train_main.main(RESUME_ARGS + ["--epoch", "2"] + common)
+    assert [h["epoch"] for h in resumed["history"]] == [0, 1]
+    for a, b in zip(resumed["history"], whole["history"]):
+        assert a["step_losses"] == b["step_losses"] and a["val"] == b["val"]
+    got, want = final_weights(resumed), final_weights(whole)
+    for mod in want:
+        for name, v in want[mod].items():
+            assert torch.equal(got[mod][name], v), f"{mod}.{name}"

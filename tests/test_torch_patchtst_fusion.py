@@ -77,8 +77,8 @@ def test_patchtst_matches_jax(activation, fused):
 
 
 def test_unported_model_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
-        get_model(TConfig(model="TimesNet"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
+        get_model(TConfig(model="tPatchGNN"))
     with pytest.raises(ValueError, match="Unknown model"):
         get_model(TConfig(model="NoSuchModel"))
 
