@@ -186,7 +186,34 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     losses, val MSEs, test metrics, final weights); the ops torch's
     deterministic mode names over one step are printed, and only such an
     op may explain a gap, within RESUME_RTOL;
- 5. (after 6-11) time each kernel and its plain version at the shapes
+12. LatentODE, NeuralFlow and tPatchGNN, and the LatentODE's resume: (a)
+    serve each preset (IMTS_MODELS, imts_cfg: LatentODE rec / units / gru
+    32, 4 rk4 substeps; NeuralFlow coupling, 2 flow layers, hidden 3 x 32,
+    rec 40, latents 20; tPatchGNN hid 32, te 10, node 10, 1 head, 1 layer,
+    patched as SERVED_PATCHING: 4 patches of 2 days, each holding points)
+    + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded weights, 256 ragged
+    requests from 8 threads (the LatentODE 64, a request a dispatch, its
+    union time axis): answers finite with their rows, #1 exactly once a
+    dispatch and nothing else, one dispatch kernels vs plain to 1e-4 +
+    1e-4|ref|, one traced; (b) train each through
+    `imm_tsf_torch.main.main([...])` (IMTS_TRAIN_ARGS: hash dropout 0.1,
+    batch 32, two epochs on phase 7's fixture, #1 on; tPatchGNN's npatch
+    the reference's derivation from the flags before the presets, printed
+    with the patches holding points): every loss finite, #1 exactly once a
+    forward; (c) `compare_imts_step`: one step at B 32 on requests through
+    the service's collate, kernel vs plain vs float64 under the same salts
+    and one pinned z0 noise (`pinned_z0`), loss to 1e-5, gradients by
+    `held_grads`, a traced step per route; (e) `check_ode_drift`: the
+    LatentODE's eval forward over a union axis of the trained length (768
+    times, B 32, a seeded batch), float32 against float64 on the card,
+    within 4x the JAX package's own distance on the CPU plus 1e-6
+    (ODE_DRIFT_MAX, from tools/torch_ode_drift.py); (d) `run_resume`: the
+    LatentODE's run resumed with `--load resume --epoch 2` from (b)'s own
+    epoch-0 train state, its second epoch bit for bit against (b)'s (the z0
+    generator in the state); then #1 at each union
+    prediction axis the LatentODE trained on, with the 1-D t_hat expanded
+    as TTF_RecAvg expands it, against its plain version;
+ 5. (after 6-12) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -406,6 +433,33 @@ MTS_STEP_B = 32
 # then --load resume --epoch 2, held to phase 8's two epochs bit for bit
 RESUME_ARGS = PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + ["--load", "resume"]
 RESUME_RTOL = 1e-6  # only where an op with atomics (named by the run) breaks bitwise equality
+# phase 12: the IMTS backbones, each its preset (config.py:407-432: LatentODE
+# rec / units / gru 32; NeuralFlow coupling, 2 flow layers, hidden 3 x 32, rec
+# 40, latents 20; tPatchGNN hid 32, te 10, node 10, 1 head, 1 layer) behind
+# TTF_RecAvg + MMF_GR_Add (d_txt 768). The LatentODE is served a request a
+# dispatch (its union time axis), so it takes fewer requests
+IMTS_MODELS = ("LatentODE", "NeuralFlow", "tPatchGNN")
+N_IMTS_REQUESTS = {"LatentODE": 64, "NeuralFlow": 256, "tPatchGNN": 256}
+# tPatchGNN's served and compared patching: the preset's 24 (days here) spans
+# EPA-Air's whole 7-day history in one patch; patches of 2 days give 4, each
+# holding points. The trained run keeps the reference's own derivation
+SERVED_PATCHING = dict(patch_size=2, patch_stride=2, npatch=4)
+IMTS_TRAIN_ARGS = {m: [a if a != "CRU" else m for a in TRAIN_ARGS] + ["--use_pallas", "true"]
+                   for m in IMTS_MODELS}
+# the LatentODE trains on 4 of the fixture's 8 entities: its scan runs every
+# union time step on the host (~8 s a step at 768 union times on the H100),
+# and half the windows halve phases 12b and 12d; a batch keeps 32 windows
+# and its union axes their 768 times
+IMTS_TRAIN_ARGS["LatentODE"] += ["--rec_ids"] + [f"entity{i:03d}" for i in range(4)]
+IMTS_STEP_B = 32
+# phase 12e holds the LatentODE's float32 forward over a union axis of the
+# trained length (768 times) to its float64 run: within 4x the JAX package's
+# own distance plus 1e-6, JAX's distance being the one tools/torch_ode_drift.py
+# prints on the CPU for the same batch and weights (ode_drift_case)
+ODE_DRIFT_JAX = 1.220954874703306e-07
+ODE_DRIFT_MAX = 4 * ODE_DRIFT_JAX + 1e-6
+# phase 12d resumes the LatentODE run of phase 12b as experiment "resume"
+ODE_RESUME_ARGS = IMTS_TRAIN_ARGS["LatentODE"] + ["--load", "resume"]
 
 
 def log(msg: str) -> None:
@@ -1026,6 +1080,10 @@ def seeded_weights(module, gen) -> None:
                 p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / math.sqrt(k * k * c_in))
             elif re.fullmatch(r"conv\d_bias_\d+", name.split(".")[-1]):
                 p.copy_(0.1 * (torch.rand(p.shape, generator=gen) * 2 - 1))
+            elif name in ("T_bias", "nodevec1", "nodevec2"):  # tPatchGNN's, N(0, 1)
+                p.copy_(torch.randn(p.shape, generator=gen))
+            elif name.endswith("_time_w"):  # NeuralFlow's time nets, N(0, 0.1^2)
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
 
 
 def make_experiment(exp_dir: str, cfg_kw: dict, seed: int):
@@ -1038,10 +1096,12 @@ def make_experiment(exp_dir: str, cfg_kw: dict, seed: int):
     return cfg
 
 
-def make_requests(cfg, n: int, seed: int, note=None) -> list[dict]:
+def make_requests(cfg, n: int, seed: int, note=None, oversample: int = 4) -> list[dict]:
     """Ragged requests: 0..input_len observations with NaN holes,
     1..pred_len forecast times, 0-8 notes, every third with mean/std.
-    note(rng) gives a note's payload: a random embedding by default."""
+    note(rng) gives a note's payload: a random embedding by default. The
+    times are drawn from grids of oversample x input_len and oversample x
+    pred_len points."""
     rng = np.random.default_rng(seed)
     if note is None:
         note = lambda rng: {"embedding": rng.standard_normal(cfg.d_txt).tolist()}
@@ -1051,10 +1111,12 @@ def make_requests(cfg, n: int, seed: int, note=None) -> list[dict]:
     for i in range(n):
         k = int(rng.integers(0, cfg.input_len + 1))
         m = int(rng.integers(1, cfg.pred_len + 1))
-        tt = np.sort(rng.choice(np.linspace(0, hist * 0.999, 4 * cfg.input_len), k, replace=False))
+        tt = np.sort(rng.choice(np.linspace(0, hist * 0.999, oversample * cfg.input_len), k,
+                                replace=False))
         vals = rng.standard_normal((k, D))
         vals[rng.random(vals.shape) < 0.2] = np.nan
-        tp = np.sort(rng.choice(np.linspace(hist, tmax, 4 * cfg.pred_len), m, replace=False))
+        tp = np.sort(rng.choice(np.linspace(hist, tmax, oversample * cfg.pred_len), m,
+                                replace=False))
         inst = {"observed_tp": tt.tolist(), "observed_data": vals.tolist(),
                 "tp_to_predict": tp.tolist(),
                 "notes": [{"tau": float(rng.uniform(0, hist)), **note(rng)}
@@ -1399,15 +1461,17 @@ def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
 
 
 def trace(fn, reps: int, untraced_ms: float, inference: bool = True) -> dict:
-    """`reps` calls of fn under torch.profiler, whose host overhead makes
-    them slower (`traced_ms`): device-busy ms per call is the union of the
+    """`reps` calls of fn under torch.profiler, whose overhead makes them
+    slower (`traced_ms`): device-busy ms per call is the union of the
     kernels' and copies' device intervals there, and the idle share is
-    1 - busy / the untraced call's ms. Raises when the trace holds no
-    device activity."""
+    1 - busy / the untraced call's ms. Only device activity is recorded:
+    the host's events would add nothing read here, and on the LatentODE's
+    paths (~10^5 launches a step) reading them back takes minutes. Raises
+    when the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_ms = float(np.median(wall_ms(fn, reps=reps, inference=inference)))
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
@@ -2188,12 +2252,15 @@ def attn_counts(route: str, layers: int, steps: int, evals: int) -> dict:
 
 
 def serve_experiment(device, cfg_kw: dict, label: str, n_requests: int, seed: int,
-                     exp_dir: str, expected) -> dict:
+                     exp_dir: str, expected, per_dispatch: int = 64,
+                     profile_reps: int = 10) -> dict:
     """`label`'s experiment (cfg_kw, seeded weights) through ForecastService
     on the kernel route: ragged requests from 8 threads, every answer
     finite with its rows, launch counts exactly expected(svc, dispatches),
-    #3's shapes recorded, one dispatch's batch kernels vs plain versions to
-    SERVE_TOL, one uncontended dispatch traced."""
+    #3's shapes recorded, one dispatch's batch (`per_dispatch` requests:
+    a full batch, or the one request of a per-request service) kernels vs
+    plain versions to SERVE_TOL, one uncontended dispatch traced
+    (`profile_reps` dispatches a measure)."""
     cfg = make_experiment(exp_dir, cfg_kw, seed)
     t0 = time.monotonic()
     svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
@@ -2223,7 +2290,7 @@ def serve_experiment(device, cfg_kw: dict, label: str, n_requests: int, seed: in
             f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
             f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}; #3 at {shapes}")
 
-        built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
+        built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:per_dispatch]]
         batch = svc.to_device(svc._collate([b[0] for b in built]))
         with torch.inference_mode():
             got = svc._forward(batch)
@@ -2237,9 +2304,11 @@ def serve_experiment(device, cfg_kw: dict, label: str, n_requests: int, seed: in
             f"plain max|err| {err:.3e}")
         profile = None
         if device.type == "cuda":
-            profile = profile_dispatch(svc, built)
-            log(f"# one uncontended {label} dispatch of 64 requests: {json.dumps(profile)}")
+            profile = profile_dispatch(svc, built, reps=profile_reps)
+            log(f"# one uncontended {label} dispatch of {len(built)} requests: "
+                f"{json.dumps(profile)}")
         return {"launches": launches, "dispatches": dispatches, "attn_shapes": shapes,
+                "dispatch_batch": {k: list(v.shape) for k, v in batch.items()},
                 "service_up_s": up_s, "requests_per_s": len(requests) / wall,
                 "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
                 "dispatch_profile": profile}
@@ -2320,23 +2389,25 @@ class pinned_lags(_Pinned):
         timellm.top_lags = self.saved
 
 
-def compare_model_step(device, cfg, label: str, B: int, pin, expected) -> dict:
+def compare_model_step(device, cfg, label: str, B: int, pin, expected, batch=None,
+                       trace_reps: int = 3) -> dict:
     """One gradient step of `label`'s full-width experiment (cfg, hash
     dropout) from seeded weights on a batch of B windows at cfg's lengths,
     three ways under the same salts: the kernel route, the plain route and
     the plain route in float64, the later two with the float64 run's
     rounding-sensitive choices (`pin`, a _Pinned context; its flips are
-    returned). The losses agree to TRAIN_LOSS_RTOL, the gradients as
+    returned); `batch`, when given, replaces the headline batch. The losses agree to TRAIN_LOSS_RTOL, the gradients as
     held_grads holds them (parameters without a gradient are skipped: a
     frozen LLM's, which must take none, and TimeMixer's last block's finer
     scales, which feed no output), and the step's launch counts equal
     expected(route). Then one full step of each route (optimizer included)
-    is traced."""
+    is traced (`trace_reps` steps)."""
     gen = torch.Generator().manual_seed(SEED)
     model, fusion = get_model(cfg), FusionModel(cfg)
     seeded_weights(model, gen)
     seeded_weights(fusion, gen)
-    batch = headline_batch(cfg, B, torch.Generator().manual_seed(SEED + 1), device)
+    if batch is None:
+        batch = headline_batch(cfg, B, torch.Generator().manual_seed(SEED + 1), device)
 
     def set_route(model, fusion, kernels):
         for m in model.modules():
@@ -2402,8 +2473,8 @@ def compare_model_step(device, cfg, label: str, B: int, pin, expected) -> dict:
             set_route(model, fusion, route == "kernel")
             wall_ms(step, batch, reps=1, inference=False)  # warm
             step_ms = float(np.median(wall_ms(step, batch, reps=5, inference=False)))
-            out["profile"][route] = {"step_ms": step_ms,
-                                     **trace(lambda: step(batch), 3, step_ms, inference=False)}
+            out["profile"][route] = {"step_ms": step_ms, **trace(
+                lambda: step(batch), trace_reps, step_ms, inference=False)}
             log(f"# one traced {label} {route}-route training step: "
                 f"{json.dumps(out['profile'][route])}")
     return out
@@ -2561,7 +2632,9 @@ def nondeterministic_ops(device) -> list[str]:
     return sorted({str(w.message)[:160] for w in caught})
 
 
-def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: dict) -> dict:
+def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: dict,
+               args=RESUME_ARGS, expected=None, label: str = "resume",
+               strict: bool = False, stopped: str | None = None) -> dict:
     """Phase 11d: phase 8's kernel route (#1, #2's training form, hash
     salts) as experiment "resume": `--load resume --epoch 1` (no state yet:
     it trains from scratch and saves epoch 0's), then `--load resume --epoch
@@ -2570,30 +2643,42 @@ def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: di
     uninterrupted two epochs (`uninterrupted`, `weights`) bit for bit;
     where they do not, the ops that torch's deterministic mode names
     (nondeterministic_ops) must explain it and every gap stay within
-    RESUME_RTOL, else the phase fails."""
-    data = training_data(root, RESUME_ARGS)
+    RESUME_RTOL, else the phase fails. Phase 12d passes the LatentODE's run
+    (`args`, its launch counts `expected(steps, evals)`) with `strict`: bit
+    for bit or the phase fails (no PatchTST step is probed then), and
+    `stopped`, the uninterrupted run's experiment directory: its epoch-0
+    train state stands for a run stopped after one epoch (the same seed and
+    flags write the same state), so only the resumed epoch is trained."""
+    data = training_data(root, args)
     cfg = data["cfg"]
     n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
     runs = []
-    for epochs in (1, 2):
+    if stopped is not None:
+        exp = os.path.join(exp_dir, "experiment_resume")
+        shutil.copytree(stopped, exp)
+        os.remove(os.path.join(exp, "train_state_1.pt"))
+        runs.append({"epochs": [0], "copied_from": "the uninterrupted run's epoch-0 state",
+                     "wall_s": 0.0, "launches": dict.fromkeys(KERNEL_COUNTS, 0)})
+    for epochs in (1, 2)[len(runs):]:
         zero_counts()
         t0 = time.monotonic()
-        res = train_main.main(RESUME_ARGS + ["--epoch", str(epochs), "--data_root", root,
-                                             "--save", exp_dir, "--device", device.type])
+        res = train_main.main(list(args) + ["--epoch", str(epochs), "--data_root", root,
+                                            "--save", exp_dir, "--device", device.type])
         wall = time.monotonic() - t0
         launches = read_counts()
         h = res["history"][-1]
         evals = n_val + (n_test if res["best_iter"] == h["epoch"] else 0)
-        want = ffn_counts("kernel", cfg.e_layers, len(h["step_losses"]), evals)
+        want = (ffn_counts("kernel", cfg.e_layers, len(h["step_losses"]), evals)
+                if expected is None else expected(len(h["step_losses"]), evals))
         if device.type == "cuda" and launches != want:
-            raise AssertionError(f"resume run {epochs} launched {launches}, expected {want}")
+            raise AssertionError(f"{label} run {epochs} launched {launches}, expected {want}")
         runs.append({"epochs": [x["epoch"] for x in res["history"]], "wall_s": wall,
                      "launches": launches})
     exp = os.path.join(exp_dir, "experiment_resume")
     states = sorted(f for f in os.listdir(exp) if f.startswith("train_state_"))
     if runs[0]["epochs"] != [0] or runs[1]["epochs"] != [0, 1] or states != [
             "train_state_0.pt", "train_state_1.pt"]:
-        raise AssertionError(f"resume: epochs {[r['epochs'] for r in runs]}, states {states}")
+        raise AssertionError(f"{label}: epochs {[r['epochs'] for r in runs]}, states {states}")
     hist = res["history"]
     got = {"step_losses": [x for h in hist for x in h["step_losses"]],
            "val_mse": [h["val"]["mse"] for h in hist],
@@ -2609,21 +2694,221 @@ def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: di
              for mod in weights for n, v in mine[mod].items()
              if not torch.equal(v, weights[mod][n])}
     bitwise = not moved and all(g == 0.0 for g in gaps.values())
-    ops = nondeterministic_ops(device)
+    ops = [] if strict else nondeterministic_ops(device)
     out = {"runs": runs, "bitwise": bitwise, "gaps": gaps, "weights_moved": len(moved),
            "largest_weight_gap": max(moved.values(), default=0.0),
            "nondeterministic_ops": ops}
-    log(f"# resume on the card: {json.dumps(out)}")
+    log(f"# {label} on the card: {json.dumps(out)}")
     if not bitwise:
         # cuBLAS's own notice (a workspace setting for several streams) names no op
         named = [m for m in ops if "CuBLAS" not in m]
         worst = max([*gaps.values(), out["largest_weight_gap"]])
-        if not named or worst > RESUME_RTOL:
+        if strict or not named or worst > RESUME_RTOL:
             raise AssertionError(f"the resumed run differs from the uninterrupted one: gaps "
                                  f"{gaps}, {len(moved)} weights (largest {worst:.3e}); ops "
                                  f"with atomics named: {named}")
         log(f"# resume within {RESUME_RTOL} relative, not bitwise: ops with atomics {named}")
     return out
+
+
+# --------------------------------------------------------------- phase 12
+def imts_cfg(model: str) -> dict:
+    """Phase 12's served experiment of `model`: its preset behind TTF_RecAvg
+    + MMF_GR_Add, EPA-Air 48 + 24 steps; tPatchGNN patched as
+    SERVED_PATCHING."""
+    kw = dict(SERVE_CFG, model=model, **MODEL_PRESETS[model])
+    if model == "tPatchGNN":
+        kw.update(SERVED_PATCHING)
+    return kw
+
+
+def patches_with_points(batch) -> int:
+    """How many of a patch-collated batch's patches hold a point."""
+    mask = batch["observed_mask"]
+    return int((mask.reshape(mask.shape[0], mask.shape[1], -1).sum(-1) > 0).any(0).sum())
+
+
+def imts_batch(cfg, B: int, seed: int, device) -> dict:
+    """A training batch of B ragged requests whose times lie on one grid of
+    input_len observed and pred_len forecast points (a regularly sampled
+    deployment: the LatentODE's union axes stay within 48 + 24) through the
+    service's collate for cfg's model (the patch or ODE collate, or the
+    standard one), the forecast targets N(0, 1) where the mask holds one."""
+    from imm_tsf_torch.serving import collate_chunks
+
+    chunks = [_build_chunk(r, cfg, cfg.d_txt)[0]
+              for r in make_requests(cfg, B, seed, oversample=1)]
+    out = collate_chunks(cfg, chunks, cfg.d_txt, float(cfg.history + cfg.pred_window), B)
+    pmask = out["mask_predicted_data"]
+    out["data_to_predict"] = (np.random.default_rng(seed).standard_normal(pmask.shape)
+                              .astype(np.float32) * pmask)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()
+            if isinstance(v, np.ndarray)}
+
+
+class pinned_z0(_Pinned):
+    """Within the block, the LatentODE's and NeuralFlow's train-mode z0
+    noise is one fixed N(0, 1) draw (seeded, on the host), cast to each
+    run's dtype: the float64 run takes the same numbers."""
+
+    def __enter__(self):
+        from imm_tsf_torch.ode import nets
+
+        self.nets, self.saved = nets, nets.train_eps
+        draw = lambda shape: torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 2))
+        nets.train_eps = lambda shape, like, generator: draw(tuple(shape)).to(like.device,
+                                                                             like.dtype)
+        return self
+
+    def __exit__(self, *exc):
+        self.nets.train_eps = self.saved
+
+
+def ode_drift_case():
+    """Phase 12e's long scan: the preset LatentODE in eval mode, its weights
+    drawn on the host (seeded_weights, SEED + 13), and an ODE-collated
+    batch of the trained run's shape: 32 windows of 7 + 7 days, each 45
+    irregular times (8 features, about a third observed), whose union axes
+    hold 719 + 721 real times in buckets of 768 + 768. Made from a seed,
+    so the card and the CPU hold the same numbers. Returns (model, args),
+    args the forward's four tensors on the host."""
+    from imm_tsf_torch.data import collate as C
+    from imm_tsf_torch.data.dataset import Chunk
+
+    rng = np.random.default_rng(SEED + 13)
+    chunks = []
+    for b in range(32):
+        tt = np.unique(rng.uniform(0, 14, 45)).astype(np.float32)
+        mask = (rng.random((len(tt), 8)) < 0.35).astype(np.float32)
+        vals = rng.standard_normal((len(tt), 8)).astype(np.float32) * mask
+        chunks.append(Chunk(f"w{b}_chunk0", tt, vals, mask, np.zeros(0, np.float32), []))
+    out = C.ode_collate(chunks, 7.0, 14.0)
+    model = get_model(Config(**dict(MODEL_PRESETS["LatentODE"], model="LatentODE",
+                                    input_dim=8)))
+    seeded_weights(model, torch.Generator().manual_seed(SEED + 13))
+    return model.eval(), tuple(torch.from_numpy(out[k]) for k in (
+        "tp_to_predict", "observed_data", "observed_tp", "observed_mask"))
+
+
+def check_ode_drift(device) -> dict:
+    """Phase 12e: the LatentODE's float32 forward on the card over a union
+    axis of the trained length (ode_drift_case) against its float64 run on
+    the card, within ODE_DRIFT_MAX."""
+    model, args = ode_drift_case()
+    m64 = copy.deepcopy(model).double().to(device)
+    model.to(device)
+    with torch.inference_mode():
+        got = model(*(a.to(device) for a in args))
+        want = m64(*(a.to(device, torch.float64) for a in args))
+    out = {"union": list(args[2].shape) + list(args[0].shape),
+           "max_abs_from_float64": float((got.double() - want).abs().max()),
+           "largest_float64": float(want.abs().max()),
+           "jax_cpu_from_float64": ODE_DRIFT_JAX, "bound": ODE_DRIFT_MAX}
+    log(f"# LatentODE over the trained union axis, float32 vs float64 on the card: "
+        f"{json.dumps(out)}")
+    if not torch.isfinite(got).all() or not out["max_abs_from_float64"] <= ODE_DRIFT_MAX:
+        raise AssertionError(f"the LatentODE's float32 scan drifts {out['max_abs_from_float64']} "
+                             f"from float64, past {ODE_DRIFT_MAX}")
+    return out
+
+
+def check_recavg_ode(device, shapes) -> dict:
+    """#1 at the LatentODE's trained union shapes (B, N, T, d) with the ODE
+    collate's 1-D t_hat, expanded as TTF_RecAvg expands it (a stride-0
+    view; the wrapper makes it contiguous), against its plain version."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    errs = {}
+    for B, N, T, d in shapes:
+        tau, t_hat, V, mask, sigma = recavg_inputs(B, N, T, d, gen, device)
+        t_hat = torch.sort(t_hat[0]).values[None].expand(B, -1)
+        got = recavg.recency_weighted_average(tau, t_hat, V, mask, sigma)
+        want = recavg.recavg_reference(tau, t_hat, V, mask, sigma)
+        errs[str((B, N, T, d))] = max_err(got, want, RECAVG_TOL)
+    log(f"# check recavg at the LatentODE's trained union shapes, 1-D t_hat: max|err| "
+        f"{json.dumps(errs)}")
+    return errs
+
+
+def run_imts_serving(device, model: str, n_requests: int, seed: int, exp_dir: str) -> dict:
+    """Phase 12a: `model`'s experiment (imts_cfg) on the kernel route, #1
+    exactly once a dispatch and nothing else; the LatentODE a request a
+    dispatch (its compared and traced dispatch is one request, traced
+    three times)."""
+    cfg = Config(**imts_cfg(model))
+    ode = model == "LatentODE"  # ~14,000 launches a dispatch: fewer traced
+    out = serve_experiment(device, imts_cfg(model), model, n_requests, seed, exp_dir,
+                           lambda svc, dispatches: recavg_only(0, dispatches),
+                           per_dispatch=1 if ode else 64, profile_reps=3 if ode else 10)
+    if model == "LatentODE" and out["dispatches"] != n_requests:
+        raise AssertionError(f"the LatentODE served {n_requests} requests in "
+                             f"{out['dispatches']} dispatches, not one a request")
+    if model == "tPatchGNN":
+        batch = imts_batch(cfg, 64, seed, torch.device("cpu"))
+        out["patching"] = {"npatch": cfg.npatch, "patch_size": cfg.patch_size,
+                           "patches_with_points": patches_with_points(batch)}
+        log(f"# tPatchGNN served patching: {out['patching']}")
+        if out["patching"]["patches_with_points"] < 3:
+            raise AssertionError(f"tPatchGNN served {out['patching']}: fewer than 3 patches "
+                                 "hold points")
+    return out
+
+
+def run_imts_training(device, root: str, exp_dir: str, model: str, kept: dict) -> dict:
+    """Phase 12b and 12c: train `model` + TTF_RecAvg + MMF_GR_Add through
+    imm_tsf_torch.main (IMTS_TRAIN_ARGS: the presets, hash dropout 0.1,
+    batch 32, two epochs, #1 on), every loss finite and #1 exactly once a
+    forward (tPatchGNN's npatch the reference's derivation from the flags
+    before the presets, printed with the patches that hold points); then
+    one step held kernels vs plain vs float64 under one pinned z0 noise
+    (compare_imts_step). `kept` gets the LatentODE's run, final weights and
+    a copy of its experiment directory (`dir`, the caller removes it), for
+    phase 12d, and #1's trained shapes."""
+    data = training_data(root, IMTS_TRAIN_ARGS[model])
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    first = next(iter(data["train_dataloader"]))
+    out = {"batches": {"train": len(data["train_dataloader"]), "val": n_val, "test": n_test,
+                       "L": cfg.input_len, "Lp": cfg.pred_len,
+                       "first_batch": {k: list(v.shape) for k, v in first.items()
+                                       if isinstance(v, np.ndarray)}}}
+    if model == "tPatchGNN":
+        out["patching"] = {"npatch": cfg.npatch, "patch_size": cfg.patch_size,
+                           "patch_stride": cfg.patch_stride,
+                           "patches_with_points": patches_with_points(first)}
+    if model == "LatentODE":
+        # the union prediction axes #1 sees in training, evaluation included
+        kept["recavg_shapes"] = sorted({
+            (cfg.batch_size, b["notes_embeddings"].shape[1], b["tp_to_predict"].shape[0],
+             b["notes_embeddings"].shape[2])
+            for split in ("train_dataloader", "val_dataloader", "test_dataloader")
+            for b in (data[split] or [])})
+        out["recavg_shapes"] = kept["recavg_shapes"]
+    log(f"# {model} training data: {json.dumps(out)}")
+    keep = (lambda res: kept.update(weights=final_weights(res))) if model == "LatentODE" else None
+    out["kernel"] = train_route(device, IMTS_TRAIN_ARGS[model], root, exp_dir,
+                                f"{model} on the kernel route", n_val, n_test,
+                                cfg.early_stop_delta, recavg_only, inspect=keep)
+    if model == "LatentODE":  # the run and its experiment directory, for phase 12d
+        kept["run"] = out["kernel"]
+        (name,) = [d for d in os.listdir(exp_dir) if d.startswith("experiment_")]
+        kept["dir"] = exp_dir + "_latent_ode_run"
+        shutil.copytree(os.path.join(exp_dir, name), kept["dir"])
+    t0 = time.monotonic()
+    out["step"] = compare_imts_step(device, model)
+    out["step"]["wall_s"] = time.monotonic() - t0  # three routes and the traces
+    return out
+
+
+def compare_imts_step(device, model: str) -> dict:
+    """Phase 12c's compared step: `model`'s served experiment (imts_cfg,
+    hash dropout 0.1) on IMTS_STEP_B requests through the service's
+    collate (imts_batch), #1 once on the kernel route, the z0 noise pinned
+    (pinned_z0); the LatentODE's ~41,000-launch step traced once."""
+    cfg = Config(**dict(imts_cfg(model), dropout=0.1))
+    batch = imts_batch(cfg, IMTS_STEP_B, SEED + 1, device)
+    return compare_model_step(device, cfg, model, IMTS_STEP_B, pinned_z0(),
+                              lambda route: recavg_only(int(route == "kernel"), 0), batch=batch,
+                              trace_reps=1 if model == "LatentODE" else 3)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3073,6 +3358,14 @@ def main() -> int:
         return 2
 
     t_start = time.monotonic()
+    phase_s: dict = {}  # each phase's wall seconds
+    marks = [t_start]
+
+    def mark(phase: str) -> None:
+        marks.append(time.monotonic())
+        phase_s[phase] = marks[-1] - marks[-2]
+        log(f"# phase {phase} took {phase_s[phase]:.1f} s")
+
     # phase 1: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3084,6 +3377,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
+    mark("1")
     # phase 2: build
     t0 = time.monotonic()
     secs = _build.build(["ffn", "recavg", "attn", "expm", "cru_scan", "expm_frechet",
@@ -3091,6 +3385,7 @@ def main() -> int:
     log(f"# built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in sorted(secs.items()))})")
 
+    mark("2")
     # phase 3: kernels against their plain versions
     gen = torch.Generator(device=device).manual_seed(SEED)
     # attention: embed_notes' call at each bucket (token_budget 32768 tokens,
@@ -3109,6 +3404,7 @@ def main() -> int:
                                                   TIMELLM_STEP_B)}
     errs = check_kernels(device, shapes, gen)
 
+    mark("3")
     # phase 4: serving
     exp_dir = os.path.join(REPO, "experiments", f"chip_smoke_{os.getpid()}")
     try:
@@ -3119,6 +3415,7 @@ def main() -> int:
     if serving["shapes"] != checked:
         raise AssertionError(f"serving shapes {serving['shapes']} != checked {checked}")
 
+    mark("4")
     # phase 4b: raw-text serving through the frozen GPT-2, random weights
     # from a seed (no local checkpoint is read)
     os.environ.pop("IMM_TSF_LLM_DIR", None)
@@ -3127,6 +3424,7 @@ def main() -> int:
     finally:
         shutil.rmtree(exp_dir, ignore_errors=True)
 
+    mark("4b")
     # phase 6: the CRU experiment, default route then fused route
     try:
         cru_cfg = make_experiment(exp_dir, CRU_CFG, SEED)
@@ -3143,6 +3441,7 @@ def main() -> int:
             shapes["expm"]:
         raise AssertionError(f"CRU serving shapes {served} != checked {shapes['cru_scan']}")
 
+    mark("6")
     # phase 7: train the CRU experiment through imm_tsf_torch.main on each route
     root = os.path.join(REPO, "experiments", f"chip_smoke_data_{os.getpid()}")
     try:
@@ -3158,6 +3457,7 @@ def main() -> int:
         raise AssertionError(f"trained shapes {trained} != checked "
                              f"{ {k: shapes[k] for k in trained} }")
 
+    mark("7")
     # phase 8: train PatchTST + TTF_RecAvg + MMF_GR_Add through
     # imm_tsf_torch.main, kernel route then plain route, and one compared step
     kept: dict = {}  # the kernel route's final weights, for phase 11d
@@ -3171,6 +3471,7 @@ def main() -> int:
         raise AssertionError(f"the compared PatchTST step's FFN M {patch['step']['ffn_rows']} "
                              f"!= checked {shapes['ffn'][0]}")
 
+    mark("8")
     # phase 9: Informer served and trained on both routes, then the default
     # fusion pair behind DLinear
     informer = {}
@@ -3189,6 +3490,7 @@ def main() -> int:
         if where["ffn_rows"] != checked:
             raise AssertionError(f"Informer's FFN rows {where['ffn_rows']} != checked {checked}")
 
+    mark("9")
     # phase 10: TimeLLM served and trained (both routes, both prompts), one
     # compared step, then raw-text training
     try:
@@ -3206,6 +3508,7 @@ def main() -> int:
             raise AssertionError(f"TimeLLM's {route} training launched #3 at "
                                  f"{routes[route]['attn_shapes']}, not at the checked {checked}")
 
+    mark("10")
     # phase 11: TimesNet, TimeMixer and TTM served, trained and one compared
     # step each; then phase 8's kernel route resumed from its train state
     mts: dict = {}
@@ -3224,9 +3527,45 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
 
+    mark("11")
+    # phase 12: LatentODE, NeuralFlow and tPatchGNN served, trained and one
+    # compared step each; the LatentODE's trained union scan against float64
+    # (12e); then the LatentODE run resumed from its train state
+    imts: dict = {}
+    ode_kept: dict = {}  # the LatentODE run, its final weights and #1's trained shapes
+    try:
+        for model in IMTS_MODELS:
+            imts[model] = {"serving": run_imts_serving(device, model, N_IMTS_REQUESTS[model],
+                                                       SEED, exp_dir)}
+            shutil.rmtree(exp_dir, ignore_errors=True)
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        for model in IMTS_MODELS:
+            imts[model]["training"] = run_imts_training(device, root, exp_dir, model, ode_kept)
+            shutil.rmtree(exp_dir, ignore_errors=True)
+        imts["ode_drift"] = check_ode_drift(device)
+        imts["resume"] = run_resume(device, root, exp_dir, ode_kept["run"], ode_kept["weights"],
+                                    args=ODE_RESUME_ARGS, expected=recavg_only,
+                                    label="LatentODE resume", strict=True,
+                                    stopped=ode_kept["dir"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        shutil.rmtree(exp_dir + "_latent_ode_run", ignore_errors=True)
+    errs["recavg ode union"] = check_recavg_ode(device, ode_kept["recavg_shapes"])
+
+    mark("12")
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
+    mark("5")
+    rec_row = next(r for r in rows if r["name"] == "recency_weighted_average")
+    for model in IMTS_MODELS:
+        for path in ("serving", "training"):
+            res = imts[model][path] if path == "serving" else imts[model][path]["kernel"]
+            rec_row["launches_by_path"][f"{model.lower()}_{path}"] = (
+                res["launches"]["recency_weighted_average"])
+    rec_row["launches_by_path"]["latent_ode_resume"] = sum(
+        r["launches"]["recency_weighted_average"] for r in imts["resume"]["runs"])
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
@@ -3242,7 +3581,12 @@ def main() -> int:
         + " s; " + "; ".join(f"{m} {mts[m]['serving']['requests_per_s']:.1f} requests/s, "
                              f"training {mts[m]['training']['kernel']['wall_s']:.1f} s"
                              for m in MTS_MODELS)
-        + "; resume " + " + ".join(f"{r['wall_s']:.1f}" for r in mts["resume"]["runs"]) + " s"
+        + "; resume " + " + ".join(f"{r['wall_s']:.1f}" for r in mts["resume"]["runs"]) + " s; "
+        + "; ".join(f"{m} {imts[m]['serving']['requests_per_s']:.1f} requests/s, "
+                    f"training {imts[m]['training']['kernel']['wall_s']:.1f} s"
+                    for m in IMTS_MODELS)
+        + "; LatentODE resume "
+        + " + ".join(f"{r['wall_s']:.1f}" for r in imts["resume"]["runs"]) + " s"
         + f"; total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
@@ -3257,7 +3601,7 @@ def main() -> int:
                       "cru_route_err": route_err, "training": train_summary,
                       "patchtst_training": patch, "informer": informer,
                       "default_pair": default_pair, "timellm": timellm_run,
-                      "mts": mts}), flush=True)
+                      "mts": mts, "imts": imts, "phase_s": phase_s}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -29,6 +29,17 @@ PatchTST's and Informer's encoder layers and their attention under
 decoder layer's self- and cross-attention (two blocks a layer, in that
 order) under `decoder.layers.<j>`.
 
+tPatchGNN builds its three nn.Sequentials (`filter_generators`, each
+graph layer's `nodevec_gate{1,2}_<l>`, `decoder`) from Denses it creates
+itself, so flax binds those to the model as `Dense_<i>`, numbered in
+creation order (`_sequential_dense`); the port keeps the Sequentials,
+whose Linear layers sit at their list index. Its blocks `tf_<l>_<t>`
+(with `self_attn`), `T_bias`, `nodevec1`, `nodevec2` and the CNN
+`temporal_agg` Conv need no rename, nor do the flat pairs and raw
+tensors of the LatentODE (`rec_ode_func_in`, `gru_update1`, ...) and
+NeuralFlow (the flows' `<flow>_l<i>_latent_fc<j>` pairs and time-net
+`<flow>_l<i>_time_w` vectors, `lstm_ih`, `lstm_hh`).
+
 TimesNet, TimeMixer and TTM need no rename: the port's modules carry
 flax's names (`times_block_<i>`, `pdm_block_<b>.season_down_<i>`,
 `encoder.ap_block_<j>.mixer_<i>.patch_mixer...`). TimesNet's inception
@@ -87,12 +98,32 @@ def _attention_block(e_layers: int):
     return repl
 
 
+def _sequential_dense(n_layers: int):
+    """tPatchGNN's Dense_<i> -> its place in the port's nn.Sequentials:
+    filter_generators' three Denses, each graph layer's two gates, then
+    the decoder's three (the torch Sequentials count their activations)."""
+
+    def repl(m) -> str:
+        i = int(m.group(1))
+        if i < 3:
+            return f"filter_generators.{2 * i}."
+        layer, gate = divmod(i - 3, 2)
+        if layer < n_layers:
+            return f"nodevec_gate{gate + 1}_{layer}.0."
+        return f"decoder.{2 * (i - 3 - 2 * n_layers)}."
+
+    return repl
+
+
 def _model_renames(tree: dict) -> tuple:
     """The renames of a flax backbone's tree: its encoder layers are the
-    enc_layer_<i> it holds."""
+    enc_layer_<i> it holds; tPatchGNN's graph layers the
+    nodevec_linear1_<l>."""
     e_layers = sum(1 for k in tree if re.fullmatch(r"enc_layer_\d+", k))
+    gnn_layers = sum(1 for k in tree if re.fullmatch(r"nodevec_linear1_\d+", k))
+    gnn = ((re.compile(r"^Dense_(\d+)\."), _sequential_dense(gnn_layers)),) if gnn_layers else ()
     return ((re.compile(r"^AttentionLayer_(\d+)\."), _attention_block(e_layers)),
-            *_LAYER_RENAMES)
+            *gnn, *_LAYER_RENAMES)
 
 
 def _convert(tree: dict, renames=()) -> dict:

@@ -23,6 +23,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from ..config import finalize_patching
 from . import collate as C
 from .dataset import Chunk, ChunkedTimeSeriesDataset
 
@@ -126,13 +127,11 @@ def _pad_batch_dim(out: dict, n: int, B: int) -> dict:
 def parse_datasets(cfg, verbose: bool = True) -> dict:
     """Build the dataset and its three loaders: the reference's data_obj
     contract (lib/parse_datasets.py:847-854), with cfg.input_len,
-    cfg.pred_len and cfg.input_dim resolved from the chunks' bounds. The
-    standard and CRU collates are ported; the patch and ODE collates come
-    with the backbones that use them."""
-    if cfg.model in ("tPatchGNN", "LatentODE"):
-        raise NotImplementedError(
-            f"the {cfg.model} collate is not ported to imm_tsf_torch yet "
-            "(ROADMAP.md, Queue 1, item 8)")
+    cfg.pred_len and cfg.input_dim resolved from the chunks' bounds (and,
+    for tPatchGNN, the patching finalized). Each model family takes its
+    collate, as imm_tsf_tpu/data/loader.py:206-223 dispatches them:
+    tPatchGNN the patch collate, CRU the CRU collate, LatentODE the ODE
+    collate, every other model the standard one."""
     base = cfg.data_root if os.path.isabs(cfg.data_root) else os.path.abspath(cfg.data_root)
     ds = ChunkedTimeSeriesDataset(
         root=os.path.join(base, cfg.dataset), history=cfg.history,
@@ -144,10 +143,20 @@ def parse_datasets(cfg, verbose: bool = True) -> dict:
     b = ds.bounds
     time_max = float(cfg.history + cfg.pred_window)
     cfg = cfg.replace(input_dim=ds.input_dim, input_len=b.max_obs_len, pred_len=b.max_pred_len)
-    base_collate = C.cru_collate if cfg.model == "CRU" else C.standard_collate
+    if cfg.model == "tPatchGNN":
+        cfg = finalize_patching(cfg)
+        base_collate = lambda batch: C.patch_collate(
+            batch, cfg.history, time_max, b.max_pred_len, cfg.patch_size, cfg.patch_stride,
+            cfg.npatch)
+    elif cfg.model == "LatentODE":
+        base_collate = lambda batch: C.ode_collate(batch, cfg.history, time_max)
+    else:
+        fn = C.cru_collate if cfg.model == "CRU" else C.standard_collate
+        base_collate = lambda batch: fn(batch, cfg.history, time_max, b.max_obs_len,
+                                        b.max_pred_len)
 
     def collate_fn(batch: list[Chunk]) -> dict:
-        out = base_collate(batch, cfg.history, time_max, b.max_obs_len, b.max_pred_len)
+        out = base_collate(batch)
         return C.add_multimodal(out, batch, cfg.enable_text, cfg.use_text_embeddings,
                                 b.max_notes, b.d_txt)
 

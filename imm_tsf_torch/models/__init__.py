@@ -4,17 +4,14 @@ Every model takes the reference's single interface:
 
     model(tp_to_predict, observed_data, observed_tp, observed_mask) -> [B, Lp, C]
 
-Eight of the eleven are ported: PatchTST, CRU, DLinear, Informer,
-TimesNet, TimeMixer, TimeLLM (with GPT-2) and TTM, the whole MTS and LMTS
-families. The IMTS backbones are queued in ROADMAP.md, Queue 1, item 8.
+All eleven are ported: the MTS family (Informer, DLinear, PatchTST,
+TimesNet, TimeMixer), the LMTS family (TimeLLM with GPT-2, TTM) and the
+IMTS family (CRU, LatentODE, NeuralFlow, tPatchGNN).
 """
 
 from __future__ import annotations
 
-from ..config import MODELS, Config
-
-# the ROADMAP.md Queue 1 item of each backbone still to port
-_QUEUED = {"tPatchGNN": 8, "LatentODE": 8, "NeuralFlow": 8}
+from ..config import Config
 
 
 def get_model(cfg: Config):
@@ -51,8 +48,16 @@ def get_model(cfg: Config):
         from .ttm import TTM
 
         return TTM(cfg)
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to imm_tsf_torch yet "
-            f"(ROADMAP.md, Queue 1, item {_QUEUED[name]})")
+    if name == "LatentODE":
+        from .latent_ode import LatentODE
+
+        return LatentODE(cfg)
+    if name == "NeuralFlow":
+        from .neural_flow import NeuralFlow
+
+        return NeuralFlow(cfg)
+    if name == "tPatchGNN":
+        from .tpatchgnn import TPatchGNN
+
+        return TPatchGNN(cfg)
     raise ValueError(f"Unknown model: {name}")

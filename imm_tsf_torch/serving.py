@@ -5,14 +5,17 @@ A `ForecastService` restores an experiment directory (the resolved
 `config.json` and `best/weights.pt`), builds the backbone and fusion
 stack on `device` (cuda unless the caller asks for the CPU), and serves
 ragged client requests through the training-time collate of the model's
-family (standard, or CRU's raw repeat-padded times) and the trainer's
-loader stages (raw-text note embedding, TimeLLM's exact prompts).
-Every batch is padded to `max_batch` and the obs/pred axes to the
-experiment's ceilings, so the device sees one batch shape.
+family (standard, CRU's raw repeat-padded times, tPatchGNN's patches or
+the LatentODE's union time axes) and the trainer's loader stages
+(raw-text note embedding, TimeLLM's exact prompts). Every batch is padded
+to `max_batch`, and the obs/pred axes to the experiment's ceilings (the
+standard and CRU collates) or to buckets (the patch and ODE collates).
 
 Requests are micro-batched: a background thread coalesces concurrent
 requests for up to `max_wait_ms` (or until `max_batch`), pads them into
-one device dispatch, and fans results back out. Host batches reach the
+one device dispatch, and fans results back out. LatentODE requests are
+dispatched one at a time: the union time axis would otherwise make an
+answer depend on the requests batched with it. Host batches reach the
 device as pinned tensors copied with non_blocking=True.
 
 Instance schema (all lists / nested lists, JSON-friendly):
@@ -182,13 +185,19 @@ def collate_chunks(cfg: Config, chunks: list[Chunk], d_txt: int,
                    time_max: float, pad_to: int,
                    n_notes: int | None = None) -> dict:
     """Collate request chunks through the training-time collate for cfg's
-    model family (CRU: raw, repeat-padded times; PatchTST, Informer and
-    DLinear: the standard collate), batch-padded to the static size `pad_to`.
-    n_notes pins the notes axis (None: the bucket of the batch's largest
-    note count)."""
-    if cfg.model == "CRU":
+    model family (tPatchGNN: the patch collate; CRU: raw, repeat-padded
+    times; LatentODE: the ODE collate's union axes; the others: the
+    standard collate), batch-padded to the static size `pad_to`. n_notes
+    pins the notes axis (None: the bucket of the batch's largest note
+    count); the per-patch and ODE union axes take the buckets of the batch."""
+    if cfg.model == "tPatchGNN":
+        out = C.patch_collate(chunks, cfg.history, time_max, cfg.pred_len, cfg.patch_size,
+                              cfg.patch_stride, cfg.npatch)
+    elif cfg.model == "CRU":
         out = C.cru_collate(chunks, cfg.history, time_max,
                             cfg.input_len, cfg.pred_len)
+    elif cfg.model == "LatentODE":
+        out = C.ode_collate(chunks, cfg.history, time_max)
     else:
         out = C.standard_collate(chunks, cfg.history, time_max,
                                  cfg.input_len, cfg.pred_len)
@@ -325,6 +334,11 @@ class ForecastService(_MetricsMixin):
             self.fusion.load_state_dict(state["fusion"])
         self.step = int(state["step"])
         self._forward = make_forward(cfg, self.model, self.fusion)
+        # the LatentODE's batch shares one union time grid: coalescing
+        # requests would make a request's ODE discretization, and so its
+        # answer, depend on its batch neighbours. It is dispatched one
+        # request at a time (imm_tsf_tpu/serving.py:346-350)
+        self._coalesce = cfg.model != "LatentODE"
 
         # loader stages (raw-text embedding with its cache), built once
         # over a one-batch proxy; the frozen LLM lives on self.device
@@ -461,7 +475,7 @@ class ForecastService(_MetricsMixin):
                 return
             batch = [item]
             deadline = time.monotonic() + self.max_wait_s
-            while len(batch) < self.max_batch:
+            while self._coalesce and len(batch) < self.max_batch:
                 rem = deadline - time.monotonic()
                 if rem <= 0:
                     break

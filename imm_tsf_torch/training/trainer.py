@@ -1,8 +1,8 @@
 """Training harness: the reference's trainable() protocol (after
 imm_tsf_tpu/training/trainer.py:163-314, 349-500, 502-906).
 
-It trains CRU, PatchTST, DLinear, Informer, TimesNet, TimeMixer, TTM and
-TimeLLM (GPT-2, both prompt modes), each with either fusion pair, on
+It trains every backbone (TimeLLM with GPT-2 in both prompt modes), each
+with either fusion pair, on
 precomputed note embeddings or on raw-text notes (embedded by the frozen
 LLM in a loader stage, wrap_data_loaders), on the kernels' routes and the
 plain ones:
@@ -41,8 +41,9 @@ state goes to `<checkpoint_dir>/train_state_<epoch>.pt` after every epoch
 (the latest two kept), and `cfg.load` resumes from it (:571-612,
 :860-880): weights, BatchNorm statistics, Adam's moments and step, the
 counters and history, the train loader's shuffle state and the port's
-random streams (the hash-dropout salts, ProbSparse's samples), so a
-resumed run equals the uninterrupted one bit for bit.
+random streams (the hash-dropout salts, ProbSparse's samples, the
+LatentODE's and NeuralFlow's z0 noise), so a resumed run equals the
+uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -218,6 +219,8 @@ def _restore(checkpoint_dir: str, model, fusion, optimizer, generators, shuffler
             "--model/--enable_text/fusion settings the experiment was trained with, or "
             "drop --load") from e
     for name, gen in generators.items():
+        if name == "z0" and "z0_rng_state" not in meta:
+            continue  # a state saved before the z0 stream keeps its seed
         gen.set_state(meta[f"{name}_rng_state"])
     if meta["data_rng_state"] is not None and shuffler is not None:
         shuffler._rng.bit_generator.state = meta["data_rng_state"]
@@ -306,6 +309,8 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     salts = torch.Generator().manual_seed(cfg.seed)  # the hash dropout's salt stream
     # ProbSparse attention's train-mode key samples, drawn on the device
     samples = torch.Generator(device=device).manual_seed(cfg.seed)
+    # the LatentODE's and NeuralFlow's train-mode z0 noise, drawn on the device
+    z0 = torch.Generator(device=device).manual_seed(cfg.seed)
     for mod in modules:
         mod.to(device).train()
         for m in mod.modules():
@@ -313,6 +318,8 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                 m.generator = salts
             elif isinstance(m, ProbAttention):
                 m.generator = samples
+            elif hasattr(m, "z0_generator"):
+                m.z0_generator = z0
 
     params = trainable_parameters(model, fusion)
     optimizer = make_optimizer(params, cfg.lr, cfg.w_decay)
@@ -322,7 +329,7 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
 
     best_val_mse, best_iter, test_res, no_improve, history = np.inf, -1, None, 0, []
     start_epoch = 0
-    generators = {"salt": salts, "sample": samples}
+    generators = {"salt": salts, "sample": samples, "z0": z0}
     shuffler = _find_shuffler(data_obj["train_dataloader"])
     # --load: resume after the sample batch above, which advanced the
     # shuffle stream in the saved run too; Adam's state after the

@@ -24,13 +24,13 @@ import os
 import pytest
 import torch
 
-from chip_smoke import (MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_inputs,
+from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_inputs,
                         attn_ragged_inputs, bucket_lo, check_attn_backward, check_scan,
                         check_scan_bwd, compare_step, compare_timellm_step,
                         dropout_probe_inputs, expm_inputs, expm_rel_err, expm_tri_inputs,
                         ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
-                        recavg_inputs, run_mts_serving, scan_bwd_case, scan_inputs,
-                        training_data)
+                        recavg_inputs, run_imts_serving, run_mts_serving, scan_bwd_case,
+                        scan_inputs, training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 from imm_tsf_torch.ops.expm import expm as ops_expm
@@ -710,3 +710,34 @@ def test_resumed_run_equals_uninterrupted_on_the_kernel_route(dev, tmp_path):
     for mod in want:
         for name, v in want[mod].items():
             assert torch.equal(got[mod][name], v), f"{mod}.{name}"
+
+
+# ------------------------------------------ LatentODE, NeuralFlow, tPatchGNN
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,T,d", [(32, 8, 768, 768), (32, 12, 96, 768), (64, 8, 16, 768),
+                                     (3, 5, 7, 300)])
+def test_recavg_kernel_at_the_ode_union_shape(dev, gen, B, N, T, d):
+    """#1 as the LatentODE's batches reach it: the ODE collate's 1-D union
+    prediction axis, expanded over the batch (a stride-0 view, as TTF_RecAvg
+    expands it; the wrapper makes it contiguous)."""
+    tau, t_hat, V, mask, sigma = recavg_inputs(B, N, T, d, gen, dev)
+    t_hat = torch.sort(t_hat[0]).values[None].expand(B, -1)
+    assert t_hat.stride(0) == 0
+    before = recavg.launches
+    out = recavg.recency_weighted_average(tau, t_hat, V, mask, sigma)
+    torch.cuda.synchronize()
+    assert recavg.launches == before + 1
+    torch.testing.assert_close(out, recavg.recavg_reference(tau, t_hat, V, mask, sigma),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", IMTS_MODELS)
+def test_imts_served_dispatch_kernels_vs_plain(dev, tmp_path, model):
+    """chip_smoke.run_imts_serving with a few requests: the preset behind
+    TTF_RecAvg + MMF_GR_Add, #1 exactly once a dispatch (the LatentODE a
+    request a dispatch), one dispatch kernels vs plain to 1e-4 +
+    1e-4|ref|."""
+    out = run_imts_serving(dev, model, 4 if model == "LatentODE" else 16, 0,
+                           str(tmp_path / "exp"))
+    assert out["launches"]["recency_weighted_average"] == out["dispatches"] > 0

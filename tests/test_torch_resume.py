@@ -1,10 +1,11 @@
 """Full-state checkpoints and `--load` resume in the port, mirroring
 tests/test_checkpoint_resume.py: a run stopped after epoch k and resumed
 equals the uninterrupted run bit for bit (per-step losses, metrics,
-best_iter, final weights, a history over every epoch once). DLinear, and
+best_iter, final weights, a history over every epoch once). DLinear,
 Informer with hash dropout 0.1, whose state carries the salt generator,
 ProbSparse's sample generator and the distilling BatchNorms' running
-statistics. Also: no state to resume trains from scratch, a state that
+statistics, and the LatentODE, whose train-mode z0 noise comes from the
+state's z0 generator. Also: no state to resume trains from scratch, a state that
 does not fit the model raises, only the latest two states are kept, the
 shuffle stream is found through the loader stages, and `main --load`."""
 
@@ -34,6 +35,11 @@ INFORMER = dict(model="Informer", d_model=16, d_ff=32, n_heads=2, e_layers=2, d_
                 factor=3, distil=True, dropout=0.1, epoch=3)
 
 
+# the train-mode z0 draw comes from the trainer's z0 generator, which the state carries
+LATENT_ODE = dict(model="LatentODE", ode_rec_dims=8, ode_units=8, ode_gru_units=8,
+                  ode_latents=4, ode_substeps=1, epoch=2)
+
+
 def _losses(res):
     return [x for h in res["history"] for x in h["step_losses"]]
 
@@ -55,8 +61,8 @@ def _assert_same_run(got, want):
             assert torch.equal(sa[name], sb[name]), name
 
 
-@pytest.mark.parametrize("over, stop_at", [({}, 2), (INFORMER, 1)],
-                         ids=["DLinear", "Informer_dropout"])
+@pytest.mark.parametrize("over, stop_at", [({}, 2), (INFORMER, 1), (LATENT_ODE, 1)],
+                         ids=["DLinear", "Informer_dropout", "LatentODE_z0"])
 def test_resume_equals_uninterrupted(synth_root, tmp_path, over, stop_at):
     full = trainable(_cfg(synth_root, **over), checkpoint_dir=str(tmp_path / "full"),
                      device="cpu")
@@ -67,6 +73,10 @@ def test_resume_equals_uninterrupted(synth_root, tmp_path, over, stop_at):
     _assert_same_run(resumed, full)
     n = _cfg(synth_root, **over).epoch
     assert [h["epoch"] for h in resumed["history"]] == list(range(n))
+    if over is LATENT_ODE:  # the z0 noise's generator is part of the state
+        *_, meta, _ = checkpoint.load_train_state(str(tmp_path / "res"))
+        assert "z0_rng_state" in meta
+        return
     if over:  # the distilling BatchNorms' statistics moved, and came back with the state
         stats = {k: v for k, v in resumed["model"].state_dict().items() if "running" in k}
         assert stats and any(float(v.abs().max()) not in (0.0, 1.0) for v in stats.values())
@@ -131,3 +141,34 @@ def test_main_load_names_and_resumes_the_experiment(synth_root, tmp_path, capsys
     assert second["history"][0] == first["history"][0]
     assert sorted(f for f in os.listdir(exp) if f.startswith("train_state_")) == [
         "train_state_0.pt", "train_state_1.pt"]
+
+
+def test_state_saved_before_the_z0_stream_resumes(synth_root, tmp_path):
+    """A train state written before the trainer had a z0 generator (no
+    `z0_rng_state` in its meta) still resumes, the z0 stream at its seed;
+    DLinear draws nothing from it, so the run equals the uninterrupted one."""
+    full = trainable(_cfg(synth_root, epoch=2), checkpoint_dir=str(tmp_path / "full"),
+                     device="cpu")
+    d = tmp_path / "res"
+    trainable(_cfg(synth_root, epoch=1), checkpoint_dir=str(d), device="cpu")
+    path = d / "train_state_0.pt"
+    state = torch.load(path, weights_only=True)
+    del state["meta"]["z0_rng_state"]
+    torch.save(state, path)
+    _assert_same_run(trainable(_cfg(synth_root, epoch=2, load="x"), checkpoint_dir=str(d),
+                               device="cpu"), full)
+
+
+@pytest.mark.parametrize("stream", ["salt", "sample"])
+def test_state_without_a_seeded_stream_raises(synth_root, tmp_path, stream):
+    """Only the z0 stream may be missing from a state: without the salt or
+    ProbSparse sample stream the run could not resume bit for bit, so it
+    fails instead of restarting that stream from the seed."""
+    d = tmp_path / "res"
+    trainable(_cfg(synth_root, epoch=1), checkpoint_dir=str(d), device="cpu")
+    path = d / "train_state_0.pt"
+    state = torch.load(path, weights_only=True)
+    del state["meta"][f"{stream}_rng_state"]
+    torch.save(state, path)
+    with pytest.raises(KeyError, match=f"{stream}_rng_state"):
+        trainable(_cfg(synth_root, epoch=2, load="x"), checkpoint_dir=str(d), device="cpu")

@@ -1,7 +1,9 @@
 """Shared checks of a backbone's port against the JAX package, on the CPU:
 a bare module's forward through `params_from_jax`, an experiment served
-by both packages' ForecastService (with TTF_RecAvg + MMF_GR_Add), and the
-port's `trainable` from the JAX init against the JAX `trainable`."""
+by both packages' ForecastService (with TTF_RecAvg + MMF_GR_Add), the
+port's `trainable` from the JAX init against the JAX `trainable`, and
+the port's fresh init against the JAX `init_state`. `pinned_z0` and
+`pinned_salts` give both packages the same train-mode draws."""
 
 import os
 
@@ -79,7 +81,7 @@ def assert_model_matches(jm, tm, batch, atol: float, short=None):
 def service_matches_jax(tmp_path, cfg_kw: dict, n_requests: int = 10):
     """One experiment (cfg_kw + TTF_RecAvg + MMF_GR_Add, the JAX init under
     key 3) served by the JAX ForecastService and the port's on the CPU:
-    every answer to 1e-4 + 1e-4|ref|."""
+    every answer to 1e-4 + 1e-4|ref|. Returns the port service's metrics."""
     from imm_tsf_tpu.data import collate as C
     from imm_tsf_tpu.data.dataset import Chunk
     from imm_tsf_tpu.serving import ForecastService as JForecastService
@@ -87,14 +89,20 @@ def service_matches_jax(tmp_path, cfg_kw: dict, n_requests: int = 10):
 
     from imm_tsf_torch.config import load_saved_config
 
+    from imm_tsf_tpu.serving import collate_chunks
+
     cfg = JConfig(**{**EXPERIMENT, **cfg_kw})
     K = cfg.input_dim
     jdir, tdir = str(tmp_path / "jax_exp"), str(tmp_path / "port_exp")
     chunk = Chunk("warm_chunk0", np.asarray([0.0, 1.0, 8.0], np.float32),
                   np.zeros((3, K), np.float32), np.ones((3, K), np.float32),
                   np.asarray([0.5], np.float32), [np.ones(D_TXT, np.float32)])
-    batch = C.add_multimodal(C.standard_collate([chunk], 7.0, 14.0, cfg.input_len,
-                                                cfg.pred_len), [chunk], True, True, 1, D_TXT)
+    if cfg.model in ("tPatchGNN", "LatentODE"):  # the init batch in the model's layout
+        batch = collate_chunks(cfg, [chunk], D_TXT, 14.0, 1, n_notes=1)
+    else:
+        batch = C.add_multimodal(C.standard_collate([chunk], 7.0, 14.0, cfg.input_len,
+                                                    cfg.pred_len), [chunk], True, True, 1,
+                                 D_TXT)
     jm, jf = j_get_model(cfg), JFusionModel(cfg)
     params, stats = jax.jit(lambda key: jtrainer.init_state(cfg, jm, jf, batch, key))(
         jax.random.PRNGKey(3))
@@ -131,7 +139,8 @@ def service_matches_jax(tmp_path, cfg_kw: dict, n_requests: int = 10):
     tsvc = ForecastService(tdir, max_batch=4, max_wait_ms=20.0, device="cpu")
     try:
         got = [f.result(timeout=300) for f in [tsvc.submit(i) for i in insts]]
-        assert type(tsvc.model).__name__ == cfg.model
+        assert type(tsvc.model).__name__.lower() == cfg.model.lower()
+        metrics = tsvc.metrics()
     finally:
         tsvc.close()
     for inst, g, w in zip(insts, got, want):
@@ -139,6 +148,7 @@ def service_matches_jax(tmp_path, cfg_kw: dict, n_requests: int = 10):
         ga = np.asarray(g["prediction"])
         assert ga.shape == (len(inst["tp_to_predict"]), K) and np.isfinite(ga).all()
         np.testing.assert_allclose(ga, np.asarray(w["prediction"]), atol=1e-4, rtol=1e-4)
+    return metrics
 
 
 def trainable_matches_jax(tmp_path, slice_kw: dict):
@@ -185,3 +195,83 @@ def trainable_matches_jax(tmp_path, slice_kw: dict):
     for k in ("loss", "mse", "mae", "rmse"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
     return got
+
+
+def init_matches_jax(cfg_kw: dict, batch: dict, seeds=range(12), min_draws: int = 1000,
+                     band: float = 0.10) -> list[str]:
+    """The JAX `init_state` (bare model) under keys `seeds` against the
+    port's fresh model under torch.manual_seed(seed), tensor by tensor
+    (params_from_jax names): a tensor JAX draws as zeros is exactly zero
+    in the port too, every seed, and every other tensor of at least
+    min_draws pooled draws has its std within `band` of the JAX one.
+    Returns the names held to the std."""
+    from imm_tsf_tpu.training.trainer import init_state
+
+    from imm_tsf_torch.models import get_model
+
+    jcfg, tcfg = JConfig(**cfg_kw), TConfig(**cfg_kw)
+    init = jax.jit(lambda key: init_state(jcfg, j_get_model(jcfg), None, batch, key)[0])
+    want, got = {}, {}
+    for seed in seeds:
+        for k, v in params_from_jax(np_tree(init(jax.random.PRNGKey(seed))))[0].items():
+            want.setdefault(k, []).append(v.numpy())
+        torch.manual_seed(seed)
+        for k, v in get_model(tcfg).state_dict().items():
+            got.setdefault(k, []).append(v.numpy())
+    assert sorted(want) == sorted(got)
+    held = []
+    for k in sorted(want):
+        w, g = np.stack(want[k]), np.stack(got[k])
+        assert w.shape == g.shape, k
+        if not w.any():
+            assert not g.any(), f"{k}: zero in the JAX init, not in the port's"
+        elif w.size >= min_draws:
+            assert abs(g.std() / w.std() - 1) <= band, f"{k}: std {g.std():.4g} vs {w.std():.4g}"
+            held.append(k)
+    return held
+
+
+class _JaxNormal:
+    """The `jax` name of a JAX model module, but `random.normal` returns
+    the pinned draw (cut to the asked shape)."""
+
+    def __init__(self, eps: np.ndarray):
+        import types
+
+        normal = lambda key, shape, *a, **k: jax.numpy.asarray(eps[:shape[0], :shape[1]])
+        self.random = types.SimpleNamespace(normal=normal, PRNGKey=jax.random.PRNGKey)
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+
+def pinned_z0(monkeypatch, jax_module, eps: np.ndarray) -> None:
+    """Both packages' train-mode z0 noise = eps[:B, :latents]: the JAX
+    model module's jax.random.normal and the port's nets.train_eps."""
+    from imm_tsf_torch.ode import nets
+
+    monkeypatch.setattr(jax_module, "jax", _JaxNormal(eps))
+    monkeypatch.setattr(nets, "train_eps", lambda shape, like, generator: torch.from_numpy(
+        np.ascontiguousarray(eps[:shape[0], :shape[1]])).to(like.device, like.dtype))
+
+
+def pinned_salts(monkeypatch, n_sites: int, seed: int = 11) -> list:
+    """Both packages' hash-dropout salts from one list of n_sites pairs,
+    taken in call order and cycled: a forward's k-th dropout site gets
+    pair k on both sides, whichever step or trace it is (a jitted JAX
+    step takes its salts when traced)."""
+    import itertools
+
+    import jax.numpy as jnp
+
+    from imm_tsf_tpu.layers import fast_dropout as jdropout
+
+    from imm_tsf_torch.layers import fast_dropout
+
+    gen = torch.Generator().manual_seed(seed)
+    salts = [fast_dropout.draw_salts(gen) for _ in range(n_sites)]
+    jcycle, tcycle = itertools.cycle(salts), itertools.cycle(salts)
+    monkeypatch.setattr(jdropout, "_key_salts",
+                        lambda rng: tuple(jnp.uint32(s) for s in next(jcycle)))
+    monkeypatch.setattr(fast_dropout, "draw_salts", lambda generator=None: next(tcycle))
+    return salts
