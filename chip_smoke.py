@@ -213,7 +213,32 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     generator in the state); then #1 at each union
     prediction axis the LatentODE trained on, with the 1-D t_hat expanded
     as TTF_RecAvg expands it, against its plain version;
- 5. (after 6-12) time each kernel and its plain version at the shapes
+13. BERT, Llama-3.1-8B and DeepSeek-7B as frozen LLMs, full width at the
+    config's depth (6 layers), random weights drawn on the card from a
+    seed: (a) phase 4b's raw-text experiment with each as its fusion LLM
+    (BERT at 512 tokens), 64 requests each: answers finite, #1 once and #2
+    once an encoder layer a dispatch, #3 never; one dispatch kernels vs
+    plain to 1e-4 + 1e-4|ref|; that dispatch's notes in float32 and in
+    bfloat16 (embed_notes' compute_dtype), real tokens/s of each and the
+    bfloat16 notes within 0.05 x scale; one bucket call at full width and
+    2 layers (`llm_drift_case`) in float32 against float64 on the card,
+    within 4 x the JAX package's own distance on the CPU plus 1e-6
+    (LLM_DRIFT_MAX, from tools/torch_llm_drift.py); (b) one 1024-token
+    bucket call at the token budget (64 rows) through the 6-layer Llama,
+    then one short-note call through the full 32-layer Llama-3.1-8B (7.50
+    B parameters), each in float32 and in bfloat16: peak device memory
+    and real tokens/s (an out-of-memory is reported); (c) the embedding
+    stage (`imm_tsf_torch.compute_text_embeddings`) on phase 7's fixture
+    with the 6-layer Llama in float32 and in bfloat16, its steady tokens/s,
+    the bfloat16 artifacts within 0.05 x scale; then phase 8's kernel
+    route trained on the float32 artifacts (4096-wide notes into d_txt
+    768), #1 and #2 exact; (d) TimeLLM with BERT and with Llama (6 layers,
+    4096 wide), trained through `imm_tsf_torch.main` (BERT two epochs,
+    Llama one; the frozen LLM bit for bit as drawn; each checkpoint
+    write's seconds printed), the trained experiment served (64 requests,
+    #1 once a dispatch, nothing else), one compared step kernels vs plain
+    vs float64 (`compare_model_step`); each run's peak device memory;
+ 5. (after 6-13) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -243,7 +268,10 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import io
 import json
 import math
 import os
@@ -258,8 +286,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from imm_tsf_torch import compute_text_embeddings as embed_stage
 from imm_tsf_torch import main as train_main
-from imm_tsf_torch.config import MODEL_PRESETS, Config, apply_presets, resolve_max_length
+from imm_tsf_torch.config import (DATASET_PRESETS, MODEL_PRESETS, Config, apply_presets,
+                                  load_saved_config, resolve_max_length)
+from imm_tsf_torch.data.dataset import embeddings_filename
 from imm_tsf_torch.data.loader import parse_datasets
 from imm_tsf_torch.data.synthetic import make_synthetic_dataset
 from imm_tsf_torch.fusion.fusion_model import FusionModel
@@ -270,6 +301,7 @@ from imm_tsf_torch.layers import transformer as transformer_layers
 from imm_tsf_torch.layers.prob_attention import ProbAttention
 from imm_tsf_torch.layers.transformer import BatchNorm, DecoderLayer, EncoderLayer
 from imm_tsf_torch.llm.gpt2 import GPT2Block
+from imm_tsf_torch.llm import loader as llm_loader
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS, embed_notes, get_d_model
 from imm_tsf_torch.models import get_model
 from imm_tsf_torch.models import timellm, timesnet
@@ -460,6 +492,28 @@ ODE_DRIFT_JAX = 1.220954874703306e-07
 ODE_DRIFT_MAX = 4 * ODE_DRIFT_JAX + 1e-6
 # phase 12d resumes the LatentODE run of phase 12b as experiment "resume"
 ODE_RESUME_ARGS = IMTS_TRAIN_ARGS["LatentODE"] + ["--load", "resume"]
+# phase 13: BERT, Llama-3.1-8B and DeepSeek-7B as frozen LLMs at full width
+# and the config's depth (6 layers), random weights from seeds
+LLM_ALIASES = ("BERT", "Llama", "DeepSeek")
+N_LLM_REQUESTS = 64
+LLM_BF16_RTOL = 0.05  # bfloat16 notes within 0.05 x scale of float32 (tests/test_llm_stack.py:128)
+# 13a's drift case: one bucket call of 16 notes (1-64 tokens) through each LLM
+# at full width and 2 layers (vocab cut to 1024: only the lookup reads it),
+# float32 against float64 on the card, within 4 x the JAX package's own
+# distance on the CPU plus 1e-6 (`JAX_PLATFORMS=cpu python
+# tools/torch_llm_drift.py` prints each `jax_from_float64`)
+LLM_DRIFT_LAYERS, LLM_DRIFT_VOCAB, LLM_DRIFT_ROWS, LLM_DRIFT_TOKENS = 2, 1024, 16, 64
+LLM_DRIFT_JAX = {"BERT": 1.3658808308683601e-05, "Llama": 2.8013404822502253e-06,
+                 "DeepSeek": 3.0309202581069172e-06}
+LLM_DRIFT_MAX = {alias: 4 * d + 1e-6 for alias, d in LLM_DRIFT_JAX.items()}
+# 13b: an embed_notes bucket call at the token budget (rows, tokens), and a
+# short-note call through the full-depth model
+LLM_BUCKET_CALL, LLM_SHORT_CALL = (64, 1024), (64, 32)
+# 13c trains phase 8's kernel route on the stage's 6-layer Llama notes
+STAGE_TRAIN_ARGS = ([a if a != "GPT2" else "Llama" for a in PATCH_TRAIN_ARGS]
+                    + PATCH_ROUTES["kernel"])
+# 13d: each TimeLLM checkpoint holds its frozen LLM (the 6-layer Llama 7.4 GB)
+TIMELLM_LLM_EPOCHS = {"BERT": 2, "LLAMA": 1}
 
 
 def log(msg: str) -> None:
@@ -1087,9 +1141,12 @@ def seeded_weights(module, gen) -> None:
 
 
 def make_experiment(exp_dir: str, cfg_kw: dict, seed: int):
+    """An experiment of cfg_kw with seeded weights, saved to exp_dir; a
+    raw-text one takes notes as wide as its fusion LLM (input_proj)."""
     cfg = Config(**cfg_kw)
     gen = torch.Generator().manual_seed(seed)
-    model, fusion = get_model(cfg), FusionModel(cfg)
+    d_notes = None if cfg.use_text_embeddings else get_d_model(cfg.llm_model_fusion)
+    model, fusion = get_model(cfg), FusionModel(cfg, d_notes=d_notes)
     seeded_weights(model, gen)
     seeded_weights(fusion, gen)
     save_experiment(exp_dir, cfg, model.state_dict(), fusion.state_dict(), step=0)
@@ -1609,13 +1666,15 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
     step_ms = {k: float(np.median(v)) for k, v in timings.get("step_ms", {}).items()}
     per_step = {k: v / len(losses) for k, v in launches.items()}
     each = {k: [round(x, 3) for x in v] for k, v in timings.get("step_ms", {}).items()}
+    save_s = timings.get("save", [])
     log(f"# trained {label}, {len(losses)} steps in {wall:.2f} s: epochs "
         f"{json.dumps(epochs)}; device ms of each step by CUDA events {each}, medians "
         f"{step_ms}; "
-        f"launches {launches} ({per_step} a step, eval batches included); test "
+        f"launches {launches} ({per_step} a step, eval batches included); checkpoint "
+        f"writes {[round(x, 2) for x in save_s]} s; test "
         f"{json.dumps({k: res[k] for k in ('mse', 'mae', 'best_iter')})}")
     return {"launches": launches, "steps": len(losses), "step_losses": losses,
-            "wall_s": wall, "epochs": epochs,
+            "wall_s": wall, "epochs": epochs, "save_s": save_s,
             "step_ms": step_ms, "step_ms_each": timings.get("step_ms", {}),
             "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")}}
 
@@ -2251,17 +2310,19 @@ def attn_counts(route: str, layers: int, steps: int, evals: int) -> dict:
     return counts
 
 
-def serve_experiment(device, cfg_kw: dict, label: str, n_requests: int, seed: int,
+def serve_experiment(device, cfg_kw: dict | None, label: str, n_requests: int, seed: int,
                      exp_dir: str, expected, per_dispatch: int = 64,
                      profile_reps: int = 10) -> dict:
-    """`label`'s experiment (cfg_kw, seeded weights) through ForecastService
+    """`label`'s experiment (cfg_kw, seeded weights; or, when cfg_kw is
+    None, the trained experiment exp_dir holds) through ForecastService
     on the kernel route: ragged requests from 8 threads, every answer
     finite with its rows, launch counts exactly expected(svc, dispatches),
     #3's shapes recorded, one dispatch's batch (`per_dispatch` requests:
     a full batch, or the one request of a per-request service) kernels vs
     plain versions to SERVE_TOL, one uncontended dispatch traced
     (`profile_reps` dispatches a measure)."""
-    cfg = make_experiment(exp_dir, cfg_kw, seed)
+    cfg = (make_experiment(exp_dir, cfg_kw, seed) if cfg_kw is not None
+           else load_saved_config(os.path.join(exp_dir, "config.json")))
     t0 = time.monotonic()
     svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
     up_s = time.monotonic() - t0
@@ -2431,7 +2492,8 @@ def compare_model_step(device, cfg, label: str, B: int, pin, expected, batch=Non
         return float(loss.detach()), {n: p.grad.detach().clone() for n, p in named
                                       if p.grad is not None}
 
-    model64, fusion64 = (copy.deepcopy(m).double().to(device).train() for m in (model, fusion))
+    # to the card first, then float64 there (TimeLLM's Llama is 7.4 GB in float32)
+    model64, fusion64 = (copy.deepcopy(m).to(device).double().train() for m in (model, fusion))
     batch64 = {k: v.double() for k, v in batch.items()}
     with pin:
         loss64, g64 = grads(model64, fusion64, batch64, False)
@@ -2911,6 +2973,341 @@ def compare_imts_step(device, model: str) -> dict:
                               trace_reps=1 if model == "LatentODE" else 3)
 
 
+# --------------------------------------------------------------- phase 13
+def llm_text_cfg(alias: str) -> dict:
+    """Phase 4b's raw-text experiment with `alias` as the fusion LLM (6
+    layers at full width), BERT at its 512 tokens (resolve_max_length)."""
+    return dict(TEXT_CFG, llm_model_fusion=alias, max_length=512 if alias == "BERT" else 1024)
+
+
+def pooled_notes(model, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    """[rows, T] ids and bool mask -> the masked mean of the last hidden
+    state in the model's own dtype (embed_notes pools the same way, in
+    float32)."""
+    dev = model.word_embedding_table().device
+    m = torch.from_numpy(mask).to(dev)
+    with torch.inference_mode():
+        h = model(input_ids=torch.from_numpy(ids).to(dev), attn_mask=m)
+        mf = m[:, :, None].to(h.dtype)
+        return (h * mf).sum(1) / mf.sum(1).clamp(min=1e-6)
+
+
+def llm_drift_case(alias: str):
+    """Phase 13a's drift case: `alias` at full width and LLM_DRIFT_LAYERS
+    layers, its vocab cut to LLM_DRIFT_VOCAB (only the lookup reads it),
+    drawn on the host in the loader's families from SEED + 14, and one
+    bucket call of LLM_DRIFT_ROWS right-padded notes (1-LLM_DRIFT_TOKENS
+    real tokens, one full). Made from a seed, so the card and the CPU hold
+    the same numbers. Returns (model in eval mode, int64 ids, bool mask)."""
+    from imm_tsf_torch.llm import bert, llama
+
+    with torch.device("meta"):
+        if alias == "BERT":
+            model = bert.BertModel(dataclasses.replace(bert.BertConfig(),
+                                                       vocab_size=LLM_DRIFT_VOCAB),
+                                   n_layers=LLM_DRIFT_LAYERS)
+        else:
+            model = llama.LlamaModel(dataclasses.replace(llama.LLAMA_SIZES[alias],
+                                                         vocab_size=LLM_DRIFT_VOCAB),
+                                     n_layers=LLM_DRIFT_LAYERS)
+    model = model.to_empty(device="cpu")
+    init_ = llm_loader._flax_init_ if alias == "BERT" else llm_loader._llama_init_
+    init_(model, torch.Generator().manual_seed(SEED + 14))
+    rng = np.random.default_rng(SEED + 14)
+    lengths = rng.integers(1, LLM_DRIFT_TOKENS + 1, LLM_DRIFT_ROWS)
+    lengths[0] = LLM_DRIFT_TOKENS
+    mask = np.arange(LLM_DRIFT_TOKENS)[None] < lengths[:, None]
+    ids = np.where(mask, rng.integers(1, LLM_DRIFT_VOCAB, mask.shape), 0).astype(np.int64)
+    return model.eval().requires_grad_(False), ids, mask
+
+
+def check_llm_drift(device, alias: str) -> dict:
+    """Phase 13a: llm_drift_case(alias)'s pooled notes in float32 on the
+    card against its float64 run on the card, within LLM_DRIFT_MAX."""
+    model, ids, mask = llm_drift_case(alias)
+    model.to(device)
+    m64 = copy.deepcopy(model).double()
+    got, want = pooled_notes(model, ids, mask), pooled_notes(m64, ids, mask)
+    out = {"rows": LLM_DRIFT_ROWS, "tokens": LLM_DRIFT_TOKENS, "layers": LLM_DRIFT_LAYERS,
+           "max_abs_from_float64": float((got.double() - want).abs().max()),
+           "largest_float64": float(want.abs().max()),
+           "jax_cpu_from_float64": LLM_DRIFT_JAX[alias], "bound": LLM_DRIFT_MAX[alias]}
+    log(f"# {alias}'s pooled notes, float32 vs float64 on the card: {json.dumps(out)}")
+    if not torch.isfinite(got).all() or not out["max_abs_from_float64"] <= LLM_DRIFT_MAX[alias]:
+        raise AssertionError(f"{alias}'s float32 notes drift {out['max_abs_from_float64']} "
+                             f"from float64, past {LLM_DRIFT_MAX[alias]}")
+    return out
+
+
+def peak_gb(device) -> float | None:
+    """Peak device memory (GB) since the last call, then reset; None off
+    the card."""
+    if device.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    torch.cuda.reset_peak_memory_stats(device)
+    return peak
+
+
+def bf16_gap(got: np.ndarray, want: np.ndarray, label: str) -> float:
+    """max |bf16 - fp32| over the fp32 run's largest entry; past LLM_BF16_RTOL
+    the phase fails (tests/test_llm_stack.py:128's tolerance)."""
+    gap = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    if not (np.isfinite(got).all() and gap <= LLM_BF16_RTOL):
+        raise AssertionError(f"{label}: bfloat16 is {gap:.3e} x scale from float32")
+    return gap
+
+
+def run_llm_serving(device, alias: str, n_requests: int, seed: int, exp_dir: str) -> dict:
+    """Phase 13a: phase 4b's experiment with `alias` as its fusion LLM
+    (llm_text_cfg: 6 layers at full width, drawn on the card): ragged
+    raw-text requests from 8 threads (TextNotes, every bucket up to
+    max_length), every answer finite with its rows, #1 once and #2 once an
+    encoder layer a dispatch, #3 never; one dispatch's batch kernels vs
+    plain to SERVE_TOL; that dispatch's notes through the LLM in float32
+    and bfloat16 (embed_notes' compute_dtype), timed in turns (real
+    tokens/s) and held to LLM_BF16_RTOL; the drift case against float64
+    (check_llm_drift)."""
+    cfg = make_experiment(exp_dir, llm_text_cfg(alias), seed)
+    t0 = time.monotonic()
+    svc = ForecastService(exp_dir, max_batch=64, max_wait_ms=5.0, device=device)
+    up_s = time.monotonic() - t0
+    log(f"# {alias} raw-text service up in {up_s:.2f} s ({alias} init on the card and one "
+        f"warmup dispatch)")
+    try:
+        stage = svc._stage_top
+        llm, tok = stage.llm, stage.tokenizer
+        requests = make_requests(cfg, n_requests, seed, note=TextNotes())
+        d0, calls0 = svc.metrics()["dispatches_total"], stage.llm_calls
+        zero_counts()
+        peak_gb(device)
+        t0 = time.monotonic()
+        answers = serve_requests(svc, requests)
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        serving_peak = peak_gb(device)
+        metrics = svc.metrics()
+        dispatches = metrics["dispatches_total"] - d0
+        want = ffn_counts("kernel", cfg.e_layers, 0, dispatches)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"serving raw text through {alias} launched {launches}, "
+                                 f"expected {want}")
+        for inst, ans in zip(requests, answers):
+            y = np.asarray(ans["prediction"])
+            if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+                raise AssertionError(f"{alias}: bad answer shape {y.shape} or non-finite values")
+        texts = [n["text"] for r in requests for n in r["notes"]]
+        run_tokens = int(tok(sorted(set(texts)), max_length=cfg.max_length)[1].sum())
+        log(f"# served {len(requests)} raw-text requests through {alias} ({len(texts)} notes, "
+            f"{run_tokens} real tokens in distinct strings) in {dispatches} dispatches and "
+            f"{stage.llm_calls - calls0} LLM calls, {wall:.3f} s: "
+            f"{len(requests) / wall:.1f} requests/s, dispatch p50 "
+            f"{metrics['dispatch_latency_ms']['p50']} ms p95 "
+            f"{metrics['dispatch_latency_ms']['p95']} ms; launches {launches}; peak device "
+            f"memory {serving_peak} GB")
+
+        built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
+        batch = svc.to_device(svc._collate([b[0] for b in built]))
+        with torch.inference_mode():
+            got = svc._forward(batch)
+            set_kernels(svc, False)
+            try:
+                want_y = svc._forward(batch)
+            finally:
+                set_kernels(svc, True)
+        err = max_err(got, want_y, SERVE_TOL)
+        log(f"# {alias} dispatch batch {tuple(batch['observed_data'].shape)} notes "
+            f"{tuple(batch['notes_embeddings'].shape)}: kernels vs plain max|err| {err:.3e}")
+
+        notes = [[n["text"] for n in r["notes"]] for r in requests[:64]]
+        stats: dict = {}
+        dtypes = {"float32": None, "bfloat16": torch.bfloat16}
+        embed = {k: (lambda dt=dt: embed_notes(notes, llm, tok, max_length=cfg.max_length,
+                                               stats_out=stats, compute_dtype=dt)[0])
+                 for k, dt in dtypes.items()}
+        pooled = {k: fn() for k, fn in embed.items()}  # warms both
+        gap = bf16_gap(pooled["bfloat16"], pooled["float32"], f"{alias}'s notes")
+        embed_ms: dict = {}
+        if device.type == "cuda":
+            for k in ("float32", "bfloat16", "bfloat16", "float32"):  # in turns
+                embed_ms.setdefault(k, []).extend(wall_ms(embed[k], reps=1))
+            embed_ms = {k: float(np.median(v)) for k, v in embed_ms.items()}
+        llm_loader._CAST.pop(llm, None)  # the bfloat16 copy
+        notes_out = {"notes": stats["n_notes"], "real_tokens": stats["real_tokens"],
+                     "processed_tokens": stats["processed_tokens"], "bf16_gap": gap,
+                     "ms": embed_ms, "real_tokens_per_s": {
+                         k: stats["real_tokens"] / (v / 1e3) for k, v in embed_ms.items()}}
+        log(f"# one dispatch's notes through {alias}, float32 and bfloat16: "
+            f"{json.dumps(notes_out)}")
+        return {"launches": launches, "dispatches": dispatches, "service_up_s": up_s,
+                "requests_per_s": len(requests) / wall, "wall_s": wall, "peak_gb": serving_peak,
+                "run_real_tokens": run_tokens, "dispatch_ms": metrics["dispatch_latency_ms"],
+                "serve_err": err, "embed": notes_out, "drift": check_llm_drift(device, alias)}
+    finally:
+        svc.close()
+
+
+def timed_forward(model, ids: np.ndarray, mask: np.ndarray) -> dict:
+    """One pooled forward (the embed_notes call) from a reset peak: its
+    host ms to synchronize, real tokens/s and peak device memory; an
+    out-of-memory error is reported, not raised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = llm_loader._pooled_forward(model, ids, mask)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        return {"out_of_memory": str(e).splitlines()[0],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(out).all():
+        raise AssertionError("a pooled forward gave non-finite notes")
+    return {"ms": ms, "real_tokens_per_s": float(mask.sum()) / (ms / 1e3),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def run_llm_memory(device) -> dict:
+    """Phase 13b: one embed_notes bucket call of LLM_BUCKET_CALL (64 rows
+    of 1024 real tokens, the token budget) through the 6-layer Llama, then
+    one short-note call (LLM_SHORT_CALL) through the full 32-layer
+    Llama-3.1-8B (7.50 B parameters, drawn on the card), each in float32
+    and then with the model cast to bfloat16 in place; peak device memory
+    and real tokens/s of each (timed_forward)."""
+    rng = np.random.default_rng(SEED + 15)
+    out = {}
+    for label, layers, (rows, T) in (("6 layers, bucket 1024", 6, LLM_BUCKET_CALL),
+                                     ("32 layers, short notes", None, LLM_SHORT_CALL)):
+        t0 = time.monotonic()
+        model, _ = llm_loader.load_llm("Llama", layers, device=device)
+        drawn_s = time.monotonic() - t0
+        ids = rng.integers(1, model.cfg.vocab_size, (rows, T))
+        mask = np.ones((rows, T), bool)
+        llm_loader._pooled_forward(model, ids[:1, :32], mask[:1, :32])  # warm
+        res = {"layers": len(model.layers), "rows": rows, "tokens": T, "drawn_s": drawn_s,
+               "parameters": sum(p.numel() for p in model.parameters()),
+               "float32": timed_forward(model, ids, mask)}
+        model.to(torch.bfloat16)
+        res["bfloat16"] = timed_forward(model, ids, mask)
+        del model
+        torch.cuda.empty_cache()
+        log(f"# Llama, {label}: {json.dumps(res)}")
+        out[label] = res
+    return out
+
+
+def stage_steady_rate(lines: str) -> float | None:
+    """The steady real tokens/s the stage printed (None after one entity)."""
+    m = re.search(r"steady-state: (\d+) tokens/sec", lines)
+    return float(m.group(1)) if m else None
+
+
+def run_embed_stage(device, root: str, exp_dir: str) -> dict:
+    """Phase 13c: `python -m imm_tsf_torch.compute_text_embeddings`'s
+    function on phase 7's fixture with the 6-layer Llama, in float32 and,
+    on a copy, in bfloat16 (each printing its steady real tokens/s); every
+    bfloat16 artifact within LLM_BF16_RTOL of the float32 one, the same
+    rel times; then PatchTST + TTF_RecAvg + MMF_GR_Add trained on the
+    float32 artifacts (STAGE_TRAIN_ARGS: 4096-wide notes into d_txt 768,
+    two epochs on the kernel route), #1 and #2 exact, the notes' width
+    held by the trained input_proj."""
+    out: dict = {"artifacts": {}}
+    copy_root = root + "_bf16"
+    shutil.copytree(root, copy_root)
+    try:
+        for dtype, where in (("float32", root), ("bfloat16", copy_root)):
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                embed_stage.compute_text_embeddings(
+                    "EPA-Air", "Llama", 6, 1024, where, overwrite=True, embed_dtype=dtype,
+                    device=device)
+            printed = buf.getvalue()
+            out[dtype] = {"wall_s": time.monotonic() - t0,
+                          "steady_tokens_per_s": stage_steady_rate(printed),
+                          "printed": printed.strip().splitlines()[-1]}
+            log(f"# the embedding stage, Llama 6 layers, {dtype}: {json.dumps(out[dtype])}")
+        fname = embeddings_filename("Llama", 6, 1024)
+        proc = os.path.join(root, "EPA-Air", "processed")
+        gaps, notes = [], 0
+        for rec in sorted(os.listdir(proc)):
+            a = torch.load(os.path.join(proc, rec, fname), weights_only=False)
+            b = torch.load(os.path.join(copy_root, "EPA-Air", "processed", rec, fname),
+                           weights_only=False)
+            if not torch.equal(a["rel_times"], b["rel_times"]):
+                raise AssertionError(f"{rec}: the bfloat16 stage's rel times differ")
+            gaps.append(bf16_gap(b["embeddings"].numpy(), a["embeddings"].numpy(), rec))
+            notes += a["embeddings"].shape[0]
+        out["artifacts"] = {"entities": len(gaps), "notes": notes,
+                            "width": int(a["embeddings"].shape[1]), "bf16_gap": max(gaps)}
+        log(f"# the stage's artifacts: {json.dumps(out['artifacts'])}")
+    finally:
+        shutil.rmtree(copy_root, ignore_errors=True)
+    data = training_data(root, STAGE_TRAIN_ARGS)
+    cfg = data["cfg"]
+    widths: dict = {}
+    out["training"] = train_route(
+        device, STAGE_TRAIN_ARGS, root, exp_dir, "PatchTST on the stage's Llama notes",
+        len(data["val_dataloader"]), len(data["test_dataloader"]), cfg.early_stop_delta,
+        lambda steps, evals: ffn_counts("kernel", cfg.e_layers, steps, evals),
+        inspect=lambda res: widths.update(
+            input_proj=list(res["fusion"].ttf.input_proj.weight.shape)))
+    if widths["input_proj"] != [cfg.d_txt, get_d_model("Llama")]:
+        raise AssertionError(f"trained input_proj {widths['input_proj']}: not 4096 -> d_txt")
+    out["training"]["input_proj"] = widths["input_proj"]
+    return out
+
+
+def timellm_llm_train_args(name: str, epochs: int) -> list[str]:
+    """TIMELLM_TRAIN_ARGS with `name` as TimeLLM's LLM: the TimeLLM preset
+    pins GPT-2 under --overwrite_args, so the presets (EPA-Air's windows,
+    TimeLLM's widths, batch 32) are given as flags instead."""
+    flags = dict(DATASET_PRESETS["EPA-Air"], **MODEL_PRESETS["TimeLLM"], batch_size=32,
+                 epoch=epochs)
+    flags["llm_model_timellm"] = name
+    return ([a for a in TIMELLM_TRAIN_ARGS if a != "--overwrite_args"]
+            + [x for k, v in flags.items() for x in (f"--{k}", str(v))])
+
+
+def run_timellm_llm(device, name: str, root: str, exp_dir: str) -> dict:
+    """Phase 13d: TimeLLM with `name` ("BERT" or "LLAMA") at full width
+    and 6 layers: trained through imm_tsf_torch.main (TIMELLM_LLM_EPOCHS;
+    #1 once a forward, the frozen LLM bit for bit as drawn; each
+    checkpoint write's seconds printed), the trained experiment served (64
+    requests, #1 exactly once a dispatch, nothing else), then one compared
+    step (kernels vs plain vs float64, pinned_lags)."""
+    label = f"TimeLLM with {name}"
+    secs: dict = {}
+    t0 = time.monotonic()
+    peak_gb(device)
+    args = timellm_llm_train_args(name, TIMELLM_LLM_EPOCHS[name])
+    data = training_data(root, args)
+    cfg = data["cfg"]
+    out = {"training": train_route(
+        device, args, root, exp_dir, label, len(data["val_dataloader"]),
+        len(data["test_dataloader"]), cfg.early_stop_delta, recavg_only,
+        inspect=frozen_unchanged(cfg))}
+    out["training"]["peak_gb"] = peak_gb(device)
+    secs["training"], t0 = time.monotonic() - t0, time.monotonic()
+    trained, = (os.path.join(exp_dir, d) for d in os.listdir(exp_dir))
+    out["serving"] = serve_experiment(device, None, label, N_LLM_REQUESTS, SEED, trained,
+                                      lambda svc, dispatches: recavg_only(0, dispatches))
+    out["serving"]["peak_gb"] = peak_gb(device)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    secs["serving"], t0 = time.monotonic() - t0, time.monotonic()
+    step_cfg = Config(**dict(TIMELLM_CFG, **TIMELLM_TRAINED, llm_model_timellm=name,
+                             dropout=0.1))
+    out["step"] = compare_model_step(device, step_cfg, label, TIMELLM_STEP_B, pinned_lags(),
+                                     lambda route: recavg_only(int(route == "kernel"), 0))
+    out["step"]["peak_gb"] = peak_gb(device)
+    secs["step"] = time.monotonic() - t0
+    out["secs"] = secs
+    log(f"# {label}: seconds {json.dumps(secs)}; peak device memory (GB) training "
+        f"{out['training']['peak_gb']}, serving {out['serving']['peak_gb']}, compared step "
+        f"(float64 included) {out['step']['peak_gb']}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -3374,8 +3771,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    kind = torch.cuda.get_device_name(0)
+    log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
     mark("1")
     # phase 2: build
@@ -3554,6 +3951,27 @@ def main() -> int:
     errs["recavg ode union"] = check_recavg_ode(device, ode_kept["recavg_shapes"])
 
     mark("12")
+    # phase 13: BERT, Llama and DeepSeek as frozen LLMs: raw-text serving,
+    # memory at real size, the embedding stage, TimeLLM with BERT and Llama
+    llms: dict = {"serving": {}, "timellm": {}}
+    try:
+        for alias in LLM_ALIASES:
+            llms["serving"][alias] = run_llm_serving(device, alias, N_LLM_REQUESTS, SEED, exp_dir)
+            shutil.rmtree(exp_dir, ignore_errors=True)
+            torch.cuda.empty_cache()
+        llms["memory"] = run_llm_memory(device)
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        llms["stage"] = run_embed_stage(device, root, exp_dir)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        for llm_name in TIMELLM_LLM_EPOCHS:
+            llms["timellm"][llm_name] = run_timellm_llm(device, llm_name, root, exp_dir)
+            shutil.rmtree(exp_dir, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+
+    mark("13")
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
@@ -3566,6 +3984,15 @@ def main() -> int:
                 res["launches"]["recency_weighted_average"])
     rec_row["launches_by_path"]["latent_ode_resume"] = sum(
         r["launches"]["recency_weighted_average"] for r in imts["resume"]["runs"])
+    ffn_row = next(r for r in rows if r["name"] == "fused_encoder_ffn")
+    llm_paths = {f"{a.lower()}_raw_text_serving": llms["serving"][a] for a in LLM_ALIASES}
+    llm_paths["llama_stage_training"] = llms["stage"]["training"]
+    for name, res in llms["timellm"].items():
+        llm_paths[f"timellm_{name.lower()}_serving"] = res["serving"]
+        llm_paths[f"timellm_{name.lower()}_training"] = res["training"]
+    for path, res in llm_paths.items():
+        for row in (rec_row, ffn_row):
+            row["launches_by_path"][path] = res["launches"][row["name"]]
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
@@ -3586,7 +4013,12 @@ def main() -> int:
                     f"training {imts[m]['training']['kernel']['wall_s']:.1f} s"
                     for m in IMTS_MODELS)
         + "; LatentODE resume "
-        + " + ".join(f"{r['wall_s']:.1f}" for r in imts["resume"]["runs"]) + " s"
+        + " + ".join(f"{r['wall_s']:.1f}" for r in imts["resume"]["runs"]) + " s; "
+        + "; ".join(f"{a} raw text {llms['serving'][a]['requests_per_s']:.1f} requests/s"
+                    for a in LLM_ALIASES)
+        + f"; stage training {llms['stage']['training']['wall_s']:.1f} s; "
+        + "; ".join(f"TimeLLM {n} {r['serving']['requests_per_s']:.1f} requests/s, training "
+                    f"{r['training']['wall_s']:.1f} s" for n, r in llms["timellm"].items())
         + f"; total {time.monotonic() - t_start:.1f} s")
     cru_summary = {route: {k: v for k, v in res.items()
                            if k not in ("out", "scan_inputs", "blocks")}
@@ -3601,8 +4033,9 @@ def main() -> int:
                       "cru_route_err": route_err, "training": train_summary,
                       "patchtst_training": patch, "informer": informer,
                       "default_pair": default_pair, "timellm": timellm_run,
-                      "mts": mts, "imts": imts, "phase_s": phase_s}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                      "mts": mts, "imts": imts, "llms": llms, "phase_s": phase_s}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

@@ -49,13 +49,21 @@ permute(3, 2, 0, 1), a layout change and no flip. TimeMixer's
 `down_conv_<i>` kernel [3, in, out] is a Conv like any other.
 
 TimeLLM's frozen GPT-2 (`frozen_llm.h_<i>`) nests as `frozen_llm.h.<i>`,
-as `gpt2_params_from_jax` renames it; its `mapping_layer` kernel [vocab,
-ts_vocab] becomes a weight [ts_vocab, vocab] like any Dense kernel; a
-bfloat16 leaf (`frozen_param_dtype`) converts exactly to float32.
+as `gpt2_params_from_jax` renames it, and its frozen BERT or Llama
+(`frozen_llm.layer_<i>`) as `frozen_llm.layers.<i>`, as
+`bert_params_from_jax` and `llama_params_from_jax` rename them; its
+`mapping_layer` kernel [vocab, ts_vocab] becomes a weight [ts_vocab,
+vocab] like any Dense kernel; a bfloat16 leaf (`frozen_param_dtype`)
+converts exactly to float32, and a leaf in flax's partitioning box (the
+Llama projections' `nn.with_partitioning`) is unboxed.
 
 `gpt2_params_from_jax` carries a flax `GPT2Model` param tree (the JAX
 package's frozen LLM) into the port's `llm.gpt2.GPT2Model` state dict:
-Embed `embedding` -> `weight` (not transposed), blocks `h_<i>` -> `h.<i>`.
+Embed `embedding` -> `weight` (not transposed), blocks `h_<i>` -> `h.<i>`;
+`bert_params_from_jax` and `llama_params_from_jax` do the same for the
+flax `BertModel` and `LlamaModel` (`layer_<i>` -> `layers.<i>`). `port_keys`
+gives the key map alone, so a tree of shapes can be checked without
+materialising it.
 """
 
 from __future__ import annotations
@@ -70,9 +78,11 @@ _LAYER_RENAMES = (
     (re.compile(r"^conv_layer_(\d+)\."), r"encoder.conv_layers.\1."),
     (re.compile(r"^dec_layer_(\d+)\."), r"decoder.layers.\1."),
     (re.compile(r"^frozen_llm\.h_(\d+)\."), r"frozen_llm.h.\1."),  # TimeLLM's GPT-2
+    (re.compile(r"^frozen_llm\.layer_(\d+)\."), r"frozen_llm.layers.\1."),  # BERT, Llama
 )
 _STATS_NAMES = {"mean": "running_mean", "var": "running_var"}
 _GPT2_RENAMES = ((re.compile(r"^h_(\d+)\."), r"h.\1."),)
+_LAYERS_RENAMES = ((re.compile(r"^layer_(\d+)\."), r"layers.\1."),)
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -80,6 +90,8 @@ def _flatten(tree: dict, prefix: str = ""):
         path = f"{prefix}{k}"
         if isinstance(v, dict):
             yield from _flatten(v, path + ".")
+        elif hasattr(v, "unbox"):  # flax's partitioning box (the Llama projections')
+            yield path, v.unbox()
         else:
             yield path, v
 
@@ -126,24 +138,37 @@ def _model_renames(tree: dict) -> tuple:
             *gnn, *_LAYER_RENAMES)
 
 
-def _convert(tree: dict, renames=()) -> dict:
-    leaves = dict(_flatten(tree))
-    state = {}
-    for path, leaf in leaves.items():
-        arr = np.asarray(leaf, dtype=np.float32)
+def port_keys(tree: dict, renames=()) -> dict:
+    """{flax leaf path: (the port's state-dict key, whether the leaf is
+    transposed)} for a flax tree; reads only the tree's paths, so its
+    leaves may be shapes (`jax.eval_shape`)."""
+    paths = {path for path, _ in _flatten(tree)}
+    keys = {}
+    for path in paths:
         module, _, name = path.rpartition(".")
+        transposed = False
         if name == "kernel":
-            name, arr = "weight", arr.T
+            name, transposed = "weight", True
         elif name in ("scale", "embedding"):
             name = "weight"
-        elif name.endswith("_kernel") and path[:-len("kernel")] + "bias" in leaves:
-            name, arr = name[:-len("_kernel")] + ".weight", arr.T
-        elif name.endswith("_bias") and path[:-len("bias")] + "kernel" in leaves:
+        elif name.endswith("_kernel") and path[:-len("kernel")] + "bias" in paths:
+            name, transposed = name[:-len("_kernel")] + ".weight", True
+        elif name.endswith("_bias") and path[:-len("bias")] + "kernel" in paths:
             name = name[:-len("_bias")] + ".bias"
         key = f"{module}.{name}" if module else name
         for pattern, repl in renames:
             key = pattern.sub(repl, key)
-        state[key] = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+        keys[path] = (key, transposed)
+    return keys
+
+
+def _convert(tree: dict, renames=()) -> dict:
+    keys = port_keys(tree, renames)
+    state = {}
+    for path, leaf in _flatten(tree):
+        key, transposed = keys[path]
+        arr = np.asarray(leaf, dtype=np.float32)
+        state[key] = torch.from_numpy(np.array(arr.T if transposed else arr))  # a writable copy
     return state
 
 
@@ -186,3 +211,14 @@ def params_from_jax(params_np: dict, stats_np: dict | None = None) -> tuple[dict
 def gpt2_params_from_jax(params_np: dict) -> dict:
     """flax GPT2Model params (NumPy leaves) -> llm.gpt2.GPT2Model state dict."""
     return _convert(params_np, _GPT2_RENAMES)
+
+
+def bert_params_from_jax(params_np: dict) -> dict:
+    """flax BertModel params (NumPy leaves) -> llm.bert.BertModel state dict."""
+    return _convert(params_np, _LAYERS_RENAMES)
+
+
+def llama_params_from_jax(params_np: dict) -> dict:
+    """flax LlamaModel params (NumPy leaves) -> llm.llama.LlamaModel state
+    dict (RMSNorm `scale` -> `weight`)."""
+    return _convert(params_np, _LAYERS_RENAMES)

@@ -18,7 +18,9 @@ backward); otherwise through the einsum + masked_softmax path.
 Weights may be stored narrower than the activations (TimeLLM's
 `frozen_param_dtype="bfloat16"`): each use upcasts them to the
 activations' dtype, so the arithmetic is float32 on bf16-rounded
-weights, as JAX's type promotion computes it.
+weights, as JAX's type promotion computes it. A model cast to bfloat16
+as a whole (embed_notes' `compute_dtype`) computes in bfloat16, with the
+attention in float32 (kernel #3 takes float32).
 """
 
 from __future__ import annotations
@@ -50,18 +52,21 @@ GPT2_SIZES = {
 }
 
 
-def _up(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def upcast(w: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
     """w in the promoted dtype of w and x (a bf16 weight meets float32
     activations as float32)."""
-    return w if w.dtype == x.dtype else w.to(torch.promote_types(w.dtype, x.dtype))
+    if w is None or w.dtype == x.dtype:
+        return w
+    return w.to(torch.promote_types(w.dtype, x.dtype))
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, _up(lin.weight, x), _up(lin.bias, x))
+def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, upcast(lin.weight, x), upcast(lin.bias, x))
 
 
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x, ln.normalized_shape, _up(ln.weight, x), _up(ln.bias, x), ln.eps)
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x, ln.normalized_shape, upcast(ln.weight, x), upcast(ln.bias, x),
+                        ln.eps)
 
 
 class GPT2Block(nn.Module):
@@ -81,15 +86,15 @@ class GPT2Block(nn.Module):
         """x [B, T, E]; attn_mask [B, T], True (or > 0) = real token."""
         B, T, E = x.shape
         H = self.n_head
-        q, k, v = _linear(self.c_attn, _layer_norm(self.ln_1, x)).split(E, dim=-1)
+        q, k, v = linear(self.c_attn, layer_norm(self.ln_1, x)).split(E, dim=-1)
         q, k, v = (z.reshape(B, T, H, E // H).transpose(1, 2) for z in (q, k, v))
         pad = (attn_mask.to(torch.float32) if attn_mask is not None
                else x.new_ones((B, T), dtype=torch.float32))
         attend = fused_causal_attention if self.use_fused_attn else attention_reference
-        out = attend(q, k, v, pad)
-        x = x + _linear(self.c_attn_proj, out.transpose(1, 2).reshape(B, T, E))
-        h = F.gelu(_linear(self.c_fc, _layer_norm(self.ln_2, x)), approximate="tanh")
-        return x + _linear(self.c_mlp_proj, h)
+        out = attend(q.float(), k.float(), v.float(), pad).to(x.dtype)
+        x = x + linear(self.c_attn_proj, out.transpose(1, 2).reshape(B, T, E))
+        h = F.gelu(linear(self.c_fc, layer_norm(self.ln_2, x)), approximate="tanh")
+        return x + linear(self.c_mlp_proj, h)
 
 
 class GPT2Model(nn.Module):
@@ -121,7 +126,7 @@ class GPT2Model(nn.Module):
         x = inputs_embeds + self.wpe(torch.arange(T, device=inputs_embeds.device))[None]
         for block in self.h:
             x = block(x, attn_mask=attn_mask)
-        return _layer_norm(self.ln_f, x)
+        return layer_norm(self.ln_f, x)
 
 
 _HF_LINEARS = {"attn.c_attn": "c_attn", "attn.c_proj": "c_attn_proj",

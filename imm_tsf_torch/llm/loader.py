@@ -9,17 +9,25 @@ initializer families flax uses (so its scale matches the JAX package's
 random GPT-2) and the tokenizer falls back to the hash tokenizer:
 embedding geometry for tests and benchmarks, not language understanding.
 
+Every alias is ported: the GPT-2 family, BERT, Llama-3.1-8B and
+DeepSeek-7B. A full-depth Llama (7.50 B parameters without the LM head,
+30.0 GB in float32) fits one 80 GB card, so `llm_tp` 0 (auto) and 1
+resolve to one device; the tensor-parallel mesh comes with the multi-GPU
+layers (ROADMAP.md, Queue 1, item 16).
+
 `embed_notes` pushes ragged lists of notes through the model in
 length-bucketed row batches and mean-pools each note's real tokens in
-float32. Only the GPT-2 family is ported; BERT, Llama and DeepSeek, and
-the tensor-parallel mesh, come with later slices (ROADMAP.md).
+float32; with `compute_dtype=torch.bfloat16` the frozen weights and the
+activations are bfloat16 (the weights cast once per model).
 """
 
 from __future__ import annotations
 
+import copy
 import glob
 import math
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -50,6 +58,21 @@ def get_d_model(alias: str) -> int:
     if alias in D_MODEL:
         return D_MODEL[alias]
     raise KeyError(f"Unknown LLM alias: {alias}")
+
+
+def get_context_window_size(alias: str) -> int:
+    return CONTEXT_WINDOW[alias]
+
+
+def resolve_llm_mesh(alias: str, llm_tp: int):
+    """cfg.llm_tp on one card: 0 (auto) and 1 give None, one device for
+    every alias (a full-depth Llama fits one 80 GB card); more than one
+    is refused until the multi-GPU layers land."""
+    if llm_tp > 1:
+        raise NotImplementedError(
+            f"llm_tp={llm_tp}: the tensor-parallel LLM mesh comes with the system "
+            "layers (ROADMAP.md, Queue 1, item 16)")
+    return None
 
 
 class HashTokenizer:
@@ -140,11 +163,11 @@ def _load_state_dict(model_dir: str) -> dict:
     return out
 
 
-def _flax_init_(model: nn.Module, gen: torch.Generator) -> None:
-    """Random weights in flax's default families: Dense kernels lecun
-    normal (normal truncated at 2 sigma, scaled to variance 1/fan_in),
-    biases 0; Embed tables normal with variance 1/features; LayerNorm
-    scale 1, bias 0."""
+def _flax_init_(model: nn.Module, gen: torch.Generator | None) -> None:
+    """Random weights in flax's default families (GPT-2, BERT): Dense
+    kernels lecun normal (normal truncated at 2 sigma, scaled to variance
+    1/fan_in), biases 0; Embed tables normal with variance 1/features;
+    LayerNorm scale 1, bias 0."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
@@ -157,6 +180,48 @@ def _flax_init_(model: nn.Module, gen: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+def _llama_init_(model: nn.Module, gen: torch.Generator | None) -> None:
+    """Random weights as the JAX LlamaModel draws them: every projection
+    normal(0.02), untruncated, no bias; the Embed table normal with
+    variance 1/features; RMSNorm scale 1."""
+    from .llama import RMSNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, 0.02, generator=gen)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, math.sqrt(1.0 / m.embedding_dim), generator=gen)
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+
+
+def build_llm(alias: str, llm_layers: int | None = None, use_fused_attn: bool = False):
+    """(the alias's model on the meta device, its Hugging Face converter,
+    its random init): GPT-2 (use_fused_attn routes its attention through
+    kernel #3), BERT, or the Llama family (Llama, DeepSeek)."""
+    if alias.startswith("GPT2") and alias in ALIAS:
+        from .gpt2 import GPT2_SIZES, GPT2Model, convert_hf_gpt2
+
+        with torch.device("meta"):
+            model = GPT2Model(GPT2_SIZES[alias], n_layers=llm_layers,
+                              use_fused_attn=use_fused_attn)
+        return model, convert_hf_gpt2, _flax_init_
+    if alias == "BERT":
+        from .bert import BertConfig, BertModel, convert_hf_bert
+
+        with torch.device("meta"):
+            model = BertModel(BertConfig(), n_layers=llm_layers)
+        return model, convert_hf_bert, _flax_init_
+    if alias in ("Llama", "DeepSeek"):
+        from .llama import LLAMA_SIZES, LlamaModel, convert_hf_llama
+
+        with torch.device("meta"):
+            model = LlamaModel(LLAMA_SIZES[alias], n_layers=llm_layers)
+        return model, convert_hf_llama, _llama_init_
+    raise ValueError(f"Unknown LLM alias {alias}")
+
+
 def load_llm(alias: str, llm_layers: int | None = None,
              model_dir: str | None = None, device=None,
              use_fused_attn: bool = False,
@@ -164,27 +229,23 @@ def load_llm(alias: str, llm_layers: int | None = None,
     """(model, tokenizer): the frozen LLM in eval mode on `device` (cuda
     unless the caller asks for the CPU; raises without CUDA), its
     parameters with requires_grad False (load_llm.py:117-118).
-    use_fused_attn routes GPT-2's attention through the CUDA kernel.
-    Without a local checkpoint the weights are drawn from `generator` (a
-    CPU generator; seed 0 when None)."""
+    use_fused_attn routes GPT-2's attention through the CUDA kernel (BERT
+    and Llama attend by matmul and the safe masked softmax, as in the JAX
+    package). Without a local checkpoint the weights are drawn where
+    `generator` lives, from it, then moved to `device`; when it is None,
+    from a generator seeded 0 on `device` itself, so a full-depth Llama
+    (7.50 B floats) is drawn on the card and never on the host."""
     device = resolve_device(device)
-    if not alias.startswith("GPT2"):
-        if alias in ALIAS:
-            raise NotImplementedError(
-                f"LLM {alias!r} is not ported to imm_tsf_torch yet (ROADMAP.md, Queue 1, item 12)")
-        raise ValueError(f"Unknown LLM alias {alias}")
-    from .gpt2 import GPT2_SIZES, GPT2Model, convert_hf_gpt2
-
+    model, convert_hf, init_ = build_llm(alias, llm_layers, use_fused_attn)
     d = _local_dir(alias, model_dir)
     tokenizer = load_tokenizer(alias, model_dir)
-    with torch.device("meta"):
-        model = GPT2Model(GPT2_SIZES[alias], n_layers=llm_layers,
-                          use_fused_attn=use_fused_attn)
-    model = model.to_empty(device="cpu")
     if d is not None:
-        model.load_state_dict(convert_hf_gpt2(_load_state_dict(d), llm_layers))
+        model = model.to_empty(device="cpu")
+        model.load_state_dict(convert_hf(_load_state_dict(d), llm_layers))
     else:
-        _flax_init_(model, generator or torch.Generator().manual_seed(0))
+        gen = generator if generator is not None else torch.Generator(device).manual_seed(0)
+        model = model.to_empty(device=gen.device)
+        init_(model, gen)
     model = model.to(device).eval().requires_grad_(False)
     return model, tokenizer
 
@@ -197,13 +258,35 @@ EMBED_BUCKETS = (32, 64, 128, 256, 512, 1024)
 def _pooled_forward(model, ids: np.ndarray, tok_mask: np.ndarray) -> torch.Tensor:
     """[rows, T] ids and mask -> [rows, d] masked mean of the last hidden
     state, pooled in float32; stays on the model's device."""
-    dev = model.wte.weight.device
+    dev = model.word_embedding_table().device
     ids_t = torch.from_numpy(ids).to(dev, torch.long)
     m = torch.from_numpy(tok_mask).to(dev)
     with torch.inference_mode():
         h = model(input_ids=ids_t, attn_mask=m.bool()).float()
         mf = m[:, :, None].float()
         return (h * mf).sum(1) / mf.sum(1).clamp(min=1e-6)
+
+
+# a model's copy in another dtype, made once per (model, dtype) and kept
+# while the model lives
+_CAST: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _in_dtype(model: nn.Module, dtype: torch.dtype | None) -> nn.Module:
+    """`model` itself when its weights are `dtype` (or dtype is None),
+    else its cached copy in `dtype`."""
+    if dtype is None or model.word_embedding_table().dtype == dtype:
+        return model
+    copies = _CAST.setdefault(model, {})
+    if dtype not in copies:
+        # the copy takes tensors cast straight from the model's (deepcopy's
+        # memo), so no second float32 model is ever held (a full-depth
+        # Llama is 30 GB)
+        memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=p.requires_grad)
+                for p in model.parameters() if p.is_floating_point()}
+        memo.update((id(b), b.to(dtype)) for b in model.buffers() if b.is_floating_point())
+        copies[dtype] = copy.deepcopy(model, memo)
+    return copies[dtype]
 
 
 def _pad_rows(bi, bm, tgt):
@@ -217,7 +300,7 @@ def _pad_rows(bi, bm, tgt):
 def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
                 token_batch: int = 64, bucketed: bool = True,
                 token_budget: int = 32768, stats_out: dict | None = None,
-                mesh=None):
+                mesh=None, compute_dtype: torch.dtype | None = None):
     """Ragged List[List[str]] -> (float32 [B, N_max, d], bool note mask
     [B, N_max]), as NumPy arrays on the host.
 
@@ -229,6 +312,11 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
     skipped and keep a zero row. Pads are attention-masked, so bucketing
     is exact. Not bucketed: `token_batch` rows at max_length. Device
     calls are queued and the pooled rows fetched once at the end.
+
+    compute_dtype (torch.bfloat16): run the frozen forward on a copy of
+    the model in that dtype, made once per model (a model already in it
+    runs as it is), with the activations in it too; the pooling stays
+    float32 (the JAX package's `_get_pooled_fwd` / `_get_dev_params`).
 
     stats_out, if given, gets real_tokens / processed_tokens / n_notes."""
     if mesh is not None:
@@ -247,7 +335,8 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
                 flat.append("")
     ids, tok_mask = tokenizer(flat, max_length=max_length)
     n_flat = len(flat)
-    d = model.wte.embedding_dim
+    model = _in_dtype(model, compute_dtype)
+    d = model.word_embedding_table().shape[1]
     emb = np.zeros((n_flat, d), np.float32)
     real_tokens = int(tok_mask.sum())
     processed = 0

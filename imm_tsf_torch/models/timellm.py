@@ -5,9 +5,11 @@ Masked normalisation; the values and the timestamps through ONE shared
 PatchEmbedding (two calls, two dropout draws); the patches reprogrammed by
 cross-attention onto `ts_vocab_size` prototypes that `mapping_layer`
 makes from the frozen token table; prompt ++ patches through the frozen
-GPT-2 (`frozen_llm`, no attention mask: the exact prompt's pads are
+LLM (`frozen_llm`, no attention mask: the exact prompt's pads are
 attended to, as in the reference); a flatten head over the first d_ff
-output dims.
+output dims. The LLM is GPT-2 or BERT (768 wide) or Llama-3.1-8B (4096
+wide, `mapping_layer` 128,256 x ts_vocab_size), llm_model_timellm "GPT2",
+"BERT" or "LLAMA".
 
 Two prompt modes (cfg.timellm_exact_prompt):
   - False (fast): the domain description's ids are tokenized once at build
@@ -19,10 +21,11 @@ Two prompt modes (cfg.timellm_exact_prompt):
     `_TimeLLMPromptLoader`), and the model embeds the batch's
     `prompt_ids`.
 
-The frozen GPT-2 takes no gradient (requires_grad False, and the training
+The frozen LLM takes no gradient (requires_grad False, and the training
 optimizer never sees it) but passes the gradient through to the
-reprogramming layer; with `use_pallas and use_fused_attn` its attention
-runs kernel #3, forward and backward.
+reprogramming layer; with `use_pallas and use_fused_attn` GPT-2's
+attention runs kernel #3, forward and backward (BERT and Llama attend by
+matmul and the safe masked softmax, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -42,25 +45,24 @@ N_STAT_TOKENS = 4
 N_PROMPT_TOKENS = 32  # static length of the domain-description prompt
 
 
-def _frozen_llm(cfg: Config):
-    """(GPT-2 truncated to llm_layers_timellm blocks, its width), drawn as
-    flax draws it (llm/loader._flax_init_) from torch's global generator."""
-    name = cfg.llm_model_timellm
-    if name in ("BERT", "LLAMA"):
-        raise NotImplementedError(
-            f"TimeLLM with llm_model_timellm={name!r}: only GPT-2 is ported to "
-            "imm_tsf_torch yet (ROADMAP.md, Queue 1, item 12)")
-    if name != "GPT2":
-        raise ValueError("Unknown llm_model for TimeLLM")
-    from ..llm.gpt2 import GPT2_SIZES, GPT2Model
-    from ..llm.loader import _flax_init_
+# llm_model_timellm -> the loader's alias (reference models/TimeLLM.py:73-130)
+LLM_ALIAS = {"GPT2": "GPT2", "BERT": "BERT", "LLAMA": "Llama"}
 
-    with torch.device("meta"):
-        llm = GPT2Model(GPT2_SIZES["GPT2"], n_layers=cfg.llm_layers_timellm,
-                        use_fused_attn=cfg.use_pallas and cfg.use_fused_attn)
+
+def _frozen_llm(cfg: Config):
+    """(the frozen LLM truncated to llm_layers_timellm blocks, its width):
+    GPT-2 or BERT (768 wide) or Llama-3.1-8B (4096), drawn as the JAX
+    package draws it (llm/loader._flax_init_ / _llama_init_) from torch's
+    global generator on the host."""
+    if cfg.llm_model_timellm not in LLM_ALIAS:
+        raise ValueError("Unknown llm_model for TimeLLM")
+    from ..llm.loader import build_llm
+
+    llm, _, init_ = build_llm(LLM_ALIAS[cfg.llm_model_timellm], cfg.llm_layers_timellm,
+                              use_fused_attn=cfg.use_pallas and cfg.use_fused_attn)
     llm = llm.to_empty(device="cpu")
-    _flax_init_(llm, None)
-    return llm.requires_grad_(False), GPT2_SIZES["GPT2"].n_embd
+    init_(llm, None)
+    return llm.requires_grad_(False), llm.word_embedding_table().shape[1]
 
 
 def n_patches(cfg: Config) -> int:
@@ -285,10 +287,7 @@ def _domain_token_ids(cfg: Config, n_tokens: int) -> torch.Tensor:
     try:
         from ..llm.loader import load_tokenizer
 
-        tok = load_tokenizer(
-            "GPT2" if cfg.llm_model_timellm == "GPT2" else
-            ("BERT" if cfg.llm_model_timellm == "BERT" else "Llama")
-        )
+        tok = load_tokenizer(LLM_ALIAS.get(cfg.llm_model_timellm, "Llama"))
         ids, _ = tok([cfg.domain_des], max_length=n_tokens)
         return torch.from_numpy(np.asarray(ids[0], np.int32))
     except Exception:

@@ -1,11 +1,11 @@
 """Training harness: the reference's trainable() protocol (after
 imm_tsf_tpu/training/trainer.py:163-314, 349-500, 502-906).
 
-It trains every backbone (TimeLLM with GPT-2 in both prompt modes), each
-with either fusion pair, on
+It trains every backbone (TimeLLM with GPT-2, BERT or Llama in both
+prompt modes), each with either fusion pair, on
 precomputed note embeddings or on raw-text notes (embedded by the frozen
-LLM in a loader stage, wrap_data_loaders), on the kernels' routes and the
-plain ones:
+LLM, any alias, in a loader stage, wrap_data_loaders), on the kernels'
+routes and the plain ones:
 CRU's default and fused scans (kernels #4-#7), PatchTST's and Informer's
 fused FFN (kernel #2, its training form and hand backward) or the unfused
 one, GPT-2's fused attention (kernel #3 with its hand backward, in
@@ -13,7 +13,7 @@ TimeLLM's steps and in the raw-text embedding stage) or the plain one,
 and kernel #1's recency average with its backward. Informer's distilling
 BatchNorms update their running statistics in the training steps (the
 JAX trainer's `stats`), which the checkpoint keeps. TimeLLM's frozen
-GPT-2 is stored in bfloat16 under `frozen_param_dtype="bfloat16"`.
+LLM is stored in bfloat16 under `frozen_param_dtype="bfloat16"`.
 `check_trainable` refuses what is not ported.
 
 Parity with reference main.py:945-1176:
@@ -262,8 +262,9 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     every epoch; with cfg.load set, the run resumes from the latest train
     state there at the epoch after it (from scratch when there is none).
     timings, if given, gets wall seconds by phase (parse, train per
-    epoch, val, test) and, on cuda, "step_ms": each step's forward,
-    backward and optimizer device ms (CUDA events)."""
+    epoch, val, test, save: each checkpoint written) and, on cuda,
+    "step_ms": each step's forward, backward and optimizer device ms (CUDA
+    events)."""
     from ..data.loader import parse_datasets
     from ..models import get_model
 
@@ -370,9 +371,11 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                 if checkpoint_dir is not None:
                     from .checkpoint import save_experiment
 
+                    t0 = time.time()
                     save_experiment(checkpoint_dir, cfg.replace(platform="auto"),
                                     model.state_dict(),
                                     fusion.state_dict() if fusion is not None else None, itr)
+                    _mark("save", time.time() - t0)
             else:
                 no_improve += 1
 
@@ -390,9 +393,11 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                             data_rng_state=(shuffler._rng.bit_generator.state
                                             if shuffler is not None else None),
                             **{f"{k}_rng_state": g.get_state() for k, g in generators.items()})
+                t0 = time.time()
                 save_train_state(checkpoint_dir, model.state_dict(),
                                  fusion.state_dict() if fusion is not None else None,
                                  optimizer.state_dict(), meta, itr)
+                _mark("save", time.time() - t0)
             logger.info("- Epoch %03d | train loss %.5f | val mse %.5f mae %.5f | %.2fs"
                         " | %.0f windows/s", itr, history[-1]["train_loss"], val_res["mse"],
                         val_res["mae"], epoch_secs, history[-1]["windows_per_sec"])
@@ -524,13 +529,10 @@ def make_loader_wrappers(cfg: Config, device=None) -> list:
     prompts. Shared by trainable() and the service. Apply once."""
     wrappers = []
     if cfg.enable_text and not cfg.use_text_embeddings:
-        from ..llm.loader import load_llm
+        from ..llm.loader import load_llm, resolve_llm_mesh
 
-        if cfg.llm_tp > 1:  # the JAX package shards the LLM over llm_tp devices
-            raise NotImplementedError(
-                f"llm_tp={cfg.llm_tp}: the tensor-parallel LLM mesh comes with the system "
-                "layers (ROADMAP.md, Queue 1, item 16)")
-
+        # the JAX package shards the LLM over llm_tp > 1 devices: refused here
+        resolve_llm_mesh(cfg.llm_model_fusion, cfg.llm_tp)
         llm, tokenizer = load_llm(cfg.llm_model_fusion, cfg.llm_layers_fusion,
                                   device=device,
                                   use_fused_attn=cfg.use_pallas and cfg.use_fused_attn)
@@ -538,9 +540,9 @@ def make_loader_wrappers(cfg: Config, device=None) -> list:
     if cfg.model == "TimeLLM" and cfg.timellm_exact_prompt:
         # the reference's prompt: statistics to text to ids on the host, a batch at a time
         from ..llm.loader import load_tokenizer
+        from ..models.timellm import LLM_ALIAS
 
-        alias = {"GPT2": "GPT2", "BERT": "BERT", "LLAMA": "Llama"}[cfg.llm_model_timellm]
-        prompt_tok = load_tokenizer(alias)
+        prompt_tok = load_tokenizer(LLM_ALIAS[cfg.llm_model_timellm])
         wrappers.append(lambda ld: _TimeLLMPromptLoader(ld, cfg, prompt_tok))
     return wrappers
 

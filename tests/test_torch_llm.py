@@ -182,14 +182,25 @@ def test_embed_notes_every_note_empty_and_mesh_refused():
 
 
 def test_load_llm_defaults_to_cuda_and_refuses_unported():
+    """Every alias builds (BERT here: 768 wide, frozen, on the CPU when
+    asked); an unknown alias and a tensor-parallel mesh are refused."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         loader.load_llm("GPT2", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loader.load_llm("BERT", 1, device="cpu")
+    model, _ = loader.load_llm("BERT", 1, device="cpu")
+    assert model.word_embedding_table().shape == (30522, 768) and len(model.layers) == 1
+    assert not any(p.requires_grad for p in model.parameters()) and not model.training
+    with pytest.raises(ValueError, match="Unknown LLM alias"):
+        loader.load_llm("T5", 1, device="cpu")
+    assert loader.resolve_llm_mesh("Llama", 0) is None
+    assert loader.resolve_llm_mesh("BERT", 1) is None
+    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
+        loader.resolve_llm_mesh("Llama", 2)
     assert loader.get_d_model("GPT2M") == jloader.get_d_model("GPT2M") == 1024
     assert loader.D_MODEL == jloader.D_MODEL and loader.ALIAS == jloader.ALIAS
+    assert all(loader.get_context_window_size(a) == jloader.get_context_window_size(a)
+               for a in loader.ALIAS)
 
 
 def test_load_llm_random_init_matches_flax_scales(monkeypatch):

@@ -258,9 +258,15 @@ def test_statistics_pieces_match_jax():
 
 
 def test_only_gpt2_is_ported():
-    for name in ("BERT", "LLAMA"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-            get_model(TConfig(**dict(HP, llm_model_timellm=name)))
+    """Every TimeLLM LLM builds, frozen, at its width: BERT 768 and Llama
+    4096 (one block here); an unknown name is refused."""
+    for name, width, vocab in (("BERT", 768, 30522), ("LLAMA", 4096, 128256)):
+        tm = get_model(TConfig(**dict(HP, llm_model_timellm=name, llm_layers_timellm=1)))
+        assert tm.d_llm == width and len(tm.frozen_llm.layers) == 1
+        assert tm.frozen_llm.word_embedding_table().shape == (vocab, width)
+        assert tm.mapping_layer.weight.shape == (HP["ts_vocab_size"], vocab)
+        assert not any(p.requires_grad for p in tm.frozen_llm.parameters())
+        del tm
     with pytest.raises(ValueError, match="Unknown llm_model"):
         get_model(TConfig(**dict(HP, llm_model_timellm="T5")))
     check_trainable(TConfig(**dict(HP, use_fused_attn=True, frozen_param_dtype="bfloat16")))

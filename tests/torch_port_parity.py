@@ -151,24 +151,27 @@ def service_matches_jax(tmp_path, cfg_kw: dict, n_requests: int = 10):
     return metrics
 
 
-def trainable_matches_jax(tmp_path, slice_kw: dict):
+def trainable_matches_jax(tmp_path, slice_kw: dict, data_kw: dict | None = None,
+                          min_steps: int = 4):
     """The port's trainable from the JAX init against the JAX trainable on
-    one synthetic EPA-Air fixture (dropout 0): per-step losses to 1e-5
-    relative, best_iter equal, test metrics to 1e-4. Returns the port's
-    result."""
+    one synthetic EPA-Air fixture (dropout 0; data_kw overrides its
+    sizes): per-step losses to 1e-5 relative (at least min_steps of them),
+    best_iter equal, test metrics to 1e-4. Returns the port's result."""
     root = str(tmp_path)
-    make_synthetic_dataset(f"{root}/EPA-Air", n_entities=4, n_features=3, n_days=100,
-                           obs_per_day=1.2, notes_per_day=0.7, d_txt=D_TXT, seed=0)
+    make_synthetic_dataset(f"{root}/EPA-Air", **{**dict(
+        n_entities=4, n_features=3, n_days=100, obs_per_day=1.2, notes_per_day=0.7,
+        d_txt=D_TXT, seed=0), **(data_kw or {})})
     kw = {**EXPERIMENT, **dict(batch_size=8, epoch=2, patience=3, dropout=0.0, seed=3,
                                lr=1e-3, w_decay=0.01, device_loop=False, host_prefetch=0,
                                data_root=root), **slice_kw}
     cfg = JConfig(**kw)
-    data = j_parse_datasets(cfg, verbose=False)
+    # the loader stages (TimeLLM's exact prompts) go on before the init batch
+    data = jtrainer.wrap_data_loaders(cfg, j_parse_datasets(cfg, verbose=False))
     jcfg = data["cfg"]
     rng = jax.random.key(jcfg.seed, impl=jcfg.rng_impl)
     rng, init_rng = jax.random.split(rng)
-    params, _ = jtrainer.init_state(jcfg, j_get_model(jcfg), JFusionModel(jcfg),
-                                    next(iter(data["train_dataloader"])), init_rng)
+    params, stats = jtrainer.init_state(jcfg, j_get_model(jcfg), JFusionModel(jcfg),
+                                        next(iter(data["train_dataloader"])), init_rng)
     losses = []
     build_steps = jtrainer.build_steps
 
@@ -187,9 +190,10 @@ def trainable_matches_jax(tmp_path, slice_kw: dict):
         want = jtrainer.trainable(cfg)
     finally:
         jtrainer.build_steps = build_steps
-    got = trainable(TConfig(**kw), device="cpu", initial_state=params_from_jax(np_tree(params)))
+    got = trainable(TConfig(**kw), device="cpu",
+                    initial_state=params_from_jax(np_tree(params), np_tree(stats)))
     got_losses = [x for h in got["history"] for x in h["step_losses"]]
-    assert len(got_losses) == len(losses) > 3
+    assert len(got_losses) == len(losses) >= min_steps
     np.testing.assert_allclose(got_losses, losses, rtol=1e-5)
     assert got["best_iter"] == want["best_iter"]
     for k in ("loss", "mse", "mae", "rmse"):
