@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero and no phase is skipped:
 
  1. the card: `nvidia-smi` name and power limit, torch's device name;
-    TF32 off for matmuls and cuDNN (every comparison here is float32);
+    TF32 off for matmuls and cuDNN (every comparison here is float32),
+    cuDNN's deterministic algorithms (as the port's device setup has them);
  2. build the seven CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
     (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
@@ -238,7 +239,24 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     write's seconds printed), the trained experiment served (64 requests,
     #1 once a dispatch, nothing else), one compared step kernels vs plain
     vs float64 (`compare_model_step`); each run's peak device memory;
- 5. (after 6-13) time each kernel and its plain version at the shapes
+14. the default training path, the device-resident epoch loop
+    (`training/device_loop.py`) with each step a CUDA graph replay
+    (`training/graphs.py`), through `imm_tsf_torch.main` without
+    `--device_loop false` (phases 7-13 pin it, STREAM), against the
+    streaming loop on the same flags, three epochs a run (epoch 0 warms up
+    and captures, epoch 1 traced for the idle share, epoch 2 timed):
+    (a) phase 8's PatchTST kernel route, (b) phase 7's CRU on each route,
+    (c) phase 9's Informer kernel route: per-step losses and test metrics
+    within LOOP_RTOL (1e-5) relative of the streaming run's, the same best
+    epoch, launch counts exact in both loops (a replay counts the launches
+    of its capture), each run's windows/s, step ms (a replay's by CUDA
+    events), idle share, capture seconds and graph nodes printed; (d)
+    TimesNet on eager resident steps (its periods are read on the host),
+    held the same way, and the LatentODE on the staged loop (phase 12's 4
+    entities), against phase 12's streaming run (printed: the hash masks
+    over its longer staged union axes differ); (e) 14a's run resumed on
+    the epoch loop from its epoch-0 state (`--load`), bit for bit;
+ 5. (after 6-14) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -461,6 +479,11 @@ N_MTS_REQUESTS = 256
 MTS_TRAIN_ARGS = {m: [a if a != "CRU" else m for a in TRAIN_ARGS] + ["--use_pallas", "true"]
                   for m in MTS_MODELS}
 MTS_STEP_B = 32
+# phases 7-13 train on the streaming loop, as PRs 7-14 did; phase 14 on the
+# default one, the device-resident epoch loop
+STREAM = ["--device_loop", "false"]
+LOOP_EPOCHS = 3  # phase 14: epoch 0 warms up and captures, 1 is traced, 2 is timed
+LOOP_RTOL = 1e-5  # phase 14: per-step losses and test metrics, epoch loop vs streaming
 # phase 11d resumes phase 8's kernel route as experiment "resume": one epoch,
 # then --load resume --epoch 2, held to phase 8's two epochs bit for bit
 RESUME_ARGS = PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + ["--load", "resume"]
@@ -491,7 +514,7 @@ IMTS_STEP_B = 32
 ODE_DRIFT_JAX = 1.220954874703306e-07
 ODE_DRIFT_MAX = 4 * ODE_DRIFT_JAX + 1e-6
 # phase 12d resumes the LatentODE run of phase 12b as experiment "resume"
-ODE_RESUME_ARGS = IMTS_TRAIN_ARGS["LatentODE"] + ["--load", "resume"]
+ODE_RESUME_ARGS = IMTS_TRAIN_ARGS["LatentODE"] + ["--load", "resume"] + STREAM
 # phase 13: BERT, Llama-3.1-8B and DeepSeek-7B as frozen LLMs at full width
 # and the config's depth (6 layers), random weights from seeds
 LLM_ALIASES = ("BERT", "Llama", "DeepSeek")
@@ -1631,18 +1654,22 @@ def expected_counts(route: str, T: int, steps: int, evals: int) -> dict:
 
 
 def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n_test: int,
-                early_stop_delta: float, expected, free=(), inspect=None) -> dict:
+                early_stop_delta: float, expected, free=(), inspect=None,
+                streaming: bool = True) -> dict:
     """Train through imm_tsf_torch.main.main(args) with the launch counts
     zeroed just before; every loss and metric must be finite and, on cuda,
     the counts equal expected(steps, evals), but for the counters named in
     `free` (the caller checks those). Prints each epoch and the step
     phases' device ms. inspect(result), when given, sees trainable()'s
-    result (the trained modules too)."""
+    result (the trained modules too). `streaming` pins the streaming loop
+    (STREAM: phases 7-13 keep the per-phase step timings of PRs 7-14);
+    phase 14 runs the default epoch loop with it off."""
     timings: dict = {}
     zero_counts()
     t0 = time.monotonic()
-    res = train_main.main(list(args) + ["--data_root", root, "--save", exp_dir,
-                                        "--device", device.type], timings=timings)
+    res = train_main.main(list(args) + (STREAM if streaming else [])
+                          + ["--data_root", root, "--save", exp_dir, "--device", device.type],
+                          timings=timings)
     wall = time.monotonic() - t0
     launches = read_counts()
     hist = res["history"]
@@ -1676,7 +1703,9 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
     return {"launches": launches, "steps": len(losses), "step_losses": losses,
             "wall_s": wall, "epochs": epochs, "save_s": save_s,
             "step_ms": step_ms, "step_ms_each": timings.get("step_ms", {}),
-            "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")}}
+            "test": {k: res[k] for k in ("mse", "mae", "rmse", "best_iter")},
+            "phase_s": {k: timings.get(k, []) for k in ("setup", "train", "val", "test")},
+            "epoch_loop": timings.get("epoch_loop")}
 
 
 def run_training(device, root: str, exp_dir: str) -> dict:
@@ -2695,8 +2724,8 @@ def nondeterministic_ops(device) -> list[str]:
 
 
 def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: dict,
-               args=RESUME_ARGS, expected=None, label: str = "resume",
-               strict: bool = False, stopped: str | None = None) -> dict:
+               args=RESUME_ARGS + STREAM, expected=None, label: str = "resume",
+               strict: bool = False, stopped: str | None = None, total: int = 2) -> dict:
     """Phase 11d: phase 8's kernel route (#1, #2's training form, hash
     salts) as experiment "resume": `--load resume --epoch 1` (no state yet:
     it trains from scratch and saves epoch 0's), then `--load resume --epoch
@@ -2710,7 +2739,9 @@ def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: di
     for bit or the phase fails (no PatchTST step is probed then), and
     `stopped`, the uninterrupted run's experiment directory: its epoch-0
     train state stands for a run stopped after one epoch (the same seed and
-    flags write the same state), so only the resumed epoch is trained."""
+    flags write the same state), so only the resumed epoch is trained.
+    Phase 14e passes the default epoch loop's `args` and `total` 3: one
+    epoch, then `--load resume --epoch 3`."""
     data = training_data(root, args)
     cfg = data["cfg"]
     n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
@@ -2721,25 +2752,31 @@ def run_resume(device, root: str, exp_dir: str, uninterrupted: dict, weights: di
         os.remove(os.path.join(exp, "train_state_1.pt"))
         runs.append({"epochs": [0], "copied_from": "the uninterrupted run's epoch-0 state",
                      "wall_s": 0.0, "launches": dict.fromkeys(KERNEL_COUNTS, 0)})
-    for epochs in (1, 2)[len(runs):]:
+    for epochs in (1, total)[len(runs):]:
         zero_counts()
         t0 = time.monotonic()
         res = train_main.main(list(args) + ["--epoch", str(epochs), "--data_root", root,
                                             "--save", exp_dir, "--device", device.type])
         wall = time.monotonic() - t0
         launches = read_counts()
-        h = res["history"][-1]
-        evals = n_val + (n_test if res["best_iter"] == h["epoch"] else 0)
-        want = (ffn_counts("kernel", cfg.e_layers, len(h["step_losses"]), evals)
-                if expected is None else expected(len(h["step_losses"]), evals))
+        start = 0 if epochs == 1 else 1  # the epochs this run trained
+        best, steps, evals = np.inf, 0, 0
+        for h in res["history"]:
+            improved = best - h["val"]["mse"] > cfg.early_stop_delta
+            best = h["val"]["mse"] if improved else best
+            if h["epoch"] >= start:
+                steps += len(h["step_losses"])
+                evals += n_val + (n_test if improved else 0)
+        want = (ffn_counts("kernel", cfg.e_layers, steps, evals)
+                if expected is None else expected(steps, evals))
         if device.type == "cuda" and launches != want:
             raise AssertionError(f"{label} run {epochs} launched {launches}, expected {want}")
         runs.append({"epochs": [x["epoch"] for x in res["history"]], "wall_s": wall,
                      "launches": launches})
     exp = os.path.join(exp_dir, "experiment_resume")
     states = sorted(f for f in os.listdir(exp) if f.startswith("train_state_"))
-    if runs[0]["epochs"] != [0] or runs[1]["epochs"] != [0, 1] or states != [
-            "train_state_0.pt", "train_state_1.pt"]:
+    if runs[0]["epochs"] != [0] or runs[1]["epochs"] != list(range(total)) or states != [
+            f"train_state_{total - 2}.pt", f"train_state_{total - 1}.pt"]:
         raise AssertionError(f"{label}: epochs {[r['epochs'] for r in runs]}, states {states}")
     hist = res["history"]
     got = {"step_losses": [x for h in hist for x in h["step_losses"]],
@@ -3308,6 +3345,169 @@ def run_timellm_llm(device, name: str, root: str, exp_dir: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 14
+def traced_busy_ms(profile_dir: str) -> float | None:
+    """Device busy ms of the epoch the trainer traced (`profile_dir`'s
+    trace_epoch1.json: epoch 1's training and validation): the union of
+    its kernels', copies' and memsets' device intervals (the graphs'
+    kernels among them). None when the trace holds no device interval."""
+    with open(os.path.join(profile_dir, "trace_epoch1.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    if not spans:
+        return None
+    busy_us, (s0, e0) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > e0:
+            busy_us, s0 = busy_us + e0 - s0, s
+        e0 = max(e0, e)
+    return (busy_us + e0 - s0) / 1e3
+
+
+def loop_summary(res: dict, B: int) -> dict:
+    """A three-epoch run's timed epoch (2): training windows/s and wall ms
+    a step (training only), the median device ms of a step (CUDA events
+    around each replay or eager step on the epoch loop; streaming, forward
+    + backward + optimizer events, which the host paces), and the idle
+    share: 1 - the traced epoch's device busy ms (epoch 1, the same steps
+    and validation batches; the profiler slows the host, not the device)
+    over epoch 2's untraced training + validation wall ms."""
+    steps = res["steps"] // len(res["epochs"])
+    train_s, val_s = res["phase_s"]["train"][-1], res["phase_s"]["val"][-1]
+    step = res["step_ms"]
+    out = {"train_windows_per_s": steps * B / train_s, "wall_ms_a_step": train_s * 1e3 / steps,
+           "device_ms_a_step": step.get("step", sum(step.values()) if step else None),
+           "epoch_windows_per_s": [e["windows_per_s"] for e in res["epochs"]],
+           "busy_ms": res.get("busy_ms"), "idle_share": None, "epoch_loop": res["epoch_loop"]}
+    if out["busy_ms"] is not None:
+        out["idle_share"] = 1.0 - out["busy_ms"] / ((train_s + val_s) * 1e3)
+    return out
+
+
+def run_loop_case(device, root: str, exp_dir: str, label: str, args, expected, held: bool,
+                  streamed: dict | None = None, epochs: int = LOOP_EPOCHS, trace: bool = True,
+                  kept: dict | None = None) -> dict:
+    """Phase 14, one case: `args` trained through imm_tsf_torch.main on the
+    default epoch loop, then on the streaming loop (STREAM) unless
+    `streamed` is an earlier phase's streaming run of the same flags; every
+    loss finite, launches exact in both (expected(steps, evals)). With
+    `trace`, epoch 1 is traced (idle share). `held`: per-step losses and
+    test metrics within LOOP_RTOL relative of the streaming run's, and the
+    same best epoch; else the gaps are printed. `kept` gets the loop run's
+    final weights."""
+    data = training_data(root, args)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    out = {}
+    for mode in ("loop", "streaming"):
+        if mode == "streaming" and streamed is not None:
+            out[mode] = streamed
+            continue
+        prof = os.path.join(exp_dir, f"trace_{mode}")
+        extra = ["--epoch", str(epochs)] + (["--profile_dir", prof] if trace else [])
+        keep = (lambda res: kept.update(weights=final_weights(res))) if (
+            kept is not None and mode == "loop") else None
+        res = train_route(device, list(args) + extra, root, exp_dir, f"{label} ({mode})",
+                          n_val, n_test, cfg.early_stop_delta, expected, inspect=keep,
+                          streaming=mode == "streaming")
+        if trace:
+            res["busy_ms"] = traced_busy_ms(prof)
+            shutil.rmtree(prof, ignore_errors=True)
+        out[mode] = res
+    a, b = out["loop"], out["streaming"]
+    la, lb = np.asarray(a["step_losses"]), np.asarray(b["step_losses"])
+    if la.shape != lb.shape:
+        raise AssertionError(f"{label}: {la.size} steps on the epoch loop, {lb.size} streaming")
+    test_keys = ("mse", "mae", "rmse")
+    gaps = {"step_losses": float(np.max(np.abs(la - lb) / np.abs(lb))),
+            "test": max(abs(a["test"][k] - b["test"][k]) / abs(b["test"][k]) for k in test_keys)}
+    bitwise = bool((la == lb).all()) and all(a["test"][k] == b["test"][k] for k in test_keys)
+    summary = {"gaps": gaps, "bitwise": bitwise, "held": held,
+               "best_iter": [a["test"]["best_iter"], b["test"]["best_iter"]],
+               "loop": loop_summary(a, cfg.batch_size),
+               "streaming": loop_summary(b, cfg.batch_size)}
+    log(f"# phase 14 {label}: {json.dumps(summary)}; per-step losses, epoch loop "
+        f"{a['step_losses']}, streaming {b['step_losses']}; test {a['test']} / {b['test']}")
+    if held and (max(gaps.values()) > LOOP_RTOL
+                 or a["test"]["best_iter"] != b["test"]["best_iter"]):
+        raise AssertionError(f"{label}: the epoch loop departs from the streaming loop: "
+                             f"{summary}")
+    return {"summary": summary, "loop": a, "streaming": b}
+
+
+def check_loop_mode(label: str, run: dict, mode: str, captured: bool,
+                    reason: str | None = None) -> None:
+    """The run took the epoch loop's `mode`, with captured steps that
+    replayed, or eager steps for `reason` (a text the loop logs)."""
+    stats = run["epoch_loop"]
+    ok = (stats is not None and stats["mode"] == mode and stats["captured"] == captured
+          and (stats["replays"] > 0) == captured
+          and (reason is None or reason in (stats["eager_reason"] or "")))
+    if not ok:
+        raise AssertionError(f"{label}: epoch loop {stats}, expected {mode} with "
+                             f"{'captured' if captured else 'eager'} steps ({reason})")
+
+
+def run_device_loop(device, root: str, exp_dir: str, streamed: dict) -> dict:
+    """Phase 14: the default training path on the card. 14a PatchTST +
+    TTF_RecAvg + MMF_GR_Add on the kernel route (#1, #2 with hash dropout
+    0.1), 14b CRU on the default route (#5, #4) and the fused route (#6,
+    #7), 14c Informer on the kernel route (#2 at three sites, #1): each on
+    the resident loop with captured steps against the streaming loop,
+    held to LOOP_RTOL; 14d TimesNet (eager resident steps: its periods are
+    read on the host) held the same way, and the LatentODE on the staged
+    loop against phase 12's streaming run (`streamed["LatentODE"]`; hash
+    masks over the staged, longer union axes differ, so only printed);
+    14e the resident 14a resumed from its epoch-0 state bit for bit."""
+    from imm_tsf_torch.models.timesnet import TimesNet
+
+    out: dict = {}
+    T = lambda args: (lambda c: c.input_len + c.pred_len)(training_data(root, args)["cfg"])
+    patch_cfg = training_data(root, PATCH_TRAIN_ARGS)["cfg"]
+    kept: dict = {}
+    out["14a PatchTST kernel"] = run_loop_case(
+        device, root, exp_dir, "14a PatchTST, kernel route", PATCH_TRAIN_ARGS +
+        PATCH_ROUTES["kernel"], lambda s, e: ffn_counts("kernel", patch_cfg.e_layers, s, e),
+        True, kept=kept)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    T_cru = T(TRAIN_ARGS)
+    for route in ("default", "fused"):
+        with cru_route(route == "fused"):
+            out[f"14b CRU {route}"] = run_loop_case(
+                device, root, exp_dir, f"14b CRU, {route} route", TRAIN_ARGS,
+                lambda s, e: expected_counts(route, T_cru, s, e), True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    inf_cfg = training_data(root, INFORMER_TRAIN_ARGS)["cfg"]
+    out["14c Informer kernel"] = run_loop_case(
+        device, root, exp_dir, "14c Informer, kernel route",
+        INFORMER_TRAIN_ARGS + PATCH_ROUTES["kernel"],
+        lambda s, e: ffn_counts("kernel", inf_cfg.e_layers + inf_cfg.d_layers, s, e), True)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    out["14d TimesNet"] = run_loop_case(device, root, exp_dir, "14d TimesNet",
+                                        MTS_TRAIN_ARGS["TimesNet"], recavg_only, True)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    out["14d LatentODE staged"] = run_loop_case(
+        device, root, exp_dir, "14d LatentODE, staged", IMTS_TRAIN_ARGS["LatentODE"],
+        recavg_only, False, streamed=streamed["LatentODE"], epochs=2, trace=False)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    for name, case in out.items():
+        captured = not name.startswith("14d") and device.type == "cuda"
+        mode = "staged" if "staged" in name else "resident"
+        reason = TimesNet.eager_steps if "TimesNet" in name else None
+        if "LatentODE" in name:  # captured unless the model says why not
+            from imm_tsf_torch.models.latent_ode import LatentODE
+
+            reason = getattr(LatentODE, "eager_steps", None)
+            captured = reason is None and device.type == "cuda"
+        check_loop_mode(name, case["loop"], mode, captured, reason)
+    out["14e resume"] = run_resume(device, root, exp_dir, out["14a PatchTST kernel"]["loop"],
+                                   kept["weights"], args=RESUME_ARGS,
+                                   label="14e resume on the epoch loop", strict=True,
+                                   total=LOOP_EPOCHS)
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -3770,6 +3970,7 @@ def main() -> int:
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as device.resolve_device sets it
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
@@ -3972,6 +4173,17 @@ def main() -> int:
         shutil.rmtree(exp_dir, ignore_errors=True)
 
     mark("13")
+    # phase 14: the default training path, the device-resident epoch loop on
+    # captured steps, against the streaming loop on the same flags
+    try:
+        make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        device_loop = run_device_loop(
+            device, root, exp_dir, {"LatentODE": imts["LatentODE"]["training"]["kernel"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+
+    mark("14")
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
@@ -3993,6 +4205,11 @@ def main() -> int:
     for path, res in llm_paths.items():
         for row in (rec_row, ffn_row):
             row["launches_by_path"][path] = res["launches"][row["name"]]
+    for case, res in device_loop.items():  # phase 14's runs on the epoch loop
+        for row in rows:
+            n = res["loop"]["launches"].get(row["name"], 0) if "loop" in res else 0
+            if n:
+                row.setdefault("launches_by_path", {})[f"device_loop {case}"] = n
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
@@ -4033,7 +4250,9 @@ def main() -> int:
                       "cru_route_err": route_err, "training": train_summary,
                       "patchtst_training": patch, "informer": informer,
                       "default_pair": default_pair, "timellm": timellm_run,
-                      "mts": mts, "imts": imts, "llms": llms, "phase_s": phase_s}),
+                      "mts": mts, "imts": imts, "llms": llms,
+                      "device_loop": {k: v.get("summary", v) for k, v in device_loop.items()},
+                      "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -193,9 +193,19 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
            const float* __restrict__ b2, const float* __restrict__ gamma,
            const float* __restrict__ beta, float* __restrict__ out,
            float* __restrict__ a1_out, float* __restrict__ r_out, int M, int D, int F,
-           float keep_prob, uint32_t thresh, uint32_t s0a, uint32_t s1a, uint32_t s0b,
-           uint32_t s1b, int act, int apply_dropout, int vec) {
+           float keep_prob, uint32_t thresh, const long long* __restrict__ salts, int act,
+           int apply_dropout, int vec) {
   extern __shared__ float4 smem4[];
+  // the hidden site's salts (s0a, s1a) and the output site's (s0b, s1b): the
+  // low 32 bits of salts[0..3], read from device memory so that a captured
+  // graph reads each replay's own salts
+  uint32_t s0a = 0, s1a = 0, s0b = 0, s1b = 0;
+  if (apply_dropout) {
+    s0a = static_cast<uint32_t>(salts[0]);
+    s1a = static_cast<uint32_t>(salts[1]);
+    s0b = static_cast<uint32_t>(salts[2]);
+    s1b = static_cast<uint32_t>(salts[3]);
+  }
   float* xs = reinterpret_cast<float*>(smem4);  // [kBM][kXLd]  x tile
   float* hs = xs + kBM * kXLd;                  // [kBM][kHLd]  hidden chunk
   float* stages = hs + kBM * kHLd;              // kStages x kStage weight tiles
@@ -402,16 +412,17 @@ extern "C" int ffn_max_d() { return kMaxD; }
 
 // x [M, D], w1t [F, D], w2t [D, F], b1 [F], b2, gamma, beta [D], out [M, D]
 // float32, contiguous; a1 [M, F] and r [M, D] both null (the eval form) or
-// both set (the training form writes them). Salts: the hidden site's
-// (s0a, s1a) and the output site's (s0b, s1b), read when apply_dropout.
+// both set (the training form writes them). salts: int64 [4] in device
+// memory, the hidden site's (s0a, s1a) and the output site's (s0b, s1b) as
+// their low 32 bits, read when apply_dropout (may be null otherwise).
 // vec: D and F are multiples of 4 and x, w1t and w2t are 16-byte aligned.
 extern "C" int ffn_forward(const float* x, const float* w1t, const float* b1,
                            const float* w2t, const float* b2, const float* gamma,
                            const float* beta, float* out, float* a1, float* r, int M, int D,
-                           int F, float keep_prob, unsigned int thresh, unsigned int s0a,
-                           unsigned int s1a, unsigned int s0b, unsigned int s1b, int act,
-                           int apply_dropout, int vec, void* stream) {
-  if (D < 1 || D > kMaxD || F < 1 || M < 0 || (a1 == nullptr) != (r == nullptr))
+                           int F, float keep_prob, unsigned int thresh, const long long* salts,
+                           int act, int apply_dropout, int vec, void* stream) {
+  if (D < 1 || D > kMaxD || F < 1 || M < 0 || (a1 == nullptr) != (r == nullptr) ||
+      (apply_dropout && salts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const int bytes = kSmemFloats * static_cast<int>(sizeof(float));
@@ -423,7 +434,7 @@ extern "C" int ffn_forward(const float* x, const float* w1t, const float* b1,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (M + kBM - 1) / kBM;
   kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh, s0a, s1a, s0b,
-      s1b, act, apply_dropout, vec);
+      x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh, salts, act,
+      apply_dropout, vec);
   return static_cast<int>(cudaGetLastError());
 }

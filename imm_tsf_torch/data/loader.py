@@ -10,8 +10,9 @@ Split semantics match the JAX package's exactly:
   sample:   per-record temporal 60/20/20 by chunk idx (:715-731)
 
 `BatchIterator` shuffles with the same np.random.default_rng(seed)
-stream, so batch order matches the JAX package's for the same seed. The
-double-buffered `PrefetchIterator` is not ported yet (ROADMAP.md, Queue 1, item 4).
+stream, so batch order matches the JAX package's for the same seed.
+`PrefetchIterator` (:92-126) collates ahead on a worker thread; the
+trainer wraps the train loader in it when `host_prefetch` > 0.
 """
 
 from __future__ import annotations
@@ -101,6 +102,44 @@ class BatchIterator:
                 out = _pad_batch_dim(out, len(batch), self.batch_size)
             out["n_real"] = len(batch)
             yield out
+
+
+class PrefetchIterator:
+    """Collates batch k + 1 on a worker thread while batch k trains: a
+    queue bounded by `depth` between the worker and the consumer, and the
+    worker's exception raised in the consumer. `base` stays reachable (the
+    trainer finds the shuffle stream through it)."""
+
+    def __init__(self, base, depth: int = 2):
+        self.base = base
+        self.depth = max(1, depth)
+
+    def __len__(self):
+        return len(self.base)
+
+    def __iter__(self):
+        import queue
+        import threading
+
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        end = object()
+
+        def worker():
+            try:
+                for item in self.base:
+                    q.put(item)
+                q.put(end)
+            except BaseException as e:  # noqa: BLE001 -- raised in the consumer
+                q.put(e)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
 
 
 def _pad_batch_dim(out: dict, n: int, B: int) -> dict:

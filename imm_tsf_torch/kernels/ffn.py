@@ -135,8 +135,7 @@ def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
-    "ffn_forward": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _U, _U, _U, _U,
-                                 _I, _I, _I, _P], _I),
+    "ffn_forward": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
     "ffn_max_d": ([], _I),
 }
 
@@ -145,13 +144,15 @@ def _library() -> ctypes.CDLL:
     return _build.load("ffn", _SIGNATURES)
 
 
-def _salt_values(salts) -> list[int]:
-    """The four uint32 salts as Python ints, passed to the kernel by value
-    (a CPU tensor, as EncoderLayer draws them, costs no device sync)."""
-    values = torch.as_tensor(salts).to(torch.int64).reshape(-1).tolist()
-    if len(values) != 4:
+def _device_salts(salts, device) -> torch.Tensor:
+    """The four salts as a contiguous int64 [4] tensor on `device`, which
+    the kernel reads (their low 32 bits). Salts already there, as the
+    captured step's salt buffer holds them (training/graphs.py), are read in
+    place; host salts, as the eager steps draw them, are copied over."""
+    s = torch.as_tensor(salts)
+    if s.numel() != 4:
         raise ValueError("fused_encoder_ffn: salts must be [2, 2]")
-    return [v & 0xFFFFFFFF for v in values]
+    return s.to(device=device, dtype=torch.int64, non_blocking=True).reshape(4).contiguous()
 
 
 def _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
@@ -184,7 +185,7 @@ def _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
     w2t = w2.t().contiguous()  # [D, F]
     b1, b2 = b1.contiguous(), b2.contiguous()
     gamma, beta = gamma.contiguous(), beta.contiguous()
-    s = _salt_values(salts) if apply_dropout else [0, 0, 0, 0]
+    s = _device_salts(salts, x.device) if apply_dropout else None
     out = torch.empty_like(x)
     a1 = r = None
     if with_residuals:
@@ -200,8 +201,9 @@ def _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             a1.data_ptr() if with_residuals else None,
             r.data_ptr() if with_residuals else None,
-            M, D, Fdim, float(keep_prob), _thresh(keep_prob), *s, _ACTS[act],
-            int(bool(apply_dropout)), int(vec), stream)
+            M, D, Fdim, float(keep_prob), _thresh(keep_prob),
+            s.data_ptr() if s is not None else None, _ACTS[act], int(bool(apply_dropout)),
+            int(vec), stream)
         _build.check(rc, "fused_encoder_ffn")
         global launches, train_launches
         launches += 1
@@ -235,8 +237,10 @@ def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
     without a copy, and its gradient reaches the Linear weight through the
     view. salts: integer [2, 2] hash-dropout salts for the hidden and
     output sites (rows 0/1), read only when apply_dropout (may be None
-    otherwise). With a gradient in flight the training form runs; without
-    one, the eval form (the a1 [M, F] write is waste there)."""
+    otherwise); on the card the kernel reads them from device memory, so
+    host salts are copied there first and device salts are read in place.
+    With a gradient in flight the training form runs; without one, the
+    eval form (the a1 [M, F] write is waste there)."""
     params = (x, w1, b1, w2, b2, gamma, beta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
         return _FusedFFN.apply(*params, salts, keep_prob, act, apply_dropout)

@@ -20,6 +20,16 @@ streams differ, so trained runs compare in their seed band, and tests
 hand both the same salts. Only `dropout_impl="hash"` is ported; the
 trainer refuses "flax". The mask runs as plain PyTorch elementwise ops:
 the JAX package computes it outside any Pallas kernel.
+
+Every site takes its salts through `take_salts` (the FFN's pair of sites
+through `take_salt_table`). Outside a `SaltTape` they are drawn there and
+then, as host ints. Under a tape (the device-resident epoch loop,
+training/device_loop.py) a step reads them from the tape's `row`, a
+tensor on the step's device that the loop fills before the step: a CUDA
+graph replays reads of device memory, where it would freeze host ints.
+The host still draws every pair through `draw_salts`, from the same
+generators, in the same site order and as often a step, so the salt
+stream, and every mask, equals the eager one.
 """
 
 from __future__ import annotations
@@ -67,6 +77,89 @@ def draw_salts(generator: torch.Generator | None = None) -> tuple[int, int]:
     return s0, s1
 
 
+class SaltTape:
+    """The salts of a training step's dropout sites, read from `row`.
+
+    The first step under the tape records its sites: each draws through
+    `draw_salts` from its own generator, in call order, and `generators`
+    lists them after it. From then on a step reads site k's pairs from
+    `row[k]` (int64 [n_sites, 2], set by the caller before the step), and
+    `draw(steps)` draws the host pairs of `steps` steps, [steps, n_sites,
+    2], the same calls the sites would make. A step that takes another
+    number of pairs than the recorded one raises."""
+
+    def __init__(self):
+        self.generators: list | None = None  # each pair's generator, once recorded
+        self.row: torch.Tensor | None = None  # [n_sites, 2]: the running step's salts
+        self._taken: list = []
+
+    @property
+    def n_sites(self) -> int:
+        return len(self.generators)
+
+    def begin(self) -> None:
+        self._taken = []
+
+    def end(self) -> None:
+        if self.generators is None:
+            self.generators = self._taken
+        elif len(self._taken) != self.n_sites:
+            raise RuntimeError(f"a step took {len(self._taken)} salt pairs, its first "
+                               f"{self.n_sites}: the dropout sites changed between steps")
+
+    def take(self, generator, n: int):
+        """n pairs for a site drawing from `generator`: host ints while
+        recording, else rows of `row`."""
+        k = len(self._taken)
+        self._taken += [generator] * n
+        if self.generators is None:
+            return [draw_salts(generator) for _ in range(n)]
+        if k + n > self.n_sites:
+            raise RuntimeError(f"a step took more than its first {self.n_sites} salt pairs")
+        return self.row[k:k + n]
+
+    def draw(self, steps: int) -> torch.Tensor:
+        pairs = [draw_salts(gen) for _ in range(steps) for gen in self.generators]
+        return torch.tensor(pairs, dtype=torch.int64).reshape(steps, self.n_sites, 2)
+
+
+_TAPE: SaltTape | None = None  # the active tape, set by `salt_tape`
+
+
+class salt_tape:
+    """Route every site's salts through `tape` inside the block."""
+
+    def __init__(self, tape: SaltTape):
+        self.tape = tape
+
+    def __enter__(self):
+        global _TAPE
+        self.saved, _TAPE = _TAPE, self.tape
+        return self.tape
+
+    def __exit__(self, *exc):
+        global _TAPE
+        _TAPE = self.saved
+
+
+def take_salts(generator: torch.Generator | None = None):
+    """A site's two salts: host ints from `generator`, or under a tape the
+    tape's (0-d tensors on the step's device once the tape has recorded)."""
+    if _TAPE is None:
+        return draw_salts(generator)
+    pair = _TAPE.take(generator, 1)[0]
+    return pair[0], pair[1]
+
+
+def take_salt_table(generator: torch.Generator | None, n: int) -> torch.Tensor:
+    """n sites' salts as an int64 [n, 2] tensor: drawn now on the host, or
+    under a tape the tape's rows (on the step's device once recorded)."""
+    if _TAPE is None:
+        return torch.tensor([draw_salts(generator) for _ in range(n)])
+    pairs = _TAPE.take(generator, n)
+    return torch.tensor(pairs) if isinstance(pairs, list) else pairs
+
+
 def hash_dropout(x: torch.Tensor, s0, s1, keep_prob: float) -> torch.Tensor:
     """where(keep, x / keep_prob, 0) with keep = _keep_mask(s0, s1) over x's
     shape: bit-identical to the JAX package's `_hash_dropout` given the
@@ -88,4 +181,4 @@ class Dropout(nn.Module):
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
-        return hash_dropout(x, *draw_salts(self.generator), 1.0 - self.rate)
+        return hash_dropout(x, *take_salts(self.generator), 1.0 - self.rate)

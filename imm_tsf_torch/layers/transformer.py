@@ -30,7 +30,7 @@ from torch import nn
 from ..kernels.ffn import ffn_reference, fused_encoder_ffn
 from ..models.base import dense, variance_scaling_
 from .attention import masked_softmax
-from .fast_dropout import Dropout, draw_salts
+from .fast_dropout import Dropout, take_salt_table
 
 
 class FullAttention(nn.Module):
@@ -89,10 +89,7 @@ def _ffn(layer: nn.Module, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     mode with dropout, one [2, 2] salt pair from the layer's dropout
     generator: rows are the hidden site's salts and the output site's."""
     apply_dropout = layer.training and layer.dropout.rate > 0
-    salts = None
-    if apply_dropout:
-        salts = torch.tensor([draw_salts(layer.dropout.generator),
-                              draw_salts(layer.dropout.generator)])
+    salts = take_salt_table(layer.dropout.generator, 2) if apply_dropout else None
     ffn = fused_encoder_ffn if layer.use_fused_ffn else ffn_reference
     lead, D = x.shape[:-1], x.shape[-1]
     out = ffn(x.reshape(-1, D), layer.conv1.weight.t(), layer.conv1.bias,

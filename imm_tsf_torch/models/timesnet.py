@@ -90,6 +90,10 @@ class TimesBlock(nn.Module):
 
 
 class TimesNet(nn.Module):
+    # the epoch loop runs its steps eagerly (training/graphs.eager_reason):
+    # a CUDA graph would freeze the periods of the captured batch
+    eager_steps = "TimesBlock picks its periods on the host (top.tolist())"
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg

@@ -32,8 +32,14 @@ def cast_frozen(module: torch.nn.Module, frozen_param_dtype: str) -> None:
                 sub.to(torch.bfloat16)
 
 
-def make_optimizer(params, lr: float, w_decay: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=w_decay)
+def make_optimizer(params, lr: float, w_decay: float,
+                   capturable: bool = False) -> torch.optim.Adam:
+    """Adam(lr, weight_decay). The trainer passes capturable=True on cuda:
+    its step then keeps the step count on the device and reads nothing
+    back, so a CUDA graph can capture it (training/graphs.py); both epoch
+    loops take it there, so they run one optimizer code path."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=w_decay,
+                            capturable=capturable)
 
 
 def clip_and_step(optimizer: torch.optim.Optimizer, params, clip_norm: float = 1.0) -> None:

@@ -24,16 +24,23 @@ Parity with reference main.py:945-1176:
     epochs without it (:1131-1170); returns the best epoch's test metrics;
   - the loss is checked for NaN at every step.
 
-This is the JAX package's streaming loop (:794-829): one host batch at a
-time, moved to the device, one gradient step; a batch that runs out of
-device memory before the optimizer step is skipped with a warning, as
-the reference skips it (:802-821). `profile_dir` traces one epoch with
+The epoch modes are the JAX package's (:636-701). By default
+(`device_loop`) every window of the three splits stays in device memory
+and each step gathers its batch there (training/device_loop.py); on cuda
+each step is a CUDA graph replay (training/graphs.py) and an epoch's
+losses are read once. A batch-dependent collate (the LatentODE's union
+time axis) takes the epoch-staged mode: each epoch collated on the host
+and stacked. `--device_loop false`, `log_every` and a split past
+`device_loop_max_mb` take the streaming loop (:794-829): one host batch
+at a time, collated ahead on a worker thread (`host_prefetch`), moved to
+the device, one gradient step. A batch that runs out of device memory
+before the optimizer step is skipped with a warning, as the reference
+skips it (:802-821), in the streaming loop and in eager resident steps;
+in a captured loop it raises the JAX package's message, which points at
+`--device_loop false` (:755-771). `profile_dir` traces one epoch with
 torch.profiler (the epoch the JAX trainer picks, :729-744) and
 `debug_nans` runs the training under autograd's anomaly mode (the JAX
-package's NaN trapping, :726-727). Its device-resident epoch
-loop (`device_loop`, training/device_loop.py) is not ported yet: the flag
-is accepted and ignored, and the JAX package tests the two loops as equal
-(tests/test_device_loop.py). Best weights go to
+package's NaN trapping, :726-727), with eager steps. Best weights go to
 `<checkpoint_dir>/best/weights.pt` beside `config.json`
 (training/checkpoint.save_experiment), which `python -m
 imm_tsf_torch.serve --load <checkpoint_dir>` serves. The full training
@@ -60,7 +67,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..layers.fast_dropout import Dropout
 from ..layers.prob_attention import ProbAttention
-from .evaluation import evaluation, masked_mse_loss
+from .evaluation import evaluation, finalize_metrics, masked_mse_loss
 from .optim import cast_frozen, clip_and_step, make_optimizer, trainable_parameters
 
 logger = logging.getLogger("imm_tsf_torch")
@@ -261,10 +268,13 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     checkpoint_dir, if given, gets the best weights and a train state after
     every epoch; with cfg.load set, the run resumes from the latest train
     state there at the epoch after it (from scratch when there is none).
-    timings, if given, gets wall seconds by phase (parse, train per
-    epoch, val, test, save: each checkpoint written) and, on cuda,
-    "step_ms": each step's forward, backward and optimizer device ms (CUDA
-    events)."""
+    timings, if given, gets wall seconds by phase (parse, setup: the
+    epoch loop's stores, train per epoch, val, test, save: each checkpoint
+    written), "epoch_loop" (its mode and graphs.StepLoop.stats(): capture
+    seconds and graph nodes, replays, eager calls) and, on cuda,
+    "step_ms": on the epoch loop each step's device ms under "step" (CUDA
+    events around each replay or eager step, warm-up calls aside),
+    streaming each step's forward, backward and optimizer device ms."""
     from ..data.loader import parse_datasets
     from ..models import get_model
 
@@ -323,10 +333,8 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                 m.z0_generator = z0
 
     params = trainable_parameters(model, fusion)
-    optimizer = make_optimizer(params, cfg.lr, cfg.w_decay)
+    optimizer = make_optimizer(params, cfg.lr, cfg.w_decay, capturable=device.type == "cuda")
     forward = make_forward(cfg, model, fusion)
-    timer = StepTimer() if timings is not None and device.type == "cuda" else None
-    grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0, timer)
 
     best_val_mse, best_iter, test_res, no_improve, history = np.inf, -1, None, 0, []
     start_epoch = 0
@@ -342,6 +350,30 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
         best_val_mse, best_iter = float(meta["best_val_mse"]), int(meta["best_iter"])
         no_improve, test_res, history = (int(meta["no_improve"]), meta["test_res"],
                                          list(meta["history"]))
+    train_loader = data_obj["train_dataloader"]
+    if cfg.host_prefetch > 0:  # collate ahead on a worker thread (JAX :630-634)
+        from ..data.loader import PrefetchIterator
+
+        train_loader = PrefetchIterator(train_loader, depth=cfg.host_prefetch)
+    t0 = time.time()
+    epochs = (_epoch_loop(cfg, data_obj, model, forward, optimizer, params, [samples, z0],
+                          device, timings is not None)
+              if cfg.device_loop and not log_every else None)
+    _mark("setup", time.time() - t0)
+    timer = None
+    if epochs is None:
+        timer = StepTimer() if timings is not None and device.type == "cuda" else None
+        grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0, timer)
+
+    def _eval(which: str) -> dict:
+        t0 = time.time()
+        if epochs is not None:
+            res = epochs.evaluate(which, modules)
+        else:
+            res = run_evaluation(forward, data_obj[f"{which}_dataloader"], device, modules)
+        _mark(which, time.time() - t0)
+        return res
+
     # profile_dir traces the epoch the JAX trainer traces: its second (the
     # first is its compile), or the only one
     profile_epoch = None if cfg.profile_dir is None else (1 if cfg.epoch > 1 else 0)
@@ -353,19 +385,17 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
             st = time.time()
             with (_trace(cfg.profile_dir, itr, device) if itr == profile_epoch
                   else contextlib.nullcontext()):
-                step_losses = _train_epoch(cfg, itr, data_obj["train_dataloader"], grad_step,
-                                           timer, device, log_every)
+                if epochs is not None:
+                    step_losses = epochs.train(itr, train_loader)
+                else:
+                    step_losses = _train_epoch(cfg, itr, train_loader, grad_step, timer, device,
+                                               log_every)
                 _mark("train", time.time() - st)
-                t0 = time.time()
-                val_res = run_evaluation(forward, data_obj["val_dataloader"], device, modules)
-                _mark("val", time.time() - t0)
+                val_res = _eval("val")
             if best_val_mse - val_res["mse"] > cfg.early_stop_delta:
                 best_val_mse, best_iter, no_improve = val_res["mse"], itr, 0
                 if data_obj["test_dataloader"] is not None:
-                    t0 = time.time()
-                    test_res = run_evaluation(forward, data_obj["test_dataloader"], device,
-                                              modules)
-                    _mark("test", time.time() - t0)
+                    test_res = _eval("test")
                 else:  # no test split: the best epoch's val metrics
                     test_res = dict(val_res)
                 if checkpoint_dir is not None:
@@ -410,15 +440,32 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
 
     if timer is not None:
         timings["step_ms"] = timer.ms
+    if epochs is not None and timings is not None:
+        timings["epoch_loop"] = epochs.stats()
+        if device.type == "cuda":
+            timings["step_ms"] = {"step": epochs.step_ms}
     assert test_res is not None, "No test results available."
     return dict(test_res, best_iter=best_iter, history=history, model=model, fusion=fusion)
 
 
+def _skip_batch(itr: int, step: int, error, grad_step, device) -> None:
+    """A batch that ran out of device memory before the optimizer step is
+    skipped with a warning (reference main.py:1107-1110); at or after it,
+    the error is raised, since the parameters or Adam state may be partly
+    updated."""
+    if grad_step.stepping:
+        raise RuntimeError(
+            f"out of memory at epoch {itr} step {step} in the optimizer step: the "
+            "parameters or Adam state may be partly updated, so the batch cannot "
+            "be skipped; reduce batch_size or model size") from error
+    logger.warning("[OOM] epoch %d step %d: skipping batch", itr, step)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _train_epoch(cfg, itr, loader, grad_step, timer, device, log_every) -> list[float]:
-    """One epoch of gradient steps; returns the steps' losses. A batch that
-    runs out of device memory before the optimizer step is skipped with a
-    warning (reference main.py:1107-1110); at or after it, the error is
-    raised, since the parameters or Adam state may be partly updated."""
+    """One streaming epoch of gradient steps; returns the steps' losses
+    (an out-of-memory batch: `_skip_batch`)."""
     step_losses = []
     for step, batch in enumerate(loader):
         try:
@@ -426,14 +473,7 @@ def _train_epoch(cfg, itr, loader, grad_step, timer, device, log_every) -> list[
         except torch.cuda.OutOfMemoryError as e:
             if timer is not None:
                 timer.discard()
-            if grad_step.stepping:
-                raise RuntimeError(
-                    f"out of memory at epoch {itr} step {step} in the optimizer step: the "
-                    "parameters or Adam state may be partly updated, so the batch cannot "
-                    "be skipped; reduce batch_size or model size") from e
-            logger.warning("[OOM] epoch %d step %d: skipping batch", itr, step)
-            if device.type == "cuda":
-                torch.cuda.empty_cache()
+            _skip_batch(itr, step, e, grad_step, device)
             continue
         if timer is not None:
             timer.collect()
@@ -445,6 +485,124 @@ def _train_epoch(cfg, itr, loader, grad_step, timer, device, log_every) -> list[
         if log_every and step % log_every == 0:
             logger.info("epoch %d step %d loss %.5f", itr, step, loss)
     return step_losses
+
+
+def _is_oom(error) -> bool:
+    return (isinstance(error, torch.cuda.OutOfMemoryError)
+            or "out of memory" in str(error).lower())
+
+
+def _epoch_loop(cfg, data_obj, model, forward, optimizer, params, generators, device,
+                timed: bool):
+    """The run's device-side epoch loop, or None when it streams: resident
+    train, val and test stores, else staged val and test stores (the train
+    split staged each epoch), else None (JAX :646-701)."""
+    from . import device_loop as DL
+
+    cap = cfg.device_loop_max_mb << 20
+    splits = [w for w in ("train", "val", "test") if data_obj[f"{w}_dataloader"] is not None]
+    bits = {w: _find_shuffler(data_obj[f"{w}_dataloader"]) for w in splits}
+    built: dict = {}
+    for w in splits:  # short-circuit: one split that fails decides
+        r = DL.try_build_resident(data_obj[f"{w}_dataloader"], cap) if bits[w] else None
+        if r is None:
+            break
+        built[w] = r
+    if len(built) == len(splits):
+        stores = {w: DL.Resident(w, built[w], bits[w], device) for w in splits}
+        return _EpochLoop(cfg, "resident", stores, bits["train"], model, forward, optimizer,
+                          params, generators, device, timed)
+    # the eval splits stage once (no shuffle: the train stream is untouched)
+    staged = {w: DL.stage_epoch(data_obj[f"{w}_dataloader"]) for w in splits[1:]}
+    if any(v is None for v in staged.values()):
+        return None
+    return _EpochLoop(cfg, "staged", staged, bits["train"], model, forward, optimizer, params,
+                      generators, device, timed)
+
+
+class _EpochLoop:
+    """The device-resident or epoch-staged epoch loop of one run (JAX
+    :636-701, 746-791), on a graphs.StepLoop: captured steps on cuda,
+    eager ones on the CPU or where graphs.eager_reason names why.
+    `stores`: the Resident splits, or the eval splits' staged arrays."""
+
+    def __init__(self, cfg, mode: str, stores: dict, bit_train, model, forward, optimizer,
+                 params, generators, device, timed: bool):
+        from . import device_loop as DL
+        from .graphs import StepLoop, eager_reason
+
+        self.cfg, self.mode, self.bit_train, self.device = cfg, mode, bit_train, device
+        self.events: list = []  # (start, end) CUDA events of the epoch's timed steps
+        self.step_ms: list = []
+        eager = eager_reason(cfg, model)
+        self.loop = StepLoop(device, generators, eager=eager,
+                             timer=self.events if timed and device.type == "cuda" else None)
+        self.grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0)
+        how = ("captured CUDA graph steps" if self.loop.capture
+               else f"eager steps ({eager or 'no CUDA graphs on ' + device.type})")
+        if mode == "resident":
+            self.res = stores
+            self.run_train, self.run_eval = DL.make_epoch_runners(forward, self.grad_step,
+                                                                  self.loop)
+            logger.info("device-resident epoch loop, %s: %d train windows in device memory",
+                        how, stores["train"].n_rows - 1)
+        else:
+            self.run_train, stage_eval, self.run_eval = DL.make_staged_runners(
+                forward, self.grad_step, self.loop, device)
+            for w, stacked in stores.items():
+                stage_eval(w, stacked)
+            logger.info("epoch-staged device loop (batch-dependent collate), %s", how)
+
+    def stats(self) -> dict:
+        return dict(self.loop.stats(), mode=self.mode)
+
+    def train(self, itr: int, train_loader) -> list[float]:
+        """One epoch; its losses read once. A NaN loss raises at its step
+        (JAX :786-791); an out-of-memory raises the JAX package's message in
+        a captured loop (:755-771), and skips the batch in eager steps."""
+        from . import device_loop as DL
+
+        on_oom = lambda step, e: _skip_batch(itr, step, e, self.grad_step, self.device)
+        try:
+            if self.mode == "resident":
+                res = self.res["train"]
+                perm = DL.epoch_perm(self.bit_train, res.row_of, res.n_rows)
+                losses, skipped = self.run_train(res, perm, on_oom)
+            else:
+                stacked = DL.stage_epoch(train_loader)
+                if stacked is None:
+                    raise RuntimeError("epoch staging failed mid-run")
+                losses, skipped = self.run_train(stacked, on_oom)
+            values = losses.tolist()
+        except Exception as e:
+            if self.loop.capture and _is_oom(e):
+                raise RuntimeError(
+                    "OOM inside the device-resident epoch loop (whole-epoch allocation). "
+                    "Rerun with --device_loop false for per-batch streaming with OOM "
+                    "batch-skip, or reduce batch_size / device_loop_max_mb") from e
+            raise
+        for start, end in self.events:
+            self.step_ms.append(start.elapsed_time(end))
+        self.events.clear()
+        step = next((i for i, v in enumerate(values) if i not in skipped and np.isnan(v)), None)
+        if step is not None:
+            raise FloatingPointError(f"NaN loss at epoch {itr} step {step} "
+                                     f"(model={self.cfg.model}, dataset={self.cfg.dataset})")
+        return [v for i, v in enumerate(values) if i not in skipped]
+
+    def evaluate(self, which: str, modules) -> dict:
+        """The split's metrics: each batch's sums from the loop, reduced on
+        the host in float64 (the modules in eval mode meanwhile)."""
+        from . import device_loop as DL
+
+        for m in modules:
+            m.eval()
+        try:
+            sums = self.run_eval(self.res[which] if self.mode == "resident" else which)
+            return finalize_metrics(DL.reduce_eval_sums(sums))
+        finally:
+            for m in modules:
+                m.train()
 
 
 @contextlib.contextmanager
@@ -485,6 +643,14 @@ class _EmbedNotesLoader:
 
     def __len__(self):
         return len(self.base)
+
+    def rebuild_around(self, base):
+        """This stage around another base loader (device_loop._unwrap),
+        sharing the embedding cache: a note's pooled embedding does not
+        depend on its batch, so hits across splits are exact."""
+        stage = _EmbedNotesLoader(base, self.llm, self.tokenizer, self.max_length)
+        stage._cache, stage._d = self._cache, self._d
+        return stage
 
     def _embed_cached(self, notes_text):
         from ..llm.loader import embed_notes
@@ -569,6 +735,10 @@ class _TimeLLMPromptLoader:
 
     def __len__(self):
         return len(self.base)
+
+    def rebuild_around(self, base):
+        """This stage around another base loader (device_loop._unwrap)."""
+        return _TimeLLMPromptLoader(base, self.cfg, self.tokenizer)
 
     def __iter__(self):
         from ..models.timellm import build_timellm_prompt_ids

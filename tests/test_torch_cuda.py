@@ -741,3 +741,97 @@ def test_imts_served_dispatch_kernels_vs_plain(dev, tmp_path, model):
     out = run_imts_serving(dev, model, 4 if model == "LatentODE" else 16, 0,
                            str(tmp_path / "exp"))
     assert out["launches"]["recency_weighted_average"] == out["dispatches"] > 0
+
+
+# ------------------------------------------------ the captured epoch loop
+@pytest.mark.cuda
+@pytest.mark.parametrize("residuals", [False, True])
+def test_ffn_kernel_reads_device_salts_as_the_host_salts(dev, gen, residuals):
+    """#2 reads its four salts from device memory: a row of a device salt
+    table (as a captured step holds them) gives what the same values as a
+    host tensor give (copied over by the wrapper), bit for bit, in both
+    forms."""
+    args = ffn_inputs(300, 512, 2048, gen, dev)[:-1]
+    table = torch.randint(0, 2**32, (5, 2, 2), generator=gen, device=dev, dtype=torch.int64)
+    host = table[3].cpu()
+    got = ffn._forward(*args, table[3], KEEP, "gelu", True, with_residuals=residuals)
+    want = ffn._forward(*args, host, KEEP, "gelu", True, with_residuals=residuals)
+    for a, b in zip(got if residuals else [got], want if residuals else [want]):
+        assert torch.equal(a, b)
+    other = ffn._forward(*args, table[4], KEEP, "gelu", True, with_residuals=residuals)
+    assert not torch.equal(other[0] if residuals else other, got[0] if residuals else got)
+
+
+def _patchtst_loop(dev, captured: bool, steps: int = 4):
+    """PatchTST + TTF_RecAvg + MMF_GR_Add on the kernel route (#1, #2's
+    training form, hash dropout 0.1) from one init, `steps` training steps
+    of 16 windows over a resident store of 64 on a graphs.StepLoop:
+    captured (a warm-up step, then the capture and replays) or eager.
+    Returns the losses, the parameters after and the loop."""
+    from chip_smoke import headline_batch
+    from imm_tsf_torch.config import Config
+    from imm_tsf_torch.fusion.fusion_model import FusionModel
+    from imm_tsf_torch.layers.fast_dropout import Dropout
+    from imm_tsf_torch.models import get_model
+    from imm_tsf_torch.training import device_loop
+    from imm_tsf_torch.training.graphs import StepLoop
+    from imm_tsf_torch.training.optim import make_optimizer, trainable_parameters
+    from imm_tsf_torch.training.trainer import make_forward, make_grad_step, make_loss_fn
+
+    cfg = Config(model="PatchTST", input_dim=4, input_len=24, pred_len=12, d_model=128, d_ff=256,
+                 n_heads=2, e_layers=1, dropout=0.1, enable_text=True, use_text_embeddings=True,
+                 d_txt=32, TTF_module="TTF_RecAvg", MMF_module="MMF_GR_Add", use_pallas=True,
+                 use_fused_ffn=True)
+    torch.manual_seed(0)
+    model, fusion = get_model(cfg), FusionModel(cfg, d_notes=32)
+    salts = torch.Generator().manual_seed(1)
+    for mod in (model, fusion):
+        mod.to(dev).train()
+        for m in mod.modules():
+            if isinstance(m, Dropout):
+                m.generator = salts
+    params = trainable_parameters(model, fusion)
+    optimizer = make_optimizer(params, 1e-3, 0.01, capturable=dev.type == "cuda")
+    grad_step = make_grad_step(make_loss_fn(make_forward(cfg, model, fusion)), optimizer,
+                               params)
+    store = headline_batch(cfg, 64, torch.Generator().manual_seed(2), dev)
+    table = torch.randperm(64, generator=torch.Generator().manual_seed(3)).to(dev)
+    loop = StepLoop(dev, eager=None if captured else "the eager side of the comparison")
+    losses, skipped = loop.train_epoch(grad_step, ("test",), store,
+                                       device_loop.gather(table.reshape(4, 16)), steps)
+    assert not skipped
+    return losses.tolist(), [p.detach().clone() for p in params], loop
+
+
+@pytest.mark.cuda
+def test_captured_patchtst_step_replays_equal_eager_steps(dev):
+    """One warm-up step, then the captured step replayed 3 times, equals 4
+    eager steps bit for bit: losses and every parameter after (the salts
+    come from the device salt table, Adam is capturable)."""
+    l_eager, p_eager, eager = _patchtst_loop(dev, captured=False)
+    l_graph, p_graph, loop = _patchtst_loop(dev, captured=True)
+    assert eager.replays == 0 and eager.eager_calls == 4
+    assert loop.replays == 3 and loop.eager_calls == 1 and len(loop.graphs) == 1
+    assert loop.tape.n_sites > 2  # the FFN's pair and the attention's sites
+    assert l_graph == l_eager
+    for a, b in zip(p_graph, p_eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_launch_counters_advance_once_a_replay(dev):
+    """A replay launches no Python wrapper: the loop takes back what the
+    capture counted and adds it once a replay, so 4 steps count 4 launches
+    of #1 and of #2's training form, as 4 eager steps do."""
+    names = ("launches", "train_launches")
+    counts = []
+    for captured in (False, True):
+        before = ([getattr(ffn, n) for n in names], recavg.launches)
+        _, _, loop = _patchtst_loop(dev, captured)
+        torch.cuda.synchronize()
+        counts.append(([getattr(ffn, n) - b for n, b in zip(names, before[0])],
+                       recavg.launches - before[1]))
+        if captured:
+            (graph,) = loop.graphs.values()
+            assert graph.delta[0][1] == 1 and graph.nodes > 0
+    assert counts[0] == counts[1] == ([4, 4], 4)
