@@ -256,7 +256,22 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     entities), against phase 12's streaming run (printed: the hash masks
     over its longer staged union axes differ); (e) 14a's run resumed on
     the epoch loop from its epoch-0 state (`--load`), bit for bit;
- 5. (after 6-14) time each kernel and its plain version at the shapes
+15. stacked-replica sweeps through imm_tsf_torch.main on 14's fixture,
+    three epochs: (a) 14a's flags with a 2-seed x 2-lr grid (S = 4, one
+    captured StepLoop a replica, each replaying on its own stream),
+    replica (seed 0, lr 1e-3) held to 14a's loop run and (seed 1, lr
+    3e-4) to a fresh serial loop run, the idle share (phase 14's formula;
+    not measured where the traced epoch's busy time exceeds the untraced
+    epoch's wall), capture and graph nodes a replica, peak memory; (b) the
+    grid streaming, held to (a); (c) the fused CRU with 2 seeds, seed 0
+    held to 14b's fused run; launches S x the serial run's, its tested
+    epochs made the sweep's; (d) (a) interrupted after one epoch and
+    resumed, bit for bit; then the rates of (a)-(c): one run of the
+    cell's flags and the sweep, RATE_EPOCHS epochs each with no early
+    stop, in the order one, sweep, sweep, one; windows/s per card of each
+    timed epoch, the median and spread a side, the ratio of the medians;
+    launches exact in every run;
+ 5. (after 6-15) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -487,6 +502,14 @@ LOOP_RTOL = 1e-5  # phase 14: per-step losses and test metrics, epoch loop vs st
 # phase 11d resumes phase 8's kernel route as experiment "resume": one epoch,
 # then --load resume --epoch 2, held to phase 8's two epochs bit for bit
 RESUME_ARGS = PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + ["--load", "resume"]
+# phase 15: a (seeds x lrs) sweep of 14a's experiment on the epoch loop
+SWEEP_ARGS = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
+              + ["--vmap_seeds", "2", "--vmap_lrs", "1e-3", "3e-4", "--epoch", str(LOOP_EPOCHS)])
+# phase 15's rates: a cell's one run and its sweep, RATE_EPOCHS epochs each
+# with no early stop (epoch 0 captures; 1 on are timed), run one, sweep,
+# sweep, one
+RATE_EPOCHS = 10
+RATE_ARGS = ["--epoch", str(RATE_EPOCHS), "--patience", str(RATE_EPOCHS)]
 RESUME_RTOL = 1e-6  # only where an op with atomics (named by the run) breaks bitwise equality
 # phase 12: the IMTS backbones, each its preset (config.py:407-432: LatentODE
 # rec / units / gru 32; NeuralFlow coupling, 2 flow layers, hidden 3 x 32, rec
@@ -3508,6 +3531,259 @@ def run_device_loop(device, root: str, exp_dir: str, streamed: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 15
+def tested_epochs(epochs: list, early_stop_delta: float) -> set:
+    """The epochs whose val MSE improved (and so ran the test split)."""
+    best, out = np.inf, set()
+    for e in epochs:
+        if best - e["val_mse"] > early_stop_delta:
+            best = e["val_mse"]
+            out.add(e["epoch"])
+    return out
+
+
+def train_sweep(device, args, root: str, exp_dir: str, label: str, expected,
+                trace: bool = False, start: int = 0) -> dict:
+    """Phase 15: a sweep through imm_tsf_torch.main.main(args) with the
+    launch counts zeroed just before. Every replica's losses and metrics
+    finite; on cuda the counts equal expected(steps, evals) over all
+    replicas: each steps every epoch from `start` on, runs the val split
+    every epoch and the test split every epoch on which any replica
+    improved. With `trace`, epoch 1 is traced (idle share)."""
+    data = training_data(root, args)
+    cfg = data["cfg"]
+    n_train, n_val, n_test = (len(data[f"{w}_dataloader"]) for w in ("train", "val", "test"))
+    prof = os.path.join(exp_dir, "trace_sweep")
+    timings: dict = {}
+    zero_counts()
+    t0 = time.monotonic()
+    res = train_main.main(list(args) + (["--profile_dir", prof] if trace else [])
+                          + ["--data_root", root, "--save", exp_dir, "--device", device.type],
+                          timings=timings)
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    replicas, tested = [], set()
+    for r in res:
+        hist = r["history"]
+        losses = [x for h in hist for x in h["step_losses"]]
+        if r.get("diverged") or not np.isfinite(
+                losses + [r[k] for k in ("mse", "mae", "rmse")]).all():
+            raise AssertionError(f"{label}: replica {r['seed']}, {r.get('lr')} diverged")
+        epochs = [{"epoch": h["epoch"], "train_loss": h["train_loss"], "val_mse": h["val"]["mse"]}
+                  for h in hist]
+        tested |= {e for e in tested_epochs(epochs, cfg.early_stop_delta) if e >= start}
+        replicas.append({"seed": r["seed"], "lr": r.get("lr", cfg.lr), "step_losses": losses,
+                         "epochs": epochs,
+                         "test": {k: r[k] for k in ("mse", "mae", "rmse", "best_iter")}})
+    S = len(res)
+    n_epochs = max(h["epoch"] for r in res for h in r["history"]) + 1 - start
+    want = expected(S * n_epochs * n_train, S * (n_epochs * n_val + len(tested) * n_test))
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"{label} launched {launches}, expected {want}")
+    loop = timings.get("epoch_loop") or {}
+    out = {"replicas": replicas, "launches": launches, "tested": sorted(tested),
+           "wall_s": wall, "train_s": timings.get("train", []), "val_s": timings.get("val", []),
+           "mode": loop.get("mode"),
+           "capture_s": [x and x["capture_s"] for x in loop.get("replicas", [])],
+           "graph_nodes": [x and x["graph_nodes"] for x in loop.get("replicas", [])],
+           "replays": [x and x["replays"] for x in loop.get("replicas", [])],
+           "peak_gb": timings["peak_bytes"] / 1e9 if "peak_bytes" in timings else None,
+           "windows_per_epoch": S * n_train * cfg.batch_size,
+           "step_ms": {f"{r['seed']}/{r['lr']}": float(np.median(ms)) if ms else None
+                       for r, ms in zip(replicas, timings.get("step_ms", {}).get("step", []))},
+           "busy_ms": None, "untraced_ms": None, "idle_share": None}
+    if trace:
+        # loop_summary's idle share: the traced epoch 1's device busy ms
+        # over the untraced last epoch's training + validation wall ms. A
+        # busy time above that wall means the traced epoch's kernels did not
+        # overlap as the untraced epoch's did: the share is not measured.
+        out["busy_ms"] = traced_busy_ms(prof)
+        shutil.rmtree(prof, ignore_errors=True)
+        out["untraced_ms"] = (out["train_s"][-1] + out["val_s"][-1]) * 1e3
+        if out["busy_ms"] is not None and out["busy_ms"] <= out["untraced_ms"]:
+            out["idle_share"] = 1.0 - out["busy_ms"] / out["untraced_ms"]
+    log(f"# trained {label}: {S} replicas, {len(res[0]['history'])} epochs in {wall:.2f} s; "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'replicas'})}; replicas "
+        f"{json.dumps(replicas)}")
+    return out
+
+
+def replica(sweep: dict, seed: int, lr: float) -> dict:
+    return next(r for r in sweep["replicas"] if (r["seed"], r["lr"]) == (seed, lr))
+
+
+def hold_run(got: dict, want: dict, label: str) -> dict:
+    """Per-step losses and test metrics of `got` within LOOP_RTOL relative
+    of `want`'s, and the same best epoch; the largest gaps, and whether
+    they are bit for bit."""
+    la, lb = np.asarray(got["step_losses"]), np.asarray(want["step_losses"])
+    if la.shape != lb.shape or got["test"]["best_iter"] != want["test"]["best_iter"]:
+        raise AssertionError(f"{label}: {la.size} steps, best epoch {got['test']['best_iter']} "
+                             f"against {lb.size}, {want['test']['best_iter']}")
+    keys = ("mse", "mae", "rmse")
+    gaps = {"step_losses": float(np.max(np.abs(la - lb) / np.abs(lb))),
+            "test": max(abs(got["test"][k] - want["test"][k]) / abs(want["test"][k])
+                        for k in keys)}
+    bitwise = bool((la == lb).all()) and all(got["test"][k] == want["test"][k] for k in keys)
+    log(f"# {label}: gaps {gaps}, bit for bit {bitwise}")
+    if max(gaps.values()) > LOOP_RTOL:
+        raise AssertionError(f"{label}: departs by {gaps} (> {LOOP_RTOL})")
+    return {"gaps": gaps, "bitwise": bitwise}
+
+
+def spread(values: list) -> dict:
+    """The median of `values` and their spread: quartiles and extremes."""
+    q = np.percentile(values, [0, 25, 50, 75, 100])
+    return {"median": float(q[2]), "p25": float(q[1]), "p75": float(q[3]),
+            "min": float(q[0]), "max": float(q[4]), "n": len(values)}
+
+
+def sweep_rate(device, root: str, exp_dir: str, label: str, one_args, sweep_args, expected,
+               streaming: bool) -> dict:
+    """Phase 15's rate of one cell: `one_args` trained as one run and
+    `sweep_args` as its sweep, RATE_EPOCHS epochs each with no early stop,
+    in the order one, sweep, sweep, one; every run's launches exact. Each
+    timed epoch (1 on; epoch 0 captures) gives windows/s per card: the
+    replicas' training windows over its training seconds. Returns the
+    median and spread of each side over both of its runs, each run's
+    median, and the ratio of the medians."""
+    data = training_data(root, one_args)
+    cfg = data["cfg"]
+    n_train, n_val, n_test = (len(data[f"{w}_dataloader"]) for w in ("train", "val", "test"))
+    rates: dict = {"one": [], "sweep": []}
+    run_medians: dict = {"one": [], "sweep": []}
+    for side in ("one", "sweep", "sweep", "one"):
+        if side == "one":
+            res = train_route(device, list(one_args) + RATE_ARGS, root, exp_dir,
+                              f"{label} rate, one run", n_val, n_test, cfg.early_stop_delta,
+                              expected, streaming=streaming)
+            S, train_s = 1, res["phase_s"]["train"]
+        else:
+            res = train_sweep(device, list(sweep_args) + RATE_ARGS, root, exp_dir,
+                              f"{label} rate, sweep", expected)
+            S, train_s = len(res["replicas"]), res["train_s"]
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        if len(train_s) != RATE_EPOCHS:
+            raise AssertionError(f"{label} rate: {side} trained {len(train_s)} epochs, "
+                                 f"not {RATE_EPOCHS}")
+        got = [S * n_train * cfg.batch_size / t for t in train_s[1:]]
+        rates[side] += got
+        run_medians[side].append(float(np.median(got)))
+    out = {side: dict(spread(v), run_medians=run_medians[side]) for side, v in rates.items()}
+    out["ratio"] = out["sweep"]["median"] / out["one"]["median"]
+    out["epoch_rates"] = rates
+    log(f"# phase {label} rate: sweep {out['sweep']['median']:.1f} windows/s per card "
+        f"(quartiles {out['sweep']['p25']:.1f}-{out['sweep']['p75']:.1f}, range "
+        f"{out['sweep']['min']:.1f}-{out['sweep']['max']:.1f}, runs {run_medians['sweep']}) "
+        f"against one run's {out['one']['median']:.1f} (quartiles {out['one']['p25']:.1f}-"
+        f"{out['one']['p75']:.1f}, range {out['one']['min']:.1f}-{out['one']['max']:.1f}, runs "
+        f"{run_medians['one']}): {out['ratio']:.3f}x over {len(rates['sweep'])} timed epochs "
+        f"a side")
+    return out
+
+
+def run_sweeps(device, root: str, exp_dir: str, loop_runs: dict) -> dict:
+    """Phase 15: 15a the PatchTST sweep (S = 4) on captured steps, 15b the
+    same grid streaming, 15c the fused-CRU sweep (S = 2), 15d 15a resumed,
+    then each of 15a-15c's rate against one run of its flags (see the
+    module docstring)."""
+    data = training_data(root, SWEEP_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    patch_counts = lambda s, e: ffn_counts("kernel", cfg.e_layers, s, e)
+    a14, b14 = loop_runs["14a PatchTST kernel"]["loop"], loop_runs["14b CRU fused"]["loop"]
+    out: dict = {}
+
+    def times_serial(sweep: dict, serial: dict, keys, counts) -> dict:
+        """S x the serial run's launches (`keys`), its tested epochs made
+        the sweep's: the sweep tests every replica on every epoch on which
+        any replica improved, so each test split the serial run did not
+        run adds counts(0, n_test) to it."""
+        extra = len(sweep["tested"]) - len(tested_epochs(serial["epochs"], cfg.early_stop_delta))
+        add = counts(0, extra * n_test)
+        S = len(sweep["replicas"])
+        return {k: S * (serial["launches"][k] + add[k]) for k in keys}
+
+    # 15a
+    sweep = train_sweep(device, SWEEP_ARGS, root, exp_dir, "15a PatchTST sweep, captured",
+                        patch_counts, trace=True)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    serial = train_route(device, PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + [
+        "--epoch", str(LOOP_EPOCHS), "--seed", "1", "--lr", "3e-4", "--data_seed", str(SEED)],
+        root, exp_dir, "15a serial loop run (seed 1, lr 3e-4)", n_val, n_test,
+        cfg.early_stop_delta, patch_counts, streaming=False)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    held = {"seed 0, lr 1e-3 vs 14a": hold_run(replica(sweep, 0, 1e-3), a14, "15a (0, 1e-3)"),
+            "seed 1, lr 3e-4 vs serial": hold_run(replica(sweep, 1, 3e-4), serial,
+                                                  "15a (1, 3e-4)")}
+    S = len(sweep["replicas"])
+    four = times_serial(sweep, a14, a14["launches"], patch_counts)
+    if device.type == "cuda" and sweep["launches"] != four:
+        raise AssertionError(f"15a launched {sweep['launches']}, not {S} x 14a's {four}")
+    if sweep["mode"] != "resident" or (device.type == "cuda" and not all(sweep["replays"])):
+        raise AssertionError(f"15a ran {sweep['mode']} with replays {sweep['replays']}")
+    out["15a"] = dict({k: v for k, v in sweep.items() if k != "replicas"}, held=held, S=S,
+                      launches_x_14a=S)
+    log(f"# phase 15a: {S} replicas, launches {S} x 14a's, idle {sweep['idle_share']} (busy "
+        f"{sweep['busy_ms']} ms traced, untraced epoch {sweep['untraced_ms']} ms), capture s "
+        f"{sweep['capture_s']}, graph nodes {sweep['graph_nodes']}, peak {sweep['peak_gb']} GB")
+
+    # 15b
+    streamed = train_sweep(device, SWEEP_ARGS + STREAM, root, exp_dir,
+                           "15b PatchTST sweep, streaming", patch_counts)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    if streamed["mode"] != "streaming":
+        raise AssertionError(f"15b ran {streamed['mode']}")
+    out["15b"] = dict({k: v for k, v in streamed.items() if k != "replicas"}, held={
+        f"{r['seed']}/{r['lr']}": hold_run(r, replica(sweep, r["seed"], r["lr"]),
+                                           f"15b ({r['seed']}, {r['lr']}) vs 15a")
+        for r in streamed["replicas"]})
+
+    # 15c
+    T_cru = (lambda c: c.input_len + c.pred_len)(training_data(root, TRAIN_ARGS)["cfg"])
+    cru_counts = lambda s, e: expected_counts("fused", T_cru, s, e)
+    cru_args = TRAIN_ARGS + ["--vmap_seeds", "2", "--epoch", str(LOOP_EPOCHS)]
+    with cru_route(True):
+        cru = train_sweep(device, cru_args, root, exp_dir, "15c fused CRU sweep, captured",
+                          cru_counts)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    two = times_serial(cru, b14, ("fused_cru_scan", "fused_cru_scan_backward"), cru_counts)
+    got = {k: cru["launches"][k] for k in two}
+    if device.type == "cuda" and got != two:
+        raise AssertionError(f"15c launched {got}, not 2 x 14b's {two}")
+    out["15c"] = dict({k: v for k, v in cru.items() if k != "replicas"},
+                      held=hold_run(replica(cru, 0, cfg.lr), b14, "15c seed 0 vs 14b fused"))
+
+    # 15d
+    resume = SWEEP_ARGS + ["--load", "sweep_resume"]
+    first = train_sweep(device, resume + ["--epoch", "1"], root, exp_dir,
+                        "15d sweep, epoch 0", patch_counts)
+    resumed = train_sweep(device, resume, root, exp_dir, "15d sweep resumed to 3 epochs",
+                          patch_counts, start=1)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    for r in resumed["replicas"]:
+        want = replica(sweep, r["seed"], r["lr"])
+        if (r["step_losses"], r["test"], r["epochs"]) != (want["step_losses"], want["test"],
+                                                          want["epochs"]):
+            raise AssertionError(f"15d: replica ({r['seed']}, {r['lr']}) resumed {r} differs "
+                                 f"from 15a's {want}")
+    out["15d"] = {"bitwise": True, "wall_s": [first["wall_s"], resumed["wall_s"]],
+                  "launches": [first["launches"], resumed["launches"]]}
+    log("# phase 15d: every replica of the resumed sweep equals 15a's bit for bit")
+
+    # the rates: 15a and 15b against one run of 14a's flags on the same
+    # loop, 15c against one run of 14b's fused flags
+    one = PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
+    out["15a"]["rate"] = sweep_rate(device, root, exp_dir, "15a", one, SWEEP_ARGS,
+                                    patch_counts, streaming=False)
+    out["15b"]["rate"] = sweep_rate(device, root, exp_dir, "15b", one, SWEEP_ARGS + STREAM,
+                                    patch_counts, streaming=True)
+    with cru_route(True):
+        out["15c"]["rate"] = sweep_rate(device, root, exp_dir, "15c", TRAIN_ARGS, cru_args,
+                                        cru_counts, streaming=False)
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -4179,11 +4455,15 @@ def main() -> int:
         make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
         device_loop = run_device_loop(
             device, root, exp_dir, {"LatentODE": imts["LatentODE"]["training"]["kernel"]})
+        mark("14")
+        # phase 15: stacked-replica sweeps on the same fixture, held to phase 14's runs
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        sweeps = run_sweeps(device, root, exp_dir, device_loop)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
 
-    mark("14")
+    mark("15")
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
@@ -4210,6 +4490,11 @@ def main() -> int:
             n = res["loop"]["launches"].get(row["name"], 0) if "loop" in res else 0
             if n:
                 row.setdefault("launches_by_path", {})[f"device_loop {case}"] = n
+    for case in ("15a", "15b", "15c"):  # phase 15's sweeps
+        for row in rows:
+            n = sweeps[case]["launches"].get(row["name"], 0)
+            if n:
+                row.setdefault("launches_by_path", {})[f"sweep {case}"] = n
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
@@ -4252,7 +4537,7 @@ def main() -> int:
                       "default_pair": default_pair, "timellm": timellm_run,
                       "mts": mts, "imts": imts, "llms": llms,
                       "device_loop": {k: v.get("summary", v) for k, v in device_loop.items()},
-                      "phase_s": phase_s}),
+                      "sweeps": sweeps, "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

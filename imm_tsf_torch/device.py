@@ -2,7 +2,11 @@
 
 from __future__ import annotations
 
+import logging
+
 import torch
+
+logger = logging.getLogger("imm_tsf_torch")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -21,3 +25,23 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         # loop's captured steps equal to the streaming loop bit for bit
         torch.backends.cudnn.deterministic = True
     return dev
+
+
+def resolve_run_device(device: str | torch.device | None, gpu: int = 0,
+                       mesh_shape: tuple = ()) -> torch.device:
+    """resolve_device, then the reference's `--gpu N` (CUDA device
+    selection, reference main.py:752) as the JAX package applies it to a
+    single-device run (imm_tsf_tpu/training/trainer.py:530-539, predict.py:
+    68-77): a cuda device without an index, `gpu` set and no `mesh_shape`
+    becomes cuda:<gpu>, made the current device, when the process sees more
+    than `gpu` cards; with fewer it logs the JAX package's warning and stays
+    on cuda:0. An explicit index (`--device cuda:0`) wins over `gpu`."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None or not gpu or mesh_shape:
+        return dev
+    n = torch.cuda.device_count()
+    if gpu >= n:
+        logger.warning("--gpu %d requested but only %d device(s) visible", gpu, n)
+        return torch.device("cuda", 0)
+    torch.cuda.set_device(gpu)
+    return torch.device("cuda", gpu)

@@ -16,6 +16,12 @@ state of the latest two epochs. `--load <id>` names the experiment
 next epoch, up to `--epoch` epochs in all; with no state there it trains
 from scratch under that id. The final test metrics are printed as one
 JSON line.
+
+`--vmap_seeds N` (N > 1) and/or `--vmap_lrs l1 l2 ...` train the (seeds x
+lrs) grid of replicas of the experiment in one process on one card
+(training/vmap_sweep.py), seeds from `--seed`; one JSON line a replica,
+with its `seed` (and `lr` under `--vmap_lrs`). `--gpu N` picks the card
+when `--device` names no index (device.resolve_run_device).
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from .config import Config, apply_presets, derive_npatch, resolve_max_length
 
 # Optional- and tuple-typed flags cannot be inferred from a None or empty
 # default (reference flag surface main.py:43-759)
-_OPT_INT_FLAGS = {"npatch", "patch_stride", "llm_layers_fusion", "cru_lsd", "cru_hidden_units"}
+_OPT_INT_FLAGS = {"npatch", "patch_stride", "llm_layers_fusion", "cru_lsd", "cru_hidden_units",
+                  "data_seed"}
 _OPT_FLOAT_FLAGS = {"unit_scale"}
 _TUPLE_FLOAT_FLAGS = {"vmap_lrs"}
 _TUPLE_INT_FLAGS = {"mesh_shape", "cru_trans_net_hidden_units"}
@@ -76,9 +83,10 @@ def get_args_from_parser(argv=None) -> tuple[Config, str]:
     return Config(**kw), ns.device
 
 
-def main(argv=None, timings: dict | None = None) -> dict:
-    """Train as the flags say; returns trainable()'s result. `timings`
-    is handed to trainable()."""
+def main(argv=None, timings: dict | None = None) -> dict | list[dict]:
+    """Train as the flags say; returns trainable()'s result, or with
+    `--vmap_seeds` > 1 or `--vmap_lrs` the sweep's list of replica results
+    (training/vmap_sweep.train_seed_sweep). `timings` is handed to either."""
     from .training.trainer import trainable
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -87,13 +95,23 @@ def main(argv=None, timings: dict | None = None) -> dict:
     cfg = apply_presets(cfg, fixed_params, tunable_params)
     if cfg.enable_text:
         cfg = resolve_max_length(cfg)  # main.py:968-969
-    if cfg.vmap_seeds > 1 or cfg.vmap_lrs:
-        raise NotImplementedError("stacked-replica sweeps come with the system layers "
-                                  "(ROADMAP.md, Queue 1, item 15)")
     experiment_id = cfg.load or int(random.SystemRandom().random() * 100000)
     logger.info("ExpID %s | %s", experiment_id, cfg.to_json())
-    res = trainable(cfg, checkpoint_dir=f"{cfg.save.rstrip('/')}/experiment_{experiment_id}",
-                    timings=timings, device=device)
+    checkpoint_dir = f"{cfg.save.rstrip('/')}/experiment_{experiment_id}"
+    if cfg.vmap_seeds > 1 or cfg.vmap_lrs:
+        # the (seeds x lrs) replica grid in one process (JAX main.py:102-114)
+        from .training.vmap_sweep import train_seed_sweep
+
+        results = train_seed_sweep(cfg, lrs=cfg.vmap_lrs or None, checkpoint_dir=checkpoint_dir,
+                                   timings=timings, device=device)
+        for r in results:
+            printable = {k: v for k, v in r.items()
+                         if k in ("loss", "mse", "mae", "rmse", "mape", "best_iter", "seed",
+                                  "lr")}
+            logger.info("Final test metrics: %s", json.dumps(printable))
+            print(json.dumps(printable), flush=True)
+        return results
+    res = trainable(cfg, checkpoint_dir=checkpoint_dir, timings=timings, device=device)
     printable = {k: v for k, v in res.items()
                  if k in ("loss", "mse", "mae", "rmse", "mape", "best_iter")}
     logger.info("Final test metrics: %s", json.dumps(printable))

@@ -50,7 +50,7 @@ from .config import Config, load_saved_config
 from .data import collate as C
 from .data.dataset import Chunk
 from .data.loader import _pad_batch_dim
-from .device import resolve_device
+from .device import resolve_run_device
 
 logger = logging.getLogger("imm_tsf_torch.serving")
 
@@ -285,7 +285,8 @@ class ForecastService(_MetricsMixin):
 
     Use `forecast(instances)` for a synchronous call, `submit(instance)`
     for a Future-based async call, and `close()` to stop the batcher.
-    `device` defaults to cuda and raises when CUDA is absent; pass
+    `device` defaults to cuda (the card the experiment's `gpu` names,
+    device.resolve_run_device) and raises when CUDA is absent; pass
     device="cpu" to run on the CPU.
     """
 
@@ -295,7 +296,8 @@ class ForecastService(_MetricsMixin):
         if cfg is None:
             cfg = load_saved_config(os.path.join(checkpoint_dir, "config.json"))
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # the experiment's --gpu picks the card, as JAX predict.py:68-77 does
+        self.device = resolve_run_device(device, cfg.gpu, cfg.mesh_shape)
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
 

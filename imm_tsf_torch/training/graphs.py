@@ -26,6 +26,11 @@ the epoch ends:
   and nothing falls back: a capture that fails raises;
 - one graph per key; the training graphs share one memory pool and the
   eval graphs another;
+- a loop runs every step on its own stream, which waits for the current
+  stream at an epoch's start (its row table) and makes the current stream
+  wait at the end: several loops (the replicas of a sweep, training/
+  vmap_sweep.py) step in turn through `interleave`, each replay on its own
+  stream and in its own pools, so their kernels may overlap;
 - the kernel wrappers' launch counters count Python calls, which a replay
   does not make: the counters' change during a capture is taken back and
   added once a replay.
@@ -39,6 +44,7 @@ through the same code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import time
 
@@ -137,8 +143,25 @@ class StepLoop:
                 "graph_nodes": {str(k): g.nodes for k, g in self.graphs.items()},
                 "replays": self.replays, "eager_calls": self.eager_calls}
 
+    def _on_stream(self):
+        """The block on the loop's own stream (cuda), where every step, its
+        `pos` and its salts go: replicas of a sweep (training/vmap_sweep.py)
+        replay on their own streams, so their kernels may overlap."""
+        return torch.cuda.stream(self.stream) if self.capture else contextlib.nullcontext()
+
+    def _join(self, begin: bool) -> None:
+        """At an epoch's start the loop's stream waits for the current
+        stream (a row table just loaded), at its end the current stream
+        for the loop's."""
+        if self.capture:
+            current = torch.cuda.current_stream(self.device)
+            if begin:
+                self.stream.wait_stream(current)
+            else:
+                current.wait_stream(self.stream)
+
     def _call(self, key, kind: str, fn) -> None:
-        """fn() as the key's next call: eager on the capture stream while
+        """fn() as the key's next call, on the loop's stream: eager while
         warming up, then captured once and replayed."""
         n = self.calls.get(key, 0)
         self.calls[key] = n + 1
@@ -146,11 +169,7 @@ class StepLoop:
             self._timed(kind, fn)
             self.eager_calls += 1
         elif n < WARMUP_CALLS:
-            current = torch.cuda.current_stream(self.device)
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                fn()
-            current.wait_stream(self.stream)
+            fn()
             self.eager_calls += 1
         else:
             if key not in self.graphs:
@@ -177,6 +196,12 @@ class StepLoop:
         eager out-of-memory skipped (on_oom(step, error) decides: it raises,
         or returns to skip). The epoch's salts are drawn here, on the host,
         before its first step, except a recording step's own."""
+        return interleave([self.train_steps(grad_step, key, store, select, n, on_oom)])[0]
+
+    def train_steps(self, grad_step, key, store: dict, select, n: int, on_oom=None):
+        """train_epoch as a generator that yields after each step, so that
+        other loops' steps can go in between (interleave); it returns what
+        train_epoch returns."""
         tape = self.tape
         key = ("train",) + key
         if key not in self.buffers:
@@ -195,17 +220,21 @@ class StepLoop:
             losses.index_copy_(0, self.pos, loss.detach().reshape(1).to(losses.dtype))
 
         skipped: list = []
-        i = 0
-        while tape.generators is None and i < n:  # the run's first step records the sites
-            self._train_call(key, step, i, on_oom, skipped)
-            i += 1
-        if i < n:
-            if "salts" not in buf:
-                buf["salts"] = torch.zeros((n, tape.n_sites, 2), dtype=torch.int64,
-                                           device=self.device)
-            buf["salts"][i:].copy_(tape.draw(n - i))
-        for i in range(i, n):
-            self._train_call(key, step, i, on_oom, skipped)
+        drawn = False
+        self._join(begin=True)
+        for i in range(n):
+            with self._on_stream():
+                # the run's first step records the sites; the rest of the
+                # epoch's salts are drawn once they are known
+                if not drawn and tape.generators is not None:
+                    if "salts" not in buf:
+                        buf["salts"] = torch.zeros((n, tape.n_sites, 2), dtype=torch.int64,
+                                                   device=self.device)
+                    buf["salts"][i:].copy_(tape.draw(n - i))
+                    drawn = True
+                self._train_call(key, step, i, on_oom, skipped)
+            yield
+        self._join(begin=False)
         return losses, skipped
 
     def _train_call(self, key, step, i: int, on_oom, skipped: list) -> None:
@@ -241,11 +270,30 @@ class StepLoop:
                                          device=self.device)
                 out[k].index_copy_(0, self.pos, v[None])
 
-        with torch.no_grad():
+        self._join(begin=True)
+        with torch.no_grad(), self._on_stream():
             for i in range(n):
                 self.pos.fill_(i)
                 self._call(key, "eval", step)
+        self._join(begin=False)
         return out
+
+
+def interleave(step_iters: list) -> list:
+    """Advance each of `step_iters` (StepLoop.train_steps) a step in turn
+    until all are done; returns what each returned. Loops on cuda replay on
+    their own streams, so one batch's steps of several loops may run on the
+    device at once."""
+    results: list = [None] * len(step_iters)
+    live = list(enumerate(step_iters))
+    while live:
+        for entry in list(live):
+            try:
+                next(entry[1])
+            except StopIteration as done:
+                results[entry[0]] = done.value
+                live.remove(entry)
+    return results
 
 
 def eager_reason(cfg, model) -> str | None:

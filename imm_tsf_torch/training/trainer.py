@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..device import resolve_device
+from ..device import resolve_run_device
 from ..layers.fast_dropout import Dropout
 from ..layers.prob_attention import ProbAttention
 from .evaluation import evaluation, finalize_metrics, masked_mse_loss
@@ -198,6 +198,19 @@ def _find_shuffler(loader):
     return loader if hasattr(loader, "_rng") else None
 
 
+def load_run_state(model, fusion, optimizer, model_state: dict, fusion_state: dict | None,
+                   opt_state: dict) -> None:
+    """A saved run's weights and Adam state into its modules (on their
+    device) and optimizer; raises RuntimeError, ValueError or KeyError
+    when they do not fit."""
+    if (fusion_state is None) != (fusion is None):
+        raise ValueError("the fusion stack is present in only one of them")
+    model.load_state_dict(model_state)
+    if fusion is not None:
+        fusion.load_state_dict(fusion_state)
+    optimizer.load_state_dict(opt_state)
+
+
 def _restore(checkpoint_dir: str, model, fusion, optimizer, generators, shuffler):
     """Load the latest train state into the modules (on their device), the
     optimizer, the generators ({name: torch.Generator}) and the shuffler;
@@ -213,26 +226,39 @@ def _restore(checkpoint_dir: str, model, fusion, optimizer, generators, shuffler
                     checkpoint_dir, e)
         return None
     try:
-        if (fusion_state is None) != (fusion is None):
-            raise ValueError("the fusion stack is present in only one of them")
-        model.load_state_dict(model_state)
-        if fusion is not None:
-            fusion.load_state_dict(fusion_state)
-        optimizer.load_state_dict(opt_state)
+        load_run_state(model, fusion, optimizer, model_state, fusion_state, opt_state)
     except (RuntimeError, ValueError, KeyError) as e:
         raise RuntimeError(
             f"Checkpoint at {checkpoint_dir} does not match the current model/fusion "
             "configuration (param tree mismatch) — resume with the same "
             "--model/--enable_text/fusion settings the experiment was trained with, or "
             "drop --load") from e
-    for name, gen in generators.items():
-        if name == "z0" and "z0_rng_state" not in meta:
-            continue  # a state saved before the z0 stream keeps its seed
-        gen.set_state(meta[f"{name}_rng_state"])
-    if meta["data_rng_state"] is not None and shuffler is not None:
-        shuffler._rng.bit_generator.state = meta["data_rng_state"]
+    set_generator_states(generators, meta)
+    restore_shuffle(shuffler, meta)
     logger.info("Resumed full train state (epoch %d) from %s", step, checkpoint_dir)
     return meta
+
+
+def set_generator_states(generators: dict, states: dict) -> None:
+    """Each generator's saved state, `states[f"{name}_rng_state"]` (a
+    state saved before the z0 stream keeps that stream's seed)."""
+    for name, gen in generators.items():
+        if name == "z0" and "z0_rng_state" not in states:
+            continue
+        gen.set_state(states[f"{name}_rng_state"])
+
+
+def generator_states(generators: dict) -> dict:
+    return {f"{k}_rng_state": g.get_state() for k, g in generators.items()}
+
+
+def restore_shuffle(shuffler, meta: dict) -> None:
+    if meta["data_rng_state"] is not None and shuffler is not None:
+        shuffler._rng.bit_generator.state = meta["data_rng_state"]
+
+
+def shuffle_state(shuffler):
+    return shuffler._rng.bit_generator.state if shuffler is not None else None
 
 
 def run_evaluation(forward, loader, device, modules) -> dict:
@@ -251,6 +277,65 @@ def run_evaluation(forward, loader, device, modules) -> dict:
     finally:
         for m in modules:
             m.train()
+
+
+def build_run(cfg: Config, sample: dict, device: torch.device,
+              initial_state: tuple | None = None):
+    """One run's modules, random streams and optimizer, as trainable()
+    builds them: the model and fusion stack under torch.manual_seed(cfg.seed)
+    (Flax takes the notes' width from the sample batch; so does the fusion
+    model here), loaded from `initial_state` when given, on `device` in
+    train mode; the generators {"salt": the hash dropout's salts (host),
+    "sample": ProbSparse attention's train-mode key samples, "z0": the
+    LatentODE's and NeuralFlow's train-mode z0 noise (both on the device)},
+    each seeded cfg.seed and wired into its modules; Adam over the trainable
+    parameters at cfg.lr (`capturable` on cuda).
+    -> (model, fusion or None, generators, params, optimizer)"""
+    from ..models import get_model
+
+    torch.manual_seed(cfg.seed)
+    model = get_model(cfg)
+    fusion = None
+    if cfg.enable_text:
+        from ..fusion.fusion_model import FusionModel
+        from ..llm.loader import get_d_model
+
+        # raw-text notes come out of the embedding LLM at its width
+        d_notes = (int(sample["notes_embeddings"].shape[-1]) if "notes_embeddings" in sample
+                   else get_d_model(cfg.llm_model_fusion))
+        fusion = FusionModel(cfg, d_notes=d_notes)
+    if initial_state is not None:
+        model.load_state_dict(initial_state[0])
+        if fusion is not None:
+            fusion.load_state_dict(initial_state[1])
+    cast_frozen(model, cfg.frozen_param_dtype)
+    generators = {"salt": torch.Generator().manual_seed(cfg.seed),
+                  "sample": torch.Generator(device=device).manual_seed(cfg.seed),
+                  "z0": torch.Generator(device=device).manual_seed(cfg.seed)}
+    for mod in (model, fusion):
+        if mod is None:
+            continue
+        mod.to(device).train()
+        for m in mod.modules():
+            if isinstance(m, Dropout):
+                m.generator = generators["salt"]
+            elif isinstance(m, ProbAttention):
+                m.generator = generators["sample"]
+            elif hasattr(m, "z0_generator"):
+                m.z0_generator = generators["z0"]
+    params = trainable_parameters(model, fusion)
+    optimizer = make_optimizer(params, cfg.lr, cfg.w_decay, capturable=device.type == "cuda")
+    return model, fusion, generators, params, optimizer
+
+
+def traced_epoch(cfg: Config, start_epoch: int) -> int | None:
+    """The epoch `profile_dir` traces, the JAX trainer's (:729-734): the
+    first after the start epoch (the start epoch compiles there, and
+    captures here), or the start epoch when it is the only one left; None
+    without profile_dir."""
+    if cfg.profile_dir is None:
+        return None
+    return start_epoch + 1 if cfg.epoch - start_epoch > 1 else start_epoch
 
 
 def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
@@ -276,9 +361,9 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     events around each replay or eager step, warm-up calls aside),
     streaming each step's forward, backward and optimizer device ms."""
     from ..data.loader import parse_datasets
-    from ..models import get_model
 
-    device = resolve_device(device)
+    # --gpu pins the card before anything is placed on it (JAX :530-539)
+    device = resolve_run_device(device, cfg.gpu, cfg.mesh_shape)
     check_trainable(cfg)
 
     def _mark(key, dt):
@@ -297,48 +382,16 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
 
     # the JAX trainer draws one sample batch for its init (trainer.py:556),
     # which advances the shuffle stream: draw it too, so the batch order
-    # stays the JAX package's for the same seed. Flax takes the notes' width
-    # from that batch; so does the fusion model here
+    # stays the JAX package's for the same seed
     sample = next(iter(data_obj["train_dataloader"]))
-    torch.manual_seed(cfg.seed)
-    model = get_model(cfg)
-    fusion = None
-    if cfg.enable_text:
-        from ..fusion.fusion_model import FusionModel
-        from ..llm.loader import get_d_model
-
-        # raw-text notes come out of the embedding LLM at its width
-        d_notes = (int(sample["notes_embeddings"].shape[-1]) if "notes_embeddings" in sample
-                   else get_d_model(cfg.llm_model_fusion))
-        fusion = FusionModel(cfg, d_notes=d_notes)
-    if initial_state is not None:
-        model.load_state_dict(initial_state[0])
-        if fusion is not None:
-            fusion.load_state_dict(initial_state[1])
-    cast_frozen(model, cfg.frozen_param_dtype)
+    model, fusion, generators, params, optimizer = build_run(cfg, sample, device,
+                                                             initial_state)
     modules = [m for m in (model, fusion) if m is not None]
-    salts = torch.Generator().manual_seed(cfg.seed)  # the hash dropout's salt stream
-    # ProbSparse attention's train-mode key samples, drawn on the device
-    samples = torch.Generator(device=device).manual_seed(cfg.seed)
-    # the LatentODE's and NeuralFlow's train-mode z0 noise, drawn on the device
-    z0 = torch.Generator(device=device).manual_seed(cfg.seed)
-    for mod in modules:
-        mod.to(device).train()
-        for m in mod.modules():
-            if isinstance(m, Dropout):
-                m.generator = salts
-            elif isinstance(m, ProbAttention):
-                m.generator = samples
-            elif hasattr(m, "z0_generator"):
-                m.z0_generator = z0
-
-    params = trainable_parameters(model, fusion)
-    optimizer = make_optimizer(params, cfg.lr, cfg.w_decay, capturable=device.type == "cuda")
+    samples, z0 = generators["sample"], generators["z0"]
     forward = make_forward(cfg, model, fusion)
 
     best_val_mse, best_iter, test_res, no_improve, history = np.inf, -1, None, 0, []
     start_epoch = 0
-    generators = {"salt": salts, "sample": samples, "z0": z0}
     shuffler = _find_shuffler(data_obj["train_dataloader"])
     # --load: resume after the sample batch above, which advanced the
     # shuffle stream in the saved run too; Adam's state after the
@@ -374,9 +427,7 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
         _mark(which, time.time() - t0)
         return res
 
-    # profile_dir traces the epoch the JAX trainer traces: its second (the
-    # first is its compile), or the only one
-    profile_epoch = None if cfg.profile_dir is None else (1 if cfg.epoch > 1 else 0)
+    profile_epoch = traced_epoch(cfg, start_epoch)
     # debug_nans: anomaly mode raises where a backward first gives a NaN
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
                else contextlib.nullcontext())
@@ -420,9 +471,8 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
 
                 meta = dict(epoch=itr, best_val_mse=float(best_val_mse), best_iter=best_iter,
                             no_improve=no_improve, test_res=test_res, history=history,
-                            data_rng_state=(shuffler._rng.bit_generator.state
-                                            if shuffler is not None else None),
-                            **{f"{k}_rng_state": g.get_state() for k, g in generators.items()})
+                            data_rng_state=shuffle_state(shuffler),
+                            **generator_states(generators))
                 t0 = time.time()
                 save_train_state(checkpoint_dir, model.state_dict(),
                                  fusion.state_dict() if fusion is not None else None,
@@ -492,6 +542,25 @@ def _is_oom(error) -> bool:
             or "out of memory" in str(error).lower())
 
 
+def resident_stores(cfg, data_obj, device) -> dict | None:
+    """Every split as a device_loop.Resident on `device`, or None when one
+    split does not build (a batch-dependent collate, a split past
+    `device_loop_max_mb`, a loader that is not a BatchIterator under its
+    stages)."""
+    from . import device_loop as DL
+
+    cap = cfg.device_loop_max_mb << 20
+    splits = [w for w in ("train", "val", "test") if data_obj[f"{w}_dataloader"] is not None]
+    built: dict = {}
+    for w in splits:  # short-circuit: one split that fails decides
+        bit = _find_shuffler(data_obj[f"{w}_dataloader"])
+        r = DL.try_build_resident(data_obj[f"{w}_dataloader"], cap) if bit else None
+        if r is None:
+            return None
+        built[w] = (r, bit)
+    return {w: DL.Resident(w, r, bit, device) for w, (r, bit) in built.items()}
+
+
 def _epoch_loop(cfg, data_obj, model, forward, optimizer, params, generators, device,
                 timed: bool):
     """The run's device-side epoch loop, or None when it streams: resident
@@ -499,24 +568,17 @@ def _epoch_loop(cfg, data_obj, model, forward, optimizer, params, generators, de
     split staged each epoch), else None (JAX :646-701)."""
     from . import device_loop as DL
 
-    cap = cfg.device_loop_max_mb << 20
-    splits = [w for w in ("train", "val", "test") if data_obj[f"{w}_dataloader"] is not None]
-    bits = {w: _find_shuffler(data_obj[f"{w}_dataloader"]) for w in splits}
-    built: dict = {}
-    for w in splits:  # short-circuit: one split that fails decides
-        r = DL.try_build_resident(data_obj[f"{w}_dataloader"], cap) if bits[w] else None
-        if r is None:
-            break
-        built[w] = r
-    if len(built) == len(splits):
-        stores = {w: DL.Resident(w, built[w], bits[w], device) for w in splits}
-        return _EpochLoop(cfg, "resident", stores, bits["train"], model, forward, optimizer,
+    bit_train = _find_shuffler(data_obj["train_dataloader"])
+    stores = resident_stores(cfg, data_obj, device)
+    if stores is not None:
+        return _EpochLoop(cfg, "resident", stores, bit_train, model, forward, optimizer,
                           params, generators, device, timed)
     # the eval splits stage once (no shuffle: the train stream is untouched)
-    staged = {w: DL.stage_epoch(data_obj[f"{w}_dataloader"]) for w in splits[1:]}
+    evals = [w for w in ("val", "test") if data_obj[f"{w}_dataloader"] is not None]
+    staged = {w: DL.stage_epoch(data_obj[f"{w}_dataloader"]) for w in evals}
     if any(v is None for v in staged.values()):
         return None
-    return _EpochLoop(cfg, "staged", staged, bits["train"], model, forward, optimizer, params,
+    return _EpochLoop(cfg, "staged", staged, bit_train, model, forward, optimizer, params,
                       generators, device, timed)
 
 
@@ -556,6 +618,12 @@ class _EpochLoop:
     def stats(self) -> dict:
         return dict(self.loop.stats(), mode=self.mode)
 
+    def collect_step_ms(self) -> None:
+        """The device ms of the epoch's timed steps, once its losses were read."""
+        for start, end in self.events:
+            self.step_ms.append(start.elapsed_time(end))
+        self.events.clear()
+
     def train(self, itr: int, train_loader) -> list[float]:
         """One epoch; its losses read once. A NaN loss raises at its step
         (JAX :786-791); an out-of-memory raises the JAX package's message in
@@ -581,9 +649,7 @@ class _EpochLoop:
                     "Rerun with --device_loop false for per-batch streaming with OOM "
                     "batch-skip, or reduce batch_size / device_loop_max_mb") from e
             raise
-        for start, end in self.events:
-            self.step_ms.append(start.elapsed_time(end))
-        self.events.clear()
+        self.collect_step_ms()
         step = next((i for i, v in enumerate(values) if i not in skipped and np.isnan(v)), None)
         if step is not None:
             raise FloatingPointError(f"NaN loss at epoch {itr} step {step} "
