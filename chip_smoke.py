@@ -289,7 +289,20 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     of (a)'s requests as (a)'s artifact does, bit for bit; `main_all` runs
     DLinear with text on and off for one epoch on the card, then again,
     skipping both by their result files;
- 5. (after 6-16) time each kernel and its plain version at the shapes
+17. compute_dtype="amp_bf16" (the JAX package's mixed precision: bf16
+    copies of the backbone's parameters and inputs at every forward, JAX's
+    promotion after): (a) #2's bf16-weight form (f32 x, bf16 W1, b1, W2,
+    b2, gamma, beta read as bf16 in the kernel) against its plain version
+    at phase 3's M 8192 and Informer's three sites, eval and training
+    forms with dropout, to 1e-4 + 1e-4|ref|; (b) 14a's flags with
+    --compute_dtype amp_bf16 for three epochs on the loop (captured) and
+    streaming, held to each other within 1e-5 relative, launches exact
+    with every #2 in its bf16-weight form, the per-step losses finite,
+    within 5 % relative of 14a's float32 run and not equal to it; (c) TTM
+    (its preset) on the loop in float32 and in amp_bf16, windows/s, device
+    ms a step and idle share side by side; (d) (b)'s experiment exported
+    at B 8 and served, 64 requests, bit for bit with the live service;
+ 5. (after 6-17) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -299,7 +312,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     inputs; the Frechet derivative on a training step's 72 [32,64,64]
     calls, beside matrix_exp of the 128-square block; the scan backward
     on that step's inputs; #2's training form and its plain backward at
-    M 8192, and both forms at Informer's three sites) and print one JSON
+    M 8192, and both forms at Informer's three sites, each also in its
+    bf16-weight form beside the float32 form, bound with bf16 weight bytes
+    and two TF32 passes a product) and print one JSON
     line {"kernels": [...]}
     (seven rows) with the bound each is held to (#4-#7 from the data's
     own tiers and squarings; #2 and #3 at 3 x their products' FLOPs on
@@ -539,6 +554,15 @@ ARTIFACT_TOL = (1e-6, 1e-5)  # (atol, rtol)
 ARTIFACT_BATCHES = {"16a": (1, 8, 64), "16b": (1, 8)}
 N_ARTIFACT_REQUESTS = {"16a": 512, "16b": 64}
 PREDICT_RTOL = 1e-6
+# phase 17: compute_dtype="amp_bf16", the JAX package's mixed precision
+# (tests/test_amp_bf16.py): 14a's flags on the loop and streaming, held to
+# each other within LOOP_RTOL and to 14a's float32 losses within
+# AMP_LOSS_RTOL (and not equal to them); TTM on the loop in both dtypes;
+# 14a's amp experiment exported and served (ARTIFACT_BATCHES["17d"])
+AMP = ["--compute_dtype", "amp_bf16"]
+AMP_LOSS_RTOL = 0.05
+ARTIFACT_BATCHES["17d"] = (8,)
+N_ARTIFACT_REQUESTS["17d"] = 64
 # 16d: main_all's two combinations, DLinear with text on and off
 MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text", "1", "0",
                      "--ttf", "TTF_RecAvg", "--mmf", "MMF_GR_Add", "--epoch", "1",
@@ -642,6 +666,13 @@ def ffn_inputs(M, D, F, gen, device):
     beta = 0.1 * torch.randn((D,), generator=gen, device=device)
     salts = torch.randint(0, 2**32, (2, 2), generator=gen, device=device, dtype=torch.int64)
     return [x, w1, b1, w2, b2, gamma, beta, salts]
+
+
+def bf16_weights(args):
+    """ffn_inputs with W1, b1, W2, b2, gamma and beta cast to bfloat16, as
+    compute_dtype="amp_bf16" hands them to kernel #2 (the weights stay
+    transposed views of [out, in] tensors)."""
+    return [a.to(torch.bfloat16) if 1 <= i <= 6 else a for i, a in enumerate(args)]
 
 
 def dropout_probe_inputs(M, D, F, site, salts, device):
@@ -1654,6 +1685,7 @@ def wall_ms(fn, *args, reps: int = 10, inference: bool = True) -> list[float]:
 KERNEL_COUNTS = {  # kernel -> (module, its launch counter)
     "recency_weighted_average": (recavg, "launches"),
     "fused_encoder_ffn": (ffn, "launches"), "fused_encoder_ffn_train": (ffn, "train_launches"),
+    "fused_encoder_ffn_bf16w": (ffn, "bf16w_launches"),
     "batched_expm": (expm, "launches"), "batched_expm_frechet": (expm, "frechet_launches"),
     "fused_cru_scan": (cru_scan, "launches"),
     "fused_cru_scan_backward": (cru_scan, "backward_launches"),
@@ -1969,16 +2001,18 @@ def compare_wide_notes(device) -> dict:
     return out
 
 
-def ffn_counts(route: str, ffn_sites: int, steps: int, evals: int) -> dict:
+def ffn_counts(route: str, ffn_sites: int, steps: int, evals: int, bf16w: bool = False) -> dict:
     """Launches of a run of `steps` gradient steps and `evals` eval batches
     of a model with `ffn_sites` FFN layers behind TTF_RecAvg: on the kernel
     route #1 once a forward and #2 once a forward an FFN site (its training
-    form in the steps); nothing on the plain route."""
+    form in the steps; every launch in its bf16-weight form with `bf16w`,
+    compute_dtype="amp_bf16"); nothing on the plain route."""
     counts = dict.fromkeys(KERNEL_COUNTS, 0)
     if route == "kernel":
         counts.update(recency_weighted_average=steps + evals,
                       fused_encoder_ffn=ffn_sites * (steps + evals),
-                      fused_encoder_ffn_train=ffn_sites * steps)
+                      fused_encoder_ffn_train=ffn_sites * steps,
+                      fused_encoder_ffn_bf16w=ffn_sites * (steps + evals) if bf16w else 0)
     return counts
 
 
@@ -3829,11 +3863,15 @@ def run_sweeps(device, root: str, exp_dir: str, loop_runs: dict) -> dict:
 
 # --------------------------------------------------------------- phase 16
 def per_dispatch(label: str, cfg) -> dict:
-    """The launches of one dispatch of a phase 16 artifact, as the live
-    service launches them: #1 once; PatchTST's #2 (eval form) once an
-    encoder layer; the fused CRU's #6 once."""
+    """The launches of one dispatch of a phase 16 (or 17d) artifact, as the
+    live service launches them: #1 once; PatchTST's #2 (eval form) once an
+    encoder layer (in its bf16-weight form under amp, 17d); the fused CRU's
+    #6 once."""
     if label == "16a":
         return {"recency_weighted_average": 1, "fused_encoder_ffn": cfg.e_layers}
+    if label == "17d":  # 14a's flags under amp_bf16: #2 in its bf16-weight form
+        return {"recency_weighted_average": 1, "fused_encoder_ffn": cfg.e_layers,
+                "fused_encoder_ffn_bf16w": cfg.e_layers}
     return {"recency_weighted_average": 1, "fused_cru_scan": 1}
 
 
@@ -4009,6 +4047,141 @@ def run_deployment(device, root: str, exp_dir: str, kept_root: str, loop_runs: d
     return out
 
 
+# --------------------------------------------------------------- phase 17
+def check_ffn_bf16w(device, shapes) -> dict:
+    """Phase 17a: #2's bf16-weight form (f32 x, bf16 W1, b1, W2, b2, gamma,
+    beta, as compute_dtype="amp_bf16" hands them over) against its plain
+    version on the same inputs, within FFN_TOL: the eval and training forms
+    at phase 3's M 8,192 (dropout on) and at Informer's three sites; the
+    launches counted in that form. Returns the errors by case."""
+    errs = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    cases = [(M, D, F) for M, D, F in [shapes["ffn"], *shapes["ffn_informer"]]]
+    for M, D, F in cases:
+        args = bf16_weights(ffn_inputs(M, D, F, gen, device))
+        zero_counts()
+        out = ffn.fused_encoder_ffn(*args, KEEP, "gelu", True)
+        got = ffn._forward(*args, KEEP, "gelu", True, with_residuals=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if device.type == "cuda" and (ffn.bf16w_launches, ffn.train_launches) != (2, 1):
+            raise AssertionError(f"17a: #2 at M {M} launched {read_counts()}, not twice in "
+                                 "its bf16-weight form")
+        if out.dtype != torch.float32 or any(g.dtype != torch.float32 for g in got):
+            raise AssertionError("17a: the bf16-weight form must give float32 outputs")
+        errs[f"ffn bf16w M {M}"] = max_err(out, ffn.ffn_reference(*args, KEEP, "gelu", True),
+                                           FFN_TOL)
+        want = ffn.ffn_forward_reference(*args, KEEP, "gelu", True, with_residuals=True)
+        errs[f"ffn bf16w M {M} training form"] = {
+            name: max_err(g, w, FFN_TOL) for name, g, w in zip(("out", "a1", "r"), got, want)}
+        log(f"# check ffn bf16-weight form M={M} D={D} F={F} gelu dropout=True: max|err| "
+            f"{errs[f'ffn bf16w M {M}']:.3e}, training form "
+            f"{json.dumps(errs[f'ffn bf16w M {M} training form'])}")
+    return errs
+
+
+def loop_only(device, root: str, exp_dir: str, label: str, args, expected) -> dict:
+    """One run of `args` on the epoch loop (LOOP_EPOCHS, epoch 1 traced),
+    launches exact (expected(steps, evals)): its loop_summary."""
+    data = training_data(root, args)
+    cfg = data["cfg"]
+    prof = os.path.join(exp_dir, "trace_loop")
+    res = train_route(device, list(args) + ["--epoch", str(LOOP_EPOCHS), "--profile_dir", prof],
+                      root, exp_dir, label, len(data["val_dataloader"]),
+                      len(data["test_dataloader"]), cfg.early_stop_delta, expected,
+                      streaming=False)
+    res["busy_ms"] = traced_busy_ms(prof)
+    shutil.rmtree(prof, ignore_errors=True)
+    check_loop_mode(label, res, "resident", device.type == "cuda")
+    summary = loop_summary(res, cfg.batch_size)
+    log(f"# phase {label}: {json.dumps(summary)}")
+    return {"summary": summary, "run": res}
+
+
+def run_amp(device, root: str, exp_dir: str, loop_runs: dict, shapes) -> dict:
+    """Phase 17: compute_dtype="amp_bf16". 17a #2's bf16-weight form against
+    its plain version (check_ffn_bf16w); 17b 14a's flags (PatchTST + the
+    pair on the kernel route, hash dropout 0.1) with --compute_dtype
+    amp_bf16 on the loop (captured) and streaming, held to each other
+    within LOOP_RTOL, launches exact with every #2 in its bf16-weight form,
+    the per-step losses finite, within AMP_LOSS_RTOL of 14a's float32 loop
+    run and not equal to them; 17c TTM on the loop in float32 and in
+    amp_bf16, rates side by side; 17d 17b's experiment exported at B 8 and
+    served, 64 requests, bit for bit with the live service."""
+    out = {"errs": check_ffn_bf16w(device, shapes)}
+    patch_cfg = training_data(root, PATCH_TRAIN_ARGS)["cfg"]
+    kept = exp_dir + "_amp_kept"  # 17b's loop experiment, for 17d
+    os.makedirs(kept, exist_ok=True)
+    try:
+        case = run_loop_case(
+            device, root, exp_dir, "17b PatchTST, kernel route, amp_bf16",
+            PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + AMP,
+            lambda s, e: ffn_counts("kernel", patch_cfg.e_layers, s, e, bf16w=True), True,
+            keep_exp=os.path.join(kept, "experiment_17b"))
+        check_loop_mode("17b", case["loop"], "resident", device.type == "cuda")
+        amp = np.asarray(case["loop"]["step_losses"])
+        f32 = np.asarray(loop_runs["14a PatchTST kernel"]["loop"]["step_losses"])
+        if amp.shape != f32.shape or not np.isfinite(amp).all():
+            raise AssertionError(f"17b: {amp.size} amp losses against 14a's {f32.size}")
+        gap = float(np.max(np.abs(amp - f32) / np.abs(f32)))
+        if gap > AMP_LOSS_RTOL or bool((amp == f32).all()):
+            raise AssertionError(f"17b: amp's per-step losses {amp.tolist()} against 14a's "
+                                 f"float32 {f32.tolist()}: gap {gap:.3e} (limit "
+                                 f"{AMP_LOSS_RTOL}; equal would mean no cast engaged)")
+        case["summary"]["float32_gap"] = gap
+        log(f"# phase 17b: per-step losses within {gap:.3e} of 14a's float32 run, not equal")
+        out["17b PatchTST amp"] = case
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        for dtype, extra in (("float32", []), ("amp_bf16", AMP)):
+            out[f"17c TTM {dtype}"] = loop_only(device, root, exp_dir, f"17c TTM, {dtype}",
+                                                MTS_TRAIN_ARGS["TTM"] + extra, recavg_only)
+            shutil.rmtree(exp_dir, ignore_errors=True)
+        art = serve_artifact(device, os.path.join(kept, "experiment_17b"),
+                             os.path.join(exp_dir, "artifacts", "17d"), "17d")
+        for k in ("_forecaster", "_requests"):
+            art.pop(k)
+        if not art["bitwise"]:
+            raise AssertionError(f"17d: the amp artifact departs from the live service by "
+                                 f"{art['max_err']:.3e}")
+        out["17d artifact"] = art
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    return out
+
+
+def ffn_bf16w_timings(device, shapes, errs) -> dict:
+    """Phase 5, #2's bf16-weight form at M 8,192 and Informer's sites (dropout
+    on): both forms and their plain versions, with the form's bound (bf16
+    weight bytes; two TF32 passes a product, a bf16 weight being exact in
+    TF32), beside the float32 form's time on the same x."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    out = {}
+    for M, D, F in [shapes["ffn"], *shapes["ffn_informer"]]:
+        f32_sets = [ffn_inputs(M, D, F, gen, device) for _ in range(3)]
+        sets = [bf16_weights(a) for a in f32_sets]
+        eval_ = lambda *a: ffn.fused_encoder_ffn(*a, KEEP, "gelu", True)
+        train = lambda *a: ffn._forward(*a, KEEP, "gelu", True, with_residuals=True)
+        b, by = ffn_bound(M, D, F, weight_bytes=2, passes=2)
+        tb, tby = ffn_bound(M, D, F, residuals=True, weight_bytes=2, passes=2)
+        out[str(M)] = {
+            "ms": device_ms(eval_, sets, per_rep=10),
+            "float32_form_ms": device_ms(eval_, f32_sets, per_rep=10),
+            "plain_ms": device_ms(lambda *a: ffn.ffn_reference(*a, KEEP, "gelu", True), sets,
+                                  per_rep=10),
+            "bound_ms": b, "bound_by": by,
+            "train_ms": device_ms(train, sets, per_rep=10),
+            "float32_form_train_ms": device_ms(train, f32_sets, per_rep=10),
+            "train_plain_ms": device_ms(lambda *a: ffn.ffn_forward_reference(
+                *a, KEEP, "gelu", True, with_residuals=True), sets, per_rep=10),
+            "train_bound_ms": tb, "train_bound_by": tby,
+            "max_abs_err": errs[f"ffn bf16w M {M}"],
+            "train_max_abs_err": errs[f"ffn bf16w M {M} training form"]}
+        log(f"# fused FFN, bf16-weight form, M {M}: {json.dumps(out[str(M)])}")
+        del sets, f32_sets
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -4030,13 +4203,16 @@ def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     return float(np.median(times))
 
 
-def ffn_bound(M: int, D: int, F: int, residuals: bool = False) -> tuple[float, str]:
-    """#2's bound at [M, D] x [D, F]: its products as 3 TF32 passes on the
-    tensor cores, the rest (activation, dropout, LayerNorm) at the fp32
-    peak, against x, the weights and out moved once (the training form also
-    writes a1 [M, F] and r [M, D])."""
-    nbytes = 4 * (2 * M * D + 2 * D * F + F + 3 * D) + (4 * (M * F + M * D) if residuals else 0)
-    t_ops = (3 * 4 * M * D * F / PEAK_TF32_FLOP_PER_S
+def ffn_bound(M: int, D: int, F: int, residuals: bool = False, weight_bytes: int = 4,
+              passes: int = 3) -> tuple[float, str]:
+    """#2's bound at [M, D] x [D, F]: its products as `passes` TF32 passes
+    on the tensor cores (3 for 3xTF32; 2 in the bf16-weight form), the rest
+    (activation, dropout, LayerNorm) at the fp32 peak, against x, the
+    weights (`weight_bytes` each: 2 in bf16) and out moved once (the
+    training form also writes a1 [M, F] and r [M, D])."""
+    nbytes = (4 * 2 * M * D + weight_bytes * (2 * D * F + F + 3 * D)
+              + (4 * (M * F + M * D) if residuals else 0))
+    t_ops = (passes * 4 * M * D * F / PEAK_TF32_FLOP_PER_S
              + (10 * M * F + 10 * M * D) / PEAK_FP32_FLOP_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
@@ -4691,12 +4867,16 @@ def main() -> int:
         # phase 16: the deployment path on phase 14's experiments
         shutil.rmtree(exp_dir, ignore_errors=True)
         deployment = run_deployment(device, root, exp_dir, kept_root, device_loop)
+        mark("16")
+        # phase 17: compute_dtype="amp_bf16" on 14a's flags, TTM, and deployed
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        amp = run_amp(device, root, exp_dir, device_loop, shapes)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
         shutil.rmtree(kept_root, ignore_errors=True)
 
-    mark("16")
+    mark("17")
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
@@ -4733,6 +4913,18 @@ def main() -> int:
             n = res["launches"].get(row["name"], 0)
             if n:
                 row.setdefault("launches_by_path", {})[f"artifact {case}"] = n
+    # phase 17: #2's bf16-weight form timed, and its launches on the amp paths
+    ffn_row["bf16_weight_form"] = ffn_bf16w_timings(device, shapes, amp["errs"])
+    amp_launches = {"device_loop 17b": amp["17b PatchTST amp"]["loop"]["launches"],
+                    "streaming 17b": amp["17b PatchTST amp"]["streaming"]["launches"],
+                    "artifact 17d": amp["17d artifact"]["launches"]}
+    for path, counts in amp_launches.items():
+        for row in rows:
+            if counts.get(row["name"], 0):
+                row.setdefault("launches_by_path", {})[f"amp {path}"] = counts[row["name"]]
+    ffn_row["bf16w_launches_by_path"] = {p: c.get("fused_encoder_ffn_bf16w", 0)
+                                         for p, c in amp_launches.items()}
+    mark("5b")
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
         f"requests/s, dispatch p50 {text['dispatch_ms']['p50']} ms; CRU default "
@@ -4775,7 +4967,11 @@ def main() -> int:
                       "default_pair": default_pair, "timellm": timellm_run,
                       "mts": mts, "imts": imts, "llms": llms,
                       "device_loop": {k: v.get("summary", v) for k, v in device_loop.items()},
-                      "sweeps": sweeps, "deployment": deployment, "phase_s": phase_s}),
+                      "sweeps": sweeps, "deployment": deployment,
+                      "amp": {"17b": amp["17b PatchTST amp"]["summary"],
+                              **{k: v["summary"] for k, v in amp.items() if k.startswith("17c")},
+                              "17d": amp["17d artifact"], "errs": amp["errs"]},
+                      "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

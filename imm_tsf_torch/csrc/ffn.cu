@@ -48,7 +48,19 @@
 // ragged M needs no host padding; columns past D and hidden units past F
 // are zero-filled. The training form's stores are a thread's two adjacent
 // columns of an mma tile, one 8-byte store where the row allows it.
+//
+// The bfloat16-weight form (`ffn_forward_bf16w`, compute_dtype="amp_bf16":
+// the JAX package hands the TPU kernel float32 x and bf16 W1, b1, W2, b2,
+// gamma and beta, which it widens in its body, ffn_kernel.py:76-83) is the
+// same kernel with W = __nv_bfloat16: the weight tiles stream as bf16 (half
+// the bytes; a 16-byte cp.async carries 8 of them, rows of 40 and 8 halves
+// keep the 4-byte fragment loads free of bank conflicts) and are widened
+// where the fragments are loaded, the vectors where they are read. A
+// widened bf16 is exact in TF32, so its 3xTF32 low part is zero: that pass
+// is dropped (the sum is the same bits) and each product takes two passes.
+// x, out, a1 and r stay float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +93,23 @@ constexpr int kSmemFloats = kBM * kXLd + kBM * kHLd + kStages * kStage + 2 * kBM
 constexpr float kEps = 1e-5f;
 
 static_assert(kMaxD * kW2Ld <= kStage, "a W2 tile fits a stage");
+
+// What the kernel reads of a weight type: float32 (split into two TF32
+// parts) or bfloat16 (exact in TF32: one part, and no hi x lo pass).
+template <typename W>
+struct Weights;
+
+template <>
+struct Weights<float> {
+  static constexpr bool kSplit = true;
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+};
+
+template <>
+struct Weights<__nv_bfloat16> {
+  static constexpr bool kSplit = false;
+  static __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+};
 
 __device__ __forceinline__ uint32_t fmix(uint32_t h) {
   h ^= h >> 16;
@@ -121,6 +150,31 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, long long ro
   }
 }
 
+// a weight tile's 16 bytes of src[row, col..]: copy4 for float32; for
+// bfloat16 eight halves, one 16-byte cp.async when `vec`, else plain loads
+// (no cp.async moves 2 bytes), which the next __syncthreads publishes
+__device__ __forceinline__ void copy_w(float* dst, const float* src, long long row, int col,
+                                       long long rows, int cols, int ld, bool vec) {
+  copy4(dst, src, row, col, rows, cols, ld, vec);
+}
+
+__device__ __forceinline__ void copy_w(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                       long long row, int col, long long rows, int cols, int ld,
+                                       bool vec) {
+  const bool in_row = row < rows;
+  if (vec) {
+    const bool ok = in_row && col < cols;
+    cp_async16(reinterpret_cast<float*>(dst),
+               reinterpret_cast<const float*>(ok ? src + row * ld + col : src), ok);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool ok = in_row && col + j < cols;
+      dst[j] = ok ? src[row * ld + col + j] : __float2bfloat16(0.f);
+    }
+  }
+}
+
 // The k of each 8-deep mma step is permuted: fragment column t holds
 // k = 2t and column t + 4 holds k = 2t + 1, in A and in B alike (the sum
 // over k does not depend on its order), so each fragment register pair is
@@ -150,6 +204,16 @@ __device__ __forceinline__ void load_b(const float* s, int ld, int g, int t, uin
   split(v.y, bh[1], bl[1]);
 }
 
+// the same fragment of a bfloat16 tile: one 4-byte load of B[2t][g] and
+// B[2t + 1][g], widened by a shift (exact in TF32, so no low part)
+__device__ __forceinline__ void load_b(const __nv_bfloat16* s, int ld, int g, int t,
+                                       uint32_t bh[2], uint32_t bl[2]) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(s + g * ld + 2 * t);
+  bh[0] = v << 16;
+  bh[1] = v & 0xffff0000u;
+  bl[0] = bl[1] = 0u;
+}
+
 // dst[row, col] and dst[row, col + 1] (col even) of a row-major rows x cols
 // matrix, the parts inside it: one 8-byte store when cols is even (then
 // col + 1 < cols and the address is 8-byte aligned), else one store each
@@ -166,8 +230,8 @@ __device__ __forceinline__ void store_pair(float* dst, long long row, int col, l
 }
 
 // c[mi][n0 + n] += a[mi] b[n] (n < N) in three passes, each over all 2 N
-// accumulators before the next
-template <int N, int NC>
+// accumulators before the next; two (no ah bl) when b has no low part
+template <int N, int NC, bool kSplitB>
 __device__ __forceinline__ void mma_block(float c[2][NC][4], int n0, const uint32_t ah[2][4],
                                           const uint32_t al[2][4], const uint32_t bh[N][2],
                                           const uint32_t bl[N][2]) {
@@ -175,23 +239,26 @@ __device__ __forceinline__ void mma_block(float c[2][NC][4], int n0, const uint3
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) mma_tf32(c[mi][n0 + n], al[mi], bh[n]);
+  if (kSplitB) {
 #pragma unroll
-  for (int n = 0; n < N; ++n)
+    for (int n = 0; n < N; ++n)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) mma_tf32(c[mi][n0 + n], ah[mi], bl[n]);
+      for (int mi = 0; mi < 2; ++mi) mma_tf32(c[mi][n0 + n], ah[mi], bl[n]);
+  }
 #pragma unroll
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) mma_tf32(c[mi][n0 + n], ah[mi], bh[n]);
 }
 
-// kResiduals: the training form, which also writes a1 [M, F] and r [M, D]
-template <bool kResiduals>
+// kResiduals: the training form, which also writes a1 [M, F] and r [M, D];
+// W: the weights' type (float, or __nv_bfloat16 for the bf16-weight form)
+template <bool kResiduals, typename W>
 __global__ void __launch_bounds__(kThreads, 1)
-ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
-           const float* __restrict__ b1, const float* __restrict__ w2t,
-           const float* __restrict__ b2, const float* __restrict__ gamma,
-           const float* __restrict__ beta, float* __restrict__ out,
+ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
+           const W* __restrict__ b1, const W* __restrict__ w2t,
+           const W* __restrict__ b2, const W* __restrict__ gamma,
+           const W* __restrict__ beta, float* __restrict__ out,
            float* __restrict__ a1_out, float* __restrict__ r_out, int M, int D, int F,
            float keep_prob, uint32_t thresh, const long long* __restrict__ salts, int act,
            int apply_dropout, int vec) {
@@ -208,7 +275,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
   }
   float* xs = reinterpret_cast<float*>(smem4);  // [kBM][kXLd]  x tile
   float* hs = xs + kBM * kXLd;                  // [kBM][kHLd]  hidden chunk
-  float* stages = hs + kBM * kHLd;              // kStages x kStage weight tiles
+  float* stages = hs + kBM * kHLd;              // kStages x kStage weight tiles (of W)
   float* red_sum = stages + kStages * kStage;   // [kBM][4]     LayerNorm partials
   float* red_sq = red_sum + kBM * 4;
 
@@ -224,19 +291,22 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 
   // tile i into stage i % kStages: W1^T rows f0.. x columns 32 j.., or W2^T
   // rows 0..511 x columns f0 + 8 s..
+  // (a tile's row strides are kW1Ld and kW2Ld elements of W; 16 bytes, kV
+  // elements, a copy)
+  constexpr int kV = 16 / sizeof(W);
   auto load_tile = [&](int i) {
-    float* dst = stages + (i % kStages) * kStage;
+    W* dst = reinterpret_cast<W*>(stages + (i % kStages) * kStage);
     const int chunk = i / per_chunk, j = i % per_chunk, f0 = chunk * kFC;
     if (j < n1) {
-      for (int q = tid; q < kFC * (kK1 / 4); q += kThreads) {
-        const int r = q / (kK1 / 4), c = (q % (kK1 / 4)) * 4;
-        copy4(dst + r * kW1Ld + c, w1t, f0 + r, j * kK1 + c, F, D, D, vec);
+      for (int q = tid; q < kFC * (kK1 / kV); q += kThreads) {
+        const int r = q / (kK1 / kV), c = (q % (kK1 / kV)) * kV;
+        copy_w(dst + r * kW1Ld + c, w1t, f0 + r, j * kK1 + c, F, D, D, vec);
       }
     } else {
       const int f = f0 + (j - n1) * kK2;
-      for (int q = tid; q < kMaxD * (kK2 / 4); q += kThreads) {
-        const int d = q / (kK2 / 4), c = (q % (kK2 / 4)) * 4;
-        copy4(dst + d * kW2Ld + c, w2t, d, f + c, D, F, F, vec);
+      for (int q = tid; q < kMaxD * (kK2 / kV); q += kThreads) {
+        const int d = q / (kK2 / kV), c = (q % (kK2 / kV)) * kV;
+        copy_w(dst + d * kW2Ld + c, w2t, d, f + c, D, F, F, vec);
       }
     }
   };
@@ -266,7 +336,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
     __syncthreads();  // tile i has arrived for every thread; every warp is done with tile i - 1
     if (i + kStages - 1 < n_tiles) load_tile(i + kStages - 1);  // into tile i - 1's stage
     cp_async_commit();
-    const float* w = stages + (i % kStages) * kStage;
+    const W* w = reinterpret_cast<const W*>(stages + (i % kStages) * kStage);
     const int chunk = i / per_chunk, j = i % per_chunk, f0 = chunk * kFC;
     if (j < n1) {
       // ---- GEMM1: h[64, 128] += x[:, 32 j..] W1[32 j.., chunk] ----
@@ -285,7 +355,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 #pragma unroll
         for (int n = 0; n < kNT1; ++n)
           load_b(w + (32 * wn + 8 * n) * kW1Ld + kk, kW1Ld, g, t, bh[n], bl[n]);
-        mma_block<kNT1, kNT1>(acc1, 0, ah, al, bh, bl);
+        mma_block<kNT1, kNT1, Weights<W>::kSplit>(acc1, 0, ah, al, bh, bl);
       }
       if (j == n1 - 1) {
         // bias (the training form stores a1 here), activation, hidden
@@ -301,7 +371,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
               float a[2];
 #pragma unroll
               for (int q = 0; q < 2; ++q)
-                a[q] = f + q < F ? acc1[mi][n][2 * hh + q] + b1[f + q] : 0.f;
+                a[q] = f + q < F ? acc1[mi][n][2 * hh + q] + Weights<W>::to_f(b1[f + q]) : 0.f;
               if (kResiduals) store_pair(a1_out, row0 + r, f, M, F, a[0], a[1]);
 #pragma unroll
               for (int q = 0; q < 2; ++q) {
@@ -329,7 +399,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             load_b(w + (128 * wn + 8 * (n0 + n)) * kW2Ld, kW2Ld, g, t, bh[n], bl[n]);
-          mma_block<4, kNT2>(acc2, n0, ah, al, bh, bl);
+          mma_block<4, kNT2, Weights<W>::kSplit>(acc2, n0, ah, al, bh, bl);
         }
       }
     }
@@ -347,7 +417,7 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
         const int c = 128 * wn + 8 * n + 2 * t + (e & 1);
         float rv = 0.f;
         if (c < D) {
-          float a2 = acc2[mi][n][e] + b2[c];
+          float a2 = acc2[mi][n][e] + Weights<W>::to_f(b2[c]);
           if (apply_dropout)
             a2 = keep_bit(static_cast<uint32_t>(row0 + r) * static_cast<uint32_t>(D) +
                               static_cast<uint32_t>(c), s0b, s1b, thresh)
@@ -401,9 +471,34 @@ ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 #pragma unroll
         for (int e = 2 * h; e < 2 * h + 2; ++e) {
           const int c = 128 * wn + 8 * n + 2 * t + (e & 1);
-          if (c < D) out[row * D + c] = (acc2[mi][n][e] - mu) * rstd * gamma[c] + beta[c];
+          if (c < D)
+            out[row * D + c] = (acc2[mi][n][e] - mu) * rstd * Weights<W>::to_f(gamma[c]) +
+                               Weights<W>::to_f(beta[c]);
         }
     }
+}
+
+template <typename W>
+int launch(const float* x, const W* w1t, const W* b1, const W* w2t, const W* b2, const W* gamma,
+           const W* beta, float* out, float* a1, float* r, int M, int D, int F, float keep_prob,
+           unsigned int thresh, const long long* salts, int act, int apply_dropout, int vec,
+           void* stream) {
+  if (D < 1 || D > kMaxD || F < 1 || M < 0 || (a1 == nullptr) != (r == nullptr) ||
+      (apply_dropout && salts == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const int bytes = kSmemFloats * static_cast<int>(sizeof(float));
+  const bool train = a1 != nullptr;
+  auto kernel = train ? ffn_kernel<true, W> : ffn_kernel<false, W>;
+  // set on every call: the attribute belongs to the current device's context
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (M + kBM - 1) / kBM;
+  kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh, salts, act,
+      apply_dropout, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -421,20 +516,22 @@ extern "C" int ffn_forward(const float* x, const float* w1t, const float* b1,
                            const float* beta, float* out, float* a1, float* r, int M, int D,
                            int F, float keep_prob, unsigned int thresh, const long long* salts,
                            int act, int apply_dropout, int vec, void* stream) {
-  if (D < 1 || D > kMaxD || F < 1 || M < 0 || (a1 == nullptr) != (r == nullptr) ||
-      (apply_dropout && salts == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0) return 0;
-  const int bytes = kSmemFloats * static_cast<int>(sizeof(float));
-  const bool train = a1 != nullptr;
-  auto kernel = train ? ffn_kernel<true> : ffn_kernel<false>;
-  // set on every call: the attribute belongs to the current device's context
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (M + kBM - 1) / kBM;
-  kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh, salts, act,
-      apply_dropout, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh,
+                       salts, act, apply_dropout, vec, stream);
+}
+
+// The bfloat16-weight form: as ffn_forward, with w1t, b1, w2t, b2, gamma
+// and beta bfloat16 (x, out, a1, r float32). vec: D and F are multiples of
+// 8 and x, w1t and w2t are 16-byte aligned.
+extern "C" int ffn_forward_bf16w(const float* x, const void* w1t, const void* b1,
+                                 const void* w2t, const void* b2, const void* gamma,
+                                 const void* beta, float* out, float* a1, float* r, int M, int D,
+                                 int F, float keep_prob, unsigned int thresh,
+                                 const long long* salts, int act, int apply_dropout, int vec,
+                                 void* stream) {
+  using B = __nv_bfloat16;
+  return launch<B>(x, static_cast<const B*>(w1t), static_cast<const B*>(b1),
+                   static_cast<const B*>(w2t), static_cast<const B*>(b2),
+                   static_cast<const B*>(gamma), static_cast<const B*>(beta), out, a1, r, M, D, F,
+                   keep_prob, thresh, salts, act, apply_dropout, vec, stream);
 }

@@ -19,7 +19,8 @@ resolve (this module imports it).
 
 Artifact layout:
     meta.json            version, model, batch sizes, caps, input specs, the
-                         device traced on, torch version, kernel route
+                         device traced on, torch version, compute dtype,
+                         kernel route
     config.json          the Config the programs were exported with
     forecast_b{B}.pt2    one torch.export program a batch size
 
@@ -153,6 +154,7 @@ def export_experiment(checkpoint_dir: str, out_dir: str, cfg: Config | None = No
             "d_txt": svc.d_txt,
             "best_epoch": int(svc.step),
             "torch_version": torch.__version__,
+            "compute_dtype": cfg.compute_dtype,
             "kernel_route": {"use_pallas": cfg.use_pallas, "use_fused_ffn": cfg.use_fused_ffn,
                              "use_fused_attn": cfg.use_fused_attn,
                              "IMM_TSF_CRU_FUSED": os.environ.get("IMM_TSF_CRU_FUSED") == "1"},

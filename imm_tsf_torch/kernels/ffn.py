@@ -16,6 +16,13 @@ plain transcription of `_ffn_bwd` (:182-232), which is XLA there and not
 a Pallas kernel. The wrapper runs the plain versions for CPU tensors and
 launches the kernel for CUDA tensors; a shape the kernel cannot take
 raises instead of silently running unfused.
+
+x is float32; the weights (W1, b1, W2, b2, gamma, beta) are float32, or
+all bfloat16 under compute_dtype="amp_bf16", where the JAX package hands
+its kernel bf16 weights that it widens in its body (:76-83). The kernel
+reads them as bf16 in that form (`ffn_forward_bf16w`), with no widened
+copy made in the wrapper; the plain versions widen them where they use
+them. A bf16 x, which no path gives, is refused.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ _ACTS = {"relu": 0, "gelu": 1}
 
 launches = 0  # kernel launches through fused_encoder_ffn, both forms
 train_launches = 0  # of which the training form (a1 and r written too)
+bf16w_launches = 0  # of which the bf16-weight form (compute_dtype="amp_bf16")
 
 
 def _act_fn(a: torch.Tensor, act: str) -> torch.Tensor:
@@ -94,8 +102,11 @@ def ffn_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float,
 def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
                            act: str, apply_dropout: bool):
     """The hand VJP (ffn_kernel.py:_ffn_bwd) -> (dx, dw1, db1, dw2, db2,
-    dgamma, dbeta). The LayerNorm statistics are recomputed from r with the
-    forward's E[r^2] - mu^2 variance; both dropout masks are re-derived
+    dgamma, dbeta), dx in x's dtype and the rest in the weights' (bf16
+    weights under amp_bf16: each gradient rounded once, as _ffn_bwd's
+    astype rounds it; b1, b2 and beta take the dtype of w1, w2 and gamma,
+    and `_FusedFFN` casts each to its own). The LayerNorm statistics are
+    recomputed from r with the forward's E[r^2] - mu^2 variance; both dropout masks are re-derived
     from the salts (no stored mask); act' is taken at a1. The four
     products stay torch.matmul: the JAX package leaves them to XLA."""
     M, D = x.shape
@@ -130,14 +141,18 @@ def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
     dw1 = x.to(ct).t() @ da1
     db1 = da1.sum(dim=0)
     dx = da1 @ w1.to(ct).t() + dr
-    return dx.to(x.dtype), dw1, db1, dw2, db2, dgamma, dbeta
+    return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
+            db2.to(w2.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
 
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "ffn_forward": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
+    "ffn_forward_bf16w": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
     "ffn_max_d": ([], _I),
 }
+# the weight dtypes the kernel reads, and how many fit a 16-byte copy
+_WEIGHT_DTYPES = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _library() -> ctypes.CDLL:
@@ -178,12 +193,20 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
     Fdim = w1.shape[1]
     if act not in _ACTS:
         raise ValueError(f"fused_encoder_ffn: act must be relu or gelu, got {act!r}")
+    if x.dtype != torch.float32:
+        raise ValueError(
+            f"fused_encoder_ffn: x must be float32, got {x.dtype} (the kernel takes float32 "
+            "activations, with float32 or bfloat16 weights)")
+    wdt = w1.dtype  # the form: float32 weights, or the bf16-weight form
+    if wdt not in _WEIGHT_DTYPES:
+        raise ValueError(f"fused_encoder_ffn: weights must be float32 or bfloat16, got {wdt}")
     shapes = {"w1": (w1, (D, Fdim)), "b1": (b1, (Fdim,)), "w2": (w2, (Fdim, D)),
               "b2": (b2, (D,)), "gamma": (gamma, (D,)), "beta": (beta, (D,))}
     for name, (t, shape) in {"x": (x, (M, D)), **shapes}.items():
-        if t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != shape:
+        want = torch.float32 if name == "x" else wdt
+        if t.dtype != want or t.device != x.device or tuple(t.shape) != shape:
             raise ValueError(
-                f"fused_encoder_ffn: {name} must be float32 {shape} on {x.device}, "
+                f"fused_encoder_ffn: {name} must be {want} {shape} on {x.device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     lib = _library()
     if D > lib.ffn_max_d():
@@ -203,10 +226,12 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
         r = torch.empty_like(x)
     if M > 0:
         # 16-byte copies of x and the weights when their rows allow them
-        vec = D % 4 == 0 and Fdim % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                                   for t in (x, w1t, w2t))
+        per16 = _WEIGHT_DTYPES[wdt]  # weights a 16-byte copy
+        vec = D % per16 == 0 and Fdim % per16 == 0 and all(t.data_ptr() % 16 == 0
+                                                           for t in (x, w1t, w2t))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ffn_forward(
+        entry = lib.ffn_forward if wdt == torch.float32 else lib.ffn_forward_bf16w
+        rc = entry(
             x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             a1.data_ptr() if with_residuals else None,
@@ -215,9 +240,10 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
             s.data_ptr() if s is not None else None, _ACTS[act], int(bool(apply_dropout)),
             int(vec), stream)
         _build.check(rc, "fused_encoder_ffn")
-        global launches, train_launches
+        global launches, train_launches, bf16w_launches
         launches += 1
         train_launches += int(with_residuals)
+        bf16w_launches += int(wdt == torch.bfloat16)
     return (out, a1, r) if with_residuals else out
 
 
@@ -228,13 +254,14 @@ class _FusedFFN(torch.autograd.Function):
                               apply_dropout, with_residuals=True)
         ctx.save_for_backward(x, w1, w2, gamma, a1, r)
         ctx.salts, ctx.static = salts, (keep_prob, act, apply_dropout)
+        ctx.dtypes = tuple(t.dtype for t in (x, w1, b1, w2, b2, gamma, beta))
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, w1, w2, gamma, a1, r = ctx.saved_tensors
         grads = ffn_backward_reference(x, w1, w2, gamma, ctx.salts, a1, r, g, *ctx.static)
-        return (*grads, None, None, None, None)
+        return (*(d.to(dt) for d, dt in zip(grads, ctx.dtypes)), None, None, None, None)
 
 
 def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,

@@ -4,7 +4,8 @@ main_all.py:12-205).
     python -m imm_tsf_torch.main_all [--datasets ...] [--models ...] \\
         [--enable_text 1 0] [--epoch N] [--data_root ./data] \\
         [--results_dir experiment_results] [--device cuda] \\
-        [--parallel N --worker_device cuda|cpu] [--seeds S] [--lrs l1 l2 ...]
+        [--parallel N --worker_device cuda|cpu] [--seeds S] [--lrs l1 l2 ...] \
+        [--compute_dtype float32|amp_bf16]
 
 Cartesian product over datasets x models x enable_text x TTF x MMF with:
   - the default fusion pair only when text is off (:109-117);
@@ -18,7 +19,10 @@ one process (training/vmap_sweep.train_seed_sweep); the result's metrics
 are the best-validation replica's under an lr grid, else the base seed's,
 with every replica's metrics beside them. The JAX main_all's `--dropout_impl`
 is not carried over: the port trains with the hash dropout only
-(`dropout_impl="flax"` is ROADMAP.md, Queue 1, item 19).
+(`dropout_impl="flax"` is ROADMAP.md, Queue 1, item 19). `--compute_dtype
+amp_bf16` trains every combination under the JAX package's mixed precision
+(training/trainer.make_forward; the continuous-time models refuse it), into
+result files named with it.
 
 `--parallel N` runs combinations in N worker processes (a spawn pool). On
 cuda (the default `--worker_device`) each worker takes one card
@@ -48,13 +52,16 @@ from .utils.table import Table
 
 
 def run_combination(combo, batch_size, llm_model_fusion, use_text_embeddings, data_root,
-                    epoch, results_dir: Path, seeds: int = 1, lrs=None, device: str = "cuda"):
+                    epoch, results_dir: Path, seeds: int = 1, lrs=None, device: str = "cuda",
+                    compute_dtype: str = "float32"):
     """Train one combination on `device` and write its result file;
     ("skipped-cached", 0.0) when the file exists, else ("ok", seconds)."""
     data_name, model_name, enable_text, TTF_module, MMF_module = combo
-    # a replica grid changes what a result means: keyed into the file name,
-    # so a rerun never resumes from another kind
+    # a replica grid or another compute dtype changes what a result means:
+    # keyed into the file name, so a rerun never resumes from another kind
     grid_tag = ""
+    if compute_dtype != "float32":
+        grid_tag += f"_compute_dtype={compute_dtype}"
     if seeds > 1:
         grid_tag += f"_seeds={seeds}"
     if lrs:
@@ -79,6 +86,7 @@ def run_combination(combo, batch_size, llm_model_fusion, use_text_embeddings, da
         "llm_model_fusion": llm_model_fusion,
         "llm_layers_fusion": None,
         "data_root": data_root,
+        "compute_dtype": compute_dtype,
     }
     cfg = apply_presets(Config(overwrite_args=True), fixed_params, {"lr": 1e-3})
     if cfg.enable_text:
@@ -266,6 +274,9 @@ def main(argv=None):
                          "the best-validation replica's, the whole grid beside them")
     ap.add_argument("--device", default="cuda",
                     help="where a serial sweep runs: cuda (default) or cpu")
+    ap.add_argument("--compute_dtype", default="float32", choices=["float32", "amp_bf16"],
+                    help="every combination's compute_dtype: amp_bf16 is the JAX package's "
+                         "mixed precision (MTS/LMTS models only; the others refuse it)")
     ap.add_argument("--worker_device", choices=["cuda", "cpu"], default="cuda",
                     help="where --parallel workers run: cuda (default; one card a "
                          "worker, N cards needed) or cpu")
@@ -298,7 +309,7 @@ def main(argv=None):
     total_t0 = time.time()
     run = lambda c, device: (c, args.batch_size, args.llm_model_fusion,
                              bool(args.use_text_embeddings), args.data_root, args.epoch,
-                             results_dir, args.seeds, args.lrs, device)
+                             results_dir, args.seeds, args.lrs, device, args.compute_dtype)
 
     if args.parallel > 1:
         import multiprocessing as mp

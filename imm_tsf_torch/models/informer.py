@@ -55,8 +55,10 @@ class Informer(nn.Module):
 
         x, means, stdev = masked_norm(observed_data, observed_mask)
         enc_in = torch.cat([x, observed_mask, observed_tp[:, :, None]], dim=-1)
-        zeros = x.new_zeros((B, pred_len, 2 * C))  # values and mask of the horizon
-        dec_in = torch.cat([zeros, tp_to_predict[:, :, None].to(x.dtype)], dim=-1)
+        # values and mask of the horizon: float32 zeros, jnp.zeros' default, so
+        # under amp_bf16 the decoder's input (and its token conv) is float32
+        zeros = torch.zeros((B, pred_len, 2 * C), device=x.device)
+        dec_in = torch.cat([zeros, tp_to_predict[:, :, None]], dim=-1)
 
         enc_out = self.encoder(self.enc_embedding(enc_in))
         dec_out = self.decoder(self.dec_embedding(dec_in), enc_out)

@@ -56,8 +56,9 @@ from .evaluation import batch_error_sums
 
 # every kernel wrapper's launch counter: (module, attribute)
 COUNTERS = ((recavg, "launches"), (ffn, "launches"), (ffn, "train_launches"),
-            (expm, "launches"), (expm, "frechet_launches"), (cru_scan, "launches"),
-            (cru_scan, "backward_launches"), (attn, "launches"), (attn, "backward_calls"))
+            (ffn, "bf16w_launches"), (expm, "launches"), (expm, "frechet_launches"),
+            (cru_scan, "launches"), (cru_scan, "backward_launches"), (attn, "launches"),
+            (attn, "backward_calls"))
 WARMUP_CALLS = 1  # eager calls of a key before its capture
 
 

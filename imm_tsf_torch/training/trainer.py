@@ -63,7 +63,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import IMTS_MODELS, Config
 from ..device import resolve_run_device
 from ..layers.fast_dropout import Dropout
 from ..layers.prob_attention import ProbAttention
@@ -81,19 +81,38 @@ def make_forward(cfg: Config, model, fusion):
     eval mode is the caller's (eval under `torch.inference_mode()` to
     serve).
 
-    compute_dtype: "float32" and "highest" run every product in full
-    float32 (the port keeps TF32 off, device.py), which is what "highest"
-    asks for; "bfloat16" and "amp_bf16" are refused, where the JAX
-    package's make_forward would cast or refuse (:163-193)."""
-    if cfg.compute_dtype in ("bfloat16", "amp_bf16"):
+    compute_dtype (the JAX package's make_forward, :163-193):
+    "float32" and "highest" run every product in full float32 (the port
+    keeps TF32 off, device.py), which is what "highest" asks for;
+    "amp_bf16" runs the backbone as the JAX package does
+    (layers/jax_promotion.amp_call: bf16 copies of the parameters and float
+    inputs made at each call, BatchNorm statistics f32, JAX's promotion for
+    every later dtype), and the fusion stack in float32 on the backbone's
+    float32 output; the continuous-time models refuse it with the JAX
+    package's ValueError. "bfloat16" is refused."""
+    if cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port computes in float32 only; "
+            "compute_dtype='bfloat16': the port computes in float32 or amp_bf16 only; "
             "bfloat16 compute is not ported yet (ROADMAP.md, Queue 1, item 18)")
+    amp = cfg.compute_dtype == "amp_bf16"
+    if amp and cfg.model in IMTS_MODELS:
+        raise ValueError(
+            f"compute_dtype='amp_bf16' is not supported for model "
+            f"{cfg.model!r}: continuous-time models compute timestamp "
+            f"differences (dt) that need fp32 resolution. Use the default "
+            f"compute_dtype ('float32' already runs matmuls as single-pass "
+            f"bf16 on the TPU MXU).")
+    if amp:
+        from ..layers.jax_promotion import amp_call
+
+        backbone = lambda *inputs, **kw: amp_call(model, inputs, kw)
+    else:
+        backbone = model
 
     def forward(batch: dict):
         extra = {"prompt_ids": batch["prompt_ids"]} if "prompt_ids" in batch else {}
-        pred_y = model(batch["tp_to_predict"], batch["observed_data"],
-                       batch["observed_tp"], batch["observed_mask"], **extra).float()
+        pred_y = backbone(batch["tp_to_predict"], batch["observed_data"],
+                          batch["observed_tp"], batch["observed_mask"], **extra).float()
         if fusion is not None:
             pred_y = fusion(batch["notes_embeddings"], batch["tau"],
                             batch["tp_to_predict"], pred_y, batch["notes_mask"])

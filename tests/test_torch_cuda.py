@@ -25,8 +25,8 @@ import pytest
 import torch
 
 from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_inputs,
-                        attn_ragged_inputs, bucket_lo, check_attn_backward, check_scan,
-                        check_scan_bwd, compare_step, compare_timellm_step,
+                        attn_ragged_inputs, bf16_weights, bucket_lo, check_attn_backward,
+                        check_scan, check_scan_bwd, compare_step, compare_timellm_step,
                         dropout_probe_inputs, expm_inputs, expm_rel_err, expm_tri_inputs,
                         ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
                         recavg_inputs, run_imts_serving, run_mts_serving, scan_bwd_case,
@@ -143,6 +143,59 @@ def test_ffn_training_form_gradients_match_plain(dev, gen, M, act, drop):
     for name, gt, w in zip(names, got, want):
         torch.testing.assert_close(gt, w, atol=1e-4 * float(w.abs().max()), rtol=1e-4,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,F,act,drop,train", [
+    (8192, 512, 2048, "gelu", True, True),   # PatchTST's training shape
+    (1000, 512, 2048, "gelu", False, False),
+    (37, 96, 200, "gelu", True, True),       # ragged D and F: masked columns
+    (130, 64, 256, "relu", False, False),
+    (77, 30, 70, "relu", True, True),        # D, F not multiples of 8: 2-byte loads
+])
+def test_ffn_bf16_weight_form_matches_plain(dev, gen, M, D, F, act, drop, train):
+    """#2's bfloat16-weight form (compute_dtype="amp_bf16": float32 x, bf16
+    W1, b1, W2, b2, gamma, beta), eval and training forms, against the
+    plain version on the same bf16 weights; out, a1 and r stay float32."""
+    args = bf16_weights(ffn_inputs(M, D, F, gen, dev))
+    before = (ffn.launches, ffn.train_launches)
+    got = ffn._forward(*args, KEEP, act, drop, with_residuals=train)
+    torch.cuda.synchronize()
+    assert (ffn.launches, ffn.train_launches) == (before[0] + 1, before[1] + int(train))
+    want = ffn.ffn_forward_reference(*args, KEEP, act, drop, with_residuals=train)
+    got, want = (got, want) if train else ((got,), (want,))
+    for name, g, w in zip(("out", "a1", "r"), got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_ffn_bf16_weight_form_gradients_match_plain(dev, gen):
+    """The bf16-weight form's gradients: each weight's in bf16 (the f32 sum
+    rounded once), against autograd of the plain version on the same bf16
+    weights, to a bf16 ulp."""
+    args = bf16_weights(ffn_inputs(1000, 512, 2048, gen, dev))
+    params = [a.detach().clone().requires_grad_() for a in args[:7]]
+    g = torch.randn(1000, 512, generator=gen, device=dev)
+    got = torch.autograd.grad(ffn.fused_encoder_ffn(*params, args[7], KEEP, "gelu", True),
+                              params, g)
+    plain = [a.detach().clone().requires_grad_() for a in args[:7]]
+    want = torch.autograd.grad(ffn.ffn_reference(*plain, args[7], KEEP, "gelu", True), plain, g)
+    for name, gt, w in zip(("x", "w1", "b1", "w2", "b2", "gamma", "beta"), got, want):
+        assert gt.dtype == w.dtype
+        torch.testing.assert_close(gt.float(), w.float(), atol=1e-4 * float(w.abs().max()),
+                                   rtol=2.0**-7, msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_ffn_kernel_refuses_a_bfloat16_x(dev, gen):
+    args = bf16_weights(ffn_inputs(16, 64, 64, gen, dev))
+    with pytest.raises(ValueError, match="x must be float32"):
+        ffn.fused_encoder_ffn(args[0].to(torch.bfloat16), *args[1:], KEEP, "gelu", False)
+    mixed = args[:2] + [args[2].float()] + args[3:]  # one weight float32, the rest bf16
+    with pytest.raises(ValueError, match="b1 must be torch.bfloat16"):
+        ffn.fused_encoder_ffn(*mixed, KEEP, "gelu", False)
 
 
 @pytest.mark.cuda

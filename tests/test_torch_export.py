@@ -40,6 +40,9 @@ def _op_args(name: str):
     if name == "fused_encoder_ffn_train":
         return (t(6, 8), t(8, 16, scale=0.3), t(16), t(16, 8, scale=0.3), t(8), pos(8), t(8),
                 torch.tensor([[3, 5], [7, 11]]), 0.9, "relu", True, True)
+    if name.startswith("fused_encoder_ffn_bf16w"):  # amp_bf16: f32 x, bf16 weights
+        args = list(_op_args(name.replace("_bf16w", "")))
+        return tuple([a.to(torch.bfloat16) if 1 <= i <= 6 else a for i, a in enumerate(args)])
     if name == "fused_causal_attention":
         pad = torch.ones(2, 5)
         pad[1, 3:] = 0
@@ -54,12 +57,14 @@ def _op_args(name: str):
 
 
 @pytest.mark.parametrize("name", ["recency_weighted_average", "fused_encoder_ffn_eval",
-                                  "fused_encoder_ffn_train", "fused_causal_attention",
+                                  "fused_encoder_ffn_train", "fused_encoder_ffn_bf16w_eval",
+                                  "fused_encoder_ffn_bf16w_train", "fused_causal_attention",
                                   "batched_expm", "fused_cru_scan"])
 def test_op_passes_opcheck(name):
-    """Schema, fake (shape) implementation and dispatch of each op, on the
-    CPU, where it runs the kernel's plain version."""
-    op = getattr(ops, name.replace("_eval", "").replace("_train", ""))
+    """Schema, fake (shape and dtype) implementation and dispatch of each op,
+    on the CPU, where it runs the kernel's plain version; #2 also in its
+    bf16-weight form."""
+    op = getattr(ops, name.replace("_eval", "").replace("_train", "").replace("_bf16w", ""))
     args = _op_args(name)
     torch.library.opcheck(op, args)
 

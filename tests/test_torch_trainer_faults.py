@@ -12,9 +12,10 @@ handles, on the CPU.
   backward that first gives a NaN (the JAX package's NaN trapping,
   :726-727); without it a NaN gradient only shows as a NaN loss a step
   later.
-- `compute_dtype` bfloat16 and amp_bf16 are refused by the port's
-  make_forward, in serving as in training; float32 and highest are
-  served (every product of the port is full float32).
+- `compute_dtype` bfloat16 is refused by the port's make_forward, in
+  serving as in training; amp_bf16 on the CRU experiment raises the JAX
+  package's ValueError for the continuous-time models (amp_bf16 itself is
+  ported, tests/test_torch_amp.py); float32 and highest are served.
 - `llm_tp` above 1 (the JAX package's tensor-parallel LLM mesh) is
   refused where the raw-text stage would load the LLM.
 
@@ -143,7 +144,13 @@ def test_service_refuses_bfloat16_compute(tmp_path, dtype):
         svc = ForecastService(exp, max_batch=4, device="cpu")
         svc.close()
         return
-    with pytest.raises(NotImplementedError, match=r"float32 only.*Queue 1, item 18"):
+    if dtype == "amp_bf16":  # ported for MTS/LMTS; CRU refuses it as the JAX package does
+        with pytest.raises(ValueError, match=r"amp_bf16.*not supported for model 'CRU'"):
+            ForecastService(exp, max_batch=4, device="cpu")
+        with pytest.raises(ValueError, match="continuous-time models"):
+            make_forward(cfg, None, None)
+        return
+    with pytest.raises(NotImplementedError, match=r"float32 or amp_bf16 only.*Queue 1, item 18"):
         ForecastService(exp, max_batch=4, device="cpu")
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         make_forward(cfg, None, None)

@@ -21,10 +21,10 @@ chip_smoke's inf-norms 0.01, 0.5, 6 and 80, in turn), #5 at the served
 [64, 64, 64] on the 72 Van Loan blocks of the served scan batch (one call
 each, in turn; block triangular) and on the dense norm mix of #4, #6 at
 the served batch (B 64, T 72, lod 16, K 15) and #7 at the trained one
-(B 32). --save writes #5's and #6's outputs on these inputs to FILE
-(torch.save); --against FILE adds "max_abs_diff", the largest difference
-between those outputs and the ones saved in FILE (another checkout's, on
-the same inputs).
+(B 32). --save writes #2's (both forms, the training form with dropout),
+#5's and #6's outputs on these inputs to FILE (torch.save); --against FILE
+adds "max_abs_diff", the largest difference between those outputs and the
+ones saved in FILE (another checkout's, on the same inputs).
 """
 
 from __future__ import annotations
@@ -69,9 +69,9 @@ def main() -> int:
         sets = [cs.recavg_inputs(*shape, gen, dev) for _ in range(4)]
         out["recavg_ms"][str(list(shape))] = cs.device_ms(recavg.recency_weighted_average, sets,
                                                           per_rep=200)
-    sets = [cs.ffn_inputs(8192, 512, 2048, gen, dev) for _ in range(2)]
+    ffn_sets = [cs.ffn_inputs(8192, 512, 2048, gen, dev) for _ in range(2)]
     out["ffn_ms"] = cs.device_ms(lambda *a: ffn.fused_encoder_ffn(*a, cs.KEEP, "gelu", False),
-                                 sets, per_rep=10)
+                                 ffn_sets, per_rep=10)
     out["attn"] = {}
     for T in (32, 64, 128, 256, 512, 1024):
         rows = max(64, 32768 // T)
@@ -93,7 +93,11 @@ def main() -> int:
     residuals, g = cs.scan_bwd_case(bwd_ins, gen)
     out["scan_bwd_ms"] = cs.device_ms(cru_scan.fused_cru_scan_backward,
                                       [list(bwd_ins.values()) + [residuals, g]], per_rep=2)
-    outputs = {"expm": torch.stack([expm.batched_expm(*a) for a in blocks]),
+    ffn_args = ffn_sets[0]
+    ffn_train = ffn._forward(*ffn_args, cs.KEEP, "gelu", True, with_residuals=True)
+    outputs = {"ffn": torch.cat([ffn.fused_encoder_ffn(*ffn_args, cs.KEEP, "gelu", False).flatten(),
+                                 *(o.flatten() for o in ffn_train)]),
+               "expm": torch.stack([expm.batched_expm(*a) for a in blocks]),
                "expm_dense": torch.stack([expm.batched_expm(*a) for a in dense]),
                "scan": torch.cat([torch.cat([o.flatten() for o in (s[0], *s[1])])
                                   for s in [cru_scan.fused_cru_scan(*scan_args)]])}
