@@ -9,6 +9,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     TF32 off for matmuls and cuDNN (every comparison here is float32),
     cuDNN's deterministic algorithms (as the port's device setup has them);
  2. build the seven CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
+    and the native chunker (`imm_tsf_torch/native/chunker.cpp`) with g++
     (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
       recency average at the serving shape (B=64, N=8, T=24, d=768), a
@@ -93,7 +94,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     to each other to the same; each tier's share of that dispatch's Van
     Loan blocks (all three must occur); one uncontended dispatch of each
     route traced;
- 7. train: the CRU experiment of phase 6 through
+ 7. train: the fixture parsed as the trainer parses it with the native
+    chunker and with the NumPy loop (`check_chunker`: each parse's host
+    seconds, native, loop, loop, native; the chunks bit for bit); then
+    the CRU experiment of phase 6 through
     `imm_tsf_torch.main.main([...])` (TRAIN_ARGS: the presets, batch 32,
     two epochs) on the EPA-Air fixture the port's generator writes
     (TRAIN_DATA, T = 72), the default route, then IMM_TSF_CRU_FUSED=1;
@@ -178,8 +182,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     hash dropout 0.1, batch 32, two epochs on phase 7's fixture, #1 on):
     every loss finite, #1 exactly once a forward; (c) `compare_mts_step`:
     one step at B 32 kernel vs plain vs float64 under the same salts,
-    TimesNet's routes on the float64 run's frequency bins
-    (`pinned_periods`, flips printed), loss to 1e-5, gradients by
+    TimesNet's routes on the float64 run's frequency bins, and so its
+    canvas's gathered branches (`pinned_periods`, flips of both printed),
+    loss to 1e-5, gradients by
     `held_grads`, a traced step per route; (d) `run_resume`: phase 8's
     kernel route as `--load resume --epoch 1` (nothing to resume: trained
     from scratch), then `--load resume --epoch 2`, launches exact a run,
@@ -251,11 +256,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     epoch, launch counts exact in both loops (a replay counts the launches
     of its capture), each run's windows/s, step ms (a replay's by CUDA
     events), idle share, capture seconds and graph nodes printed; (d)
-    TimesNet on eager resident steps (its periods are read on the host),
-    held the same way, and the LatentODE on the staged loop (phase 12's 4
-    entities), against phase 12's streaming run (printed: the hash masks
-    over its longer staged union axes differ); (e) 14a's run resumed on
-    the epoch loop from its epoch-0 state (`--load`), bit for bit;
+    TimesNet on captured resident steps (its static period canvas reads
+    nothing back to the host), held bit for bit, and the LatentODE on the
+    staged loop (phase 12's 4 entities) for one epoch, against phase 12's
+    streaming run's first (printed: the hash masks over its longer staged
+    union axes differ); (e) 14a's run resumed on the epoch loop from its
+    epoch-0 state (`--load`), bit for bit;
 15. stacked-replica sweeps through imm_tsf_torch.main on 14's fixture,
     three epochs: (a) 14a's flags with a 2-seed x 2-lr grid (S = 4, one
     captured StepLoop a replica, each replaying on its own stream),
@@ -288,7 +294,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     of 14a's, windows/s; (d) `serve --artifact` on a local port answers 8
     of (a)'s requests as (a)'s artifact does, bit for bit; `main_all` runs
     DLinear with text on and off for one epoch on the card, then again,
-    skipping both by their result files;
+    skipping both by their result files; (e) 14d's TimesNet exported at 1
+    and 8 (its static period canvas traces; one #1 a dispatch) and held to
+    the live service as (b) is, bit for bit;
 17. compute_dtype="amp_bf16" (the JAX package's mixed precision: bf16
     copies of the backbone's parameters and inputs at every forward, JAX's
     promotion after): (a) #2's bf16-weight form (f32 x, bf16 W1, b1, W2,
@@ -358,7 +366,7 @@ from imm_tsf_torch import main_all as sweep_main
 from imm_tsf_torch import predict as predict_main
 from imm_tsf_torch.config import (DATASET_PRESETS, MODEL_PRESETS, Config, apply_presets,
                                   load_saved_config, resolve_max_length)
-from imm_tsf_torch.data.dataset import embeddings_filename
+from imm_tsf_torch.data.dataset import ChunkedTimeSeriesDataset, embeddings_filename
 from imm_tsf_torch.data.loader import parse_datasets
 from imm_tsf_torch.data.synthetic import make_synthetic_dataset
 from imm_tsf_torch.export import ExportedForecaster, export_experiment
@@ -551,8 +559,8 @@ RESUME_RTOL = 1e-6  # only where an op with atomics (named by the run) breaks bi
 # held to the live service as the JAX package holds its own
 # (tests/test_export.py:160-163); predict to the trained run's test metrics
 ARTIFACT_TOL = (1e-6, 1e-5)  # (atol, rtol)
-ARTIFACT_BATCHES = {"16a": (1, 8, 64), "16b": (1, 8)}
-N_ARTIFACT_REQUESTS = {"16a": 512, "16b": 64}
+ARTIFACT_BATCHES = {"16a": (1, 8, 64), "16b": (1, 8), "16e": (1, 8)}
+N_ARTIFACT_REQUESTS = {"16a": 512, "16b": 64, "16e": 64}
 PREDICT_RTOL = 1e-6
 # phase 17: compute_dtype="amp_bf16", the JAX package's mixed precision
 # (tests/test_amp_bf16.py): 14a's flags on the loop and streaming, held to
@@ -1728,6 +1736,37 @@ def training_data(root: str, args=TRAIN_ARGS) -> dict:
     return parse_datasets(cfg, verbose=False)
 
 
+def check_chunker(root: str) -> dict:
+    """Phase 7's fixture parsed as the trainer parses it (parse_datasets on
+    TRAIN_ARGS, the work timings["parse"] times) with the native chunker
+    and with the NumPy loop (ChunkedTimeSeriesDataset.native False), in the
+    order native, loop, loop, native: host seconds of each parse, and the
+    two paths' chunks bit for bit (ids, times, values, masks, notes)."""
+    secs, chunks = {"native": [], "loop": []}, {}
+    for mode in ("native", "loop", "loop", "native"):
+        ChunkedTimeSeriesDataset.native = mode == "native"
+        try:
+            t0 = time.perf_counter()
+            chunks[mode] = training_data(root)["ds"].chunks
+            secs[mode].append(time.perf_counter() - t0)
+        finally:
+            ChunkedTimeSeriesDataset.native = True
+    a, b = chunks["native"], chunks["loop"]
+    same = len(a) == len(b) and all(
+        x.chunk_id == y.chunk_id and all(
+            np.array_equal(getattr(x, k), getattr(y, k)) and getattr(x, k).dtype ==
+            getattr(y, k).dtype for k in ("tt", "vals", "mask", "note_times"))
+        and len(x.note_payloads) == len(y.note_payloads)
+        and all(np.array_equal(p, q) for p, q in zip(x.note_payloads, y.note_payloads))
+        for x, y in zip(a, b))
+    out = {"parse_s": secs, "chunks": len(a), "bit_for_bit": same}
+    log(f"# phase 7 chunker: parse s native {secs['native']} against the NumPy loop "
+        f"{secs['loop']} (native, loop, loop, native), {len(a)} chunks, bit for bit {same}")
+    if not same:
+        raise AssertionError("the native chunker's chunks are not the NumPy loop's")
+    return out
+
+
 def expected_counts(route: str, T: int, steps: int, evals: int) -> dict:
     """Launches of a run of `steps` gradient steps and `evals` eval batches.
     The default route's backward runs T - 1 expm adjoints a step, not T:
@@ -2769,24 +2808,54 @@ def run_mts_training(device, root: str, exp_dir: str, model: str) -> dict:
 class pinned_periods(_Pinned):
     """Within the block, TimesNet's blocks take the first run's frequency
     bins: the top_k of mean FFT amplitudes, which float32 and float64 may
-    rank differently where two are close."""
+    rank differently where two are close. The bins weight the branches and,
+    through each block's `lookup`, index the static canvas's gather
+    (`lookup[top]`), so a later run gathers the first run's branches;
+    `gathered[r]` counts the gathered indices that run r + 1's own bins
+    would have changed (a flip between two bins of one period moves only
+    the weights, and counts in `flips` alone)."""
 
     def __enter__(self):
-        self.saved = timesnet.top_lags
-        timesnet.top_lags = lambda freq, k: self.pinned(self.saved(freq, k))
+        self.saved, self.saved_forward, self.gathered = (timesnet.top_lags,
+                                                         timesnet.TimesBlock.forward, [])
+        block: dict = {}
+
+        def forward(mod, x):
+            block["lookup"] = mod.lookup
+            return self.saved_forward(mod, x)
+
+        def top_lags(freq, k):
+            choice = self.saved(freq, k)
+            pinned = self.pinned(choice)
+            if self.run:
+                lookup = block["lookup"]
+                self.gathered[-1] += int((lookup[choice] != lookup[pinned]).sum())
+            return pinned
+
+        timesnet.top_lags, timesnet.TimesBlock.forward = top_lags, forward
         return self
 
+    def next_run(self) -> None:
+        super().next_run()
+        self.gathered.append(0)
+
     def __exit__(self, *exc):
-        timesnet.top_lags = self.saved
+        timesnet.top_lags, timesnet.TimesBlock.forward = self.saved, self.saved_forward
 
 
 def compare_mts_step(device, model: str, trained: dict) -> dict:
     """Phase 11c's compared step: `model`'s experiment (mts_cfg at the
     trained lengths, hash dropout 0.1) at B MTS_STEP_B, #1 once on the
-    kernel route, TimesNet's bins the float64 run's (pinned_periods)."""
+    kernel route, TimesNet's bins, and so its canvas's gathered branches,
+    the float64 run's (pinned_periods)."""
     cfg = Config(**dict(mts_cfg(model), **trained, dropout=0.1))
-    return compare_model_step(device, cfg, model, MTS_STEP_B, pinned_periods(),
-                              lambda route: recavg_only(int(route == "kernel"), 0))
+    pin = pinned_periods()
+    out = compare_model_step(device, cfg, model, MTS_STEP_B, pin,
+                             lambda route: recavg_only(int(route == "kernel"), 0))
+    if model == "TimesNet":
+        out["pinned_flips"]["gathered"] = {"plain": pin.gathered[0], "kernel": pin.gathered[1]}
+        log(f"# {model} step: bins pinned {out['pinned_flips']}")
+    return out
 
 
 def nondeterministic_ops(device) -> list[str]:
@@ -3480,16 +3549,18 @@ def loop_summary(res: dict, B: int) -> dict:
 
 def run_loop_case(device, root: str, exp_dir: str, label: str, args, expected, held: bool,
                   streamed: dict | None = None, epochs: int = LOOP_EPOCHS, trace: bool = True,
-                  kept: dict | None = None, keep_exp: str | None = None) -> dict:
+                  kept: dict | None = None, keep_exp: str | None = None,
+                  exact: bool = False) -> dict:
     """Phase 14, one case: `args` trained through imm_tsf_torch.main on the
     default epoch loop, then on the streaming loop (STREAM) unless
-    `streamed` is an earlier phase's streaming run of the same flags; every
-    loss finite, launches exact in both (expected(steps, evals)). With
-    `trace`, epoch 1 is traced (idle share). `held`: per-step losses and
-    test metrics within LOOP_RTOL relative of the streaming run's, and the
-    same best epoch; else the gaps are printed. `kept` gets the loop run's
-    final weights; the loop run's experiment directory is moved to
-    `keep_exp` when given (phase 16 deploys it)."""
+    `streamed` is an earlier phase's streaming run of the same flags (its
+    first steps, as many as the loop run's); every loss finite, launches
+    exact in both (expected(steps, evals)). With `trace`, epoch 1 is traced
+    (idle share). `held`: per-step losses and test metrics within
+    LOOP_RTOL relative of the streaming run's, and the same best epoch
+    (`exact`: equal, bit for bit); else the gaps are printed. `kept` gets
+    the loop run's final weights; the loop run's experiment directory is
+    moved to `keep_exp` when given (phase 16 deploys it)."""
     data = training_data(root, args)
     cfg = data["cfg"]
     n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
@@ -3514,6 +3585,8 @@ def run_loop_case(device, root: str, exp_dir: str, label: str, args, expected, h
         out[mode] = res
     a, b = out["loop"], out["streaming"]
     la, lb = np.asarray(a["step_losses"]), np.asarray(b["step_losses"])
+    if streamed is not None:  # an earlier phase's run, of more epochs: its first steps
+        lb = lb[:la.size]
     if la.shape != lb.shape:
         raise AssertionError(f"{label}: {la.size} steps on the epoch loop, {lb.size} streaming")
     test_keys = ("mse", "mae", "rmse")
@@ -3526,24 +3599,22 @@ def run_loop_case(device, root: str, exp_dir: str, label: str, args, expected, h
                "streaming": loop_summary(b, cfg.batch_size)}
     log(f"# phase 14 {label}: {json.dumps(summary)}; per-step losses, epoch loop "
         f"{a['step_losses']}, streaming {b['step_losses']}; test {a['test']} / {b['test']}")
-    if held and (max(gaps.values()) > LOOP_RTOL
+    if held and (max(gaps.values()) > LOOP_RTOL or (exact and not bitwise)
                  or a["test"]["best_iter"] != b["test"]["best_iter"]):
         raise AssertionError(f"{label}: the epoch loop departs from the streaming loop: "
                              f"{summary}")
     return {"summary": summary, "loop": a, "streaming": b}
 
 
-def check_loop_mode(label: str, run: dict, mode: str, captured: bool,
-                    reason: str | None = None) -> None:
+def check_loop_mode(label: str, run: dict, mode: str, captured: bool) -> None:
     """The run took the epoch loop's `mode`, with captured steps that
-    replayed, or eager steps for `reason` (a text the loop logs)."""
+    replayed (on cuda), or eager steps with no reason logged (on the CPU)."""
     stats = run["epoch_loop"]
     ok = (stats is not None and stats["mode"] == mode and stats["captured"] == captured
-          and (stats["replays"] > 0) == captured
-          and (reason is None or reason in (stats["eager_reason"] or "")))
+          and (stats["replays"] > 0) == captured and stats["eager_reason"] is None)
     if not ok:
         raise AssertionError(f"{label}: epoch loop {stats}, expected {mode} with "
-                             f"{'captured' if captured else 'eager'} steps ({reason})")
+                             f"{'captured' if captured else 'eager'} steps")
 
 
 def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: str) -> dict:
@@ -3552,15 +3623,13 @@ def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: 
     0.1), 14b CRU on the default route (#5, #4) and the fused route (#6,
     #7), 14c Informer on the kernel route (#2 at three sites, #1): each on
     the resident loop with captured steps against the streaming loop,
-    held to LOOP_RTOL; 14d TimesNet (eager resident steps: its periods are
-    read on the host) held the same way, and the LatentODE on the staged
-    loop against phase 12's streaming run (`streamed["LatentODE"]`; hash
-    masks over the staged, longer union axes differ, so only printed);
-    14e the resident 14a resumed from its epoch-0 state bit for bit.
-    14a's and 14b's fused loop runs are kept under `kept_root` as
-    experiments "14a" and "14b_fused" (phase 16)."""
-    from imm_tsf_torch.models.timesnet import TimesNet
-
+    held to LOOP_RTOL; 14d TimesNet (captured steps over its static period
+    canvas) held bit for bit, and the LatentODE on the staged loop for one
+    epoch against phase 12's streaming run's first (`streamed["LatentODE"]`;
+    hash masks over the staged, longer union axes differ, so only printed);
+    14e the resident 14a resumed from its epoch-0 state bit for bit. 14a's,
+    14b's fused and 14d TimesNet's loop runs are kept under `kept_root` as
+    experiments "14a", "14b_fused" and "14d" (phase 16)."""
     out: dict = {}
     T = lambda args: (lambda c: c.input_len + c.pred_len)(training_data(root, args)["cfg"])
     patch_cfg = training_data(root, PATCH_TRAIN_ARGS)["cfg"]
@@ -3585,22 +3654,17 @@ def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: 
         lambda s, e: ffn_counts("kernel", inf_cfg.e_layers + inf_cfg.d_layers, s, e), True)
     shutil.rmtree(exp_dir, ignore_errors=True)
     out["14d TimesNet"] = run_loop_case(device, root, exp_dir, "14d TimesNet",
-                                        MTS_TRAIN_ARGS["TimesNet"], recavg_only, True)
+                                        MTS_TRAIN_ARGS["TimesNet"], recavg_only, True,
+                                        exact=True,
+                                        keep_exp=os.path.join(kept_root, "experiment_14d"))
     shutil.rmtree(exp_dir, ignore_errors=True)
     out["14d LatentODE staged"] = run_loop_case(
         device, root, exp_dir, "14d LatentODE, staged", IMTS_TRAIN_ARGS["LatentODE"],
-        recavg_only, False, streamed=streamed["LatentODE"], epochs=2, trace=False)
+        recavg_only, False, streamed=streamed["LatentODE"], epochs=1, trace=False)
     shutil.rmtree(exp_dir, ignore_errors=True)
     for name, case in out.items():
-        captured = not name.startswith("14d") and device.type == "cuda"
-        mode = "staged" if "staged" in name else "resident"
-        reason = TimesNet.eager_steps if "TimesNet" in name else None
-        if "LatentODE" in name:  # captured unless the model says why not
-            from imm_tsf_torch.models.latent_ode import LatentODE
-
-            reason = getattr(LatentODE, "eager_steps", None)
-            captured = reason is None and device.type == "cuda"
-        check_loop_mode(name, case["loop"], mode, captured, reason)
+        check_loop_mode(name, case["loop"], "staged" if "staged" in name else "resident",
+                        device.type == "cuda")
     out["14e resume"] = run_resume(device, root, exp_dir, out["14a PatchTST kernel"]["loop"],
                                    kept["weights"], args=RESUME_ARGS,
                                    label="14e resume on the epoch loop", strict=True,
@@ -3866,7 +3930,9 @@ def per_dispatch(label: str, cfg) -> dict:
     """The launches of one dispatch of a phase 16 (or 17d) artifact, as the
     live service launches them: #1 once; PatchTST's #2 (eval form) once an
     encoder layer (in its bf16-weight form under amp, 17d); the fused CRU's
-    #6 once."""
+    #6 once; TimesNet nothing else."""
+    if label == "16e":
+        return {"recency_weighted_average": 1}
     if label == "16a":
         return {"recency_weighted_average": 1, "fused_encoder_ffn": cfg.e_layers}
     if label == "17d":  # 14a's flags under amp_bf16: #2 in its bf16-weight form
@@ -3875,14 +3941,15 @@ def per_dispatch(label: str, cfg) -> dict:
     return {"recency_weighted_average": 1, "fused_cru_scan": 1}
 
 
-def serve_artifact(device, exp: str, art: str, label: str) -> dict:
-    """Phase 16a/b, one artifact: `exp` exported on the card at
+def serve_artifact(device, exp: str, art: str, label: str, exact: bool = False) -> dict:
+    """Phase 16a/b/e, one artifact: `exp` exported on the card at
     ARTIFACT_BATCHES[label], loaded in a fresh ExportedForecaster, and
     the live ForecastService on the same experiment, each answering the
     same N_ARTIFACT_REQUESTS[label] requests (make_requests: phase 4's
     generator and seed) in dispatches of the largest batch size, the
     launch counts zeroed just before each. Every answer within
-    ARTIFACT_TOL; both counts exactly per_dispatch() a dispatch."""
+    ARTIFACT_TOL (`exact`: equal, bit for bit); both counts exactly
+    per_dispatch() a dispatch."""
     sizes, B = ARTIFACT_BATCHES[label], max(ARTIFACT_BATCHES[label])
     cfg = load_saved_config(os.path.join(exp, "config.json"))
     t0 = time.monotonic()
@@ -3918,6 +3985,9 @@ def serve_artifact(device, exp: str, art: str, label: str) -> dict:
             raise AssertionError(f"{label}: an artifact answer {a.shape} is not the live one's")
         errs.append(max_err(torch.from_numpy(a), torch.from_numpy(b), ARTIFACT_TOL))
         bitwise &= bool((a == b).all())
+    if exact and not bitwise:
+        raise AssertionError(f"{label}: the artifact's answers are not the live service's bit "
+                             f"for bit (max |artifact - live| {max(errs):.3e})")
     expected = dict(dict.fromkeys(KERNEL_COUNTS, 0),
                     **{k: v * len(batches) for k, v in per_dispatch(label, cfg).items()})
     counts = {p: runs[p]["launches"] for p in runs}
@@ -4028,18 +4098,21 @@ def run_serve_and_sweep(device, exp_dir: str, art: str, fc, requests) -> dict:
 
 
 def run_deployment(device, root: str, exp_dir: str, kept_root: str, loop_runs: dict) -> dict:
-    """Phase 16 (module docstring): 16a-16d on phase 14's kept experiments."""
+    """Phase 16 (module docstring): 16a-16e on phase 14's kept experiments
+    (16e, TimesNet's artifact, is served right after 16b)."""
     out: dict = {"artifacts": {}}
     arts = os.path.join(exp_dir, "artifacts")
-    for label, name, fused in (("16a", "14a", False), ("16b", "14b_fused", True)):
+    for label, name, fused in (("16a", "14a", False), ("16b", "14b_fused", True),
+                               ("16e", "14d", False)):
         with cru_route(fused):
             out["artifacts"][label] = serve_artifact(
                 device, os.path.join(kept_root, f"experiment_{name}"),
-                os.path.join(arts, label), label)
+                os.path.join(arts, label), label, exact=label == "16e")
     fc, requests = out["artifacts"]["16a"].pop("_forecaster"), out["artifacts"]["16a"].pop(
         "_requests")
-    for key in ("_forecaster", "_requests"):
-        out["artifacts"]["16b"].pop(key)
+    for label in ("16b", "16e"):
+        for key in ("_forecaster", "_requests"):
+            out["artifacts"][label].pop(key)
     out["predict"] = run_predict_cli(device, root, kept_root,
                                         loop_runs["14a PatchTST kernel"]["loop"]["test"])
     out["serve_and_sweep"] = run_serve_and_sweep(device, exp_dir, os.path.join(arts, "16a"),
@@ -4656,7 +4729,7 @@ def main() -> int:
     # phase 2: build
     t0 = time.monotonic()
     secs = _build.build(["ffn", "recavg", "attn", "expm", "cru_scan", "expm_frechet",
-                         "cru_scan_bwd"])
+                         "cru_scan_bwd", "chunker"])
     log(f"# built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in sorted(secs.items()))})")
 
@@ -4721,6 +4794,7 @@ def main() -> int:
     root = os.path.join(REPO, "experiments", f"chip_smoke_data_{os.getpid()}")
     try:
         make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        chunker = check_chunker(root)
         train = run_training(device, root, exp_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4852,7 +4926,7 @@ def main() -> int:
     mark("13")
     # phase 14: the default training path, the device-resident epoch loop on
     # captured steps, against the streaming loop on the same flags
-    kept_root = exp_dir + "_kept"  # 14a's and 14b's fused experiments, for phase 16
+    kept_root = exp_dir + "_kept"  # 14a's, 14b's fused and 14d's experiments, for phase 16
     try:
         make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
         os.makedirs(kept_root)
@@ -4967,7 +5041,7 @@ def main() -> int:
                       "default_pair": default_pair, "timellm": timellm_run,
                       "mts": mts, "imts": imts, "llms": llms,
                       "device_loop": {k: v.get("summary", v) for k, v in device_loop.items()},
-                      "sweeps": sweeps, "deployment": deployment,
+                      "sweeps": sweeps, "deployment": deployment, "chunker": chunker,
                       "amp": {"17b": amp["17b PatchTST amp"]["summary"],
                               **{k: v["summary"] for k, v in amp.items() if k.startswith("17c")},
                               "17d": amp["17d artifact"], "errs": amp["errs"]},

@@ -22,8 +22,15 @@ On-disk contract (reference README.md:41-53):
   root/processed/<record_id>/text_embeddings_model={llm}_layers={n|full}_maxlen={L}.pt
       {"embeddings": [N_notes, d_txt], "rel_times": [N_notes]}  (.npz also accepted)
 
-The chunker is the JAX package's NumPy loop; its native two-pointer core
-(imm_tsf_tpu/native/chunker.cpp) is not ported yet (ROADMAP.md, Queue 1, item 4).
+The windows of a record whose notes are sorted come from the native
+two-pointer core (native/chunker.cpp, built with g++ at first use), as
+in the JAX package; a record with unsorted notes takes the JAX package's
+NumPy loop, which is also the oracle the tests hold the core to
+(`ChunkedTimeSeriesDataset.native = False` runs it for every record).
+Both compare window bounds against the times in their own precision (the
+loop in float32, the core in float64), as the JAX package's two do; they
+agree wherever a window bound is a float32 value, as with the dyadic
+strides of the presets and the tests.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..native import chunk_windows
 
 UNIT_SECONDS = {
     # reference lib/parse_datasets.py:32-38
@@ -149,6 +158,8 @@ def _zscore(col: np.ndarray) -> np.ndarray:
 class ChunkedTimeSeriesDataset:
     """Loads every entity, normalizes, chunks into sliding windows."""
 
+    native = True  # False: the NumPy loop for every record (the tests' oracle)
+
     def __init__(
         self,
         root: str,
@@ -236,42 +247,19 @@ class ChunkedTimeSeriesDataset:
                         texts.append((t_rel, txt))
             raw_data.append((rec, tt, vals_np, mask, texts))
 
-        # --- chunking (reference :174-237; the JAX package's NumPy loop) ---
-        total = history + pred_window
+        # --- chunking (reference :174-237; JAX :230-297) ---
         chunks: list[Chunk] = []
         for rec, tt, vals, mask, record_texts in raw_data:
-            cnt = 0
-            drop_count = 0
-            t_max = float(tt.max())
-            st = float(tt.min())
-            while st + total <= t_max:
-                idx = np.nonzero((tt >= st) & (tt < st + total))[0]
-                if idx.size >= 2:
-                    sub_tt = tt[idx] - st
-                    sub_mask = mask[idx]
-                    if (sub_mask[sub_tt < history].sum() == 0
-                            or sub_mask[sub_tt >= history].sum() == 0):
-                        st += stride
-                        continue
-                    hist_end = st + history
-                    selected = [(t - st, payload) for (t, payload) in record_texts
-                                if st <= t < hist_end]
-                    chunk_id = f"{rec}_chunk{cnt}"
-                    cnt += 1
-                    # drop no-text chunks even when enable_text=False (:217-221)
-                    if len(selected) == 0:
-                        drop_count += 1
-                        st += stride
-                        continue
-                    if enable_text:
-                        note_times = np.array([t for t, _ in selected], np.float32)
-                        payloads = [p for _, p in selected]
-                    else:
-                        note_times = np.zeros((0,), dtype=np.float32)
-                        payloads = []
-                    chunks.append(Chunk(chunk_id, sub_tt.astype(np.float32), vals[idx],
-                                        sub_mask, note_times, payloads))
-                st += stride
+            note_t = np.array([t for t, _ in record_texts], np.float64)
+            if self.native and (len(note_t) == 0 or (np.diff(note_t) >= 0).all()):
+                win = chunk_windows(tt.astype(np.float64), mask.sum(axis=1), note_t, history,
+                                    pred_window, stride)  # the core needs sorted notes
+                emitted, cnt, drop_count = self._emit_from_windows(
+                    rec, tt, vals, mask, record_texts, win, enable_text)
+            else:
+                emitted, cnt, drop_count = self._loop_windows(rec, tt, vals, mask,
+                                                              record_texts, enable_text)
+            chunks.extend(emitted)
             if verbose and (cnt + drop_count) > 0:
                 ratio = drop_count / (cnt + drop_count)
                 print(f"Record {rec}: {cnt} chunks created, {drop_count} dropped ({ratio:.2%})")
@@ -281,6 +269,74 @@ class ChunkedTimeSeriesDataset:
         self.chunks = chunks
         self.input_dim = chunks[0].vals.shape[-1]
         self.bounds = self._compute_bounds()
+
+    def _loop_windows(self, rec, tt, vals, mask, record_texts, enable_text):
+        """The JAX package's NumPy loop over one record's windows: (chunks,
+        chunks numbered, chunks dropped for want of a note)."""
+        history, stride = self.history, self.stride
+        total = history + self.pred_window
+        chunks: list[Chunk] = []
+        cnt = 0
+        drop_count = 0
+        t_max = float(tt.max())
+        st = float(tt.min())
+        while st + total <= t_max:
+            idx = np.nonzero((tt >= st) & (tt < st + total))[0]
+            if idx.size >= 2:
+                sub_tt = tt[idx] - st
+                sub_mask = mask[idx]
+                if (sub_mask[sub_tt < history].sum() == 0
+                        or sub_mask[sub_tt >= history].sum() == 0):
+                    st += stride
+                    continue
+                hist_end = st + history
+                selected = [(t - st, payload) for (t, payload) in record_texts
+                            if st <= t < hist_end]
+                chunk_id = f"{rec}_chunk{cnt}"
+                cnt += 1
+                # drop no-text chunks even when enable_text=False (:217-221)
+                if len(selected) == 0:
+                    drop_count += 1
+                    st += stride
+                    continue
+                if enable_text:
+                    note_times = np.array([t for t, _ in selected], np.float32)
+                    payloads = [p for _, p in selected]
+                else:
+                    note_times = np.zeros((0,), dtype=np.float32)
+                    payloads = []
+                chunks.append(Chunk(chunk_id, sub_tt.astype(np.float32), vals[idx],
+                                    sub_mask, note_times, payloads))
+            st += stride
+        return chunks, cnt, drop_count
+
+    def _emit_from_windows(self, rec, tt, vals, mask, record_texts, win, enable_text):
+        """Chunk objects from the native core's windows of one record, with
+        the loop's chunk numbering and drop rule (JAX :300-332): (chunks,
+        chunks numbered, chunks dropped for want of a note)."""
+        chunks: list[Chunk] = []
+        cnt = 0
+        drop_count = 0
+        st = float(tt.min())
+        for w in range(len(win["starts"])):
+            if win["valid"][w]:
+                cnt += 1
+                if not win["has_text"][w]:
+                    drop_count += 1
+                else:
+                    lo, hi = int(win["starts"][w]), int(win["ends"][w])
+                    sub_tt = (tt[lo:hi] - np.float32(st)).astype(np.float32)
+                    if enable_text:
+                        sel = record_texts[int(win["note_lo"][w]):int(win["note_hi"][w])]
+                        note_times = np.array([t - st for t, _ in sel], np.float32)
+                        payloads = [p for _, p in sel]
+                    else:
+                        note_times = np.zeros((0,), np.float32)
+                        payloads = []
+                    chunks.append(Chunk(f"{rec}_chunk{cnt - 1}", sub_tt, vals[lo:hi],
+                                        mask[lo:hi], note_times, payloads))
+            st += self.stride
+        return chunks, cnt, drop_count
 
     def _compute_bounds(self) -> ShapeBounds:
         b = ShapeBounds()

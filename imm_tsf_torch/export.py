@@ -31,10 +31,7 @@ collates); a LatentODE is dispatched one request at a time, as the live
 service does; raw-text notes are embedded on the host by the frozen LLM
 before the program runs.
 
-TimesNet is refused: it picks its periods on the host (`top.tolist()`),
-which a traced program would freeze (ROADMAP.md, Queue 1, item 21). Any
-other model that `torch.export` cannot trace is refused the same way,
-with the cause.
+A model that `torch.export` cannot trace is refused, with the cause.
 """
 
 from __future__ import annotations
@@ -53,9 +50,6 @@ from .kernels import ops as _ops  # noqa: F401  registers the imm_tsf::* ops a p
 from .serving import _MetricsMixin
 
 ARTIFACT_VERSION = 1
-REFUSED = {"TimesNet": "TimesNet picks its periods on the host (top.tolist()), which a "
-                       "traced program would freeze; it needs a static period canvas "
-                       "(ROADMAP.md, Queue 1, item 21)"}
 
 
 class _Forecast(torch.nn.Module):
@@ -98,8 +92,6 @@ def export_experiment(checkpoint_dir: str, out_dir: str, cfg: Config | None = No
         raise ValueError("batch_sizes must be positive ints")
     if cfg is None:
         cfg = load_saved_config(os.path.join(checkpoint_dir, "config.json"))
-    if cfg.model in REFUSED:
-        raise NotImplementedError(f"cannot export {cfg.model}: {REFUSED[cfg.model]}")
 
     svc = ForecastService(checkpoint_dir, cfg=cfg, max_batch=max(batch_sizes), device=device)
     try:

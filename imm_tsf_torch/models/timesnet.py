@@ -8,18 +8,23 @@ A TimesBlock takes the k frequency bins of largest batch- and
 channel-mean amplitude (lax.top_k's order), folds the series into a
 [ceil(T / p), p] grid for each bin's period p, runs two inception
 convolutions on it and sums the k results under a softmax of their
-amplitudes. This port computes only the k selected periods, as the
-reference model does, with a host round trip for the bins. The JAX
-package runs every candidate period in shape-bucketed canvases and
-gathers the k selected ones (its TPU rewrite); unselected branches never
-reach its output, so the values and gradients are the same.
+amplitudes. As in the JAX package, every candidate period runs, with
+static shapes: the periods {T // f} are grouped into buckets
+(`_bucket_partition`), each bucket's grids are zero-padded to one canvas
+and stacked along the batch, both inception convolutions run once a
+bucket, and the k selected branches are gathered on the device by
+`lookup[top]`. Nothing is read back to the host, so a CUDA graph captures
+the forward (the epoch loop's steps) and `torch.export` traces it (the
+artifacts). Unselected branches never reach the output.
 
 The inception block (kernels 1, 3, ..., 2K-1, SAME padding, their mean)
 is one (2K-1)-square conv2d of the mean of the centre-embedded kernels,
-as the JAX package's `_apply_inception` fuses it. Its parameters keep
-the flax leaves `conv{1,2}_kernel_<i>` [k, k, in, out] and
-`conv{1,2}_bias_<i>`; the fused kernel goes to torch's [out, in, kh, kw]
-by permute(3, 2, 0, 1) (a layout change, no flip).
+as the JAX package's `_apply_inception` fuses it, cropped to
+(2H-1, 2W-1) on an H x W canvas: farther taps only ever meet the zero
+padding. Its parameters keep the flax leaves `conv{1,2}_kernel_<i>`
+[k, k, in, out] and `conv{1,2}_bias_<i>`; the fused kernel goes to
+torch's [out, in, kh, kw] by permute(3, 2, 0, 1) (a layout change, no
+flip). The layout is NCHW.
 """
 
 from __future__ import annotations
@@ -41,12 +46,63 @@ def f_to_period(f: int, T: int) -> int:
     return T // f if f else T
 
 
+# per-conv-dispatch penalty (in padded-cell units) of the canvas-bucket
+# partition below: the JAX package's constant, which it measured best on a
+# TPU v5e. It is kept so that the port's buckets are the JAX package's;
+# retuning it for the H100 is a speed change of its own.
+_BUCKET_FIX = 60
+
+
+def _bucket_partition(T: int, kmax: int):
+    """Static DP partition of the candidate periods into canvas buckets
+    (imm_tsf_tpu/models/timesnet.py:114-146).
+
+    Candidates (sorted by grid rows desc) are split into contiguous
+    groups; each group shares one zero-padded canvas of shape
+    [max rows, max period], so the 2 inception convs run once per group
+    instead of once per candidate. Cost per group = padded cells x the
+    cropped-kernel tap fraction + _BUCKET_FIX. Returns (cand, buckets) with
+    buckets = [(members: list[(cand index, (rows, period))], hb, wb)],
+    members in `cand` order within each bucket."""
+    cand = sorted({f_to_period(f, T) for f in range(T // 2 + 1)})
+    grids = [((T + p - 1) // p, p) for p in cand]
+    order = sorted(range(len(cand)), key=lambda i: (-grids[i][0], grids[i][1]))
+    n = len(order)
+    best = [None] * (n + 1)
+    best[0] = (0.0, [])
+    for j in range(1, n + 1):
+        for i in range(j):
+            hb = max(grids[order[t]][0] for t in range(i, j))
+            wb = max(grids[order[t]][1] for t in range(i, j))
+            taps = (min(kmax, 2 * hb - 1) * min(kmax, 2 * wb - 1)) / (kmax * kmax)
+            cost = best[i][0] + (j - i) * hb * wb * taps + _BUCKET_FIX
+            if best[j] is None or cost < best[j][0]:
+                best[j] = (cost, best[i][1] + [(i, j, hb, wb)])
+    buckets = [([(order[t], grids[order[t]]) for t in range(i, j)], hb, wb)
+               for (i, j, hb, wb) in best[n][1]]
+    return cand, buckets
+
+
 class TimesBlock(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         self.k, self.num_kernels = cfg.top_k, cfg.num_kernels
+        self.T = cfg.input_len + cfg.pred_len
         self._init_inception("conv1", cfg.d_model, cfg.d_ff)
         self._init_inception("conv2", cfg.d_ff, cfg.d_model)
+        cand, self.buckets = _bucket_partition(self.T, 2 * cfg.num_kernels - 1)
+        branch = {p: i for i, p in enumerate(cand)}
+        # the static tables live on the module's device (non-persistent
+        # buffers: no checkpoint holds them): bin f -> its branch, and each
+        # bucket's true-grid mask where a member is smaller than the canvas
+        self.register_buffer("lookup", torch.tensor(
+            [branch[f_to_period(f, self.T)] for f in range(self.T // 2 + 1)]), persistent=False)
+        for b, (members, hb, wb) in enumerate(self.buckets):
+            if any(h != hb or w != wb for _, (h, w) in members):
+                mask = torch.zeros(len(members), 1, 1, hb, wb)
+                for m, (_, (h, w)) in enumerate(members):
+                    mask[m, ..., :h, :w] = 1.0
+                self.register_buffer(f"mask_{b}", mask, persistent=False)
 
     def _init_inception(self, name: str, c_in: int, c_out: int) -> None:
         """The flax leaves `<name>_kernel_<i>` [k, k, in, out] (kaiming
@@ -62,40 +118,54 @@ class TimesBlock(nn.Module):
     def _inception(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """The mean of SAME 2-D convs with kernels 1, 3, ..., 2K-1 over x
         [B, C_in, H, W], as one conv whose kernel is the mean of the
-        centre-embedded ones (the JAX package's `_apply_inception`)."""
+        centre-embedded ones, cut to its centre (2H-1, 2W-1) (the JAX
+        package's `_apply_inception(crop=True)`). The kernel and bias are
+        cast to x's dtype, as JAX casts them (amp_bf16's bf16 parameters
+        meet float32 activations here)."""
         n = self.num_kernels
         kernels = [getattr(self, f"{name}_kernel_{i}") for i in range(n)]
         kmax = kernels[-1].shape[0]
         w = sum(F.pad(k, (0, 0, 0, 0, *(((kmax - k.shape[0]) // 2,) * 4))) for k in kernels)
         b = sum(getattr(self, f"{name}_bias_{i}") for i in range(n))
-        return F.conv2d(x, (w / n).permute(3, 2, 0, 1), b / n, padding=kmax // 2)
+        kh, kw = min(kmax, 2 * x.shape[2] - 1), min(kmax, 2 * x.shape[3] - 1)
+        oh, ow = (kmax - kh) // 2, (kmax - kw) // 2
+        w = w[oh:oh + kh, ow:ow + kw]
+        return F.conv2d(x, (w / n).to(x.dtype).permute(3, 2, 0, 1), (b / n).to(x.dtype),
+                        padding=(kh // 2, kw // 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, N]
         B, T, N = x.shape
+        if T != self.T:
+            raise ValueError(f"TimesBlock built for T {self.T} got T {T}")
         amp = torch.fft.rfft(x.to(fft_dtype(x.dtype)), dim=1).abs()  # [B, F, N]
         freq = amp.mean(dim=0).mean(dim=-1).detach()  # [F]; the choice has no gradient
-        freq[0] = 0.0
-        top = top_lags(freq[None], self.k)[0]
+        freq = torch.cat([torch.zeros_like(freq[:1]), freq[1:]])  # the DC bin never wins
+        top = top_lags(freq[None], self.k)[0]  # [k], on the device
         period_weight = amp.mean(dim=-1)[:, top].to(x.dtype)  # [B, k]
-        res = []
-        for f in top.tolist():
-            p = f_to_period(f, T)
-            rows = -(-T // p)
-            grid = F.pad(x, (0, 0, 0, rows * p - T)).reshape(B, rows, p, N).permute(0, 3, 1, 2)
-            out = self._inception("conv2", F.gelu(self._inception("conv1", grid),
-                                                  approximate="tanh"))
-            res.append(out.permute(0, 2, 3, 1).reshape(B, rows * p, N)[:, :T])
+        xt = x.transpose(1, 2)  # [B, N, T]
+        outs: dict = {}  # candidate index -> its branch's output [B, N, T]
+        for b, (members, hb, wb) in enumerate(self.buckets):
+            canvas = torch.cat([F.pad(F.pad(xt, (0, h * w - T)).reshape(B, N, h, w),
+                                      (0, wb - w, 0, hb - h)) for _, (h, w) in members])
+            h1 = F.gelu(self._inception("conv1", canvas), approximate="tanh")
+            mask = getattr(self, f"mask_{b}", None)
+            if mask is not None:  # conv2 sees the SAME-pad zeros of each true grid
+                h1 = (h1.reshape(len(members), B, *h1.shape[1:]) * mask.to(h1.dtype)
+                      ).reshape(h1.shape)
+            o = self._inception("conv2", h1)  # [nb * B, N, hb, wb]
+            for m, (ci, (h, w)) in enumerate(members):
+                outs[ci] = o[m * B:(m + 1) * B, :, :h, :w].reshape(B, N, h * w)[..., :T]
+        outs = torch.stack([outs[ci] for ci in range(len(outs))])  # [n_cand, B, N, T]
+        # the k branches, gathered on the device (jnp.take): by indexing,
+        # whose backward (index_put_ with accumulate) sums the bins that
+        # share a period in a fixed order on cuda, where index_select's
+        # (index_add_) sums them with atomics
+        res = outs[self.lookup[top]].permute(1, 3, 2, 0)  # [B, T, N, k]
         pw = torch.softmax(period_weight, dim=1)  # [B, k]
-        return (torch.stack(res, dim=-1) * pw[:, None, None, :]).sum(dim=-1) + x
+        return (res * pw[:, None, None, :]).sum(dim=-1) + x
 
 
 class TimesNet(nn.Module):
-    # the epoch loop runs its steps eagerly (training/graphs.eager_reason):
-    # a CUDA graph would freeze the periods of the captured batch
-    eager_steps = (
-        "TimesBlock picks its periods on the host (top.tolist()); a static period canvas "
-        "is ROADMAP.md, Queue 1, item 21")
-
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
@@ -125,7 +195,10 @@ class TimesNet(nn.Module):
         enc_out = self.enc_embedding(x_enc)  # [B, L, d_model]
         tp_rep = tp_to_predict[:, :, None].expand(-1, -1, cfg.d_model)
         enc_out = torch.cat([enc_out, tp_rep], dim=1)  # [B, L + Lp, d_model]
-        enc_out = self.predict_linear(enc_out.transpose(1, 2)).transpose(1, 2)
+        # a contiguous input: cuBLAS's result for a transposed one differed
+        # by an ulp between an exported program and the eager module on an
+        # H100 (tools/torch_timesnet_artifact_probe.py)
+        enc_out = self.predict_linear(enc_out.transpose(1, 2).contiguous()).transpose(1, 2)
         for i in range(cfg.e_layers):
             enc_out = self.layer_norm(getattr(self, f"times_block_{i}")(enc_out))
 

@@ -97,8 +97,7 @@ def main(argv=None) -> dict:
         # every window resident on the device: the epoch loop's predict
         # runner (the first call warms up and captures, the second replays)
         res = DL.Resident(pre_args.split, built, bit, device)
-        run_predict = DL.make_predict_runner(forward, StepLoop(device,
-                                                               eager=eager_reason(cfg, model)))
+        run_predict = DL.make_predict_runner(forward, StepLoop(device, eager=eager_reason(cfg)))
         tw = time.perf_counter()
         with torch.no_grad():
             pred, sums = run_predict(res)

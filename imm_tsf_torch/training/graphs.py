@@ -37,8 +37,7 @@ the epoch ends:
 
 `StepLoop(device, generators, eager=reason)` runs every step eagerly when
 the device is not cuda, or when `reason` names why a step cannot be
-captured (a model that reads a value back to the host, autograd's anomaly
-mode); the trainer logs the reason. Eager steps read the same buffers
+captured (autograd's anomaly mode); the trainer logs the reason. Eager steps read the same buffers
 through the same code.
 """
 
@@ -297,12 +296,10 @@ def interleave(step_iters: list) -> list:
     return results
 
 
-def eager_reason(cfg, model) -> str | None:
+def eager_reason(cfg) -> str | None:
     """Why this run's steps cannot be captured, or None: the config's
     `debug_nans` (autograd's anomaly mode reads every backward's output on
-    the host), or the model class's `eager_steps` (a value read back to the
-    host inside the step)."""
+    the host). No backbone reads a value back to the host inside a step."""
     if cfg.debug_nans:
         return "debug_nans: autograd's anomaly mode checks each backward on the host"
-    why = getattr(type(model), "eager_steps", None)
-    return f"{type(model).__name__}.eager_steps: {why}" if why else None
+    return None

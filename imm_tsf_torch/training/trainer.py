@@ -615,7 +615,7 @@ class _EpochLoop:
         self.cfg, self.mode, self.bit_train, self.device = cfg, mode, bit_train, device
         self.events: list = []  # (start, end) CUDA events of the epoch's timed steps
         self.step_ms: list = []
-        eager = eager_reason(cfg, model)
+        eager = eager_reason(cfg)
         self.loop = StepLoop(device, generators, eager=eager,
                              timer=self.events if timed and device.type == "cuda" else None)
         self.grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0)

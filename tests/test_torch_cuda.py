@@ -817,12 +817,22 @@ def test_ffn_kernel_reads_device_salts_as_the_host_salts(dev, gen, residuals):
 
 def _patchtst_loop(dev, captured: bool, steps: int = 4):
     """PatchTST + TTF_RecAvg + MMF_GR_Add on the kernel route (#1, #2's
-    training form, hash dropout 0.1) from one init, `steps` training steps
-    of 16 windows over a resident store of 64 on a graphs.StepLoop:
+    training form, hash dropout 0.1): _step_loop."""
+    from imm_tsf_torch.config import Config
+
+    cfg = Config(model="PatchTST", input_dim=4, input_len=24, pred_len=12, d_model=128, d_ff=256,
+                 n_heads=2, e_layers=1, dropout=0.1, enable_text=True, use_text_embeddings=True,
+                 d_txt=32, TTF_module="TTF_RecAvg", MMF_module="MMF_GR_Add", use_pallas=True,
+                 use_fused_ffn=True)
+    return _step_loop(dev, cfg, captured, steps)
+
+
+def _step_loop(dev, cfg, captured: bool, steps: int = 4):
+    """cfg's experiment (32-wide notes) from one init, `steps` training
+    steps of 16 windows over a resident store of 64 on a graphs.StepLoop:
     captured (a warm-up step, then the capture and replays) or eager.
     Returns the losses, the parameters after and the loop."""
     from chip_smoke import headline_batch
-    from imm_tsf_torch.config import Config
     from imm_tsf_torch.fusion.fusion_model import FusionModel
     from imm_tsf_torch.layers.fast_dropout import Dropout
     from imm_tsf_torch.models import get_model
@@ -831,10 +841,6 @@ def _patchtst_loop(dev, captured: bool, steps: int = 4):
     from imm_tsf_torch.training.optim import make_optimizer, trainable_parameters
     from imm_tsf_torch.training.trainer import make_forward, make_grad_step, make_loss_fn
 
-    cfg = Config(model="PatchTST", input_dim=4, input_len=24, pred_len=12, d_model=128, d_ff=256,
-                 n_heads=2, e_layers=1, dropout=0.1, enable_text=True, use_text_embeddings=True,
-                 d_txt=32, TTF_module="TTF_RecAvg", MMF_module="MMF_GR_Add", use_pallas=True,
-                 use_fused_ffn=True)
     torch.manual_seed(0)
     model, fusion = get_model(cfg), FusionModel(cfg, d_notes=32)
     salts = torch.Generator().manual_seed(1)
@@ -866,6 +872,32 @@ def test_captured_patchtst_step_replays_equal_eager_steps(dev):
     assert eager.replays == 0 and eager.eager_calls == 4
     assert loop.replays == 3 and loop.eager_calls == 1 and len(loop.graphs) == 1
     assert loop.tape.n_sites > 2  # the FFN's pair and the attention's sites
+    assert l_graph == l_eager
+    for a, b in zip(p_graph, p_eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_timesnet_step_replays_equal_eager_steps(dev):
+    """TimesNet (its preset widths, e_layers 2, top_k 5, T 24 + 12: 10
+    candidate periods in 5 canvases) + TTF_RecAvg + MMF_GR_Add, hash
+    dropout 0.1: the static period canvas reads nothing back to the host,
+    so its step is captured, and a warm-up step and 3 replays equal 4
+    eager steps bit for bit (losses and every parameter after), #1 once a
+    step."""
+    from imm_tsf_torch.config import Config
+
+    cfg = Config(model="TimesNet", input_dim=4, input_len=24, pred_len=12, d_model=16, d_ff=32,
+                 e_layers=2, top_k=5, num_kernels=6, dropout=0.1, enable_text=True,
+                 use_text_embeddings=True, d_txt=32, TTF_module="TTF_RecAvg",
+                 MMF_module="MMF_GR_Add", use_pallas=True)
+    before = recavg.launches
+    l_eager, p_eager, eager = _step_loop(dev, cfg, captured=False)
+    l_graph, p_graph, loop = _step_loop(dev, cfg, captured=True)
+    torch.cuda.synchronize()
+    assert recavg.launches - before == 8
+    assert eager.replays == 0 and eager.eager_calls == 4
+    assert loop.replays == 3 and loop.eager_calls == 1 and len(loop.graphs) == 1
     assert l_graph == l_eager
     for a, b in zip(p_graph, p_eager):
         assert torch.equal(a, b)

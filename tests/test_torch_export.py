@@ -147,6 +147,7 @@ CASES = {
                       patch_size=2, patch_stride=2, npatch=4),
     "LatentODE": dict(model="LatentODE", ode_rec_dims=8, ode_units=16, ode_gru_units=8,
                       ode_latents=6, ode_rec_layers=1, ode_gen_layers=1),
+    "TimesNet": dict(model="TimesNet", d_model=8, d_ff=16, e_layers=2, top_k=3, num_kernels=2),
 }
 EXPECTED_OPS = {
     "DLinear_default_pair": {},
@@ -155,6 +156,7 @@ EXPECTED_OPS = {
     "CRU_fused": {"fused_cru_scan": 1, "recency_weighted_average": 1},
     "tPatchGNN": {"recency_weighted_average": 1},
     "LatentODE": {"recency_weighted_average": 1},
+    "TimesNet": {"recency_weighted_average": 1},
 }
 
 
@@ -252,16 +254,37 @@ def test_artifact_refuses_what_it_cannot_serve(dlinear_artifact, tmp_path):
             ExportedForecaster(art)
 
 
-def test_timesnet_is_refused_with_its_roadmap_item(tmp_path):
-    """Refused before anything is read or written: its periods are picked
-    on the host (ROADMAP.md, Queue 1, item 21)."""
-    from imm_tsf_torch.config import Config
+def test_timesnet_artifact_equals_live_service_bit_for_bit(tmp_path):
+    """TimesNet (e_layers 2, input_len 16 + pred_len 8: 7 candidate
+    periods in 4 canvases, two of them masked) exported on the CPU: its
+    static period canvas traces, and the artifact answers 12 requests in
+    dispatches of 4 exactly as the live service's dispatches of the same
+    requests do. Each dispatch picks its own periods (the batch's mean
+    amplitudes), so the groups are the same on both sides; every request
+    has 3 notes, so both pad the notes axis to the same bucket."""
+    from imm_tsf_torch.serving import _build_chunk
 
-    cfg = Config(**dict(PORT_KW, model="TimesNet"))
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 21"):
-        export_experiment(str(tmp_path / "exp"), str(tmp_path / "art"), cfg=cfg,
-                          batch_sizes=(2,), device="cpu")
-    assert not os.path.exists(tmp_path / "art")
+    exp = str(tmp_path / "exp")
+    cfg = _port_experiment(exp, model="TimesNet", d_model=8, d_ff=16, e_layers=2, top_k=3,
+                           num_kernels=2)
+    art = str(tmp_path / "art")
+    meta = export_experiment(exp, art, batch_sizes=(4,), device="cpu", max_notes=3)
+    assert meta["ops"]["4"] == {"recency_weighted_average": 1}
+    insts = [dict(i, notes=(i["notes"] * 3)[:3]) for i in mixed_requests(cfg, 16, max_notes=3)
+             if i["notes"]]
+    fc = ExportedForecaster(art, device="cpu")
+    got = _forecast_in_fours(fc, insts)
+    svc = ForecastService(exp, max_batch=4, device="cpu")
+    try:
+        live = [a for i in range(0, len(insts), 4)
+                for a in svc._infer([_build_chunk(r, svc.cfg, svc.d_txt)
+                                     for r in insts[i:i + 4]])]
+    finally:
+        svc.close()
+    assert len(got) == len(live) == 12
+    for g, w in zip(got, live):
+        assert g["tp"] == w["tp"]
+        assert np.array_equal(np.asarray(g["prediction"]), np.asarray(w["prediction"]))
 
 
 def test_collate_caps_raise_past_the_static_axes():
