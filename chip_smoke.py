@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     rec 40, latents 20; tPatchGNN hid 32, te 10, node 10, 1 head, 1 layer,
     patched as SERVED_PATCHING: 4 patches of 2 days, each holding points)
     + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded weights, 256 ragged
-    requests from 8 threads (the LatentODE 64, a request a dispatch, its
+    requests from 8 threads (the LatentODE 32, a request a dispatch, its
     union time axis): answers finite with their rows, #1 exactly once a
     dispatch and nothing else, one dispatch kernels vs plain to 1e-4 +
     1e-4|ref|, one traced; (b) train each through
@@ -258,7 +258,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     events), idle share, capture seconds and graph nodes printed; (d)
     TimesNet on captured resident steps (its static period canvas reads
     nothing back to the host), held bit for bit, and the LatentODE on the
-    staged loop (phase 12's 4 entities) for one epoch, against phase 12's
+    staged loop (phase 12's 2 entities) for one epoch, against phase 12's
     streaming run's first (printed: the hash masks over its longer staged
     union axes differ); (e) 14a's run resumed on the epoch loop from its
     epoch-0 state (`--load`), bit for bit;
@@ -273,14 +273,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     held to 14b's fused run; launches S x the serial run's, its tested
     epochs made the sweep's; (d) (a) interrupted after one epoch and
     resumed, bit for bit; then the rates of (a)-(c): one run of the
-    cell's flags and the sweep, RATE_EPOCHS epochs each with no early
+    cell's flags and the sweep, RATE_EPOCHS (6) epochs each with no early
     stop, in the order one, sweep, sweep, one; windows/s per card of each
     timed epoch, the median and spread a side, the ratio of the medians;
     launches exact in every run;
 16. the deployment path, on phase 14's experiments (nothing new is
     trained): (a) 14a's PatchTST exported (`imm_tsf_torch.export`, the
-    kernels as `imm_tsf::*` custom ops) on the card at batch sizes 1, 8
-    and 64, loaded in a fresh ExportedForecaster and held to the live
+    kernels as `imm_tsf::*` custom ops) on the card at batch sizes 8 and
+    64, loaded in a fresh ExportedForecaster and held to the live
     ForecastService on the same experiment over phase 4's request
     generator and seed (N_ARTIFACT_REQUESTS, dispatches of 64): every
     answer within 1e-6 + 1e-5|ref| (whether bit for bit printed), launch
@@ -310,7 +310,23 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     (its preset) on the loop in float32 and in amp_bf16, windows/s, device
     ms a step and idle share side by side; (d) (b)'s experiment exported
     at B 8 and served, 64 requests, bit for bit with the live service;
- 5. (after 6-17) time each kernel and its plain version at the shapes
+18. the served forward captured (training/graphs.ForwardGraphs: one CUDA
+    graph a collated input shape and kernel route, the first dispatch of a
+    key eager): the checks run inside phases 4-17 and phase 18 gathers
+    them. Every dispatch that phases 4, 4b, 6, 9a, 9c, 10a, 11a, 12a and
+    13d serve is recorded and each replay held to the eager forward on its
+    host batch bit for bit (`held_dispatches`; a key's first dispatch is
+    the eager forward itself); each traced case is profiled captured and
+    eager, one replay of its key held too (`captured_row`: dispatch
+    ms, device busy ms, idle share and kernel launches of both, the eager
+    side at half the reps and not for 4b, whose dispatch is mostly the
+    eager note embedding, nor 13d; a replay's device ms by CUDA events,
+    graphs, capture seconds, nodes and the pool's bytes); phases 4 and 6 flip the route on the live service
+    (`route_flip`: the plain route gets its own graph and launches
+    nothing, the flip back replays the kernel route with its launches,
+    each bit for bit with its eager forward); phase 16's artifacts replay
+    one graph a batch size and 16c's streaming predict one graph;
+ 5. (after 6-18) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -388,6 +404,7 @@ from imm_tsf_torch.ops import expm as ops_expm
 from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_taylor12
 from imm_tsf_torch.serving import ForecastService, _build_chunk
 from imm_tsf_torch.training.checkpoint import save_experiment
+from imm_tsf_torch.training.graphs import route_of
 from imm_tsf_torch.training.optim import FROZEN_SUBTREE, make_optimizer, trainable_parameters
 from imm_tsf_torch.training.trainer import make_forward, make_grad_step, make_loss_fn, to_device
 
@@ -552,14 +569,14 @@ SWEEP_ARGS = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
 # phase 15's rates: a cell's one run and its sweep, RATE_EPOCHS epochs each
 # with no early stop (epoch 0 captures; 1 on are timed), run one, sweep,
 # sweep, one
-RATE_EPOCHS = 10
+RATE_EPOCHS = 6
 RATE_ARGS = ["--epoch", str(RATE_EPOCHS), "--patience", str(RATE_EPOCHS)]
 RESUME_RTOL = 1e-6  # only where an op with atomics (named by the run) breaks bitwise equality
 # phase 16: the deployment path on phase 14's experiments. An artifact is
 # held to the live service as the JAX package holds its own
 # (tests/test_export.py:160-163); predict to the trained run's test metrics
 ARTIFACT_TOL = (1e-6, 1e-5)  # (atol, rtol)
-ARTIFACT_BATCHES = {"16a": (1, 8, 64), "16b": (1, 8), "16e": (1, 8)}
+ARTIFACT_BATCHES = {"16a": (8, 64), "16b": (1, 8), "16e": (1, 8)}
 N_ARTIFACT_REQUESTS = {"16a": 512, "16b": 64, "16e": 64}
 PREDICT_RTOL = 1e-6
 # phase 17: compute_dtype="amp_bf16", the JAX package's mixed precision
@@ -581,7 +598,7 @@ MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text"
 # TTF_RecAvg + MMF_GR_Add (d_txt 768). The LatentODE is served a request a
 # dispatch (its union time axis), so it takes fewer requests
 IMTS_MODELS = ("LatentODE", "NeuralFlow", "tPatchGNN")
-N_IMTS_REQUESTS = {"LatentODE": 64, "NeuralFlow": 256, "tPatchGNN": 256}
+N_IMTS_REQUESTS = {"LatentODE": 32, "NeuralFlow": 256, "tPatchGNN": 256}
 # tPatchGNN's served and compared patching: the preset's 24 (days here) spans
 # EPA-Air's whole 7-day history in one patch; patches of 2 days give 4, each
 # holding points. The trained run keeps the reference's own derivation
@@ -592,7 +609,7 @@ IMTS_TRAIN_ARGS = {m: [a if a != "CRU" else m for a in TRAIN_ARGS] + ["--use_pal
 # union time step on the host (~8 s a step at 768 union times on the H100),
 # and half the windows halve phases 12b and 12d; a batch keeps 32 windows
 # and its union axes their 768 times
-IMTS_TRAIN_ARGS["LatentODE"] += ["--rec_ids"] + [f"entity{i:03d}" for i in range(4)]
+IMTS_TRAIN_ARGS["LatentODE"] += ["--rec_ids"] + [f"entity{i:03d}" for i in range(2)]
 IMTS_STEP_B = 32
 # phase 12e holds the LatentODE's float32 forward over a union axis of the
 # trained length (768 times) to its float64 run: within 4x the JAX package's
@@ -1384,7 +1401,8 @@ def run_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
         d0 = svc.metrics()["dispatches_total"]
         ffn.launches = recavg.launches = 0
         t0 = time.monotonic()
-        answers = serve_requests(svc, requests)
+        with held_dispatches(svc, "4 PatchTST") as held:
+            answers = serve_requests(svc, requests)
         wall = time.monotonic() - t0
         launches = {"fused_encoder_ffn": ffn.launches,
                     "recency_weighted_average": recavg.launches}
@@ -1432,10 +1450,13 @@ def run_serving(device, n_requests: int, seed: int, exp_dir: str) -> dict:
             log(f"# one dispatch's forward (host clock to synchronize): {forward_ms} ms")
             profile = profile_dispatch(svc, built)
             log(f"# one uncontended dispatch of 64 requests: {json.dumps(profile)}")
+            held["row"] = captured_row(svc, built, "4 PatchTST", profile)
+            held["route_flip"] = route_flip(svc, out, got, want, "4 PatchTST")
         return {"launches": launches, "dispatches": dispatches,
                 "requests_per_s": len(requests) / wall,
                 "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
                 "forward_ms": forward_ms, "dispatch_profile": profile,
+                "captured": held,
                 "shapes": {"ffn": (64 * cfg.input_dim * n_patches, cfg.d_model, cfg.d_ff),
                            "recavg": tuple(batch["notes_embeddings"].shape[:2])
                            + (cfg.pred_len, cfg.d_txt)}}
@@ -1459,7 +1480,8 @@ def run_raw_text_serving(device, n_requests: int, seed: int, exp_dir: str,
         ffn.launches = recavg.launches = attn.launches = 0
         attn.launches_by_shape = {}
         t0 = time.monotonic()
-        answers = serve_requests(svc, requests)
+        with held_dispatches(svc, "4b raw text") as held:
+            answers = serve_requests(svc, requests)
         wall = time.monotonic() - t0
         launches = {"fused_encoder_ffn": ffn.launches,
                     "recency_weighted_average": recavg.launches,
@@ -1517,7 +1539,9 @@ def run_raw_text_serving(device, n_requests: int, seed: int, exp_dir: str,
             profile = profile_dispatch(svc, built, reset=stage._cache.clear)
             log(f"# one uncontended raw-text dispatch of 64 requests, every note new: "
                 f"{json.dumps(profile)}")
-        return {"launches": launches, "attn_launches_by_shape": attn_shapes,
+            held["row"] = captured_row(svc, built, "4b raw text", profile,
+                                       reset=stage._cache.clear, eager=False)
+        return {"launches": launches, "attn_launches_by_shape": attn_shapes, "captured": held,
                 "dispatches": dispatches,
                 "requests_per_s": len(requests) / wall, "wall_s": wall,
                 "run_real_tokens": run_tokens,
@@ -1554,7 +1578,8 @@ def _serve_cru(svc, device, cfg, n_requests, seed, route) -> dict:
     d0 = svc.metrics()["dispatches_total"]
     ffn.launches = recavg.launches = attn.launches = expm.launches = cru_scan.launches = 0
     t0 = time.monotonic()
-    answers = serve_requests(svc, requests)
+    with held_dispatches(svc, f"6 CRU {route} route") as held:
+        answers = serve_requests(svc, requests)
     wall = time.monotonic() - t0
     launches = {"recency_weighted_average": recavg.launches, "batched_expm": expm.launches,
                 "fused_cru_scan": cru_scan.launches}
@@ -1579,7 +1604,8 @@ def _serve_cru(svc, device, cfg, n_requests, seed, route) -> dict:
 
     # one full dispatch's batch, kernels vs plain versions, same modules
     built = [_build_chunk(r, cfg, svc.d_txt) for r in requests[:64]]
-    batch = svc.to_device(svc._collate([b[0] for b in built]))
+    host = svc._collate([b[0] for b in built])
+    batch = svc.to_device(host)
     with torch.inference_mode():
         got = svc._forward(batch)
         set_kernels(svc, False)
@@ -1611,30 +1637,182 @@ def _serve_cru(svc, device, cfg, n_requests, seed, route) -> dict:
             f"{forward_ms} ms")
         profile = profile_dispatch(svc, built)
         log(f"# CRU {route} route, one uncontended dispatch of 64 requests: {json.dumps(profile)}")
-    return {"launches": launches, "dispatches": dispatches,
+        held["row"] = captured_row(svc, built, f"6 CRU {route} route", profile)
+        held["route_flip"] = route_flip(svc, host, got, want, f"6 CRU {route} route")
+    return {"launches": launches, "dispatches": dispatches, "captured": held,
             "requests_per_s": len(requests) / wall,
             "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
             "forward_ms": forward_ms, "dispatch_profile": profile, "tiers": tiers,
             "out": got, "scan_inputs": ins, "blocks": blocks}
 
 
-def profile_dispatch(svc, built, reps: int = 10, reset=None) -> dict:
+def profile_dispatch(svc, built, reps: int = 10, reset=None, eager: bool = False) -> dict:
     """Where one uncontended dispatch of a full batch goes. Host clock
     (median of `reps`): the collate alone (with the loader stages: for raw
     text, the note embedding), and the whole dispatch (collate, H2D,
     forward, D2H, fan-out). Then `reps` dispatches under torch.profiler
     (`trace`). `reset()` runs before every collate and dispatch (to empty
-    the note cache)."""
+    the note cache). The service's dispatch replays its key's CUDA graph;
+    `eager` runs the forward eagerly instead (`eager_predict`, phase 18's
+    comparison)."""
     chunks = [b[0] for b in built]
     reset = reset or (lambda: None)
     collate = lambda: (reset(), svc._collate(chunks))
     dispatch = lambda: (reset(), svc._infer(built))
-    wall_ms(dispatch, reps=1)  # warm
-    collate_ms = float(np.median(wall_ms(collate, reps=reps)))
-    dispatch_ms = float(np.median(wall_ms(dispatch, reps=reps)))
-    traced = trace(dispatch, reps, dispatch_ms)
+    if eager:
+        svc._predict = lambda out: eager_predict(svc, out)
+    try:
+        wall_ms(dispatch, reps=1)  # warm
+        collate_ms = float(np.median(wall_ms(collate, reps=reps)))
+        dispatch_ms = float(np.median(wall_ms(dispatch, reps=reps)))
+        traced = trace(dispatch, reps, dispatch_ms)
+    finally:
+        if eager:
+            del svc._predict
     return {"reps": reps, "collate_ms": collate_ms, "dispatch_ms": dispatch_ms,
             "traced_dispatch_ms": traced.pop("traced_ms"), **traced}
+
+
+# ---------------------------------------------------------------- phase 18
+def captured_summary(serving, text, cru, informer, default_pair, timellm_run, mts, imts,
+                     deployment) -> dict:
+    """Phase 18's table: each served case's dispatches held to the eager
+    forward and its captured-against-eager row, the route flips, the
+    artifacts' and streaming predict's graphs; a case without its row (9c:
+    without a replay) fails."""
+    cases = {"4 PatchTST": serving, "4b raw text": text,
+             "6 CRU default route": cru["default"], "6 CRU fused route": cru["fused"],
+             "9a Informer": informer["serving"], "9c DLinear + the default pair": default_pair[
+                 "serving"], "10a TimeLLM": timellm_run["serving"],
+             **{f"11a {m}": mts[m]["serving"] for m in MTS_MODELS},
+             **{f"12a {m}": imts[m]["serving"] for m in IMTS_MODELS}}
+    out = {label: res["captured"] for label, res in cases.items()}
+    for label, held in out.items():
+        if "row" not in held and not (label.startswith("9c") and held["replays_held"]):
+            raise AssertionError(f"phase 18 {label}: {held}")
+    out["16 artifacts"] = {k: v["graphs"] for k, v in deployment["artifacts"].items()}
+    out["16c streaming predict"] = deployment["predict"]["streaming"]["graphs"]
+    for label, held in out.items():
+        log(f"# phase 18 {label}: {json.dumps({k: v for k, v in held.items() if k != 'row'})}")
+    return out
+
+
+def eager_predict(svc, out: dict) -> np.ndarray:
+    """A dispatch's forward as the service ran it before it was captured:
+    the batch to the device, the eager forward, the answer back."""
+    with torch.inference_mode():
+        return svc._forward(svc.to_device(out)).cpu().numpy()
+
+
+@contextlib.contextmanager
+def held_dispatches(svc, label: str):
+    """Phase 18 around a served run: records each dispatch's host batch,
+    its answer and whether it replayed a graph, then holds every replay's
+    answers to the eager forward on its batch, bit for bit (the launches
+    of that comparison are taken back; a key's first dispatch is eager).
+    Yields the dict it fills: dispatches and replays held (a short run
+    may meet every key once: captured_row replays a key for sure)."""
+    seen, held = [], {}
+
+    def recorded(out):
+        replays = svc._graphs.replays
+        pred = type(svc)._predict(svc, out)
+        seen.append((out, pred, svc._graphs.replays > replays))
+        return pred
+
+    svc._predict = recorded
+    try:
+        yield held
+    finally:
+        del svc._predict
+    counts, shapes = read_counts(), dict(attn.launches_by_shape)
+    for out, pred, replayed in seen:
+        if not replayed:  # a key's first dispatch ran the eager forward itself
+            continue
+        want = eager_predict(svc, out)
+        if pred.shape != want.shape or not (pred == want).all():
+            raise AssertionError(f"phase 18 {label}: a captured dispatch is not the eager "
+                                 f"forward bit for bit (max |diff| "
+                                 f"{np.abs(pred - want).max():.3e})")
+    for name, (module, attr) in KERNEL_COUNTS.items():
+        setattr(module, attr, counts[name])
+    attn.launches_by_shape = shapes
+    held.update(dispatches=len(seen), replays_held=sum(r for _, _, r in seen))
+    log(f"# phase 18 {label}: {held['dispatches']} dispatches, {held['replays_held']} of them "
+        f"replays, each equal to the eager forward on its batch bit for bit")
+
+
+def replay_device_ms(svc, out: dict, reps: int = 10) -> float:
+    """Device ms of one dispatch's copies and replay by CUDA events on the
+    current stream (median of `reps`; the key is captured first)."""
+    tag = route_of(svc._route_sites)
+    ms = []
+    with torch.inference_mode():
+        svc._graphs(out, tag)
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            svc._graphs(out, tag)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+def captured_row(svc, built, label: str, captured: dict, reps: int = 10, reset=None,
+                 eager: bool = True) -> dict:
+    """Phase 18's row of a served case: `captured` (profile_dispatch of the
+    service's own dispatch, whose key it captured) beside the same dispatch
+    run eagerly (with `eager`, half the reps), a replay of that key held to
+    the eager forward bit for bit, a replay's device ms by CUDA events, and
+    the service's graphs, their capture seconds and nodes, and the bytes of
+    their pool."""
+    paths = {"captured": captured}
+    if eager:
+        paths["eager"] = profile_dispatch(svc, built, reps=max(3, reps // 2), reset=reset,
+                                          eager=True)
+    out = svc._collate([b[0] for b in built])
+    replays = svc._graphs.replays
+    got, want = svc._predict(out), eager_predict(svc, out)
+    if svc._graphs.replays != replays + 1 or not (got == want).all():
+        raise AssertionError(f"phase 18 {label}: the traced dispatch's replay is not the eager "
+                             f"forward bit for bit")
+    st = svc._graphs.stats()
+    row = {k: {p: v[k] for p, v in paths.items()}
+           for k in ("dispatch_ms", "device_busy_ms", "idle_share", "kernel_launches")}
+    row.update(collate_ms=captured["collate_ms"],
+               replay_device_ms=replay_device_ms(svc, out),
+               graphs=st["graphs"], capture_s=st["capture_s"], graph_nodes=st["graph_nodes"],
+               pool_mb=svc._graphs.pool_bytes() / 2**20)
+    log(f"# phase 18 {label}: {json.dumps(row)}")
+    return row
+
+
+def route_flip(svc, out: dict, kernel_y, plain_y, label: str) -> dict:
+    """set_kernels on a live service whose kernel route is captured: two
+    dispatches after the flip take the plain route's own graph (no kernel
+    launched; the plain forward's answers bit for bit), two after the flip
+    back replay the kernel route's (its launches; its answers)."""
+    res = {}
+    try:
+        for on, want in ((False, plain_y), (True, kernel_y)):
+            set_kernels(svc, on)
+            zero_counts()
+            graphs = svc._graphs.stats()["graphs"]
+            answers = [svc._predict(out) for _ in range(2)]
+            route = "kernels" if on else "plain"
+            res[route] = {"launches": {k: v for k, v in read_counts().items() if v},
+                          "new_graphs": svc._graphs.stats()["graphs"] - graphs}
+            if not all((a == want.cpu().numpy()).all() for a in answers):
+                raise AssertionError(f"phase 18 {label}: after the flip to {route} a dispatch "
+                                     f"is not that route's forward bit for bit")
+    finally:
+        set_kernels(svc, True)
+    if res["plain"]["launches"] or not res["kernels"]["launches"] or \
+            res["plain"]["new_graphs"] != 1:
+        raise AssertionError(f"phase 18 {label}: a route flip replayed the other route: {res}")
+    log(f"# phase 18 {label} route flip: {json.dumps(res)}")
+    return res
 
 
 def trace(fn, reps: int, untraced_ms: float, inference: bool = True) -> dict:
@@ -2328,7 +2506,8 @@ def run_informer_serving(device, n_requests: int, seed: int, exp_dir: str) -> di
         d0 = svc.metrics()["dispatches_total"]
         zero_counts()
         t0 = time.monotonic()
-        answers = serve_requests(svc, requests)
+        with held_dispatches(svc, "9a Informer") as held:
+            answers = serve_requests(svc, requests)
         wall = time.monotonic() - t0
         launches = read_counts()
         metrics = svc.metrics()
@@ -2363,7 +2542,8 @@ def run_informer_serving(device, n_requests: int, seed: int, exp_dir: str) -> di
         if device.type == "cuda":
             profile = profile_dispatch(svc, built)
             log(f"# one uncontended Informer dispatch of 64 requests: {json.dumps(profile)}")
-        return {"launches": launches, "dispatches": dispatches,
+            held["row"] = captured_row(svc, built, "9a Informer", profile)
+        return {"launches": launches, "dispatches": dispatches, "captured": held,
                 "requests_per_s": len(requests) / wall,
                 "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
                 "dispatch_profile": profile, "ffn_rows": rows}
@@ -2415,7 +2595,8 @@ def run_default_pair(device, n_requests: int, seed: int, root: str, exp_dir: str
         d0 = svc.metrics()["dispatches_total"]
         zero_counts()
         t0 = time.monotonic()
-        answers = serve_requests(svc, requests)
+        with held_dispatches(svc, "9c DLinear + the default pair") as held:
+            answers = serve_requests(svc, requests)
         wall = time.monotonic() - t0
         launches = read_counts()
         if any(launches.values()):
@@ -2434,7 +2615,8 @@ def run_default_pair(device, n_requests: int, seed: int, root: str, exp_dir: str
         err = max_err(got, want, SERVE_TOL)
         serving = {"dispatches": metrics["dispatches_total"] - d0,
                    "requests_per_s": len(requests) / wall,
-                   "dispatch_ms": metrics["dispatch_latency_ms"], "card_vs_cpu_err": err}
+                   "dispatch_ms": metrics["dispatch_latency_ms"], "card_vs_cpu_err": err,
+                   "captured": held}
         log(f"# served DLinear + TTF_T2V_XAttn + MMF_XAttn_Add: {json.dumps(serving)}")
     finally:
         svc.close()
@@ -2472,7 +2654,7 @@ def attn_counts(route: str, layers: int, steps: int, evals: int) -> dict:
 
 def serve_experiment(device, cfg_kw: dict | None, label: str, n_requests: int, seed: int,
                      exp_dir: str, expected, per_dispatch: int = 64,
-                     profile_reps: int = 10) -> dict:
+                     profile_reps: int = 10, eager_row: bool = True) -> dict:
     """`label`'s experiment (cfg_kw, seeded weights; or, when cfg_kw is
     None, the trained experiment exp_dir holds) through ForecastService
     on the kernel route: ragged requests from 8 threads, every answer
@@ -2480,7 +2662,9 @@ def serve_experiment(device, cfg_kw: dict | None, label: str, n_requests: int, s
     #3's shapes recorded, one dispatch's batch (`per_dispatch` requests:
     a full batch, or the one request of a per-request service) kernels vs
     plain versions to SERVE_TOL, one uncontended dispatch traced
-    (`profile_reps` dispatches a measure)."""
+    (`profile_reps` dispatches a measure); every dispatch held to the eager
+    forward bit for bit, and phase 18's row (its eager side with
+    `eager_row`)."""
     cfg = (make_experiment(exp_dir, cfg_kw, seed) if cfg_kw is not None
            else load_saved_config(os.path.join(exp_dir, "config.json")))
     t0 = time.monotonic()
@@ -2493,7 +2677,8 @@ def serve_experiment(device, cfg_kw: dict | None, label: str, n_requests: int, s
         zero_counts()
         attn.launches_by_shape = {}
         t0 = time.monotonic()
-        answers = serve_requests(svc, requests)
+        with held_dispatches(svc, label) as held:
+            answers = serve_requests(svc, requests)
         wall = time.monotonic() - t0
         launches = read_counts()
         metrics = svc.metrics()
@@ -2528,7 +2713,10 @@ def serve_experiment(device, cfg_kw: dict | None, label: str, n_requests: int, s
             profile = profile_dispatch(svc, built, reps=profile_reps)
             log(f"# one uncontended {label} dispatch of {len(built)} requests: "
                 f"{json.dumps(profile)}")
+            held["row"] = captured_row(svc, built, label, profile, reps=profile_reps,
+                                       eager=eager_row)
         return {"launches": launches, "dispatches": dispatches, "attn_shapes": shapes,
+                "captured": held,
                 "dispatch_batch": {k: list(v.shape) for k, v in batch.items()},
                 "service_up_s": up_s, "requests_per_s": len(requests) / wall,
                 "dispatch_ms": metrics["dispatch_latency_ms"], "serve_err": err,
@@ -3490,7 +3678,8 @@ def run_timellm_llm(device, name: str, root: str, exp_dir: str) -> dict:
     secs["training"], t0 = time.monotonic() - t0, time.monotonic()
     trained, = (os.path.join(exp_dir, d) for d in os.listdir(exp_dir))
     out["serving"] = serve_experiment(device, None, label, N_LLM_REQUESTS, SEED, trained,
-                                      lambda svc, dispatches: recavg_only(0, dispatches))
+                                      lambda svc, dispatches: recavg_only(0, dispatches),
+                                      eager_row=False)
     out["serving"]["peak_gb"] = peak_gb(device)
     shutil.rmtree(exp_dir, ignore_errors=True)
     secs["serving"], t0 = time.monotonic() - t0, time.monotonic()
@@ -3975,6 +4164,7 @@ def serve_artifact(device, exp: str, art: str, label: str, exact: bool = False) 
                     answers += svc._infer([_build_chunk(r, svc.cfg, svc.d_txt) for r in batch])
                 ms.append((time.perf_counter() - t) * 1e3)
             runs[path] = {"answers": answers, "ms": ms, "launches": read_counts()}
+        graphs = {"artifact": fc._graphs.stats(), "live": svc._graphs.stats()}
     finally:
         svc.close()
     got, want = runs["artifact"]["answers"], runs["live"]["answers"]
@@ -3994,18 +4184,22 @@ def serve_artifact(device, exp: str, art: str, label: str, exact: bool = False) 
     if device.type == "cuda" and not counts["artifact"] == counts["live"] == expected:
         raise AssertionError(f"{label}: launches {counts}, expected {expected} from "
                              f"{len(batches)} dispatches")
+    if device.type == "cuda" and graphs["artifact"]["replays"] != len(batches) - 1:
+        raise AssertionError(f"{label}: the artifact's {len(batches)} dispatches of one batch "
+                             f"size replayed {graphs['artifact']['replays']} times: {graphs}")
     p50 = {p: float(np.median(runs[p]["ms"])) for p in runs}
     out = {"sizes": list(sizes), "export_s": export_s, "export_s_by_b": meta["export_s"],
            "load_s": load_s, "bytes": nbytes, "ops": meta["ops"], "requests": len(requests),
            "dispatches": len(batches), "max_err": max(errs), "bitwise": bitwise,
            "launches": {k: v for k, v in counts["artifact"].items() if v},
-           "dispatch_p50_ms": p50, "dispatch_ms": {p: runs[p]["ms"] for p in runs}}
+           "dispatch_p50_ms": p50, "dispatch_ms": {p: runs[p]["ms"] for p in runs},
+           "graphs": graphs}
     log(f"# phase {label}: exported {cfg.model} at {list(sizes)} in {export_s:.2f} s "
         f"({meta['export_s']}), {sum(nbytes.values())} bytes, loaded in {load_s:.2f} s; ops "
         f"{meta['ops']}; {len(requests)} requests in {len(batches)} dispatches of {B}: max "
         f"|artifact - live| {out['max_err']:.3e}, bit for bit {bitwise}; launches "
         f"{out['launches']} (the live service's); dispatch p50 {p50['artifact']:.3f} ms "
-        f"artifact, {p50['live']:.3f} ms live")
+        f"artifact, {p50['live']:.3f} ms live; graphs {json.dumps(graphs)}")
     out["_forecaster"], out["_requests"] = fc, requests
     return out
 
@@ -4028,11 +4222,15 @@ def run_predict_cli(device, root: str, kept_root: str, trained: dict) -> dict:
         if max(gaps.values()) > PREDICT_RTOL:
             raise AssertionError(f"16c {path}: test metrics {res} depart from 14a's {trained}")
         out[path] = {"windows_per_s": res["windows_per_sec"], "n_windows": res["n_windows"],
-                     "gaps": gaps, "wall_s": wall,
+                     "gaps": gaps, "wall_s": wall, "graphs": res.get("graphs"),
                      "launches": {k: v for k, v in read_counts().items() if v}}
+        if device.type == "cuda" and path == "streaming" and (
+                res["graphs"]["graphs"] != 1 or not res["graphs"]["replays"]):
+            raise AssertionError(f"16c streaming predict did not replay one graph: "
+                                 f"{res['graphs']}")
         log(f"# phase 16c predict, {path}: {res['n_windows']} windows at "
             f"{res['windows_per_sec']} windows/s ({wall:.2f} s wall), test metrics vs 14a "
-            f"{gaps}, launches {out[path]['launches']}")
+            f"{gaps}, launches {out[path]['launches']}, graphs {res.get('graphs')}")
     return out
 
 
@@ -4951,6 +5149,10 @@ def main() -> int:
         shutil.rmtree(kept_root, ignore_errors=True)
 
     mark("17")
+    # phase 18: the served forward captured (its checks ran in phases 4-16)
+    captured = captured_summary(serving, text, cru, informer, default_pair, timellm_run, mts,
+                                imts, deployment)
+    mark("18")
     # phase 5: timings
     rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
             + measure_training(train))
@@ -5042,6 +5244,7 @@ def main() -> int:
                       "mts": mts, "imts": imts, "llms": llms,
                       "device_loop": {k: v.get("summary", v) for k, v in device_loop.items()},
                       "sweeps": sweeps, "deployment": deployment, "chunker": chunker,
+                      "captured": captured,
                       "amp": {"17b": amp["17b PatchTST amp"]["summary"],
                               **{k: v["summary"] for k, v in amp.items() if k.startswith("17c")},
                               "17d": amp["17d artifact"], "errs": amp["errs"]},

@@ -32,6 +32,11 @@ service does; raw-text notes are embedded on the host by the frozen LLM
 before the program runs.
 
 A model that `torch.export` cannot trace is refused, with the cause.
+
+On cuda an `ExportedForecaster` replays each program as a CUDA graph
+(training/graphs.ForwardGraphs, one key a batch size: the programs'
+shapes are static), the counterpart of calling the JAX artifact's
+compiled program.
 """
 
 from __future__ import annotations
@@ -41,13 +46,13 @@ import os
 import threading
 import time
 
-import numpy as np
 import torch
 
 from .config import Config, load_saved_config
 from .device import resolve_device
 from .kernels import ops as _ops  # noqa: F401  registers the imm_tsf::* ops a program calls
 from .serving import _MetricsMixin
+from .training.graphs import ForwardGraphs
 
 ARTIFACT_VERSION = 1
 
@@ -218,6 +223,12 @@ class ExportedForecaster(_MetricsMixin):
         self.max_batch = max(self._programs)
         self._lock = threading.Lock()
         self._init_metrics()
+        self._graphs = ForwardGraphs(self._run_program, self.device)
+
+    def _run_program(self, batch: dict) -> torch.Tensor:
+        """The program of the batch's size (every collate's observed_data
+        leads with the batch axis)."""
+        return self._programs[batch["observed_data"].shape[0]](batch)
 
     def forecast(self, instances: list[dict]) -> list[dict]:
         from .serving import _build_chunk, collate_chunks, gather_results
@@ -249,9 +260,8 @@ class ExportedForecaster(_MetricsMixin):
                     n_notes=self.notes_cap, max_patch_len=self.patch_cap or None,
                     ode_caps=self.ode_caps)
                 out = next(iter(self._stage_top))
-                batch = {k: self._to_device(out[k]) for k in self._keys[B]}
                 with torch.inference_mode():
-                    pred = self._programs[B](batch).cpu().numpy()
+                    pred = self._graphs({k: out[k] for k in self._keys[B]}).cpu().numpy()
                 results = gather_results(self.cfg, built, out, pred)
             except Exception:
                 err = n
@@ -260,15 +270,11 @@ class ExportedForecaster(_MetricsMixin):
                 self._record_dispatch(n, err, time.monotonic() - t0)
         return results
 
-    def _to_device(self, v: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(v)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def metrics(self) -> dict:
         return {**super().metrics(), "artifact": True}
 
-    def close(self):  # serve.py's shutdown hook; nothing to stop
-        pass
+    def close(self):
+        """serve.py's shutdown hook: the graphs' pool returns to the device."""
+        with self._lock:
+            self._graphs.clear()
 

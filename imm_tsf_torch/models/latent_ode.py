@@ -19,8 +19,8 @@ torch.where, as the JAX package's scan does: a branch on the host would
 read the gap back from the card at every step. The scan is a Python loop
 of ~150 torch calls a union time step (on the H100 each Linear is four
 launches: cuBLASLt's split-K GEMM, a memset, a scale and the bias
-epilogue), so the path is bound by the host (PERF.md; ROADMAP.md, Queue
-1, item 2 would capture it in a graph).
+epilogue), so a streamed step is bound by the host (PERF.md; ROADMAP.md,
+Queue 1, item 2); served, staged or predicted it replays as a CUDA graph.
 Repeat-padded times are dt = 0 steps: the identity for the rk4 and Euler
 evolutions, and the GRU skips them (their masks are zero).
 """

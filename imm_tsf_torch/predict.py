@@ -11,10 +11,14 @@ state), on `--device` (cuda unless `--device cpu`). The split runs on the
 epoch loop's predict runner (training/device_loop.make_predict_runner,
 captured eval steps on cuda) when it fits `device_loop_max_mb` on the
 device, or streams batch by batch otherwise (`--device_loop false`, the
-LatentODE's union axes). Writes an .npz of pred / target / mask /
+LatentODE's union axes), each batch a replay of its shape's CUDA graph
+on cuda (training/graphs.ForwardGraphs, the JAX package's jitted
+predict_step; the loader pads the last batch, so one shape a run but for
+the LatentODE's union-axis buckets). Writes an .npz of pred / target / mask /
 tp_to_predict with `--out`, and prints the split's metrics (the masked
 two-stage definitions of training, reference lib/evaluation.py:192-283)
-with n_windows and windows_per_sec as one JSON line.
+with n_windows and windows_per_sec as one JSON line (streaming, also the
+runner's "graphs": ForwardGraphs.stats()).
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ def main(argv=None) -> dict:
     from .training import device_loop as DL
     from .training.checkpoint import load_train_state, load_weights
     from .training.evaluation import batch_error_sums, finalize_metrics
-    from .training.graphs import StepLoop, eager_reason
-    from .training.trainer import _find_shuffler, make_forward, make_loader_wrappers, to_device
+    from .training.graphs import ForwardGraphs, StepLoop, eager_reason
+    from .training.trainer import _find_shuffler, make_forward, make_loader_wrappers
 
     argv = list(sys.argv[1:] if argv is None else argv)
     pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
@@ -123,14 +127,14 @@ def main(argv=None) -> dict:
         preds, targets, masks, tps = [], [], [], []
         acc, n_windows = None, 0
 
-        def step(batch):
-            dev = to_device(batch, device)
+        def predict_step(dev):
             pred = forward(dev)
             return pred, batch_error_sums(pred, dev["data_to_predict"],
                                           dev["mask_predicted_data"])
 
+        step = ForwardGraphs(predict_step, device)
         with torch.inference_mode():
-            first = next(iter(loader), None)  # warm-up: kernel libraries, caches
+            first = next(iter(loader), None)  # warm-up: kernel libraries, caches, the capture
             if first is not None:
                 step(first)[0].cpu()
             t0 = time.perf_counter()
@@ -161,6 +165,8 @@ def main(argv=None) -> dict:
     out["n_windows"] = n_windows
     out["windows_per_sec"] = round(n_windows / dt, 1)
     out["path"] = "resident" if built is not None else "streaming"
+    if built is None:
+        out["graphs"] = step.stats()
     if pre_args.out:
         np.savez_compressed(pre_args.out, pred=np.concatenate(preds),
                             target=np.concatenate(targets), mask=np.concatenate(masks),

@@ -11,11 +11,13 @@ export.ExportedForecaster): no model code or weights are restored, and
 each request is one synchronous dispatch. Serves:
 
   GET  /healthz      -> {"ok": true, "model": ..., "dataset": ..., "epoch": N}
-  GET  /metrics      -> service counters and dispatch latency
+  GET  /metrics      -> service counters, dispatch latency, and the CUDA
+                        graphs captured (graphs_captured, capture_s_total)
   POST /v1/forecast  -> {"predictions": [{"tp": [...], "prediction": [[...]]}]}
        body: {"instances": [<instance schema — see imm_tsf_torch/serving.py>]}
 
-Concurrent requests are micro-batched into single device dispatches.
+Concurrent requests are micro-batched into single device dispatches;
+on cuda each dispatch replays its input shape's CUDA graph.
 The server runs on cuda unless --device cpu is passed. An experiment
 trained on raw text (use_text_embeddings=false) takes {"tau", "text"}
 notes: the server loads its frozen GPT-2 on the same device (from

@@ -15,8 +15,13 @@ Requests are micro-batched: a background thread coalesces concurrent
 requests for up to `max_wait_ms` (or until `max_batch`), pads them into
 one device dispatch, and fans results back out. LatentODE requests are
 dispatched one at a time: the union time axis would otherwise make an
-answer depend on the requests batched with it. Host batches reach the
-device as pinned tensors copied with non_blocking=True.
+answer depend on the requests batched with it. On cuda the forward is a
+CUDA graph replay (training/graphs.ForwardGraphs, the counterpart of the
+JAX service's jitted forward): one graph a collated input shape and
+kernel route, captured at the key's first dispatch (the warm-up captures
+the dummy request's), the batch copied through pinned staging buffers
+into the graph's static inputs; on the CPU the same buffers feed the
+eager forward.
 
 Instance schema (all lists / nested lists, JSON-friendly):
   observed_tp    [n]     chunk-relative times in [0, history)
@@ -51,6 +56,7 @@ from .data import collate as C
 from .data.dataset import Chunk
 from .data.loader import _pad_batch_dim
 from .device import resolve_run_device
+from .training.graphs import ForwardGraphs, route_of, route_sites
 
 logger = logging.getLogger("imm_tsf_torch.serving")
 
@@ -255,7 +261,8 @@ def restore_modules(cfg: Config, state: dict, device) -> tuple:
 
 class _MetricsMixin:
     """Observability counters + /metrics payload. Subclasses need
-    `self.cfg` and `self.step`, call `_init_metrics()` in __init__ and
+    `self.cfg`, `self.step` and `self._graphs` (their
+    graphs.ForwardGraphs), call `_init_metrics()` in __init__ and
     `_record_dispatch` after every device dispatch."""
 
     def _init_metrics(self) -> None:
@@ -282,7 +289,9 @@ class _MetricsMixin:
     def metrics(self) -> dict:
         """Service counters for monitoring (serve.py exposes at /metrics).
         Dispatch latency includes host collate, the host->device copy, the
-        forward and the device->host copy of the predictions."""
+        forward and the device->host copy of the predictions. The graph
+        counters: CUDA graphs captured (one a collated input shape and
+        route; none on the CPU) and their capture seconds in all."""
         with self._m_lock:
             lat = np.asarray(self._lat_ring, dtype=np.float64)
             n_req, n_err = self._n_requests, self._n_errors
@@ -297,6 +306,9 @@ class _MetricsMixin:
             "model": self.cfg.model,
             "best_epoch": int(self.step),
         }
+        graphs = self._graphs.stats()
+        out["graphs_captured"] = graphs["graphs"]
+        out["capture_s_total"] = round(graphs["capture_s"], 3)
         if len(lat):
             out["dispatch_latency_ms"] = {
                 "p50": round(float(np.percentile(lat, 50)) * 1e3, 3),
@@ -373,11 +385,14 @@ class ForecastService(_MetricsMixin):
         self._lock = threading.Lock()  # orders submit() vs close()
 
         self._init_metrics()  # serve.py's /metrics counters
+        # the served forward, one CUDA graph a collated shape and route
+        self._graphs = ForwardGraphs(self._forward, self.device)
+        self._route_sites = route_sites(self.model, self.fusion)
 
         # the worker's first dispatch is a warmup on a dummy request: it
-        # builds the CUDA kernels and warms the device libraries on the
-        # thread that serves, so no client waits on either; a failure
-        # there raises here
+        # builds the CUDA kernels, warms the device libraries and captures
+        # the dummy's graph on the thread that serves, so no client waits
+        # on any of them; a failure there raises here
         self._warm: Future = Future()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
@@ -412,7 +427,8 @@ class ForecastService(_MetricsMixin):
 
     def to_device(self, out: dict) -> dict:
         """Host batch -> tensors on the service's device (pinned host
-        memory and non_blocking copies on cuda)."""
+        memory and non_blocking copies on cuda), for the eager forward
+        (export.py traces it)."""
         dev = {}
         for k, v in out.items():
             if not isinstance(v, np.ndarray):
@@ -424,8 +440,10 @@ class ForecastService(_MetricsMixin):
         return dev
 
     def _predict(self, out: dict) -> np.ndarray:
+        """The dispatch's forward: its key's graph replayed (cuda), the
+        route its modules take now in the key."""
         with torch.inference_mode():
-            return self._forward(self.to_device(out)).cpu().numpy()
+            return self._graphs(out, tag=route_of(self._route_sites)).cpu().numpy()
 
     # -------------------------------------------------------------- api
     def submit(self, instance: dict) -> Future:
@@ -480,6 +498,7 @@ class ForecastService(_MetricsMixin):
                 break
             if item is not None and not item[1].done():
                 item[1].set_exception(RuntimeError("service closed"))
+        self._graphs.clear()  # the graphs' pool returns to the device
 
     # ------------------------------------------------------------ worker
     def _loop(self):

@@ -39,6 +39,28 @@ the epoch ends:
 the device is not cuda, or when `reason` names why a step cannot be
 captured (autograd's anomaly mode); the trainer logs the reason. Eager steps read the same buffers
 through the same code.
+
+`ForwardGraphs` is the inference counterpart, the JAX package's jitted
+served forward (imm_tsf_tpu/serving.py:342-344, export.py:89,
+predict.py:164-169): a live service's dispatch (serving.py), an exported
+program's (export.py) and a streaming predict batch (predict.py) replay
+one graph a collated input shape. Its key is the sorted (name, shape,
+dtype) of the batch's arrays and a tag (the service's kernel route,
+`route_of`, so that a flipped route is its own key and never replays the
+other route's graph); each key holds pinned host staging buffers, static
+device inputs and the outputs of its graph, all the runner's graphs in
+one memory pool. A key's first call runs eagerly on the runner's stream
+and returns that answer (a real dispatch, which loads the kernel
+libraries and fills the host caches: `_cluster.cluster_plan`,
+ProbAttention's eval sample, the ODE models' eval noise, `embed.pe_table`),
+then captures; every later call copies the batch into the staging
+buffers, then into the static inputs, and replays. A failed capture
+raises. The capture is thread-local (`capture_error_mode`): a service
+captures on its worker thread, an artifact on an HTTP handler thread,
+while other threads of the process (another service, a client) may make
+CUDA calls that the global mode would refuse during the capture. On the
+CPU every call runs eagerly through the same buffers. `clear()` drops the
+graphs, buffers and pool (a closed service frees its device memory).
 """
 
 from __future__ import annotations
@@ -47,10 +69,12 @@ import contextlib
 import ctypes
 import time
 
+import numpy as np
 import torch
 
 from ..kernels import attn, cru_scan, expm, ffn, recavg
 from ..layers.fast_dropout import SaltTape, salt_tape
+from ..ops import cru_scan as cru_scan_ops
 from .evaluation import batch_error_sums
 
 # every kernel wrapper's launch counter: (module, attribute)
@@ -63,6 +87,13 @@ WARMUP_CALLS = 1  # eager calls of a key before its capture
 
 def _counts() -> tuple[list, dict]:
     return [getattr(m, a) for m, a in COUNTERS], dict(attn.launches_by_shape)
+
+
+def _since(before: tuple[list, dict]) -> tuple[list, dict]:
+    after = _counts()
+    return ([a - b for a, b in zip(after[0], before[0])],
+            {k: v - before[1].get(k, 0) for k, v in after[1].items()
+             if v != before[1].get(k, 0)})
 
 
 def _advance(delta: tuple[list, dict], sign: int) -> None:
@@ -88,21 +119,23 @@ class Captured:
     device `generators` registered; replay() runs it and advances the
     launch counters by what the capture launched."""
 
-    def __init__(self, fn, stream, pool, generators):
+    def __init__(self, fn, stream, pool, generators, capture_error_mode: str = "global"):
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in generators:
             graph.register_generator_state(gen)
         before = _counts()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            fn()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode=capture_error_mode):
+                fn()
+        except BaseException:
+            _advance(_since(before), -1)
+            raise
         graph.instantiate()
         torch.cuda.synchronize(stream.device)
         self.capture_s = time.perf_counter() - t0
-        after = _counts()
-        self.delta = ([a - b for a, b in zip(after[0], before[0])],
-                      {k: v - before[1].get(k, 0) for k, v in after[1].items()
-                       if v != before[1].get(k, 0)})
+        self.delta = _since(before)
         _advance(self.delta, -1)  # the capture launched nothing
         self.nodes = graph_nodes(graph)
         self.graph = graph
@@ -303,3 +336,126 @@ def eager_reason(cfg) -> str | None:
     if cfg.debug_nans:
         return "debug_nans: autograd's anomaly mode checks each backward on the host"
     return None
+
+
+ROUTE_FLAGS = ("use_pallas", "use_fused_ffn", "use_fused_attn")
+
+
+def route_sites(*modules) -> list:
+    """(module, flag) for every kernel-route flag of `modules` and their
+    submodules, in module order (None entries are skipped)."""
+    return [(m, flag) for root in modules if root is not None for m in root.modules()
+            for flag in ROUTE_FLAGS if hasattr(m, flag)]
+
+
+def route_of(sites: list) -> tuple:
+    """The route a forward takes now: each site's flag, and the CRU route
+    that ops/cru_scan reads from IMM_TSF_CRU_FUSED at each call."""
+    return tuple(bool(getattr(m, flag)) for m, flag in sites) + (cru_scan_ops._use_fused(),)
+
+
+class _Key:
+    """One input signature's buffers: `host` (pinned staging on cuda; the
+    static inputs themselves on the CPU), `static` (the inputs the forward
+    reads), the graph and its outputs once captured, and the event after
+    which the last call's copies have read `host`."""
+
+    def __init__(self, arrays: dict, device: torch.device):
+        cuda = device.type == "cuda"
+        with torch.inference_mode(False):  # normal tensors: writable in any mode
+            self.host = {k: torch.empty(v.shape, dtype=torch.from_numpy(np.empty(0, v.dtype)).dtype,
+                                        pin_memory=cuda) for k, v in arrays.items()}
+            self.static = ({k: torch.empty_like(t, device=device) for k, t in self.host.items()}
+                           if cuda else self.host)
+        self.graph: Captured | None = None
+        self.outputs = None
+        self.copied: torch.cuda.Event | None = None
+
+
+class ForwardGraphs:
+    """The served forward `fn(batch) -> tensor, or a tuple / dict of
+    tensors` on `device`, one CUDA graph a key (module docstring).
+
+    runner(host, tag) takes the host batch (its NumPy arrays; other values
+    are dropped, as trainer.to_device drops them) and returns fn's outputs
+    for it. On cuda a replay's outputs are the graph's static tensors,
+    valid until the runner's next call: the caller copies them out (the
+    current stream waits for the runner's before the call returns)."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.capture = self.device.type == "cuda"
+        self.keys: dict = {}
+        self.replays = 0
+        self.eager_calls = 0
+        if self.capture:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def __call__(self, host: dict, tag=()):
+        arrays = {k: v for k, v in host.items() if isinstance(v, np.ndarray)}
+        key = (tag, tuple(sorted((k, v.shape, v.dtype.str) for k, v in arrays.items())))
+        entry = self.keys.get(key)
+        if entry is None:
+            entry = self.keys[key] = _Key(arrays, self.device)
+        if not self.capture:
+            self._fill(entry, arrays)
+            self.eager_calls += 1
+            return self.fn(entry.static)
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            if entry.copied is not None:
+                entry.copied.synchronize()  # the last call's copies have read `host`
+            self._fill(entry, arrays)
+            entry.copied = torch.cuda.Event()
+            entry.copied.record(self.stream)
+            if entry.graph is None:
+                out = self.fn(entry.static)
+                self.eager_calls += 1
+                held = []
+                entry.graph = Captured(lambda: held.append(self.fn(entry.static)), self.stream,
+                                       self.pool, (), capture_error_mode="thread_local")
+                entry.outputs = held[0]
+            else:
+                entry.graph.replay()
+                self.replays += 1
+                out = entry.outputs
+        current.wait_stream(self.stream)
+        return out
+
+    @staticmethod
+    def _fill(entry: _Key, arrays: dict) -> None:
+        for k, v in arrays.items():
+            entry.host[k].numpy()[...] = v
+            if entry.static is not entry.host:
+                entry.static[k].copy_(entry.host[k], non_blocking=True)
+
+    def pool_bytes(self) -> int:
+        """The device bytes the graphs' pool holds (cuda; 0 on the CPU)."""
+        if not self.capture:
+            return 0
+        pool = tuple(self.pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def stats(self) -> dict:
+        """Keys seen, graphs captured, their capture seconds and node
+        counts, replays and eager calls."""
+        graphs = [e.graph for e in self.keys.values() if e.graph is not None]
+        return {"captured": self.capture, "keys": len(self.keys), "graphs": len(graphs),
+                "capture_s": sum(g.capture_s for g in graphs),
+                "graph_nodes": [g.nodes for g in graphs],
+                "replays": self.replays, "eager_calls": self.eager_calls}
+
+    def clear(self) -> None:
+        """Drop every key's graph and buffers; the pool's memory returns to
+        the device. A later call captures anew."""
+        graphs = [e.graph for e in self.keys.values() if e.graph is not None]
+        self.keys.clear()  # every buffer and graph output: no name may keep one alive
+        for graph in graphs:
+            graph.graph.reset()
+        if self.capture:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()

@@ -21,6 +21,7 @@ steps whose float32 rounding alone passes 1e-4 + 1e-4|ref|)."""
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -920,3 +921,134 @@ def test_launch_counters_advance_once_a_replay(dev):
             (graph,) = loop.graphs.values()
             assert graph.delta[0][1] == 1 and graph.nodes > 0
     assert counts[0] == counts[1] == ([4, 4], 4)
+
+
+# ------------------------------------------------ the served forward captured
+def _service(dev, tmp_path, cfg_kw):
+    """A ForecastService (max_batch 8) on chip_smoke's seeded experiment of
+    cfg_kw, and 16 of phase 4's requests for it."""
+    from chip_smoke import make_experiment, make_requests
+    from imm_tsf_torch.serving import ForecastService
+
+    cfg = make_experiment(str(tmp_path / "exp"), cfg_kw, 0)
+    return (ForecastService(str(tmp_path / "exp"), max_batch=8, device=dev),
+            make_requests(cfg, 16, 0))
+
+
+def _host_batches(svc, requests, per: int) -> list:
+    from imm_tsf_torch.serving import _build_chunk
+
+    chunks = [_build_chunk(r, svc.cfg, svc.d_txt)[0] for r in requests]
+    return [svc._collate(chunks[i:i + per]) for i in range(0, len(chunks), per)]
+
+
+def _served_cfgs():
+    from chip_smoke import CRU_CFG, INFORMER_CFG, SERVE_CFG, imts_cfg, mts_cfg
+
+    return {"PatchTST": SERVE_CFG, "CRU": CRU_CFG, "CRU_fused": CRU_CFG,
+            "Informer": INFORMER_CFG, "TimesNet": mts_cfg("TimesNet"),
+            "LatentODE": imts_cfg("LatentODE"), "tPatchGNN": imts_cfg("tPatchGNN")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["PatchTST", "CRU", "CRU_fused", "Informer", "TimesNet",
+                                   "LatentODE", "tPatchGNN"])
+def test_served_replays_equal_eager_with_one_capture_a_key(dev, tmp_path, monkeypatch, model):
+    """A service's dispatches (each host batch twice, then all again)
+    replay one graph a key, captured once: every answer equals the eager
+    forward on its batch bit for bit, and the dispatches launch exactly what
+    as many eager forwards launch."""
+    from chip_smoke import eager_predict, read_counts, zero_counts
+
+    if model == "CRU_fused":
+        monkeypatch.setenv("IMM_TSF_CRU_FUSED", "1")
+    svc, requests = _service(dev, tmp_path, _served_cfgs()[model])
+    try:
+        batches = _host_batches(svc, requests[:8 if model == "LatentODE" else 16],
+                                1 if model == "LatentODE" else 8)
+        zero_counts()
+        got = [svc._predict(out) for out in batches + batches]
+        torch.cuda.synchronize()
+        captured = read_counts()
+        st = svc._graphs.stats()
+        assert st["graphs"] == st["keys"] and st["replays"] >= len(batches)
+        zero_counts()
+        want = [eager_predict(svc, out) for out in batches + batches]
+        torch.cuda.synchronize()
+        assert read_counts() == captured
+        assert captured["recency_weighted_average"] == 2 * len(batches)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and (g == w).all()
+        for out in batches:
+            svc._predict(out)
+        assert svc._graphs.stats()["graphs"] == st["graphs"]
+        assert svc.metrics()["graphs_captured"] == st["graphs"]
+    finally:
+        svc.close()
+
+
+@pytest.mark.cuda
+def test_a_route_flip_on_a_live_service_launches_the_other_route(dev, tmp_path):
+    """chip_smoke.set_kernels on PatchTST's captured service: the plain
+    route gets its own graph and launches no kernel, flipping back replays
+    the kernel route's graph with its launches; answers each route's eager
+    forward bit for bit (chip_smoke.route_flip)."""
+    from chip_smoke import SERVE_CFG, route_flip, set_kernels
+
+    svc, requests = _service(dev, tmp_path, SERVE_CFG)
+    try:
+        (out,) = _host_batches(svc, requests[:8], 8)
+        svc._predict(out)
+        batch = svc.to_device(out)
+        with torch.inference_mode():
+            kernel_y = svc._forward(batch)
+            set_kernels(svc, False)
+            plain_y = svc._forward(batch)
+            set_kernels(svc, True)
+        res = route_flip(svc, out, kernel_y, plain_y, "test")
+        assert res["kernels"]["launches"] == {"recency_weighted_average": 2,
+                                              "fused_encoder_ffn": 2}
+    finally:
+        svc.close()
+
+
+@pytest.mark.cuda
+def test_close_returns_the_graph_pool_to_the_device(dev, tmp_path):
+    """A closed service's graphs and their pool are gone: the pool holds
+    no bytes, and the device's reserved memory fell by at least what it
+    held."""
+    from chip_smoke import SERVE_CFG
+
+    svc, requests = _service(dev, tmp_path, SERVE_CFG)
+    for out in _host_batches(svc, requests, 8):
+        svc._predict(out)
+    pool = svc._graphs.pool_bytes()
+    reserved = torch.cuda.memory_reserved(dev)
+    assert pool > 0 and svc._graphs.stats()["graphs"] >= 1
+    svc.close()
+    left = [[(b["size"], b["state"]) for b in seg["blocks"]]
+            for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == tuple(svc._graphs.pool)]
+    assert svc._graphs.pool_bytes() == 0, f"the pool keeps {left}"
+    assert svc._graphs.stats()["keys"] == 0
+    assert torch.cuda.memory_reserved(dev) <= reserved - pool
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(dev):
+    """A forward that reads a value back to the host cannot be captured:
+    the runner raises (no eager fallback) and takes back what the capture
+    counted."""
+    from imm_tsf_torch.training.graphs import ForwardGraphs
+
+    def forward(batch):
+        x = batch["x"]
+        recavg.launches += 1  # as a wrapper counts its launch
+        return x * float(x.sum())
+
+    runner = ForwardGraphs(forward, dev)
+    before = recavg.launches
+    with pytest.raises(RuntimeError):
+        runner({"x": np.ones((4, 4), np.float32)})
+    assert recavg.launches == before + 1  # the eager call's, not the capture's
+    assert runner.stats()["graphs"] == 0

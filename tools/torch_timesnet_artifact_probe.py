@@ -91,7 +91,7 @@ def main() -> int:
 
             built = [c for c, _, _ in (_build_chunk(r, fc.cfg, fc.d_txt) for r in b)]
             host = collate_chunks(fc.cfg, built, fc.d_txt, fc.time_max, 8, n_notes=fc.notes_cap)
-            dev = {k: fc._to_device(host[k]) for k in fc._keys[8]}
+            dev = svc.to_device({k: host[k] for k in fc._keys[8]})
             live_dev = svc.to_device(svc._collate(built))
             module, prog = _Forecast(svc), fc._programs[8]
             with torch.inference_mode():
