@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     rec 40, latents 20; tPatchGNN hid 32, te 10, node 10, 1 head, 1 layer,
     patched as SERVED_PATCHING: 4 patches of 2 days, each holding points)
     + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded weights, 256 ragged
-    requests from 8 threads (the LatentODE 32, a request a dispatch, its
+    requests from 8 threads (the LatentODE 16, a request a dispatch, its
     union time axis): answers finite with their rows, #1 exactly once a
     dispatch and nothing else, one dispatch kernels vs plain to 1e-4 +
     1e-4|ref|, one traced; (b) train each through
@@ -210,8 +210,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the service's collate, kernel vs plain vs float64 under the same salts
     and one pinned z0 noise (`pinned_z0`), loss to 1e-5, gradients by
     `held_grads`, a traced step per route; (e) `check_ode_drift`: the
-    LatentODE's eval forward over a union axis of the trained length (768
-    times, B 32, a seeded batch), float32 against float64 on the card,
+    LatentODE's eval forward over a union axis of 768 times (a two-entity
+    training batch's; B 32, a seeded batch), float32 against float64 on the card,
     within 4x the JAX package's own distance on the CPU plus 1e-6
     (ODE_DRIFT_MAX, from tools/torch_ode_drift.py); (d) `run_resume`: the
     LatentODE's run resumed with `--load resume --epoch 2` from (b)'s own
@@ -239,7 +239,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the bfloat16 artifacts within 0.05 x scale; then phase 8's kernel
     route trained on the float32 artifacts (4096-wide notes into d_txt
     768), #1 and #2 exact; (d) TimeLLM with BERT (6 layers) and with Llama
-    (3 layers, 4096 wide; TIMELLM_LLM_LAYERS), trained through `imm_tsf_torch.main` (BERT two epochs,
+    (1 layer, 4096 wide; TIMELLM_LLM_LAYERS), trained through `imm_tsf_torch.main` (BERT two epochs,
     Llama one; the frozen LLM bit for bit as drawn; each checkpoint
     write's seconds printed), the trained experiment served (64 requests,
     #1 once a dispatch, nothing else), one compared step kernels vs plain
@@ -258,9 +258,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     events), idle share, capture seconds and graph nodes printed; (d)
     TimesNet on captured resident steps (its static period canvas reads
     nothing back to the host), held bit for bit, and the LatentODE on the
-    staged loop (phase 12's 2 entities) for one epoch, against phase 12's
-    streaming run's first (printed: the hash masks over its longer staged
-    union axes differ); (e) 14a's run resumed on the epoch loop from its
+    staged loop (phase 12's 1 entity, one training batch an epoch) for two
+    epochs, the second's steps captured and replayed, against phase 12's
+    streaming run (printed: the hash masks over its longer staged union
+    axes may differ); (e) 14a's run resumed on the epoch loop from its
     epoch-0 state (`--load`), bit for bit;
 15. stacked-replica sweeps through imm_tsf_torch.main on 14's fixture,
     three epochs: (a) 14a's flags with a 2-seed x 2-lr grid (S = 4, one
@@ -326,7 +327,25 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     nothing, the flip back replays the kernel route with its launches,
     each bit for bit with its eager forward); phase 16's artifacts replay
     one graph a batch size and 16c's streaming predict one graph;
- 5. (after 6-18) time each kernel and its plain version at the shapes
+19. compute_dtype="bfloat16" (one-pass bf16 products: each float32
+    product's operands rounded to bf16, float32 sums, forward and backward;
+    layers/bf16_products.py): (a) the one-pass forms of #2 (eval and
+    training forms at phase 3's M 8,192 and Informer's three sites), #3
+    (TimeLLM's two shapes, every embed_notes bucket, the ragged case with
+    its exact zeros) and #1 (serving and training shapes) against their
+    plain versions: each output's relative norm distance to the plain
+    version run in float64 within ONE_PASS_SCORE_MAX (4) times the float32
+    plain version's own, and under a tenth of the float32 products'; (b)
+    14a's flags with --compute_dtype bfloat16 on the loop (captured) and
+    streaming, bit for bit, launches exact with every #1 and #2 in its
+    one-pass form, the per-step losses finite, within 5 % of 14a's float32
+    run and not equal to it, windows/s beside 14a's; (c) (b)'s experiment,
+    TimeLLM (#3's one-pass form once a GPT-2 block a dispatch) and the
+    fused CRU (#6 once a dispatch) served under "bfloat16", 64 requests
+    each, launches exact, every replay bit for bit with the eager forward;
+    (d) (b)'s experiment exported at B 8 and served, 64 requests, bit for
+    bit with the live service;
+ 5. (after 6-19) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -340,7 +359,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     bf16-weight form beside the float32 form, bound with bf16 weight bytes
     and two TF32 passes a product) and print one JSON
     line {"kernels": [...]}
-    (seven rows) with the bound each is held to (#4-#7 from the data's
+    (seven rows; #1-#3 each with a `one_pass` block, its one-pass form of
+    phase 19 timed on the row's own inputs: launches from 19b and 19c,
+    bound one bf16 pass a product at 989 TFLOP/s, library_ms cuBLAS bf16
+    GEMMs with float32 output + GELU + LayerNorm for #2, SDPA on bf16 for
+    #3) with the bound each is held to (#4-#7 from the data's
     own tiers and squarings; #2 and #3 at 3 x their products' FLOPs on
     the TF32 tensor cores, the fp32-FMA bound beside it as bound_fma_ms,
     which #4 gives too; #4 and #7 with their cluster size, the clusters
@@ -588,6 +611,26 @@ AMP = ["--compute_dtype", "amp_bf16"]
 AMP_LOSS_RTOL = 0.05
 ARTIFACT_BATCHES["17d"] = (8,)
 N_ARTIFACT_REQUESTS["17d"] = 64
+# phase 19: compute_dtype="bfloat16", one-pass bf16 products (layers/bf16_products):
+# 14a's flags on the loop and streaming, bit for bit with each other and within
+# BF16_LOSS_RTOL of 14a's float32 losses (and not equal to them); served and
+# exported (ARTIFACT_BATCHES["19d"]); a TimeLLM and a fused CRU service
+BF16 = ["--compute_dtype", "bfloat16"]
+BF16_LOSS_RTOL = 0.05
+ARTIFACT_BATCHES["19d"] = (8,)
+N_ARTIFACT_REQUESTS["19d"] = 64
+N_BF16_REQUESTS = 64
+# 19a: a one-pass form and its plain version round the same operands, and
+# their products are exact; the float32 sums run in another order (#3's
+# softmax sum online), so a value that lies at a bf16 rounding boundary can
+# round the other way in one of them (2^-8 of it), which every later
+# product spreads. So each output's relative norm distance to the plain
+# version run in float64 (the same roundings) is held within
+# ONE_PASS_SCORE_MAX times the float32 plain version's own distance, and
+# under a tenth of the distance of the float32 products' output (the form
+# is one-pass, not float32)
+ONE_PASS_SCORE_MAX = 4.0
+PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 # 16d: main_all's two combinations, DLinear with text on and off
 MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text", "1", "0",
                      "--ttf", "TTF_RecAvg", "--mmf", "MMF_GR_Add", "--epoch", "1",
@@ -598,21 +641,22 @@ MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text"
 # TTF_RecAvg + MMF_GR_Add (d_txt 768). The LatentODE is served a request a
 # dispatch (its union time axis), so it takes fewer requests
 IMTS_MODELS = ("LatentODE", "NeuralFlow", "tPatchGNN")
-N_IMTS_REQUESTS = {"LatentODE": 32, "NeuralFlow": 256, "tPatchGNN": 256}
+N_IMTS_REQUESTS = {"LatentODE": 16, "NeuralFlow": 256, "tPatchGNN": 256}
 # tPatchGNN's served and compared patching: the preset's 24 (days here) spans
 # EPA-Air's whole 7-day history in one patch; patches of 2 days give 4, each
 # holding points. The trained run keeps the reference's own derivation
 SERVED_PATCHING = dict(patch_size=2, patch_stride=2, npatch=4)
 IMTS_TRAIN_ARGS = {m: [a if a != "CRU" else m for a in TRAIN_ARGS] + ["--use_pallas", "true"]
                    for m in IMTS_MODELS}
-# the LatentODE trains on 4 of the fixture's 8 entities: its scan runs every
-# union time step on the host (~8 s a step at 768 union times on the H100),
-# and half the windows halve phases 12b and 12d; a batch keeps 32 windows
-# and its union axes their 768 times
-IMTS_TRAIN_ARGS["LatentODE"] += ["--rec_ids"] + [f"entity{i:03d}" for i in range(2)]
+# the LatentODE trains on 1 of the fixture's 8 entities: its scan runs every
+# union time step on the host (~8 s a step at 768 union times on the H100).
+# One entity gives one training batch of 32 windows over 512 union times
+# (two entities gave 768 + 192) and eval batches over 192, which roughly
+# halves phases 12b, 12d and 14d's staged run (PERF.md §4)
+IMTS_TRAIN_ARGS["LatentODE"] += ["--rec_ids", "entity000"]
 IMTS_STEP_B = 32
-# phase 12e holds the LatentODE's float32 forward over a union axis of the
-# trained length (768 times) to its float64 run: within 4x the JAX package's
+# phase 12e holds the LatentODE's float32 forward over a union axis of 768
+# times (a two-entity training batch's) to its float64 run: within 4x the JAX package's
 # own distance plus 1e-6, JAX's distance being the one tools/torch_ode_drift.py
 # prints on the CPU for the same batch and weights (ode_drift_case)
 ODE_DRIFT_JAX = 1.220954874703306e-07
@@ -641,9 +685,10 @@ STAGE_TRAIN_ARGS = ([a if a != "GPT2" else "Llama" for a in PATCH_TRAIN_ARGS]
                     + PATCH_ROUTES["kernel"])
 # 13d: each TimeLLM checkpoint holds its frozen LLM (the 6-layer Llama 7.4 GB)
 TIMELLM_LLM_EPOCHS = {"BERT": 2, "LLAMA": 1}
-# 13d's frozen LLM depth: the preset's 6 blocks for BERT; Llama cut to 3
-# (its training, serving and compared step took ~160 s at 6, PERF.md §4)
-TIMELLM_LLM_LAYERS = {"BERT": 6, "LLAMA": 3}
+# 13d's frozen LLM depth: the preset's 6 blocks for BERT; Llama cut to 1,
+# 4096 wide (its training, serving and compared step took ~160 s at 6 and
+# 97 s at 3, PERF.md §4)
+TIMELLM_LLM_LAYERS = {"BERT": 6, "LLAMA": 1}
 
 
 def log(msg: str) -> None:
@@ -1876,7 +1921,11 @@ KERNEL_COUNTS = {  # kernel -> (module, its launch counter)
     "fused_cru_scan": (cru_scan, "launches"),
     "fused_cru_scan_backward": (cru_scan, "backward_launches"),
     "fused_causal_attention": (attn, "launches"),
-    "fused_causal_attention_backward": (attn, "backward_calls")}
+    "fused_causal_attention_backward": (attn, "backward_calls"),
+    # the one-pass bf16 forms (compute_dtype="bfloat16"), counted in the above too
+    "recency_weighted_average_bf16": (recavg, "one_pass_launches"),
+    "fused_encoder_ffn_bf16": (ffn, "one_pass_launches"),
+    "fused_causal_attention_bf16": (attn, "one_pass_launches")}
 
 
 def zero_counts() -> None:
@@ -2218,18 +2267,22 @@ def compare_wide_notes(device) -> dict:
     return out
 
 
-def ffn_counts(route: str, ffn_sites: int, steps: int, evals: int, bf16w: bool = False) -> dict:
+def ffn_counts(route: str, ffn_sites: int, steps: int, evals: int, bf16w: bool = False,
+               one_pass: bool = False) -> dict:
     """Launches of a run of `steps` gradient steps and `evals` eval batches
     of a model with `ffn_sites` FFN layers behind TTF_RecAvg: on the kernel
     route #1 once a forward and #2 once a forward an FFN site (its training
     form in the steps; every launch in its bf16-weight form with `bf16w`,
-    compute_dtype="amp_bf16"); nothing on the plain route."""
+    compute_dtype="amp_bf16"; #1's and #2's in their one-pass forms with
+    `one_pass`, compute_dtype="bfloat16"); nothing on the plain route."""
     counts = dict.fromkeys(KERNEL_COUNTS, 0)
     if route == "kernel":
         counts.update(recency_weighted_average=steps + evals,
                       fused_encoder_ffn=ffn_sites * (steps + evals),
                       fused_encoder_ffn_train=ffn_sites * steps,
-                      fused_encoder_ffn_bf16w=ffn_sites * (steps + evals) if bf16w else 0)
+                      fused_encoder_ffn_bf16w=ffn_sites * (steps + evals) if bf16w else 0,
+                      recency_weighted_average_bf16=steps + evals if one_pass else 0,
+                      fused_encoder_ffn_bf16=ffn_sites * (steps + evals) if one_pass else 0)
     return counts
 
 
@@ -3813,9 +3866,10 @@ def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: 
     #7), 14c Informer on the kernel route (#2 at three sites, #1): each on
     the resident loop with captured steps against the streaming loop,
     held to LOOP_RTOL; 14d TimesNet (captured steps over its static period
-    canvas) held bit for bit, and the LatentODE on the staged loop for one
-    epoch against phase 12's streaming run's first (`streamed["LatentODE"]`;
-    hash masks over the staged, longer union axes differ, so only printed);
+    canvas) held bit for bit, and the LatentODE on the staged loop for two
+    epochs (one batch an epoch: a key's first call is eager, so the second
+    epoch captures) against phase 12's streaming run (`streamed["LatentODE"]`;
+    hash masks over the staged, longer union axes may differ, so only printed);
     14e the resident 14a resumed from its epoch-0 state bit for bit. 14a's,
     14b's fused and 14d TimesNet's loop runs are kept under `kept_root` as
     experiments "14a", "14b_fused" and "14d" (phase 16)."""
@@ -3849,7 +3903,7 @@ def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: 
     shutil.rmtree(exp_dir, ignore_errors=True)
     out["14d LatentODE staged"] = run_loop_case(
         device, root, exp_dir, "14d LatentODE, staged", IMTS_TRAIN_ARGS["LatentODE"],
-        recavg_only, False, streamed=streamed["LatentODE"], epochs=1, trace=False)
+        recavg_only, False, streamed=streamed["LatentODE"], epochs=2, trace=False)
     shutil.rmtree(exp_dir, ignore_errors=True)
     for name, case in out.items():
         check_loop_mode(name, case["loop"], "staged" if "staged" in name else "resident",
@@ -4127,6 +4181,9 @@ def per_dispatch(label: str, cfg) -> dict:
     if label == "17d":  # 14a's flags under amp_bf16: #2 in its bf16-weight form
         return {"recency_weighted_average": 1, "fused_encoder_ffn": cfg.e_layers,
                 "fused_encoder_ffn_bf16w": cfg.e_layers}
+    if label == "19d":  # 14a's flags under bfloat16: #1 and #2 in their one-pass forms
+        return {"recency_weighted_average": 1, "recency_weighted_average_bf16": 1,
+                "fused_encoder_ffn": cfg.e_layers, "fused_encoder_ffn_bf16": cfg.e_layers}
     return {"recency_weighted_average": 1, "fused_cru_scan": 1}
 
 
@@ -4453,6 +4510,282 @@ def ffn_bf16w_timings(device, shapes, errs) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 19
+def one_pass_score(label: str, got, plain, plain64, full) -> dict:
+    """Phase 19a: a one-pass form's output `got` against its plain version
+    run in float64 (`plain64`, the same roundings): the relative norm
+    distance of `got`, of the float32 plain version `plain` and of the
+    float32 products' output `full` to it, and max |got - plain|. Raises
+    unless got is finite, within ONE_PASS_SCORE_MAX times the plain
+    version's distance (1e-7 floor) and under a tenth of the float32
+    products'."""
+    norm = lambda t: float(torch.linalg.vector_norm(t.double()))
+    ref = norm(plain64)
+    out = {"max_abs_err": float((got - plain).abs().max()),
+           "score": norm(got.double() - plain64) / ref,
+           "plain_score": norm(plain.double() - plain64) / ref,
+           "float32_score": norm(full.double() - plain64) / ref}
+    if (not bool(torch.isfinite(got).all())
+            or out["score"] > ONE_PASS_SCORE_MAX * out["plain_score"] + 1e-7
+            or out["score"] > 0.1 * out["float32_score"]):
+        raise AssertionError(f"19a {label}: the one-pass form departs from its plain "
+                             f"version: {out}")
+    return out
+
+
+def _float64(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+def check_one_pass(device, shapes) -> dict:
+    """Phase 19a: the one-pass bf16 forms against their plain versions
+    (one_pass_score), each launched in its form inside Bf16Products (or
+    with one_pass, #2's training form): #2's eval form (gelu, no dropout)
+    and training form (dropout on; out, a1 and r) at phase 3's M 8,192 and
+    Informer's three sites; #3 at TimeLLM's two trained shapes, each
+    embed_notes bucket (right-padded notes) and the ragged case (exact
+    zeros where no key is kept); #1 at the serving and training shapes.
+    Returns the scores by case."""
+    from imm_tsf_torch.layers.bf16_products import Bf16Products
+
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    out = {}
+
+    def launched(what, want):
+        if cuda:
+            torch.cuda.synchronize(device)
+            got = read_counts()
+            if any(got[k] != v for k, v in want.items()):
+                raise AssertionError(f"19a {what}: launched {got}, expected {want}")
+
+    for M, D, F in [shapes["ffn"], *shapes["ffn_informer"]]:
+        args = ffn_inputs(M, D, F, gen, device)
+        zero_counts()
+        with Bf16Products():
+            got = ffn.fused_encoder_ffn(*args, KEEP, "gelu", False)
+        got_t = ffn._forward(*args, KEEP, "gelu", True, with_residuals=True, one_pass=True)
+        launched(f"#2 M {M}", {"fused_encoder_ffn_bf16": 2, "fused_encoder_ffn_train": 1})
+        ref = lambda a, **k: ffn.ffn_forward_reference(*a, KEEP, "gelu", False, **k)
+        out[f"ffn bf16 M {M}"] = one_pass_score(
+            f"#2 M {M}", got, ref(args, one_pass=True), ref(_float64(args), one_pass=True),
+            ref(args))
+        ref = lambda a, **k: ffn.ffn_forward_reference(*a, KEEP, "gelu", True,
+                                                       with_residuals=True, **k)
+        out[f"ffn bf16 M {M} training form"] = {
+            name: one_pass_score(f"#2 M {M} training form {name}", g, p, p64, f)
+            for name, g, p, p64, f in zip(("out", "a1", "r"), got_t, ref(args, one_pass=True),
+                                          ref(_float64(args), one_pass=True), ref(args))}
+        log(f"# check #2 one-pass form M={M} D={D} F={F}: {json.dumps(out[f'ffn bf16 M {M}'])}"
+            f"; training form {json.dumps(out[f'ffn bf16 M {M} training form'])}")
+        del args, got, got_t
+
+    cases = ([(list(s), None) for s in shapes["attn_timellm"]]
+             + [(list(s), bucket_lo(s[2])) for s in shapes["attn"]] + [([3, 2, 13, 64], "ragged")])
+    for shape, lo in cases:
+        args = (attn_ragged_inputs(gen, device) if lo == "ragged"
+                else attn_inputs(*shape, gen, device, lo=lo))
+        zero_counts()
+        with Bf16Products():
+            got = attn.fused_causal_attention(*args)
+        launched(f"#3 {shape}", {"fused_causal_attention_bf16": 1, "fused_causal_attention": 1})
+        if lo == "ragged" and not (bool((got[1] == 0).all()) and bool((got[0, :, 0] == 0).all())):
+            raise AssertionError("19a #3: a row that keeps no key must give exact zeros")
+        ref = lambda a, **k: attn.attention_reference(*a, **k)
+        out[f"attn bf16 {shape}"] = one_pass_score(
+            f"#3 {shape}", got, ref(args, one_pass=True), ref(_float64(args), one_pass=True),
+            ref(args))
+        log(f"# check #3 one-pass form {shape}: {json.dumps(out[f'attn bf16 {shape}'])}")
+        del args, got
+        if cuda:
+            torch.cuda.empty_cache()
+
+    for case, shape in (("serving", shapes["recavg"]), ("training", shapes["recavg_train"])):
+        args = recavg_inputs(*shape, gen, device)
+        zero_counts()
+        with Bf16Products():
+            got = recavg.recency_weighted_average(*args)
+        launched(f"#1 {shape}", {"recency_weighted_average_bf16": 1})
+        ref = lambda a, **k: recavg.recavg_reference(*a, **k)
+        out[f"recavg bf16 {case}"] = one_pass_score(
+            f"#1 {case}", got, ref(args, one_pass=True), ref(_float64(args), one_pass=True),
+            ref(args))
+        log(f"# check #1 one-pass form {list(shape)}: {json.dumps(out[f'recavg bf16 {case}'])}")
+    return out
+
+
+def serve_bf16(device, exp: str, label: str, n_requests: int, expected) -> dict:
+    """Phase 19c: the "bfloat16" experiment in `exp` served to phase 4's
+    request generator from 8 threads: every answer finite with its rows,
+    launches exactly expected(svc, dispatches), every replay held to the
+    eager forward bit for bit (phase 18's held_dispatches)."""
+    cfg = load_saved_config(os.path.join(exp, "config.json"))
+    if cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{label}: the experiment computes in {cfg.compute_dtype}")
+    svc = ForecastService(exp, max_batch=64, max_wait_ms=5.0, device=device)
+    try:
+        requests = make_requests(cfg, n_requests, SEED)
+        d0 = svc.metrics()["dispatches_total"]
+        zero_counts()
+        t0 = time.monotonic()
+        with held_dispatches(svc, label) as held:
+            answers = serve_requests(svc, requests)
+        wall = time.monotonic() - t0
+        launches = read_counts()
+        dispatches = svc.metrics()["dispatches_total"] - d0
+        want = dict(dict.fromkeys(KERNEL_COUNTS, 0), **expected(svc, dispatches))
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected {want}")
+        for inst, ans in zip(requests, answers):
+            y = np.asarray(ans["prediction"])
+            if y.shape != (len(inst["tp_to_predict"]), cfg.input_dim) or not np.isfinite(y).all():
+                raise AssertionError(f"{label}: bad answer shape {y.shape} or non-finite values")
+    finally:
+        svc.close()
+    res = {"requests": len(requests), "dispatches": dispatches, "wall_s": wall,
+           "launches": {k: v for k, v in launches.items() if v}, "captured": held}
+    log(f"# phase {label}: {json.dumps(res)}")
+    return res
+
+
+def run_bf16(device, root: str, exp_dir: str, loop_runs: dict, shapes) -> dict:
+    """Phase 19: compute_dtype="bfloat16". 19a check_one_pass; 19b 14a's
+    flags with --compute_dtype bfloat16 on the loop (captured; 14a's three
+    epochs, so that its timed epoch stands beside 14a's) and streaming, bit
+    for bit with each other, launches exact with every #1 and #2 in its
+    one-pass form, the per-step losses finite, within BF16_LOSS_RTOL of
+    14a's float32 loop run and not equal to them; 19c 19b's experiment, the
+    TimeLLM experiment (TIMELLM_CFG: #3 once a GPT-2 block a dispatch, in
+    its one-pass form) and the fused CRU (CRU_CFG, IMM_TSF_CRU_FUSED=1: #6
+    once a dispatch, as in float32) served under "bfloat16" (serve_bf16);
+    19d 19b's experiment exported at B 8 and served, 64 requests, bit for
+    bit with the live service."""
+    out = {"errs": check_one_pass(device, shapes)}
+    patch_cfg = training_data(root, PATCH_TRAIN_ARGS)["cfg"]
+    kept = exp_dir + "_bf16_kept"  # 19b's loop experiment, for 19c and 19d
+    os.makedirs(kept, exist_ok=True)
+    exp19 = os.path.join(kept, "experiment_19b")
+    try:
+        case = run_loop_case(
+            device, root, exp_dir, "19b PatchTST, kernel route, bfloat16",
+            PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + BF16,
+            lambda s, e: ffn_counts("kernel", patch_cfg.e_layers, s, e, one_pass=True), True,
+            exact=True, keep_exp=exp19)
+        check_loop_mode("19b", case["loop"], "resident", device.type == "cuda")
+        one_pass = np.asarray(case["loop"]["step_losses"])
+        f32_case = loop_runs["14a PatchTST kernel"]
+        f32 = np.asarray(f32_case["loop"]["step_losses"])
+        if one_pass.shape != f32.shape or not np.isfinite(one_pass).all():
+            raise AssertionError(f"19b: {one_pass.size} losses against 14a's {f32.size}")
+        gap = float(np.max(np.abs(one_pass - f32) / np.abs(f32)))
+        if gap > BF16_LOSS_RTOL or bool((one_pass == f32).all()):
+            raise AssertionError(f"19b: the per-step losses {one_pass.tolist()} against 14a's "
+                                 f"float32 {f32.tolist()}: gap {gap:.3e} (limit "
+                                 f"{BF16_LOSS_RTOL}; equal would mean no product rounded)")
+        case["summary"]["float32_gap"] = gap
+        case["summary"]["float32_loop"] = f32_case["summary"]["loop"]
+        log(f"# phase 19b: per-step losses within {gap:.3e} of 14a's float32 run, not equal; "
+            f"train windows/s {case['summary']['loop']['train_windows_per_s']:.1f} against "
+            f"14a's {f32_case['summary']['loop']['train_windows_per_s']:.1f}")
+        out["19b PatchTST bfloat16"] = case
+        shutil.rmtree(exp_dir, ignore_errors=True)
+
+        per = lambda label, cfg: (lambda svc, n: {k: v * n for k, v in
+                                                  per_dispatch(label, cfg).items()})
+        out["19c PatchTST"] = serve_bf16(device, exp19, "19c PatchTST, bfloat16",
+                                         N_BF16_REQUESTS, per("19d", patch_cfg))
+        exp = os.path.join(exp_dir, "timellm")
+        make_experiment(exp, dict(TIMELLM_CFG, compute_dtype="bfloat16"), SEED)
+
+        def timellm_counts(svc, n):
+            layers = len(svc.model.frozen_llm.h)
+            return dict(attn_counts("kernel", layers, 0, n), recency_weighted_average_bf16=n,
+                        fused_causal_attention_bf16=layers * n)
+
+        out["19c TimeLLM"] = serve_bf16(device, exp, "19c TimeLLM, bfloat16", N_BF16_REQUESTS,
+                                        timellm_counts)
+        exp = os.path.join(exp_dir, "cru")
+        make_experiment(exp, dict(CRU_CFG, compute_dtype="bfloat16"), SEED)
+        with cru_route(True):
+            out["19c CRU fused"] = serve_bf16(
+                device, exp, "19c CRU, fused route, bfloat16", N_BF16_REQUESTS,
+                lambda svc, n: {"recency_weighted_average": n, "fused_cru_scan": n,
+                                "recency_weighted_average_bf16": n})
+        art = serve_artifact(device, exp19, os.path.join(exp_dir, "artifacts", "19d"), "19d",
+                             exact=True)
+        for k in ("_forecaster", "_requests"):
+            art.pop(k)
+        out["19d artifact"] = art
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    return out
+
+
+def ffn_library_bf16(x, w1, b1, w2, b2, gamma, beta, salts):
+    """#2's eval form (gelu, no dropout) in library calls: two cuBLAS GEMMs
+    on bf16 copies with float32 output, torch's tanh GELU and LayerNorm."""
+    h = nn.functional.gelu(torch.mm(x.bfloat16(), w1.bfloat16(), out_dtype=torch.float32) + b1,
+                           approximate="tanh")
+    r = x + (torch.mm(h.bfloat16(), w2.bfloat16(), out_dtype=torch.float32) + b2)
+    return nn.functional.layer_norm(r, (x.shape[1],), gamma, beta, 1e-5)
+
+
+def one_pass_scores(bf16: dict, case: str) -> dict:
+    """Phase 19a's max |err| and score of a one-pass form's case."""
+    return {k: bf16["errs"][case][k] for k in ("max_abs_err", "score")}
+
+
+def one_pass_form(row: dict, counter: str, headline: str, bf16: dict, form: dict) -> dict:
+    """Phase 5, a one-pass form (phase 19) as a block of its kernel's row,
+    with a row's keys: its launches on phase 19's paths (`headline` the
+    path counted in `launches`) and `form`, its timings (ffn_one_pass,
+    attn_one_pass or timed) with its one_pass_scores."""
+    paths = {"device_loop 19b": bf16["19b PatchTST bfloat16"]["loop"]["launches"],
+             **{p: bf16[p]["launches"] for p in ("19c PatchTST", "19c TimeLLM", "19c CRU fused")},
+             "artifact 19d": bf16["19d artifact"]["launches"]}
+    by_path = {p: c.get(counter, 0) for p, c in paths.items()}
+    return {"name": counter, "route": row["route"], "source": row["source"],
+            "replaces": row["replaces"], "launches": by_path[headline],
+            "launches_by_path": by_path, **form}
+
+
+def ffn_one_pass(sets, M: int, D: int, F: int) -> dict:
+    """#2's one-pass form on `sets` (its float32 form's inputs): the eval
+    form (gelu, no dropout) and the training form (dropout on), their
+    plain versions, library_ms ffn_library_bf16, each bound one bf16 pass
+    a product (989 TFLOP/s) against float32 x, weights and out."""
+    (b, by), (tb, tby) = (ffn_bound(M, D, F, residuals=r, passes=1, rate=PEAK_BF16_FLOP_PER_S)
+                          for r in (False, True))
+    return {"ms": device_ms(lambda *a: ffn._forward(*a, KEEP, "gelu", False, False,
+                                                    one_pass=True), sets, per_rep=10),
+            "plain_ms": device_ms(lambda *a: ffn.ffn_forward_reference(
+                *a, KEEP, "gelu", False, one_pass=True), sets, per_rep=10),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(ffn_library_bf16, sets, per_rep=10),
+            "train_ms": device_ms(lambda *a: ffn._forward(*a, KEEP, "gelu", True, True,
+                                                          one_pass=True), sets, per_rep=10),
+            "train_plain_ms": device_ms(lambda *a: ffn.ffn_forward_reference(
+                *a, KEEP, "gelu", True, with_residuals=True, one_pass=True), sets, per_rep=10),
+            "train_bound_ms": tb, "train_bound_by": tby}
+
+
+def attn_one_pass(sets, masks, nbytes, flops, per_rep: int) -> dict:
+    """#3's one-pass form on `sets` (its float32 form's inputs) and its
+    plain version; library_ms SDPA on bf16 q, k and v with the same
+    boolean masks (its output widened); bound its two products at the bf16
+    rate against the float32 form's bytes."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = [[x.bfloat16() for x in a[:3]] + [m] for a, m in zip(sets, masks)]
+    b, by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+    return {"ms": device_ms(lambda *a: attn._forward(*a, one_pass=True), sets, per_rep=per_rep),
+            "plain_ms": device_ms(lambda *a: attn.attention_reference(*a, one_pass=True), sets,
+                                  per_rep=per_rep),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(lambda q, k, v, m: sdpa(q, k, v, attn_mask=m).float(),
+                                    lib_sets, per_rep=per_rep)}
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -4475,22 +4808,23 @@ def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
 
 
 def ffn_bound(M: int, D: int, F: int, residuals: bool = False, weight_bytes: int = 4,
-              passes: int = 3) -> tuple[float, str]:
-    """#2's bound at [M, D] x [D, F]: its products as `passes` TF32 passes
-    on the tensor cores (3 for 3xTF32; 2 in the bf16-weight form), the rest
+              passes: int = 3, rate: float = PEAK_TF32_FLOP_PER_S) -> tuple[float, str]:
+    """#2's bound at [M, D] x [D, F]: its products as `passes` passes on
+    the tensor cores at `rate` (3 TF32 passes for 3xTF32; 2 in the
+    bf16-weight form; one bf16 pass in the one-pass form), the rest
     (activation, dropout, LayerNorm) at the fp32 peak, against x, the
     weights (`weight_bytes` each: 2 in bf16) and out moved once (the
     training form also writes a1 [M, F] and r [M, D])."""
     nbytes = (4 * 2 * M * D + weight_bytes * (2 * D * F + F + 3 * D)
               + (4 * (M * F + M * D) if residuals else 0))
-    t_ops = (passes * 4 * M * D * F / PEAK_TF32_FLOP_PER_S
+    t_ops = (passes * 4 * M * D * F / rate
              + (10 * M * F + 10 * M * D) / PEAK_FP32_FLOP_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
-            timellm_run) -> list[dict]:
+            timellm_run, bf16) -> list[dict]:
     """One row per kernel. For kernels #1 and #2 `launches` counts the
     Informer training run on the kernel route (phase 9b), for #3 the
     TimeLLM training run on the kernel route (phase 10b, fast prompt);
@@ -4501,7 +4835,9 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
     training (phase 10); #3's row also counts its backward's calls and
     times it at TimeLLM's shapes (attn_timellm_timings). #2's row also times its training form and the plain backward at
     the same shape (dropout on, as PatchTST trains), and both forms at
-    Informer's three FFN sites. Kernels #5 and #6: measure_cru."""
+    Informer's three FFN sites. The one-pass forms of #1-#3 (phase 19,
+    `bf16`) are timed on the same inputs, each a `one_pass` block of its
+    row (one_pass_form). Kernels #5 and #6: measure_cru."""
     B, N, T, d = shapes["recavg"]
     rsets = [recavg_inputs(B, N, T, d, gen, device) for _ in range(4)]
     r_bytes, r_flops = recavg_work(B, N, T, d)
@@ -4532,6 +4868,11 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
     rec_row["launch_floor_ms"] = device_ms(lambda: recavg.empty_launch(B, T, d, device),
                                            [[]], per_rep=200)
     rec_row["launch_config"] = recavg.launch_config(T)
+    rec_row["one_pass"] = one_pass_form(
+        rec_row, "recency_weighted_average_bf16", "device_loop 19b", bf16,
+        dict(timed(lambda *a: recavg._forward(*a, one_pass=True),
+                   lambda *a: recavg.recavg_reference(*a, one_pass=True), None, rsets,
+                   r_bytes, r_flops, 200), **one_pass_scores(bf16, "recavg bf16 serving")))
     Bt, Nt, Tt, dt = shapes["recavg_train"]
     tsets = [recavg_inputs(Bt, Nt, Tt, dt, gen, device) for _ in range(4)]
     t_bytes, t_flops = recavg_work(Bt, Nt, Tt, dt)
@@ -4559,6 +4900,9 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
         lambda *a: ffn.ffn_forward_reference(*a, KEEP, "gelu", True, with_residuals=True),
         fsets, per_rep=10)
     ffn_row["train_bound_ms"], ffn_row["train_bound_by"] = ffn_bound(M, D, F, residuals=True)
+    ffn_row["one_pass"] = one_pass_form(
+        ffn_row, "fused_encoder_ffn_bf16", "device_loop 19b", bf16,
+        dict(ffn_one_pass(fsets, M, D, F), **one_pass_scores(bf16, f"ffn bf16 M {M}")))
     gen_g = torch.Generator(device=device).manual_seed(SEED + 6)
     bsets = []
     for a in fsets:
@@ -4587,7 +4931,10 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
         # the kernel's products run as 3 TF32 passes on the tensor cores
         t["bound_fma_ms"] = t["bound_ms"]
         t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
-        by_shape[key((Bq, H, Tq, Dq))] = {"max_abs_err": errs[f"attn bucket-{Tq}"], **t}
+        op = dict(attn_one_pass(sets, masks, nbytes, flops, per_rep),
+                  **one_pass_scores(bf16, f"attn bf16 {[Bq, H, Tq, Dq]}"))
+        by_shape[key((Bq, H, Tq, Dq))] = {"max_abs_err": errs[f"attn bucket-{Tq}"], **t,
+                                          "one_pass": op}
         log(f"# attention at {key((Bq, H, Tq, Dq))}: kernel {t['ms']:.4f} ms, SDPA "
             f"{t['library_ms']:.4f}, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
             f"({t['bound_by']}; fp32 FMA {t['bound_fma_ms']:.4f})")
@@ -4628,10 +4975,14 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
         trained["kernel"]["launches"]["recency_weighted_average"])
     # the row's headline: TimeLLM's trained fast-prompt shape, where its
     # launches are counted
-    attn_row["timellm_shapes"] = attn_timellm_timings(shapes["attn_timellm"], gen, device, errs)
+    attn_row["timellm_shapes"] = attn_timellm_timings(shapes["attn_timellm"], gen, device, errs,
+                                                      bf16)
     attn_row["shape"] = key(shapes["attn_timellm"][0])
     attn_row.update({k: v for k, v in attn_row["timellm_shapes"][attn_row["shape"]].items()
-                     if k not in ("library_train_ms", "train_ms")})
+                     if k not in ("library_train_ms", "train_ms", "one_pass")})
+    attn_row["one_pass"] = one_pass_form(
+        attn_row, "fused_causal_attention_bf16", "19c TimeLLM", bf16,
+        attn_row["timellm_shapes"][attn_row["shape"]]["one_pass"])
     # #2 at Informer's FFN sites, both forms (inputs of their own)
     gen_i = torch.Generator(device=device).manual_seed(SEED + 10)
     ffn_row["informer_shapes"] = {}
@@ -4650,16 +5001,19 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
                 *a, KEEP, "gelu", True, with_residuals=True), sets, per_rep=10),
             "train_bound_ms": tb, "train_bound_by": tby,
             "max_abs_err": errs[f"ffn informer M {m}"],
-            "train_max_abs_err": errs[f"ffn informer M {m} training form"]}
+            "train_max_abs_err": errs[f"ffn informer M {m} training form"],
+            "one_pass": dict(ffn_one_pass(sets, m, D, F),
+                             **one_pass_scores(bf16, f"ffn bf16 M {m}"))}
         log(f"# fused FFN at Informer's M {m}: {json.dumps(ffn_row['informer_shapes'][str(m)])}")
         del sets
     return rows + measure_cru(cru)
 
 
-def attn_timellm_timings(attn_shapes, gen, device, errs) -> dict:
+def attn_timellm_timings(attn_shapes, gen, device, errs, bf16) -> dict:
     """#3 at TimeLLM's shapes (no pad): the kernel's forward, its plain
     version and SDPA with the same boolean mask, each with its bound (3
-    TF32 passes on the tensor cores, the fp32-FMA bound beside); the plain
+    TF32 passes on the tensor cores, the fp32-FMA bound beside), and its
+    one-pass form (attn_one_pass, phase 19's `bf16`); the plain
     backward (attention_backward_reference) with its bound (five products
     to the forward's two) and SDPA's autograd backward (its forward and
     backward, less its forward); and the port's training path, the
@@ -4677,6 +5031,8 @@ def attn_timellm_timings(attn_shapes, gen, device, errs) -> dict:
                    [a[:3] + [m] for a, m in zip(sets, masks)]), sets, nbytes, flops, 20)
         t["bound_fma_ms"] = t["bound_ms"]
         t["bound_ms"], t["bound_by"] = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+        t["one_pass"] = dict(attn_one_pass(sets, masks, nbytes, flops, 20),
+                             **one_pass_scores(bf16, f"attn bf16 {[Bq, H, Tq, Dq]}"))
         gs = [torch.randn(a[0].shape, generator=gen, device=device) for a in sets]
         b_bytes, b_flops = attn_backward_work(sets[0][3], H, Dq)
         t["backward_plain_ms"] = device_ms(attn.attention_backward_reference,
@@ -5143,18 +5499,24 @@ def main() -> int:
         # phase 17: compute_dtype="amp_bf16" on 14a's flags, TTM, and deployed
         shutil.rmtree(exp_dir, ignore_errors=True)
         amp = run_amp(device, root, exp_dir, device_loop, shapes)
+        mark("17")
+        # phase 19: compute_dtype="bfloat16": the one-pass forms, 14a's flags,
+        # served (PatchTST, TimeLLM, the fused CRU) and deployed
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        bf16 = run_bf16(device, root, exp_dir, device_loop, shapes)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
         shutil.rmtree(kept_root, ignore_errors=True)
 
-    mark("17")
+    mark("19")
     # phase 18: the served forward captured (its checks ran in phases 4-16)
     captured = captured_summary(serving, text, cru, informer, default_pair, timellm_run, mts,
                                 imts, deployment)
     mark("18")
     # phase 5: timings
-    rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run)
+    rows = (measure(device, shapes, gen, errs, serving, text, cru, patch, informer, timellm_run,
+                    bf16)
             + measure_training(train))
     mark("5")
     rec_row = next(r for r in rows if r["name"] == "recency_weighted_average")
@@ -5248,6 +5610,9 @@ def main() -> int:
                       "amp": {"17b": amp["17b PatchTST amp"]["summary"],
                               **{k: v["summary"] for k, v in amp.items() if k.startswith("17c")},
                               "17d": amp["17d artifact"], "errs": amp["errs"]},
+                      "bf16": {"19b": bf16["19b PatchTST bfloat16"]["summary"],
+                               **{k: v for k, v in bf16.items() if k.startswith("19c")},
+                               "19d": bf16["19d artifact"], "errs": bf16["errs"]},
                       "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

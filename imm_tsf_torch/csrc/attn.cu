@@ -51,11 +51,29 @@
 // Masked scores take no part in the max or the sum; a row whose sum is 0
 // writes exact zeros, never NaN, as the TPU kernel and
 // layers.attention.masked_softmax do.
+//
+// The one-pass form (`attn_forward_bf16`, compute_dtype="bfloat16": the
+// TPU kernel's two dots at DEFAULT precision, attn_kernel.py:47-66) is a
+// kernel of its own on the same tiles: S = bf16(Q) bf16(K)^T and O =
+// bf16(P) bf16(V), each one mma.sync m16n8k16 bf16 pass with float32
+// accumulators (bf16mma.cuh), operands rounded to nearest even where
+// their fragments load. JAX rounds the normalised probabilities, P = e /
+// sum e, so the online softmax's running rescale cannot be used: the key
+// tiles are walked twice, first for each row's max and sum (S only, no V
+// load), then for P = exp(S - max) / sum, rounded, times V. The second
+// walk recomputes S: 1.5 times the products of one walk, a third of the
+// 3xTF32 form's passes at twice the TF32 rate. The 16 keys of two
+// adjacent 8-key tiles of S's accumulators are exactly the A fragment of
+// P V, so P needs no shuffle; Q and K fragments read d in the order
+// (t, t + 4, t + 8, t + 12) of each 16 columns (the sum over d does not
+// depend on its order), so every fragment load is conflict-free at the
+// float32 form's row stride.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -268,25 +286,218 @@ attn_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   }
 }
 
+// The one-pass bf16 form (the module comment): the float32 kernel's block,
+// tiles, slices and causal skips, two walks over the key tiles.
 template <int DP, int S>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 3 : 1)
+attn_bf16_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                 const float* __restrict__ V, const float* __restrict__ pad,
+                 float* __restrict__ O, int BH, int H, int T, int D, float scale) {
+  constexpr int kLd = Tile<DP>::kLd;
+  constexpr int kFloats = Tile<DP>::kFloats;
+  constexpr int kSliceRows = kRows / S;
+  constexpr int kNT = kSliceRows / 8;  // 8-key tiles of a key tile: even
+  constexpr int kDT = DP / 8;
+  constexpr int kWarpsPerSlice = kWarps / S;
+  static_assert(kNT % 2 == 0, "P V takes the keys 16 at a time");
+
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* k_s = q_s + kFloats;
+  float* v_s = k_s + kFloats;
+  float* keep_s = v_s + kFloats;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int slice = warp / kWarpsPerSlice;
+  const long long bh0 = static_cast<long long>(blockIdx.x) * S;
+  const long long bh = bh0 + slice;
+  const int q0 = S == 1 ? (gridDim.y - 1 - blockIdx.y) * kRows : 0;
+  const int srow = slice * kSliceRows;
+  const int wrow = (warp % kWarpsPerSlice) * 16;
+
+  int kv_len = 0;
+  if (bh < BH) {
+    const float* pad_b = pad + (bh / H) * T;
+    for (int j = lane; j < T; j += 32)
+      if (pad_b[j] > 0.f) kv_len = j + 1;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      kv_len = max(kv_len, __shfl_xor_sync(0xffffffffu, kv_len, off));
+  }
+  const int k_end = (bh < BH && q0 + wrow < T) ? min(kv_len, q0 + wrow + 16) : 0;
+  const int n_iter = S == 1 ? (min(kv_len, min(q0 + kRows, T)) + kRows - 1) / kRows : 1;
+
+  auto load = [&](float* dst, const float* src, int row0) {
+    for (int f = tid; f < kRows * (DP / 4); f += kThreads) {
+      const int r = f / (DP / 4), c = (f % (DP / 4)) * 4;
+      const int s = r / kSliceRows, row = row0 + r % kSliceRows;
+      const bool ok = bh0 + s < BH && row < T && c < D;
+      cp_async16(dst + r * kLd + c, ok ? src + ((bh0 + s) * T + row) * D + c : src, ok);
+    }
+  };
+  // key tile k0's K (and V on the second walk) and keep flags
+  auto load_keys = [&](int k0, bool with_v) {
+    load(k_s, K, k0);
+    if (with_v) load(v_s, V, k0);
+    if (tid < kRows) {
+      const int s = tid / kSliceRows, key = k0 + tid % kSliceRows;
+      keep_s[tid] =
+          (bh0 + s < BH && key < T && pad[((bh0 + s) / H) * T + key] > 0.f) ? 1.f : 0.f;
+    }
+  };
+
+  float o[kDT][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  const int row_a = q0 + wrow + g, row_b = row_a + 8;
+
+  if (n_iter > 0) {
+    load(q_s, Q, q0);
+    load_keys(0, false);
+    cp_async_commit();
+  }
+  // it < n_iter: the first walk (max and sum); then the second (P V)
+  for (int it = 0; it < 2 * n_iter; ++it) {
+    const bool second = it >= n_iter;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    const int k0 = (it % n_iter) * kSliceRows;
+    if (k0 < k_end) {
+      const float* qt = q_s + (srow + wrow) * kLd;
+      const float* kt = k_s + srow * kLd;
+      const float* vt = v_s + srow * kLd;
+      const float* kp = keep_s + srow;
+
+      // S = bf16(Q) bf16(K)^T: fragment k (2t, 2t + 1, 2t + 8, 2t + 9) of each
+      // 16 columns reads d (t, t + 4, t + 8, t + 12)
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += 16) {
+        const float* qa = qt + g * kLd + kk + t;
+        const float* qb = qa + 8 * kLd;
+        const uint32_t a[4] = {bf16mma::pack(qa[0], qa[4]), bf16mma::pack(qb[0], qb[4]),
+                               bf16mma::pack(qa[8], qa[12]), bf16mma::pack(qb[8], qb[12])};
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* kr = kt + (j * 8 + g) * kLd + kk + t;
+          const uint32_t b[2] = {bf16mma::pack(kr[0], kr[4]), bf16mma::pack(kr[8], kr[12])};
+          bf16mma::mma16(s[j], a, b);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = j * 8 + 2 * t + (e & 1);
+          const bool kept = k0 + kl <= (e < 2 ? row_a : row_b) && kp[kl] > 0.f;
+          s[j][e] = kept ? s[j][e] * scale : -INFINITY;
+        }
+
+      if (!second) {
+        // each row's running max, and this lane's share of the sum at it
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]));
+          l[r] *= m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (s[j][e] != -INFINITY) l[e >> 1] += expf(s[j][e] - m[e >> 1]);
+      } else {
+        // P = exp(S - max) / sum (0 where masked), rounded with V, into O: the
+        // accumulators of 8-key tiles jj and jj + 1 are P's A fragment
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[e >> 1]) / l[e >> 1];
+#pragma unroll
+        for (int jj = 0; jj < kNT; jj += 2) {
+          const uint32_t a[4] = {bf16mma::pack(s[jj][0], s[jj][1]),
+                                 bf16mma::pack(s[jj][2], s[jj][3]),
+                                 bf16mma::pack(s[jj + 1][0], s[jj + 1][1]),
+                                 bf16mma::pack(s[jj + 1][2], s[jj + 1][3])};
+          const float* vr = vt + (jj * 8 + 2 * t) * kLd + g;
+#pragma unroll
+          for (int n = 0; n < kDT; ++n) {
+            const uint32_t b[2] = {bf16mma::pack(vr[n * 8], vr[kLd + n * 8]),
+                                   bf16mma::pack(vr[8 * kLd + n * 8], vr[9 * kLd + n * 8])};
+            bf16mma::mma16(o[n], a, b);
+          }
+        }
+      }
+    }
+    if (it == n_iter - 1) {  // the first walk is over: each row's whole sum
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+    }
+    __syncthreads();
+    if (it + 1 < 2 * n_iter) {
+      load_keys(((it + 1) % n_iter) * kRows, it + 1 >= n_iter);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_a : row_b;
+    if (bh >= BH || row >= T) continue;
+    float* out = O + (bh * T + row) * D;  // a row with no kept key: o = 0 exactly
+#pragma unroll
+    for (int n = 0; n < kDT; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < D)
+        *reinterpret_cast<float2*>(out + col) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int DP, int S, bool kOnePass>
 int launch(const float* q, const float* k, const float* v, const float* pad, float* out,
            int B, int H, int T, int D, float scale, cudaStream_t stream) {
+  auto kernel = kOnePass ? attn_bf16_kernel<DP, S> : attn_kernel<DP, S>;
   const int bytes = (3 * Tile<DP>::kFloats + kRows) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(attn_kernel<DP, S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int BH = B * H;
   const dim3 grid((BH + S - 1) / S, S == 1 ? (T + kRows - 1) / kRows : 1);
-  attn_kernel<DP, S><<<grid, kThreads, bytes, stream>>>(q, k, v, pad, out, BH, H, T, D, scale);
+  kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, pad, out, BH, H, T, D, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
+template <int DP, bool kOnePass>
 int launch_bucket(const float* q, const float* k, const float* v, const float* pad, float* out,
                   int B, int H, int T, int D, float scale, cudaStream_t stream) {
-  if (T <= kRows / 4) return launch<DP, 4>(q, k, v, pad, out, B, H, T, D, scale, stream);
-  if (T <= kRows / 2) return launch<DP, 2>(q, k, v, pad, out, B, H, T, D, scale, stream);
-  return launch<DP, 1>(q, k, v, pad, out, B, H, T, D, scale, stream);
+  if (T <= kRows / 4)
+    return launch<DP, 4, kOnePass>(q, k, v, pad, out, B, H, T, D, scale, stream);
+  if (T <= kRows / 2)
+    return launch<DP, 2, kOnePass>(q, k, v, pad, out, B, H, T, D, scale, stream);
+  return launch<DP, 1, kOnePass>(q, k, v, pad, out, B, H, T, D, scale, stream);
+}
+
+template <bool kOnePass>
+int forward(const float* q, const float* k, const float* v, const float* pad, float* out, int B,
+            int H, int T, int D, float scale, void* stream) {
+  if (D <= 0 || D % 4 != 0 || D > 128 || (T + kRows - 1) / kRows > 65535 ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || T == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? launch_bucket<64, kOnePass>(q, k, v, pad, out, B, H, T, D, scale, s)
+                 : launch_bucket<128, kOnePass>(q, k, v, pad, out, B, H, T, D, scale, s);
 }
 
 }  // namespace
@@ -298,11 +509,12 @@ extern "C" int attn_max_d() { return 128; }
 extern "C" int attn_forward(const float* q, const float* k, const float* v,
                             const float* pad, float* out, int B, int H, int T,
                             int D, float scale, void* stream) {
-  if (D <= 0 || D % 4 != 0 || D > 128 || (T + kRows - 1) / kRows > 65535 ||
-      static_cast<long long>(B) * H > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || H == 0 || T == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch_bucket<64>(q, k, v, pad, out, B, H, T, D, scale, s)
-                 : launch_bucket<128>(q, k, v, pad, out, B, H, T, D, scale, s);
+  return forward<false>(q, k, v, pad, out, B, H, T, D, scale, stream);
+}
+
+// The one-pass bf16 form (compute_dtype="bfloat16"): as attn_forward.
+extern "C" int attn_forward_bf16(const float* q, const float* k, const float* v,
+                                 const float* pad, float* out, int B, int H, int T, int D,
+                                 float scale, void* stream) {
+  return forward<true>(q, k, v, pad, out, B, H, T, D, scale, stream);
 }

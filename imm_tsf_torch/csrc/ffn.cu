@@ -59,11 +59,26 @@
 // widened bf16 is exact in TF32, so its 3xTF32 low part is zero: that pass
 // is dropped (the sum is the same bits) and each product takes two passes.
 // x, out, a1 and r stay float32.
+//
+// The one-pass form (`ffn_forward_bf16`, compute_dtype="bfloat16": the
+// JAX package's two dots at DEFAULT precision, ffn_kernel.py:76-90) is the
+// same kernel with kOnePass on float32 weights: x and W1, then h (after
+// the activation and the hidden dropout) and W2, are rounded to bf16
+// (nearest even) where their fragments are loaded, and each product is one
+// bf16 mma.sync pass with float32 accumulators (bf16mma.cuh): GEMM1
+// m16n8k16 over two 16-deep steps of a W1 tile, GEMM2 m16n8k8 over the
+// 8-deep W2 tile (a W2 tile of 16 hidden rows would not fit a stage). The
+// tiles, the staging, the epilogue (bias, output dropout, residual on the
+// float32 x, LayerNorm) and the hash bits are the float32 form's. Its
+// products need a third of the 3xTF32 passes at twice TF32's rate: the
+// floor at the serving shape is 34.4 GFLOP at 989 TFLOP/s, ~0.035 ms, under
+// the weight stream's ~1 GB of L2 reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -251,9 +266,52 @@ __device__ __forceinline__ void mma_block(float c[2][NC][4], int n0, const uint3
     for (int mi = 0; mi < 2; ++mi) mma_tf32(c[mi][n0 + n], ah[mi], bh[n]);
 }
 
+// the one-pass form's fragments (bf16mma.cuh), rounded from float32 tiles:
+// A rows (16 mi + g, + 8) x k (2t, 2t + 1 | 2t + 8, 2t + 9), 8-byte loads
+__device__ __forceinline__ void load_a16(const float* s, int ld, int g, int t, uint32_t a[2][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const float* p = s + (16 * mi + g) * ld + 2 * t;
+    const float2 r0 = *reinterpret_cast<const float2*>(p);
+    const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+    const float2 r2 = *reinterpret_cast<const float2*>(p + 8);
+    const float2 r3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+    a[mi][0] = bf16mma::pack(r0.x, r0.y);
+    a[mi][1] = bf16mma::pack(r1.x, r1.y);
+    a[mi][2] = bf16mma::pack(r2.x, r2.y);
+    a[mi][3] = bf16mma::pack(r3.x, r3.y);
+  }
+}
+
+// A rows (16 mi + g, + 8) x k (2t, 2t + 1) of an 8-deep step
+__device__ __forceinline__ void load_a8(const float* s, int ld, int g, int t, uint32_t a[2][2]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const float* p = s + (16 * mi + g) * ld + 2 * t;
+    const float2 r0 = *reinterpret_cast<const float2*>(p);
+    const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+    a[mi][0] = bf16mma::pack(r0.x, r0.y);
+    a[mi][1] = bf16mma::pack(r1.x, r1.y);
+  }
+}
+
+// B[k][g] for k (2t, 2t + 1 | 2t + 8, 2t + 9) of the tile whose B^T rows start at s
+__device__ __forceinline__ void load_b16(const float* s, int ld, int g, int t, uint32_t b[2]) {
+  const float2 v0 = *reinterpret_cast<const float2*>(s + g * ld + 2 * t);
+  const float2 v1 = *reinterpret_cast<const float2*>(s + g * ld + 2 * t + 8);
+  b[0] = bf16mma::pack(v0.x, v0.y);
+  b[1] = bf16mma::pack(v1.x, v1.y);
+}
+
+__device__ __forceinline__ uint32_t load_b8(const float* s, int ld, int g, int t) {
+  const float2 v = *reinterpret_cast<const float2*>(s + g * ld + 2 * t);
+  return bf16mma::pack(v.x, v.y);
+}
+
 // kResiduals: the training form, which also writes a1 [M, F] and r [M, D];
-// W: the weights' type (float, or __nv_bfloat16 for the bf16-weight form)
-template <bool kResiduals, typename W>
+// W: the weights' type (float, or __nv_bfloat16 for the bf16-weight form);
+// kOnePass: the one-pass bf16 form (W float)
+template <bool kResiduals, typename W, bool kOnePass>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
            const W* __restrict__ b1, const W* __restrict__ w2t,
@@ -348,14 +406,29 @@ ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc1[mi][n][e] = 0.f;
       }
+      if constexpr (kOnePass) {
 #pragma unroll
-      for (int kk = 0; kk < kK1; kk += 8) {
-        uint32_t ah[2][4], al[2][4], bh[kNT1][2], bl[kNT1][2];
-        load_a(xs + (32 * wm) * kXLd + j * kK1 + kk, kXLd, g, t, ah, al);
+        for (int kk = 0; kk < kK1; kk += 16) {
+          uint32_t a[2][4], b[kNT1][2];
+          load_a16(xs + (32 * wm) * kXLd + j * kK1 + kk, kXLd, g, t, a);
 #pragma unroll
-        for (int n = 0; n < kNT1; ++n)
-          load_b(w + (32 * wn + 8 * n) * kW1Ld + kk, kW1Ld, g, t, bh[n], bl[n]);
-        mma_block<kNT1, kNT1, Weights<W>::kSplit>(acc1, 0, ah, al, bh, bl);
+          for (int n = 0; n < kNT1; ++n)
+            load_b16(w + (32 * wn + 8 * n) * kW1Ld + kk, kW1Ld, g, t, b[n]);
+#pragma unroll
+          for (int n = 0; n < kNT1; ++n)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) bf16mma::mma16(acc1[mi][n], a[mi], b[n]);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kK1; kk += 8) {
+          uint32_t ah[2][4], al[2][4], bh[kNT1][2], bl[kNT1][2];
+          load_a(xs + (32 * wm) * kXLd + j * kK1 + kk, kXLd, g, t, ah, al);
+#pragma unroll
+          for (int n = 0; n < kNT1; ++n)
+            load_b(w + (32 * wn + 8 * n) * kW1Ld + kk, kW1Ld, g, t, bh[n], bl[n]);
+          mma_block<kNT1, kNT1, Weights<W>::kSplit>(acc1, 0, ah, al, bh, bl);
+        }
       }
       if (j == n1 - 1) {
         // bias (the training form stores a1 here), activation, hidden
@@ -390,16 +463,34 @@ ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
     } else {
       // ---- GEMM2: out[64, D] += h[:, 8 s..] W2[f0 + 8 s.., :] ----
       const int s = j - n1;
-      uint32_t ah[2][4], al[2][4];
-      load_a(hs + (32 * wm) * kHLd + s * kK2, kHLd, g, t, ah, al);
+      if constexpr (kOnePass) {
+        uint32_t a[2][2];
+        load_a8(hs + (32 * wm) * kHLd + s * kK2, kHLd, g, t, a);
 #pragma unroll
-      for (int n0 = 0; n0 < kNT2; n0 += 4) {
-        if (n0 < nt2) {
-          uint32_t bh[4][2], bl[4][2];
+        for (int n0 = 0; n0 < kNT2; n0 += 4) {
+          if (n0 < nt2) {
+            uint32_t b[4];
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
-            load_b(w + (128 * wn + 8 * (n0 + n)) * kW2Ld, kW2Ld, g, t, bh[n], bl[n]);
-          mma_block<4, kNT2, Weights<W>::kSplit>(acc2, n0, ah, al, bh, bl);
+            for (int n = 0; n < 4; ++n)
+              b[n] = load_b8(w + (128 * wn + 8 * (n0 + n)) * kW2Ld, kW2Ld, g, t);
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi) bf16mma::mma8(acc2[mi][n0 + n], a[mi], b[n]);
+          }
+        }
+      } else {
+        uint32_t ah[2][4], al[2][4];
+        load_a(hs + (32 * wm) * kHLd + s * kK2, kHLd, g, t, ah, al);
+#pragma unroll
+        for (int n0 = 0; n0 < kNT2; n0 += 4) {
+          if (n0 < nt2) {
+            uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              load_b(w + (128 * wn + 8 * (n0 + n)) * kW2Ld, kW2Ld, g, t, bh[n], bl[n]);
+            mma_block<4, kNT2, Weights<W>::kSplit>(acc2, n0, ah, al, bh, bl);
+          }
         }
       }
     }
@@ -478,7 +569,7 @@ ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
     }
 }
 
-template <typename W>
+template <typename W, bool kOnePass>
 int launch(const float* x, const W* w1t, const W* b1, const W* w2t, const W* b2, const W* gamma,
            const W* beta, float* out, float* a1, float* r, int M, int D, int F, float keep_prob,
            unsigned int thresh, const long long* salts, int act, int apply_dropout, int vec,
@@ -489,7 +580,7 @@ int launch(const float* x, const W* w1t, const W* b1, const W* w2t, const W* b2,
   if (M == 0) return 0;
   const int bytes = kSmemFloats * static_cast<int>(sizeof(float));
   const bool train = a1 != nullptr;
-  auto kernel = train ? ffn_kernel<true, W> : ffn_kernel<false, W>;
+  auto kernel = train ? ffn_kernel<true, W, kOnePass> : ffn_kernel<false, W, kOnePass>;
   // set on every call: the attribute belongs to the current device's context
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -516,8 +607,21 @@ extern "C" int ffn_forward(const float* x, const float* w1t, const float* b1,
                            const float* beta, float* out, float* a1, float* r, int M, int D,
                            int F, float keep_prob, unsigned int thresh, const long long* salts,
                            int act, int apply_dropout, int vec, void* stream) {
-  return launch<float>(x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh,
-                       salts, act, apply_dropout, vec, stream);
+  return launch<float, false>(x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob,
+                              thresh, salts, act, apply_dropout, vec, stream);
+}
+
+// The one-pass bf16 form (compute_dtype="bfloat16"): as ffn_forward, every
+// argument alike (float32 weights), with the operands of both products
+// rounded to bf16 and one bf16 mma pass each.
+extern "C" int ffn_forward_bf16(const float* x, const float* w1t, const float* b1,
+                                const float* w2t, const float* b2, const float* gamma,
+                                const float* beta, float* out, float* a1, float* r, int M, int D,
+                                int F, float keep_prob, unsigned int thresh,
+                                const long long* salts, int act, int apply_dropout, int vec,
+                                void* stream) {
+  return launch<float, true>(x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob,
+                             thresh, salts, act, apply_dropout, vec, stream);
 }
 
 // The bfloat16-weight form: as ffn_forward, with w1t, b1, w2t, b2, gamma
@@ -530,8 +634,8 @@ extern "C" int ffn_forward_bf16w(const float* x, const void* w1t, const void* b1
                                  const long long* salts, int act, int apply_dropout, int vec,
                                  void* stream) {
   using B = __nv_bfloat16;
-  return launch<B>(x, static_cast<const B*>(w1t), static_cast<const B*>(b1),
-                   static_cast<const B*>(w2t), static_cast<const B*>(b2),
-                   static_cast<const B*>(gamma), static_cast<const B*>(beta), out, a1, r, M, D, F,
-                   keep_prob, thresh, salts, act, apply_dropout, vec, stream);
+  return launch<B, false>(x, static_cast<const B*>(w1t), static_cast<const B*>(b1),
+                          static_cast<const B*>(w2t), static_cast<const B*>(b2),
+                          static_cast<const B*>(gamma), static_cast<const B*>(beta), out, a1, r,
+                          M, D, F, keep_prob, thresh, salts, act, apply_dropout, vec, stream);
 }

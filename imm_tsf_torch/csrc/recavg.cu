@@ -43,6 +43,15 @@
 //   dividing. sigma is read from device memory, so the host never
 //   synchronises on it.
 //
+// The one-pass form (`recavg_forward_bf16`, compute_dtype="bfloat16"): the
+// TPU kernel's weighted sum is a dot_general at DEFAULT precision under
+// that mode (fusion_kernels.py:44-48), so each weight w[n,t] and each V
+// element is rounded to bf16 (nearest even) before the sum, which stays
+// float32; the denominators sum the unrounded weights, as the TPU kernel's
+// w.sum does. It is the same kernel with kOnePass: one rounding of each V
+// element as it is loaded and of each weight as it is parked in shared
+// memory, no other change (the sum runs on the FMA units either way).
+//
 // recavg_forward_tiled is the previous design (one block per sample, 8
 // times and 256 columns, V read again for every 8 times, 4-byte stores),
 // kept so that chip_smoke.py times the two in one run; recavg_empty
@@ -51,6 +60,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "bf16mma.cuh"
 
 namespace {
 
@@ -73,13 +84,21 @@ __device__ __forceinline__ void scale(float4& a, float s) {
   a.w *= s;
 }
 __device__ __forceinline__ void scale(float& a, float s) { a *= s; }
+__device__ __forceinline__ void round_bf16(float4& a) {
+  a.x = bf16mma::round(a.x);
+  a.y = bf16mma::round(a.y);
+  a.z = bf16mma::round(a.z);
+  a.w = bf16mma::round(a.w);
+}
+__device__ __forceinline__ void round_bf16(float& a) { a = bf16mma::round(a); }
 
 template <int W> struct Cols;
 template <> struct Cols<4> { using type = float4; };
 template <> struct Cols<1> { using type = float; };
 
-// kMulti: N > NC, the notes in several chunks (otherwise one, N <= NC)
-template <int W, int NC, bool kMulti>
+// kMulti: N > NC, the notes in several chunks (otherwise one, N <= NC);
+// kOnePass: the one-pass bf16 form
+template <int W, int NC, bool kMulti, bool kOnePass>
 __global__ void __launch_bounds__(kMaxThreads)
 recavg_kernel(const float* __restrict__ tau, const float* __restrict__ t_hat,
               const float* __restrict__ V, const float* __restrict__ mask,
@@ -115,6 +134,7 @@ recavg_kernel(const float* __restrict__ tau, const float* __restrict__ t_hat,
     for (int j = 0; j < NC; ++j) {
       v[j] = Vec{};
       if (live && j < nc) v[j] = ldg(vp + j * (d / W));
+      if (kOnePass) round_bf16(v[j]);
     }
     // every lane of a group runs the same number of rounds, for the shuffles
     // (one round when the block's times are at most its groups)
@@ -126,7 +146,7 @@ recavg_kernel(const float* __restrict__ tau, const float* __restrict__ t_hat,
 #pragma unroll
       for (int off = NC / 2; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off, NC);
       if (t < nt) {
-        w_s[t * NC + k] = w;
+        w_s[t * NC + k] = kOnePass ? bf16mma::round(w) : w;
         if (k == 0) {
           if (!first) s += den_s[t];
           den_s[t] = last ? 1.f / fmaxf(s, 1e-6f) : s;
@@ -170,22 +190,39 @@ bool config_ok(const dim3& grid, int threads, int t_per_block) {
          t_per_block <= kMaxTB && grid.y <= 65535 && grid.z <= 65535;
 }
 
-template <int W>
+template <int W, bool kOnePass>
 void launch(int N, dim3 grid, int threads, cudaStream_t stream, const float* tau,
             const float* t_hat, const float* V, const float* mask, const float* sigma, float* E,
             int T, int d, int t_per_block) {
   if (N <= 8)
-    recavg_kernel<W, 8, false><<<grid, threads, 0, stream>>>(tau, t_hat, V, mask, sigma, E, N,
-                                                             T, d, t_per_block);
+    recavg_kernel<W, 8, false, kOnePass><<<grid, threads, 0, stream>>>(
+        tau, t_hat, V, mask, sigma, E, N, T, d, t_per_block);
   else if (N <= 16)
-    recavg_kernel<W, 16, false><<<grid, threads, 0, stream>>>(tau, t_hat, V, mask, sigma, E, N,
-                                                              T, d, t_per_block);
+    recavg_kernel<W, 16, false, kOnePass><<<grid, threads, 0, stream>>>(
+        tau, t_hat, V, mask, sigma, E, N, T, d, t_per_block);
   else if (N <= 32)
-    recavg_kernel<W, 32, false><<<grid, threads, 0, stream>>>(tau, t_hat, V, mask, sigma, E, N,
-                                                              T, d, t_per_block);
+    recavg_kernel<W, 32, false, kOnePass><<<grid, threads, 0, stream>>>(
+        tau, t_hat, V, mask, sigma, E, N, T, d, t_per_block);
   else
-    recavg_kernel<W, 32, true><<<grid, threads, 0, stream>>>(tau, t_hat, V, mask, sigma, E, N,
-                                                             T, d, t_per_block);
+    recavg_kernel<W, 32, true, kOnePass><<<grid, threads, 0, stream>>>(
+        tau, t_hat, V, mask, sigma, E, N, T, d, t_per_block);
+}
+
+template <bool kOnePass>
+int forward(const float* tau, const float* t_hat, const float* V, const float* mask,
+            const float* sigma, float* E, int B, int N, int T, int d, int threads,
+            int t_per_block, void* stream) {
+  const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(E) % 16 == 0;
+  const int W = aligned ? 4 : 1;
+  const dim3 grid = grid_of(B, T, d, W, threads, t_per_block);
+  if (!config_ok(grid, threads, t_per_block)) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (aligned)
+    launch<4, kOnePass>(N, grid, threads, s, tau, t_hat, V, mask, sigma, E, T, d, t_per_block);
+  else
+    launch<1, kOnePass>(N, grid, threads, s, tau, t_hat, V, mask, sigma, E, T, d, t_per_block);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------- the previous design
@@ -254,17 +291,14 @@ recavg_tiled_kernel(const float* __restrict__ tau, const float* __restrict__ t_h
 extern "C" int recavg_forward(const float* tau, const float* t_hat, const float* V,
                               const float* mask, const float* sigma, float* E, int B, int N,
                               int T, int d, int threads, int t_per_block, void* stream) {
-  const bool aligned = d % 4 == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(E) % 16 == 0;
-  const int W = aligned ? 4 : 1;
-  const dim3 grid = grid_of(B, T, d, W, threads, t_per_block);
-  if (!config_ok(grid, threads, t_per_block)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (aligned)
-    launch<4>(N, grid, threads, s, tau, t_hat, V, mask, sigma, E, T, d, t_per_block);
-  else
-    launch<1>(N, grid, threads, s, tau, t_hat, V, mask, sigma, E, T, d, t_per_block);
-  return static_cast<int>(cudaGetLastError());
+  return forward<false>(tau, t_hat, V, mask, sigma, E, B, N, T, d, threads, t_per_block, stream);
+}
+
+// The one-pass bf16 form (compute_dtype="bfloat16"): as recavg_forward.
+extern "C" int recavg_forward_bf16(const float* tau, const float* t_hat, const float* V,
+                                   const float* mask, const float* sigma, float* E, int B, int N,
+                                   int T, int d, int threads, int t_per_block, void* stream) {
+  return forward<true>(tau, t_hat, V, mask, sigma, E, B, N, T, d, threads, t_per_block, stream);
 }
 
 // An empty kernel on the grid and block recavg_forward launches for a

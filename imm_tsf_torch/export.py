@@ -73,14 +73,28 @@ class _Forecast(torch.nn.Module):
 
 
 def op_counts(ep) -> dict:
-    """The `imm_tsf::*` op nodes of an exported program, by op."""
+    """The `imm_tsf::*` op nodes of an exported program, by op; a node
+    whose `one_pass` argument is true (compute_dtype="bfloat16") counts
+    under "<op>:one_pass", the form it launches."""
     counts: dict = {}
     for node in ep.graph.nodes:
         name = str(node.target)
         if node.op == "call_function" and name.startswith("imm_tsf."):
             op = name.split(".")[1]
+            if _one_pass(node):
+                op += ":one_pass"
             counts[op] = counts.get(op, 0) + 1
     return counts
+
+
+def _one_pass(node) -> bool:
+    """The `one_pass` argument of an `imm_tsf::*` node (False where its op
+    has none or the call left it at its default)."""
+    names = [a.name for a in node.target._schema.arguments]
+    if "one_pass" not in names:
+        return False
+    i = names.index("one_pass")
+    return bool(node.args[i] if i < len(node.args) else node.kwargs.get("one_pass", False))
 
 
 def export_experiment(checkpoint_dir: str, out_dir: str, cfg: Config | None = None,

@@ -15,6 +15,14 @@ differentiable: with a gradient in flight it runs as an autograd Function
 whose backward is `attention_backward_reference`, the plain transcription
 of the JAX package's `_attn_bwd` (:157-182), which is XLA there and not a
 Pallas kernel; the pad mask gets no gradient.
+
+Under compute_dtype="bfloat16" (layers/bf16_products) the JAX kernel's two
+dots run at DEFAULT precision (:47-66): S = bf16(Q) bf16(K)^T, the masked
+softmax in float32, then O = bf16(P) bf16(V), P rounded after the
+softmax's division. The one-pass form (`attn_forward_bf16`, counter
+`one_pass_launches`, `imm_tsf::fused_causal_attention` with `one_pass`)
+does so on the tensor cores (mma.sync bf16, float32 accumulators); its plain
+versions and its backward round the same operands (`one_pass=True`).
 """
 
 from __future__ import annotations
@@ -25,55 +33,65 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..layers import bf16_products
 from ..layers.attention import masked_softmax
+from ..layers.bf16_products import rounding
 from . import _build, ops
 
 launches = 0  # kernel launches through fused_causal_attention
+one_pass_launches = 0  # of which the one-pass bf16 form (compute_dtype="bfloat16")
 launches_by_shape: dict = {}  # the same launches by (B, H, T, D)
 backward_calls = 0  # backward calls of fused_causal_attention (plain, both devices)
 
 
-def softmax_probs(q, k, pad) -> torch.Tensor:
+def softmax_probs(q, k, pad, one_pass: bool = False) -> torch.Tensor:
     """The masked softmax probabilities [B, H, T, T] (after
     attn_kernel.py:_softmax_probs), in float32 or, for float64 inputs,
-    float64."""
+    float64; `one_pass` rounds q and k to bf16 for the scores' product."""
     T = q.shape[2]
     ct = torch.promote_types(q.dtype, torch.float32)
+    rnd = rounding(one_pass)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * scale
+    scores = torch.einsum("bhqd,bhkd->bhqk", rnd(q.to(ct)), rnd(k.to(ct))) * scale
     causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
     keep = causal[None, None] & (pad > 0)[:, None, None, :]
     return masked_softmax(scores, keep)
 
 
-def attention_reference(q, k, v, pad) -> torch.Tensor:
-    """Plain PyTorch forward (after attn_kernel.py:attention_reference)."""
-    p = softmax_probs(q, k, pad)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(p.dtype)).to(q.dtype)
+def attention_reference(q, k, v, pad, one_pass: bool = False) -> torch.Tensor:
+    """Plain PyTorch forward (after attn_kernel.py:attention_reference);
+    `one_pass` rounds the operands of both products to bf16 (outside
+    autograd: the unfused route takes its rounding from the mode)."""
+    rnd = rounding(one_pass)
+    p = softmax_probs(q, k, pad, one_pass)
+    return torch.einsum("bhqk,bhkd->bhqd", rnd(p), rnd(v.to(p.dtype))).to(q.dtype)
 
 
-def attention_backward_reference(q, k, v, pad, g):
+def attention_backward_reference(q, k, v, pad, g, one_pass: bool = False):
     """The hand VJP (attn_kernel.py:_attn_bwd) -> (dq, dk, dv): the
     probabilities recomputed from q, k and pad (none stored), then
     dv = p^T g, dp = g v^T, ds = p (dp - sum(dp p)), dq = ds k / sqrt(D),
     dk = ds^T q / sqrt(D). A row with no kept key has p = 0 and gives
     nothing to any gradient. The products stay torch.matmul: the JAX
-    package leaves them to XLA."""
+    package leaves them to XLA; `one_pass` rounds their operands to bf16
+    (and those of the recomputed scores)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    p = softmax_probs(q, k, pad)
+    rnd = rounding(one_pass)
+    p = softmax_probs(q, k, pad, one_pass)
     ct = p.dtype
     g = g.to(ct)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
-    dp = torch.einsum("bhqd,bhkd->bhqk", g, v.to(ct))
+    dv = torch.einsum("bhqk,bhqd->bhkd", rnd(p), rnd(g))
+    dp = torch.einsum("bhqd,bhkd->bhqk", rnd(g), rnd(v.to(ct)))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(ct)) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct)) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", rnd(ds), rnd(k.to(ct))) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", rnd(ds), rnd(q.to(ct))) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "attn_forward": ([_P] * 5 + [_I, _I, _I, _I, ctypes.c_float, _P], _I),
+    "attn_forward_bf16": ([_P] * 5 + [_I, _I, _I, _I, ctypes.c_float, _P], _I),
     "attn_max_d": ([], _I),
 }
 
@@ -88,15 +106,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _forward(q, k, v, pad) -> torch.Tensor:
-    """Kernel #3 through its op (`ops.fused_causal_attention`): the kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+def _forward(q, k, v, pad, one_pass: bool = False) -> torch.Tensor:
+    """Kernel #3 through its op (`ops.fused_causal_attention`, its
+    one-pass form with `one_pass`): the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     ops.check_device("fused_causal_attention", q)
-    return ops.fused_causal_attention(q, k, v, pad)
+    return ops.fused_causal_attention(q, k, v, pad, bool(one_pass))
 
 
-def _launch(q, k, v, pad) -> torch.Tensor:
-    """Kernel #3 on CUDA tensors (the op's CUDA implementation)."""
+def _launch(q, k, v, pad, one_pass: bool = False) -> torch.Tensor:
+    """Kernel #3 on CUDA tensors (the op's CUDA implementation);
+    `one_pass`: the one-pass bf16 form."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_causal_attention: unsupported device {q.device}")
     if q.dim() != 4:
@@ -122,32 +142,38 @@ def _launch(q, k, v, pad) -> torch.Tensor:
     if out.numel() == 0:
         return out[..., :D]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.attn_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(),
-                          out.data_ptr(), B, H, T, D4, scale, stream)
+    entry = lib.attn_forward_bf16 if one_pass else lib.attn_forward
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad.data_ptr(), out.data_ptr(), B, H,
+               T, D4, scale, stream)
     _build.check(rc, "fused_causal_attention")
-    global launches
+    global launches, one_pass_launches
     launches += 1
+    one_pass_launches += int(one_pass)
     launches_by_shape[(B, H, T, D)] = launches_by_shape.get((B, H, T, D), 0) + 1
     return out if D4 == D else out[..., :D].contiguous()
 
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, pad):
+    def forward(ctx, q, k, v, pad, one_pass):
         ctx.save_for_backward(q, k, v, pad)
-        return _forward(q, k, v, pad)
+        ctx.one_pass = one_pass
+        return _forward(q, k, v, pad, one_pass)
 
     @staticmethod
     def backward(ctx, g):
         global backward_calls
         backward_calls += 1
-        return (*attention_backward_reference(*ctx.saved_tensors, g), None)
+        return (*attention_backward_reference(*ctx.saved_tensors, g, ctx.one_pass), None, None)
 
 
 def fused_causal_attention(q, k, v, pad) -> torch.Tensor:
     """q, k, v [B, H, T, D] float32, pad [B, T] float32 -> [B, H, T, D].
     With a gradient in flight to q, k or v, the same forward runs as an
-    autograd Function whose backward is attention_backward_reference."""
+    autograd Function whose backward is attention_backward_reference.
+    Inside layers/bf16_products.Bf16Products the one-pass bf16 form runs,
+    forward and backward."""
+    one_pass = bf16_products.active()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FusedAttention.apply(q, k, v, pad)
-    return _forward(q, k, v, pad)
+        return _FusedAttention.apply(q, k, v, pad, one_pass)
+    return _forward(q, k, v, pad, one_pass)

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..layers.bf16_products import full_precision
 # cru_scan_reference: the plain version of #6, named beside its kernel
 from ..ops.cru_scan import _build_A, cru_scan_bwd_reference, cru_scan_reference  # noqa: F401
 from . import _build, _cluster, ops
@@ -100,13 +101,15 @@ def _kernel_inputs(args):
     return ins + [_build_A(args[6]).contiguous()] + [t.contiguous() for t in args[7:10]]
 
 
+@full_precision()
 def fused_cru_scan(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
                    trans_var, init_cu, init_cl, max_squarings: int = 7):
     """y_mean, y_var [B,T,lod], valid, dts [B,T], coeff_w [lsd,K], coeff_b [K],
     dense_basis [4,K,lod,lod], trans_var [lsd], init_cu, init_cl [lod]
     (float32) -> (post_means, (pm, pcu, pcl, pcs)), through the op
     `ops.fused_cru_scan`: kernel #6 for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. Full float32 under compute_dtype="bfloat16", as the TPU
+    kernel's HIGHEST products are (the plain version's products too)."""
     ops.check_device("fused_cru_scan", y_mean)
     out, pm, pcu, pcl, pcs = ops.fused_cru_scan(y_mean, y_var, valid, dts, coeff_w, coeff_b,
                                                 dense_basis, trans_var, init_cu, init_cl,

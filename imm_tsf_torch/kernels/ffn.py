@@ -23,6 +23,18 @@ its kernel bf16 weights that it widens in its body (:76-83). The kernel
 reads them as bf16 in that form (`ffn_forward_bf16w`), with no widened
 copy made in the wrapper; the plain versions widen them where they use
 them. A bf16 x, which no path gives, is refused.
+
+Under compute_dtype="bfloat16" (layers/bf16_products) the JAX package runs
+its kernel's two dots at DEFAULT precision (:76-90): x and W1, then h
+(after the activation and the hidden dropout) and W2, rounded to bf16,
+products summed in float32. The one-pass form (`ffn_forward_bf16`,
+counter `one_pass_launches`, `imm_tsf::fused_encoder_ffn` with `one_pass`)
+does so on the tensor cores (mma.sync bf16 with float32 accumulators), in the
+eval and the training form, on float32 weights; the residual, the
+LayerNorm and the hash-dropout bits stay the float32 form's. Its plain
+versions round the same operands (`one_pass=True`), and its backward
+rounds the operands of its four products, as `_ffn_bwd` (:182-230) runs
+them on the TPU.
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..layers import bf16_products
+from ..layers.bf16_products import rounding
 from ..layers.fast_dropout import _keep_mask, _thresh
 from . import _build, ops
 
@@ -41,6 +55,7 @@ _ACTS = {"relu": 0, "gelu": 1}
 launches = 0  # kernel launches through fused_encoder_ffn, both forms
 train_launches = 0  # of which the training form (a1 and r written too)
 bf16w_launches = 0  # of which the bf16-weight form (compute_dtype="amp_bf16")
+one_pass_launches = 0  # of which the one-pass bf16 form (compute_dtype="bfloat16")
 
 
 def _act_fn(a: torch.Tensor, act: str) -> torch.Tensor:
@@ -65,22 +80,25 @@ def _masks(salts, keep_prob: float, M: int, D: int, Fdim: int, device):
 
 
 def ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float,
-                          act: str, apply_dropout: bool, with_residuals: bool = False):
+                          act: str, apply_dropout: bool, with_residuals: bool = False,
+                          one_pass: bool = False):
     """Plain PyTorch forward with the same hash masks (after
     ffn_kernel.py:_ffn_kernel). x [M, D], w1 [D, F], w2 [F, D]. Returns
     out, or (out, a1, r) with the residuals of the training form: a1 the
     pre-activation x W1 + b1, r the pre-LayerNorm sum. Computes in float32,
-    or float64 for float64 inputs."""
+    or float64 for float64 inputs; `one_pass` rounds each product's
+    operands to bf16 first (no gradient flows through that rounding)."""
     M, D = x.shape
     Fdim = w1.shape[1]
     ct = torch.promote_types(x.dtype, torch.float32)
+    rnd = rounding(one_pass)
     xf = x.to(ct)
-    a1 = xf @ w1.to(ct) + b1
+    a1 = rnd(xf) @ rnd(w1.to(ct)) + b1
     h = _act_fn(a1, act)
     if apply_dropout:
         keep_a, keep_b = _masks(salts, keep_prob, M, D, Fdim, x.device)
         h = torch.where(keep_a, h / keep_prob, 0.0)
-    a2 = h @ w2.to(ct) + b2
+    a2 = rnd(h) @ rnd(w2.to(ct)) + b2
     if apply_dropout:
         a2 = torch.where(keep_b, a2 / keep_prob, 0.0)
     r = xf + a2
@@ -100,7 +118,7 @@ def ffn_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float,
 
 
 def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
-                           act: str, apply_dropout: bool):
+                           act: str, apply_dropout: bool, one_pass: bool = False):
     """The hand VJP (ffn_kernel.py:_ffn_bwd) -> (dx, dw1, db1, dw2, db2,
     dgamma, dbeta), dx in x's dtype and the rest in the weights' (bf16
     weights under amp_bf16: each gradient rounded once, as _ffn_bwd's
@@ -108,11 +126,14 @@ def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
     and `_FusedFFN` casts each to its own). The LayerNorm statistics are
     recomputed from r with the forward's E[r^2] - mu^2 variance; both dropout masks are re-derived
     from the salts (no stored mask); act' is taken at a1. The four
-    products stay torch.matmul: the JAX package leaves them to XLA."""
+    products stay torch.matmul: the JAX package leaves them to XLA;
+    `one_pass` rounds their operands to bf16, as the TPU runs them under
+    compute_dtype="bfloat16"."""
     M, D = x.shape
     Fdim = a1.shape[1]
     ct = r.dtype
     g = g.to(ct)
+    rnd = rounding(one_pass)
 
     mu = r.mean(dim=-1, keepdim=True)
     var = (r * r).mean(dim=-1, keepdim=True) - mu * mu
@@ -132,15 +153,15 @@ def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
     else:
         da2, hd = dr, h
 
-    dw2 = hd.t() @ da2
+    dw2 = rnd(hd).t() @ rnd(da2)
     db2 = da2.sum(dim=0)
-    dhd = da2 @ w2.to(ct).t()
+    dhd = rnd(da2) @ rnd(w2.to(ct)).t()
     dh = torch.where(keep_a, dhd / keep_prob, 0.0) if apply_dropout else dhd
     da1 = _act_grad(dh, a1, act)
 
-    dw1 = x.to(ct).t() @ da1
+    dw1 = rnd(x.to(ct)).t() @ rnd(da1)
     db1 = da1.sum(dim=0)
-    dx = da1 @ w1.to(ct).t() + dr
+    dx = rnd(da1) @ rnd(w1.to(ct)).t() + dr
     return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(w1.dtype), dw2.to(w2.dtype),
             db2.to(w2.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
 
@@ -149,6 +170,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "ffn_forward": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
     "ffn_forward_bf16w": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
+    "ffn_forward_bf16": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
     "ffn_max_d": ([], _I),
 }
 # the weight dtypes the kernel reads, and how many fit a 16-byte copy
@@ -171,22 +193,25 @@ def _device_salts(salts, device) -> torch.Tensor:
 
 
 def _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
-             apply_dropout: bool, with_residuals: bool):
-    """Kernel #2 through its op (`ops.fused_encoder_ffn`): the kernel for
+             apply_dropout: bool, with_residuals: bool, one_pass: bool = False):
+    """Kernel #2 through its op (`ops.fused_encoder_ffn`, its one-pass
+    form with `one_pass`): the kernel for
     CUDA tensors, the plain version for CPU tensors. out, or (out, a1, r)
     in the training form. The salts reach the op as a tensor, or None
     without dropout."""
     ops.check_device("fused_encoder_ffn", x)
     salts = torch.as_tensor(salts) if apply_dropout else None
-    out, a1, r = ops.fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts, float(keep_prob),
-                                       act, bool(apply_dropout), bool(with_residuals))
+    out, a1, r = ops.fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
+                                       float(keep_prob), act, bool(apply_dropout),
+                                       bool(with_residuals), bool(one_pass))
     return (out, a1, r) if with_residuals else out
 
 
 def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
-            apply_dropout: bool, with_residuals: bool):
+            apply_dropout: bool, with_residuals: bool, one_pass: bool = False):
     """Kernel #2 on CUDA tensors (the op's CUDA implementation): out, or
-    (out, a1, r) in the training form."""
+    (out, a1, r) in the training form; `one_pass`: the one-pass bf16 form
+    (float32 weights)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder_ffn: unsupported device {x.device}")
     M, D = x.shape
@@ -200,6 +225,9 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
     wdt = w1.dtype  # the form: float32 weights, or the bf16-weight form
     if wdt not in _WEIGHT_DTYPES:
         raise ValueError(f"fused_encoder_ffn: weights must be float32 or bfloat16, got {wdt}")
+    if one_pass and wdt != torch.float32:
+        raise ValueError(f"fused_encoder_ffn: the one-pass bf16 form takes float32 weights, "
+                         f"got {wdt}")
     shapes = {"w1": (w1, (D, Fdim)), "b1": (b1, (Fdim,)), "w2": (w2, (Fdim, D)),
               "b2": (b2, (D,)), "gamma": (gamma, (D,)), "beta": (beta, (D,))}
     for name, (t, shape) in {"x": (x, (M, D)), **shapes}.items():
@@ -230,7 +258,8 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
         vec = D % per16 == 0 and Fdim % per16 == 0 and all(t.data_ptr() % 16 == 0
                                                            for t in (x, w1t, w2t))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        entry = lib.ffn_forward if wdt == torch.float32 else lib.ffn_forward_bf16w
+        entry = (lib.ffn_forward_bf16 if one_pass else
+                 lib.ffn_forward if wdt == torch.float32 else lib.ffn_forward_bf16w)
         rc = entry(
             x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
@@ -240,20 +269,22 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
             s.data_ptr() if s is not None else None, _ACTS[act], int(bool(apply_dropout)),
             int(vec), stream)
         _build.check(rc, "fused_encoder_ffn")
-        global launches, train_launches, bf16w_launches
+        global launches, train_launches, bf16w_launches, one_pass_launches
         launches += 1
         train_launches += int(with_residuals)
         bf16w_launches += int(wdt == torch.bfloat16)
+        one_pass_launches += int(one_pass)
     return (out, a1, r) if with_residuals else out
 
 
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout):
+    def forward(ctx, x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout,
+                one_pass):
         out, a1, r = _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act,
-                              apply_dropout, with_residuals=True)
+                              apply_dropout, with_residuals=True, one_pass=one_pass)
         ctx.save_for_backward(x, w1, w2, gamma, a1, r)
-        ctx.salts, ctx.static = salts, (keep_prob, act, apply_dropout)
+        ctx.salts, ctx.static = salts, (keep_prob, act, apply_dropout, one_pass)
         ctx.dtypes = tuple(t.dtype for t in (x, w1, b1, w2, b2, gamma, beta))
         return out
 
@@ -261,7 +292,7 @@ class _FusedFFN(torch.autograd.Function):
     def backward(ctx, g):
         x, w1, w2, gamma, a1, r = ctx.saved_tensors
         grads = ffn_backward_reference(x, w1, w2, gamma, ctx.salts, a1, r, g, *ctx.static)
-        return (*(d.to(dt) for d, dt in zip(grads, ctx.dtypes)), None, None, None, None)
+        return (*(d.to(dt) for d, dt in zip(grads, ctx.dtypes)), None, None, None, None, None)
 
 
 def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
@@ -277,8 +308,12 @@ def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
     otherwise); on the card the kernel reads them from device memory, so
     host salts are copied there first and device salts are read in place.
     With a gradient in flight the training form runs; without one, the
-    eval form (the a1 [M, F] write is waste there)."""
+    eval form (the a1 [M, F] write is waste there). Inside
+    layers/bf16_products.Bf16Products the one-pass bf16 form runs, forward
+    and backward."""
     params = (x, w1, b1, w2, b2, gamma, beta)
+    one_pass = bf16_products.active()
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
-        return _FusedFFN.apply(*params, salts, keep_prob, act, apply_dropout)
-    return _forward(*params, salts, keep_prob, act, apply_dropout, with_residuals=False)
+        return _FusedFFN.apply(*params, salts, keep_prob, act, apply_dropout, one_pass)
+    return _forward(*params, salts, keep_prob, act, apply_dropout, with_residuals=False,
+                    one_pass=one_pass)

@@ -27,7 +27,11 @@ when an op runs, so that they can import it.
 | `fused_cru_scan` | #6 `csrc/cru_scan.cu`: post-means and the four residuals |
 
 #4 and #7 (backward kernels) stay outside the ops: autograd calls them,
-and no exported forward does.
+and no exported forward does. The ops of #1-#3 take `one_pass`, their
+one-pass bf16 forms (compute_dtype="bfloat16", layers/bf16_products:
+`recavg_forward_bf16`, `ffn_forward_bf16`, `attn_forward_bf16`): the
+argument is recorded in an exported program, so an artifact exported
+under that precision launches those forms (`export.op_counts` names them).
 """
 
 from __future__ import annotations
@@ -53,22 +57,23 @@ def check_device(name: str, t: Tensor) -> None:
 @torch.library.custom_op("imm_tsf::recency_weighted_average", mutates_args=(),
                          device_types="cpu")
 def recency_weighted_average(tau: Tensor, t_hat: Tensor, V: Tensor, mask: Tensor,
-                             sigma: Tensor) -> Tensor:
-    """[B,N] x [B,T] x [B,N,d] x [B,N] x 0-d sigma -> E [B,T,d]."""
+                             sigma: Tensor, one_pass: bool = False) -> Tensor:
+    """[B,N] x [B,T] x [B,N,d] x [B,N] x 0-d sigma -> E [B,T,d]. `one_pass`:
+    the one-pass bf16 form, w and V rounded to bf16 for the weighted sum."""
     from .recavg import recavg_reference
 
-    return recavg_reference(tau, t_hat, V, mask, sigma)
+    return recavg_reference(tau, t_hat, V, mask, sigma, one_pass=one_pass)
 
 
 @recency_weighted_average.register_kernel("cuda")
-def _(tau, t_hat, V, mask, sigma):
+def _(tau, t_hat, V, mask, sigma, one_pass=False):
     from .recavg import _launch
 
-    return _launch(tau, t_hat, V, mask, sigma)
+    return _launch(tau, t_hat, V, mask, sigma, one_pass=one_pass)
 
 
 @recency_weighted_average.register_fake
-def _(tau, t_hat, V, mask, sigma):
+def _(tau, t_hat, V, mask, sigma, one_pass=False):
     return V.new_empty((V.shape[0], t_hat.shape[1], V.shape[2]))
 
 
@@ -78,35 +83,40 @@ def _(tau, t_hat, V, mask, sigma):
 @torch.library.custom_op("imm_tsf::fused_encoder_ffn", mutates_args=(), device_types="cpu")
 def fused_encoder_ffn(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                       gamma: Tensor, beta: Tensor, salts: Optional[Tensor], keep_prob: float,
-                      act: str, apply_dropout: bool,
-                      with_residuals: bool) -> tuple[Tensor, Tensor, Tensor]:
+                      act: str, apply_dropout: bool, with_residuals: bool,
+                      one_pass: bool = False) -> tuple[Tensor, Tensor, Tensor]:
     """-> (out [M, D], a1 [M, F], r [M, D]); a1 and r are empty [0] in the
     eval form (`with_residuals` False). salts: the integer [2, 2] salts, or
-    None without dropout."""
+    None without dropout. `one_pass`: the one-pass bf16 form (float32
+    weights), x, W1, h and W2 rounded to bf16 at the two products."""
     from .ffn import ffn_forward_reference
 
     if with_residuals:
         out, a1, r = ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob,
-                                           act, apply_dropout, with_residuals=True)
+                                           act, apply_dropout, with_residuals=True,
+                                           one_pass=one_pass)
         return out, a1, r
     out = ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act,
-                                apply_dropout)
+                                apply_dropout, one_pass=one_pass)
     return out, _no_residual(x), _no_residual(x)
 
 
 @fused_encoder_ffn.register_kernel("cuda")
-def _(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, with_residuals):
+def _(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, with_residuals,
+      one_pass=False):
     from .ffn import _launch
 
     if with_residuals:
         return _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout,
-                       True)
-    out = _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, False)
+                       True, one_pass=one_pass)
+    out = _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, False,
+                  one_pass=one_pass)
     return out, _no_residual(x), _no_residual(x)
 
 
 @fused_encoder_ffn.register_fake
-def _(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, with_residuals):
+def _(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, with_residuals,
+      one_pass=False):
     out = torch.empty_like(x)
     if not with_residuals:
         return out, _no_residual(x), _no_residual(x)
@@ -124,22 +134,25 @@ def _no_residual(x: Tensor) -> Tensor:
 
 @torch.library.custom_op("imm_tsf::fused_causal_attention", mutates_args=(),
                          device_types="cpu")
-def fused_causal_attention(q: Tensor, k: Tensor, v: Tensor, pad: Tensor) -> Tensor:
-    """q, k, v [B, H, T, D], pad [B, T] -> [B, H, T, D]."""
+def fused_causal_attention(q: Tensor, k: Tensor, v: Tensor, pad: Tensor,
+                           one_pass: bool = False) -> Tensor:
+    """q, k, v [B, H, T, D], pad [B, T] -> [B, H, T, D]. `one_pass`: the
+    one-pass bf16 form, q, k, then the probabilities and v rounded to bf16
+    at the two products."""
     from .attn import attention_reference
 
-    return attention_reference(q, k, v, pad)
+    return attention_reference(q, k, v, pad, one_pass=one_pass)
 
 
 @fused_causal_attention.register_kernel("cuda")
-def _(q, k, v, pad):
+def _(q, k, v, pad, one_pass=False):
     from .attn import _launch
 
-    return _launch(q, k, v, pad)
+    return _launch(q, k, v, pad, one_pass=one_pass)
 
 
 @fused_causal_attention.register_fake
-def _(q, k, v, pad):
+def _(q, k, v, pad, one_pass=False):
     return torch.empty_like(q)
 
 

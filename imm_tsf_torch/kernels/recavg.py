@@ -16,6 +16,15 @@ differentiable: its backward is `recavg_backward_reference`, the plain
 PyTorch transcription of the JAX package's hand VJP (`_bwd`,
 fusion_kernels.py:120-140), which is XLA there and not a Pallas kernel.
 Gradients go to tau, t_hat, V and sigma; mask is data.
+
+The TPU kernel's weighted sum is a dot_general that names no precision
+(fusion_kernels.py:44-48), as is the XLA path's einsum (fusion/ttf.py:82):
+under compute_dtype="bfloat16" (layers/bf16_products) both run at DEFAULT,
+w and V rounded to bf16 for the sum while the denominator sums the
+float32 w. The one-pass form (`recavg_forward_bf16`, counter
+`one_pass_launches`, `imm_tsf::recency_weighted_average` with
+`one_pass`) rounds the same two operands in the kernel; the plain versions and the backward
+round theirs (`one_pass=True`), as `_bwd`'s einsums run on the TPU.
 """
 
 from __future__ import annotations
@@ -24,30 +33,37 @@ import ctypes
 
 import torch
 
+from ..layers import bf16_products
+from ..layers.bf16_products import rounding
 from . import _build, ops
 
 launches = 0  # kernel launches through recency_weighted_average
+one_pass_launches = 0  # of which the one-pass bf16 form (compute_dtype="bfloat16")
 
 
-def recavg_reference(tau, t_hat, V, mask, sigma) -> torch.Tensor:
-    """Plain PyTorch forward (after fusion_kernels.py:_recavg_xla)."""
+def recavg_reference(tau, t_hat, V, mask, sigma, one_pass: bool = False) -> torch.Tensor:
+    """Plain PyTorch forward (after fusion_kernels.py:_recavg_xla);
+    `one_pass` rounds w and V to bf16 for the weighted sum."""
+    rnd = rounding(one_pass)
     delta = (t_hat[:, None, :] - tau[:, :, None]).clamp(min=0)  # [B,N,T]
     w = torch.exp(-((delta / sigma) ** 2)) * mask[:, :, None]
     denom = w.sum(dim=1).clamp(min=1e-6)  # [B,T]
-    return torch.einsum("bnt,bnd->btd", w, V) / denom[:, :, None]
+    return torch.einsum("bnt,bnd->btd", rnd(w), rnd(V)) / denom[:, :, None]
 
 
-def recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE):
+def recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE, one_pass: bool = False):
     """The hand VJP (fusion_kernels.py:_bwd) -> (dtau, dt_hat, dV, dsigma).
-    w and its sum are recomputed; E is the forward's output."""
+    w and its sum are recomputed; E is the forward's output. `one_pass`
+    rounds the operands of its two products to bf16."""
+    rnd = rounding(one_pass)
     delta = (t_hat[:, None, :] - tau[:, :, None]).clamp(min=0)  # [B,N,T]
     w = torch.exp(-((delta / sigma) ** 2)) * mask[:, :, None]
     S = w.sum(dim=1)  # [B,T] (pre-clip)
     inv = 1.0 / S.clamp(min=1e-6)
-    dV = torch.einsum("bnt,btd->bnd", w * inv[:, None, :], dE)
+    dV = torch.einsum("bnt,btd->bnd", rnd(w * inv[:, None, :]), rnd(dE))
     # dW[t,d] = dE/denom; dS = -(E . dE)/denom, gated by the clip
     dS = -(E * dE).sum(-1) * inv * (S > 1e-6).to(dE.dtype)  # [B,T]
-    dw = torch.einsum("bnd,btd->bnt", V, dE * inv[:, :, None]) + dS[:, None, :]
+    dw = torch.einsum("bnd,btd->bnt", rnd(V), rnd(dE * inv[:, :, None])) + dS[:, None, :]
     ddelta = dw * (w * (-2.0 * delta / sigma ** 2))
     ddelta = ddelta * (t_hat[:, None, :] - tau[:, :, None] > 0).to(dE.dtype)
     dsigma = (dw * w * 2.0 * delta ** 2 / sigma ** 3).sum()
@@ -56,6 +72,7 @@ def recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"recavg_forward": ([_P] * 6 + [_I] * 6 + [_P], _I),
+               "recavg_forward_bf16": ([_P] * 6 + [_I] * 6 + [_P], _I),
                "recavg_forward_tiled": ([_P] * 6 + [_I] * 4 + [_P], _I),
                "recavg_empty": ([_I] * 5 + [_P], _I)}
 
@@ -66,23 +83,27 @@ def _library() -> ctypes.CDLL:
 
 class _RecencyAverage(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tau, t_hat, V, mask, sigma):
-        E = _forward(tau, t_hat, V, mask, sigma)
+    def forward(ctx, tau, t_hat, V, mask, sigma, one_pass):
+        E = _forward(tau, t_hat, V, mask, sigma, one_pass=one_pass)
         ctx.save_for_backward(tau, t_hat, V, mask, sigma, E)
+        ctx.one_pass = one_pass
         return E
 
     @staticmethod
     def backward(ctx, dE):
         tau, t_hat, V, mask, sigma, E = ctx.saved_tensors
-        dtau, dt_hat, dV, dsigma = recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE)
-        return dtau, dt_hat, dV, None, dsigma.reshape(sigma.shape)
+        dtau, dt_hat, dV, dsigma = recavg_backward_reference(tau, t_hat, V, mask, sigma, E, dE,
+                                                             ctx.one_pass)
+        return dtau, dt_hat, dV, None, dsigma.reshape(sigma.shape), None
 
 
 def recency_weighted_average(tau, t_hat, V, mask, sigma) -> torch.Tensor:
     """[B,N] x [B,T] x [B,N,d] x [B,N] x 0-d sigma -> E [B,T,d], differentiable.
+    Inside layers/bf16_products.Bf16Products the one-pass bf16 form runs,
+    forward and backward.
 
     On CUDA, sigma stays a device tensor: the host never syncs on it."""
-    return _RecencyAverage.apply(tau, t_hat, V, mask, sigma)
+    return _RecencyAverage.apply(tau, t_hat, V, mask, sigma, bf16_products.active())
 
 
 def launch_config(T: int) -> tuple[int, int]:
@@ -114,19 +135,21 @@ def _checked(tau, t_hat, V, mask, sigma):
     return tuple(t.contiguous() for t in (tau, t_hat, V, mask, sigma))
 
 
-def _forward(tau, t_hat, V, mask, sigma, config=None) -> torch.Tensor:
-    """Kernel #1 through its op (`ops.recency_weighted_average`): the
-    kernel for CUDA tensors, the plain version for CPU tensors. config:
+def _forward(tau, t_hat, V, mask, sigma, config=None, one_pass: bool = False) -> torch.Tensor:
+    """Kernel #1 through its op (`ops.recency_weighted_average`, its
+    one-pass form with `one_pass`): the kernel for CUDA tensors, the plain
+    version for CPU tensors. config:
     (threads, t_per_block) launches the kernel on that grid instead of
     launch_config's (CUDA tensors; for timing)."""
     if config is not None:
-        return _launch(tau, t_hat, V, mask, sigma, config)
+        return _launch(tau, t_hat, V, mask, sigma, config, one_pass)
     ops.check_device("recency_weighted_average", V)
-    return ops.recency_weighted_average(tau, t_hat, V, mask, sigma)
+    return ops.recency_weighted_average(tau, t_hat, V, mask, sigma, one_pass)
 
 
-def _launch(tau, t_hat, V, mask, sigma, config=None) -> torch.Tensor:
-    """Kernel #1 on CUDA tensors (the op's CUDA implementation)."""
+def _launch(tau, t_hat, V, mask, sigma, config=None, one_pass: bool = False) -> torch.Tensor:
+    """Kernel #1 on CUDA tensors (the op's CUDA implementation);
+    `one_pass`: the one-pass bf16 form."""
     tau, t_hat, V, mask, sigma = _checked(tau, t_hat, V, mask, sigma)
     B, N, d = V.shape
     T = t_hat.shape[1]
@@ -135,12 +158,14 @@ def _launch(tau, t_hat, V, mask, sigma, config=None) -> torch.Tensor:
     if E.numel() == 0:
         return E
     threads, t_per_block = config or launch_config(T)
-    rc = lib.recavg_forward(tau.data_ptr(), t_hat.data_ptr(), V.data_ptr(), mask.data_ptr(),
-                            sigma.data_ptr(), E.data_ptr(), B, N, T, d, threads, t_per_block,
-                            torch.cuda.current_stream(V.device).cuda_stream)
+    entry = lib.recavg_forward_bf16 if one_pass else lib.recavg_forward
+    rc = entry(tau.data_ptr(), t_hat.data_ptr(), V.data_ptr(), mask.data_ptr(), sigma.data_ptr(),
+               E.data_ptr(), B, N, T, d, threads, t_per_block,
+               torch.cuda.current_stream(V.device).cuda_stream)
     _build.check(rc, "recency_weighted_average")
-    global launches
+    global launches, one_pass_launches
     launches += 1
+    one_pass_launches += int(one_pass)
     return E
 
 

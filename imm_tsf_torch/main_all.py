@@ -5,7 +5,7 @@ main_all.py:12-205).
         [--enable_text 1 0] [--epoch N] [--data_root ./data] \\
         [--results_dir experiment_results] [--device cuda] \\
         [--parallel N --worker_device cuda|cpu] [--seeds S] [--lrs l1 l2 ...] \
-        [--compute_dtype float32|amp_bf16]
+        [--compute_dtype float32|bfloat16|amp_bf16]
 
 Cartesian product over datasets x models x enable_text x TTF x MMF with:
   - the default fusion pair only when text is off (:109-117);
@@ -20,9 +20,10 @@ are the best-validation replica's under an lr grid, else the base seed's,
 with every replica's metrics beside them. The JAX main_all's `--dropout_impl`
 is not carried over: the port trains with the hash dropout only
 (`dropout_impl="flax"` is ROADMAP.md, Queue 1, item 19). `--compute_dtype
-amp_bf16` trains every combination under the JAX package's mixed precision
-(training/trainer.make_forward; the continuous-time models refuse it), into
-result files named with it.
+bfloat16` trains every combination with one-pass bf16 products (every
+model), `amp_bf16` under the JAX package's mixed precision (the
+continuous-time models refuse it), each into result files named with it
+(training/trainer.make_forward).
 
 `--parallel N` runs combinations in N worker processes (a spawn pool). On
 cuda (the default `--worker_device`) each worker takes one card
@@ -274,9 +275,12 @@ def main(argv=None):
                          "the best-validation replica's, the whole grid beside them")
     ap.add_argument("--device", default="cuda",
                     help="where a serial sweep runs: cuda (default) or cpu")
-    ap.add_argument("--compute_dtype", default="float32", choices=["float32", "amp_bf16"],
-                    help="every combination's compute_dtype: amp_bf16 is the JAX package's "
-                         "mixed precision (MTS/LMTS models only; the others refuse it)")
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=["float32", "bfloat16", "amp_bf16"],
+                    help="every combination's compute_dtype: bfloat16 runs every product "
+                         "with bf16-rounded operands and float32 sums (every model); amp_bf16 "
+                         "is the JAX package's mixed precision (MTS/LMTS models only; the "
+                         "others refuse it)")
     ap.add_argument("--worker_device", choices=["cuda", "cpu"], default="cuda",
                     help="where --parallel workers run: cuda (default; one card a "
                          "worker, N cards needed) or cpu")

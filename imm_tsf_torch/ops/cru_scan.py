@@ -25,6 +25,14 @@ instead, `cru_scan_reference` (the loop with the plain expm forward and
 backward, `expm_plain`), under autograd. `cru_scan_bwd_reference` is the
 plain version of kernel #7; chip_smoke.py holds the kernels against them.
 
+Under compute_dtype="bfloat16" (layers/bf16_products) each route follows
+its own JAX route: the default route's products (`cru_scan_xla`, which
+names no precision) take one-pass bf16 operands, while the fused route's
+Pallas kernels pin every product to HIGHEST (cru_scan_kernel.py:47-66),
+so `_FusedScan`, kernel #7's plain version and the plain route under
+IMM_TSF_CRU_FUSED=1 run under `full_precision()`. The expm is HIGHEST on
+both routes (ops/expm.py).
+
 Semantics (reference CRUCell.py:277-314 update, :357-500 predict):
     inputs  y_mean [B,T,lod], y_var [B,T,lod], valid [B,T], dts [B,T]
     params  coeff_w [lsd,K], coeff_b [K], dense_basis [4,K,lod,lod],
@@ -34,10 +42,12 @@ Semantics (reference CRUCell.py:277-314 update, :357-500 predict):
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
 
+from ..layers.bf16_products import full_precision
 from .expm import expm, expm_frechet_taylor12, expm_plain, expm_taylor12
 
 
@@ -157,6 +167,7 @@ def cru_scan_reference(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
 
 
 @torch.no_grad()
+@full_precision()
 def cru_scan_bwd_reference(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
                            trans_var, init_cu, init_cl, residuals, g,
                            max_squarings: int = 7):
@@ -249,8 +260,10 @@ class _FusedScan(torch.autograd.Function):
                 init_cu, init_cl, max_squarings):
         from ..kernels.cru_scan import fused_cru_scan
 
-        out, residuals = fused_cru_scan(y_mean, y_var, valid, dts, coeff_w, coeff_b,
-                                        dense_basis, trans_var, init_cu, init_cl, max_squarings)
+        with full_precision():
+            out, residuals = fused_cru_scan(y_mean, y_var, valid, dts, coeff_w, coeff_b,
+                                            dense_basis, trans_var, init_cu, init_cl,
+                                            max_squarings)
         ctx.save_for_backward(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
                               trans_var, init_cu, init_cl, *residuals)
         ctx.max_squarings = max_squarings
@@ -261,8 +274,9 @@ class _FusedScan(torch.autograd.Function):
         from ..kernels.cru_scan import fused_cru_scan_backward
 
         saved = ctx.saved_tensors
-        gy, gyv, gW, gb, gA, gq, gicu, gicl = fused_cru_scan_backward(
-            *saved[:10], saved[10:], g, ctx.max_squarings)
+        with full_precision():
+            gy, gyv, gW, gb, gA, gq, gicu, gicl = fused_cru_scan_backward(
+                *saved[:10], saved[10:], g, ctx.max_squarings)
         # _build_A is a block placement: its pullback is block extraction
         lod = gicu.shape[0]
         g_basis = torch.stack([gA[:, :lod, :lod], gA[:, :lod, lod:],
@@ -289,9 +303,12 @@ def cru_scan_auto(y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
                   kernel: bool = True):
     """What models/cru.py calls: the fused route under IMM_TSF_CRU_FUSED=1,
     the default route otherwise (the variable is read once, here); with
-    kernel=False, the plain version."""
+    kernel=False, the plain version, in the precision of the route it
+    stands for (full float32 for the fused one)."""
     args = (y_mean, y_var, valid, dts, coeff_w, coeff_b, dense_basis,
             trans_var, init_cu, init_cl, max_squarings)
+    fused = _use_fused()
     if not kernel:
-        return cru_scan_reference(*args)[0]
-    return (cru_scan if _use_fused() else cru_scan_xla)(*args)
+        with full_precision() if fused else contextlib.nullcontext():
+            return cru_scan_reference(*args)[0]
+    return (cru_scan if fused else cru_scan_xla)(*args)

@@ -23,6 +23,10 @@ the backward is kernel #4 at every n it takes.
 
 `expm_plain` is the same function with plain forward and backward on any
 device: what the CRU trains through with `use_pallas` off.
+
+Every product here is the JAX package's `_mm`, pinned to
+Precision.HIGHEST (:27): the plain versions run under
+`full_precision()`, so they stay float32 under compute_dtype="bfloat16".
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..layers.bf16_products import full_precision
 
 _T12_C = [1.0 / math.factorial(i) for i in range(13)]
 _THETA_T12 = 1.0  # ||M/2^k|| <= 1 -> Taylor-12 truncation ~1.6e-10 << f32 eps
@@ -42,6 +48,7 @@ def _squarings(M: torch.Tensor, max_squarings: int) -> torch.Tensor:
     return torch.clamp(k, max=max_squarings)
 
 
+@full_precision()
 def expm_taylor12(M: torch.Tensor, max_squarings: int = 7) -> torch.Tensor:
     """Solve-free expm of [..., n, n]: degree-12 Taylor via
     Paterson-Stockmeyer on M/2^k, then `max_squarings` masked squarings
@@ -72,6 +79,7 @@ def _pmm(p, q):
     return X @ Y, X @ dY + dX @ Y
 
 
+@full_precision()
 def expm_frechet_taylor12(M: torch.Tensor, E: torch.Tensor,
                           max_squarings: int = 7) -> torch.Tensor:
     """L_exp(M)[E] of [..., n, n]: Taylor-12 and masked squarings on

@@ -81,7 +81,8 @@ from .evaluation import batch_error_sums
 COUNTERS = ((recavg, "launches"), (ffn, "launches"), (ffn, "train_launches"),
             (ffn, "bf16w_launches"), (expm, "launches"), (expm, "frechet_launches"),
             (cru_scan, "launches"), (cru_scan, "backward_launches"), (attn, "launches"),
-            (attn, "backward_calls"))
+            (attn, "backward_calls"), (recavg, "one_pass_launches"),
+            (ffn, "one_pass_launches"), (attn, "one_pass_launches"))
 WARMUP_CALLS = 1  # eager calls of a key before its capture
 
 
@@ -350,7 +351,11 @@ def route_sites(*modules) -> list:
 
 def route_of(sites: list) -> tuple:
     """The route a forward takes now: each site's flag, and the CRU route
-    that ops/cru_scan reads from IMM_TSF_CRU_FUSED at each call."""
+    that ops/cru_scan reads from IMM_TSF_CRU_FUSED at each call. The
+    precision needs no field: trainer.make_forward reads compute_dtype
+    once, so a forward (and the runner a service, a sweep or an artifact
+    builds around it) keeps one precision for its life, and two
+    precisions never share a runner's keys."""
     return tuple(bool(getattr(m, flag)) for m, flag in sites) + (cru_scan_ops._use_fused(),)
 
 

@@ -65,6 +65,7 @@ import torch
 
 from ..config import IMTS_MODELS, Config
 from ..device import resolve_run_device
+from ..layers.bf16_products import Bf16Products
 from ..layers.fast_dropout import Dropout
 from ..layers.prob_attention import ProbAttention
 from .evaluation import evaluation, finalize_metrics, masked_mse_loss
@@ -81,19 +82,25 @@ def make_forward(cfg: Config, model, fusion):
     eval mode is the caller's (eval under `torch.inference_mode()` to
     serve).
 
-    compute_dtype (the JAX package's make_forward, :163-193):
+    compute_dtype (the JAX package's make_forward, :163-207):
     "float32" and "highest" run every product in full float32 (the port
     keeps TF32 off, device.py), which is what "highest" asks for;
+    "bfloat16" runs the whole forward, backbone and fusion stack, under
+    layers/bf16_products.Bf16Products, the JAX package's
+    `jax.default_matmul_precision("bfloat16")`: every float32 product that
+    JAX leaves at DEFAULT takes bf16-rounded operands (round to nearest
+    even) with float32 sums and result, in the forward and in its backward
+    (the incoming gradient rounded too); kernels #1-#3 take their one-pass
+    routes; the products JAX pins to HIGHEST (the expm, the fused CRU
+    scan) stay float32; parameters, bias adds, norms, softmax, dropout and
+    the loss stay float32. It holds for every backbone;
     "amp_bf16" runs the backbone as the JAX package does
     (layers/jax_promotion.amp_call: bf16 copies of the parameters and float
     inputs made at each call, BatchNorm statistics f32, JAX's promotion for
     every later dtype), and the fusion stack in float32 on the backbone's
     float32 output; the continuous-time models refuse it with the JAX
-    package's ValueError. "bfloat16" is refused."""
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16': the port computes in float32 or amp_bf16 only; "
-            "bfloat16 compute is not ported yet (ROADMAP.md, Queue 1, item 18)")
+    package's ValueError. The precision is read here, once: a forward
+    keeps the one it was built with."""
     amp = cfg.compute_dtype == "amp_bf16"
     if amp and cfg.model in IMTS_MODELS:
         raise ValueError(
@@ -102,6 +109,7 @@ def make_forward(cfg: Config, model, fusion):
             f"differences (dt) that need fp32 resolution. Use the default "
             f"compute_dtype ('float32' already runs matmuls as single-pass "
             f"bf16 on the TPU MXU).")
+    one_pass = cfg.compute_dtype == "bfloat16"
     if amp:
         from ..layers.jax_promotion import amp_call
 
@@ -110,6 +118,12 @@ def make_forward(cfg: Config, model, fusion):
         backbone = model
 
     def forward(batch: dict):
+        if one_pass:
+            with Bf16Products():
+                return _forward(batch)
+        return _forward(batch)
+
+    def _forward(batch: dict):
         extra = {"prompt_ids": batch["prompt_ids"]} if "prompt_ids" in batch else {}
         pred_y = backbone(batch["tp_to_predict"], batch["observed_data"],
                           batch["observed_tp"], batch["observed_mask"], **extra).float()

@@ -15,8 +15,8 @@ init through params_from_jax.
     tests/test_amp_bf16.py);
   - hash dropout on bf16 and kernel #2's plain version on bf16 weights,
     against the JAX ones;
-  - JAX's refusal for the four continuous-time models, the item-18
-    refusal of "bfloat16".
+  - JAX's refusal for the four continuous-time models; "bfloat16" runs the
+    one-pass products (tests/test_torch_bf16*.py hold it to JAX).
 
 tests/test_torch_amp_train.py holds the training step and the entry
 points.
@@ -353,7 +353,24 @@ def test_amp_refused_for_continuous_time_models(model):
 
 
 def test_bfloat16_compute_still_refused():
-    with pytest.raises(NotImplementedError, match=r"Queue 1, item 18"):
-        trainer.make_forward(TConfig(model="DLinear", compute_dtype="bfloat16"), None, None)
+    """(Named for the refusal compute_dtype="bfloat16" met until its one-pass
+    products were ported.) make_forward takes it: DLinear's forward equals
+    the float32 forward run inside Bf16Products, bit for bit, and is not the
+    float32 forward (tests/test_torch_bf16*.py hold the mode to JAX)."""
+    from imm_tsf_torch.layers.bf16_products import Bf16Products
+
+    jcfg = _cfg("DLinear", False)
+    tcfg = TConfig(**dataclasses.asdict(jcfg.replace(compute_dtype="bfloat16")))
+    torch.manual_seed(0)
+    tm = get_model(tcfg).eval()
+    batch = _tensors(_batch())
+    f32 = tcfg.replace(compute_dtype="float32")
+    with torch.inference_mode():
+        got = trainer.make_forward(tcfg, tm, None)(batch)
+        with Bf16Products():
+            want = trainer.make_forward(f32, tm, None)(batch)
+        float32 = trainer.make_forward(f32, tm, None)(batch)
+    assert torch.equal(got, want)
+    assert (got - float32).abs().max() >= 1e-4
 
 

@@ -17,7 +17,11 @@ largest entry (tests/test_ops_expm.py:117), at each cluster size; the
 fused CRU scan and its backward against their plain versions run in
 float64, to 2.5 x (1e-4 + 1e-4|ref|) and SCAN_BWD_SCORE_MAX x (1e-5
 max|ref| + 1e-5|ref|) (chip_smoke.check_scan and check_scan_bwd: T Kalman
-steps whose float32 rounding alone passes 1e-4 + 1e-4|ref|)."""
+steps whose float32 rounding alone passes 1e-4 + 1e-4|ref|). The one-pass
+bf16 forms of #1-#3 (compute_dtype="bfloat16") are held as
+chip_smoke.one_pass_score holds them: each output's relative norm distance
+to its plain version run in float64 within 4 times the float32 plain
+version's own, and under a tenth of the float32 products'."""
 
 import os
 
@@ -30,9 +34,10 @@ from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_i
                         check_scan, check_scan_bwd, compare_step, compare_timellm_step,
                         dropout_probe_inputs, expm_inputs, expm_rel_err, expm_tri_inputs,
                         ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
-                        recavg_inputs, run_imts_serving, run_mts_serving, scan_bwd_case,
-                        scan_inputs, training_data)
+                        one_pass_score, recavg_inputs, run_imts_serving, run_mts_serving,
+                        scan_bwd_case, scan_inputs, training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
+from imm_tsf_torch.layers.bf16_products import Bf16Products
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 from imm_tsf_torch.ops.expm import expm as ops_expm
 from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_plain, expm_taylor12
@@ -1052,3 +1057,95 @@ def test_a_failed_capture_raises(dev):
         runner({"x": np.ones((4, 4), np.float32)})
     assert recavg.launches == before + 1  # the eager call's, not the capture's
     assert runner.stats()["graphs"] == 0
+
+
+# ------------------------------------------------ the one-pass bf16 forms
+def _float64(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,F,act,drop", [(1000, 512, 2048, "gelu", True),
+                                            (37, 96, 200, "relu", False)])
+@pytest.mark.parametrize("train", [False, True])
+def test_ffn_one_pass_form_matches_plain(dev, gen, M, D, F, act, drop, train):
+    """#2's one-pass form (launched inside Bf16Products, or with one_pass for
+    the training form): out, a1 and r against the plain version's roundings;
+    the float32 and bf16-weight counters untouched."""
+    args = ffn_inputs(M, D, F, gen, dev)
+    before = (ffn.launches, ffn.one_pass_launches, ffn.bf16w_launches)
+    if train:
+        got = ffn._forward(*args, KEEP, act, drop, with_residuals=True, one_pass=True)
+    else:
+        with Bf16Products():
+            got = (ffn.fused_encoder_ffn(*args, KEEP, act, drop),)
+    torch.cuda.synchronize()
+    assert (ffn.launches, ffn.one_pass_launches, ffn.bf16w_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    ref = lambda a, **k: ffn.ffn_forward_reference(*a, KEEP, act, drop, with_residuals=train,
+                                                   **k)
+    want = [ref(args, one_pass=True), ref(_float64(args), one_pass=True), ref(args)]
+    if not train:
+        want = [(w,) for w in want]
+    for name, g, p, p64, f in zip(("out", "a1", "r"), got, *want):
+        one_pass_score(f"#2 {name}", g, p, p64, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 12, 68, 64), (1024, 12, 32, 64), (64, 12, 1024, 64),
+                                   (2, 3, 45, 96)])
+def test_attention_one_pass_form_matches_plain(dev, gen, shape):
+    """#3's one-pass form (two walks over the keys, P normalised then
+    rounded) against the plain version's roundings, right-padded rows."""
+    args = attn_inputs(*shape, gen, dev, lo=bucket_lo(shape[2]))
+    n = attn.one_pass_launches
+    with Bf16Products():
+        got = attn.fused_causal_attention(*args)
+    torch.cuda.synchronize()
+    assert attn.one_pass_launches == n + 1
+    ref = lambda a, **k: attn.attention_reference(*a, **k)
+    one_pass_score(f"#3 {shape}", got, ref(args, one_pass=True),
+                   ref(_float64(args), one_pass=True), ref(args))
+
+
+@pytest.mark.cuda
+def test_attention_one_pass_form_gives_exact_zeros(dev, gen):
+    """A row that keeps no key gives exact zeros in the one-pass form too."""
+    args = attn_ragged_inputs(gen, dev)
+    got = attn._forward(*args, one_pass=True)
+    assert bool((got[1] == 0).all()) and bool((got[0, :, 0] == 0).all())
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 8, 24, 768), (5, 70, 9, 767)])
+def test_recency_average_one_pass_form_matches_plain(dev, gen, shape):
+    """#1's one-pass form: w and V rounded for the sum, the denominator on
+    the float32 weights; several note chunks and 4-byte columns too."""
+    args = recavg_inputs(*shape, gen, dev, empty_sample=True)
+    with Bf16Products():
+        got = recavg.recency_weighted_average(*args)
+    assert bool((got[-1] == 0).all())
+    ref = lambda a, **k: recavg.recavg_reference(*a, **k)
+    one_pass_score(f"#1 {shape}", got, ref(args, one_pass=True),
+                   ref(_float64(args), one_pass=True), ref(args))
+
+
+@pytest.mark.cuda
+def test_mode_products_use_bf16_gemms_with_float32_output(dev, gen):
+    """Under Bf16Products a CUDA linear and its gradients are the products
+    of the rounded operands (cuBLAS bf16 GEMMs, float32 output), to float32
+    summation; float32 outside the mode."""
+    x = torch.randn((300, 512), generator=gen, device=dev, requires_grad=True)
+    lin = torch.nn.Linear(512, 256).to(dev)
+    g = torch.randn((300, 256), generator=gen, device=dev)
+    with Bf16Products():
+        y = lin(x)
+    y.backward(g)
+    r = lambda t: t.detach().to(torch.bfloat16).double()
+    want = r(x) @ r(lin.weight).t() + lin.bias.double()
+    assert (y.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    assert (x.grad.double() - r(g) @ r(lin.weight)).abs().max() <= 1e-5 * x.grad.abs().max()
+    assert (lin.weight.grad.double() - r(g).t() @ r(x)).abs().max() <= (
+        1e-5 * lin.weight.grad.abs().max())
+    assert (lin(x).double() - want).abs().max() >= 1e-3

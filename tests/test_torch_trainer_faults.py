@@ -12,10 +12,10 @@ handles, on the CPU.
   backward that first gives a NaN (the JAX package's NaN trapping,
   :726-727); without it a NaN gradient only shows as a NaN loss a step
   later.
-- `compute_dtype` bfloat16 is refused by the port's make_forward, in
-  serving as in training; amp_bf16 on the CRU experiment raises the JAX
-  package's ValueError for the continuous-time models (amp_bf16 itself is
-  ported, tests/test_torch_amp.py); float32 and highest are served.
+- `compute_dtype` on the CRU experiment: bfloat16 is served (one-pass bf16
+  products, tests/test_torch_bf16*.py); amp_bf16 raises the JAX package's
+  ValueError for the continuous-time models (amp_bf16 itself is ported,
+  tests/test_torch_amp.py); float32 and highest are served.
 - `llm_tp` above 1 (the JAX package's tensor-parallel LLM mesh) is
   refused where the raw-text stage would load the LLM.
 
@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CRU_CFG, make_experiment
+from chip_smoke import CRU_CFG, make_experiment, make_requests
 from imm_tsf_torch.config import Config
 from imm_tsf_torch.data.synthetic import make_synthetic_dataset
 from imm_tsf_torch.serving import ForecastService
@@ -150,10 +150,22 @@ def test_service_refuses_bfloat16_compute(tmp_path, dtype):
         with pytest.raises(ValueError, match="continuous-time models"):
             make_forward(cfg, None, None)
         return
-    with pytest.raises(NotImplementedError, match=r"float32 or amp_bf16 only.*Queue 1, item 18"):
-        ForecastService(exp, max_batch=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        make_forward(cfg, None, None)
+    # "bfloat16" (refused until the one-pass bf16 products were ported): the
+    # CRU service builds and answers, and its answer is not float32's
+    inst = make_requests(cfg, 1, 0)[0]
+    answers = {}
+    for compute_dtype in ("bfloat16", "float32"):
+        if compute_dtype == "float32":
+            make_experiment(exp, dict(kw, compute_dtype="float32"), 0)
+        svc = ForecastService(exp, max_batch=4, device="cpu")
+        try:
+            assert svc.cfg.compute_dtype == compute_dtype
+            answers[compute_dtype] = np.asarray(svc.forecast([inst])[0]["prediction"])
+        finally:
+            svc.close()
+    assert answers["bfloat16"].shape == (len(inst["tp_to_predict"]), cfg.input_dim)
+    assert np.isfinite(answers["bfloat16"]).all()
+    assert not np.array_equal(answers["bfloat16"], answers["float32"])
 
 
 def test_raw_text_stage_refuses_a_tensor_parallel_llm():

@@ -303,3 +303,183 @@ def pinned_salts(monkeypatch, n_sites: int, seed: int = 11) -> list:
                         lambda rng: tuple(jnp.uint32(s) for s in next(jcycle)))
     monkeypatch.setattr(fast_dropout, "draw_salts", lambda generator=None: next(tcycle))
     return salts
+
+
+# ------------------------------------------------- the bf16 product oracle
+def _default_precision(precision) -> bool:
+    """A dot's or a convolution's precision stamp is DEFAULT (what
+    `jax.default_matmul_precision("bfloat16")` writes on both operands)."""
+    from jax import lax
+
+    if isinstance(precision, tuple):
+        return len(precision) > 0 and all(p == lax.Precision.DEFAULT for p in precision)
+    return precision == lax.Precision.DEFAULT
+
+
+def _bf16_rounded(x):
+    """The MLIR value x (a float32 tensor) rounded to bf16 and widened back:
+    two converts, as XLA's convert rounds (to nearest even)."""
+    from jax._src.lib.mlir import ir
+    from jax._src.lib.mlir.dialects import hlo
+
+    t = ir.RankedTensorType(x.type)
+    bf = ir.RankedTensorType.get(t.shape, ir.BF16Type.get())
+    return hlo.convert(t, hlo.convert(bf, x))
+
+
+def _one_pass_rule(rule):
+    """`rule` (a dot_general or conv_general_dilated lowering) with the two
+    float32 operands of a DEFAULT-precision product rounded to bf16 first."""
+
+    def lower(ctx, lhs, rhs, *args, precision=None, **params):
+        if _default_precision(precision) and all(a.dtype == np.float32
+                                                 for a in ctx.avals_in[:2]):
+            lhs, rhs = _bf16_rounded(lhs), _bf16_rounded(rhs)
+        return rule(ctx, lhs, rhs, *args, precision=precision, **params)
+
+    return lower
+
+
+def install_bf16_oracle():
+    """Give the CPU the semantics a DEFAULT-precision float32 product has on
+    an accelerator under compute_dtype="bfloat16": JAX on the CPU ignores
+    the stamp and computes in float32, so it is no oracle for the mode by
+    itself. This registers CPU lowerings of lax.dot_general_p and
+    lax.conv_general_dilated_p that round a DEFAULT product's float32
+    operands to bf16 and then call the original rule. It edits nothing of
+    the JAX package; it reaches into JAX's private lowering registry
+    (jax._src.interpreters.mlir), which a JAX upgrade may move. Returns the
+    function that restores the original entries; caches are cleared at both
+    ends, so no program compiled under one lowering runs under the other."""
+    from jax import lax
+    from jax._src.interpreters import mlir
+
+    cpu = mlir._platform_specific_lowerings["cpu"]
+    saved = {}
+    for prim in (lax.dot_general_p, lax.conv_general_dilated_p):
+        saved[prim] = cpu.get(prim)
+        rule = (saved[prim] or mlir._lowerings[prim]).rule
+        mlir.register_lowering(prim, _one_pass_rule(rule), platform="cpu")
+    jax.clear_caches()
+
+    def restore():
+        for prim, entry in saved.items():
+            if entry is None:
+                cpu.pop(prim, None)
+            else:
+                cpu[prim] = entry
+        jax.clear_caches()
+
+    return restore
+
+
+class UnroundedProducts(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records each float32 product that ATen runs on an operand that bf16
+    does not hold exactly (x != bf16(x)), by op: under compute_dtype=
+    "bfloat16" on the CPU every one-pass product (layers/bf16_products and
+    the kernels' plain versions) multiplies float32 copies of bf16 values,
+    so a product that escaped the mode, in the forward or the backward,
+    shows here. Products are mm, bmm, addmm, baddbmm, mv, dot, a
+    convolution and its backward (their bias and output arguments are not
+    operands)."""
+
+    OPERANDS = {"mm": (0, 1), "bmm": (0, 1), "addmm": (1, 2), "baddbmm": (1, 2),
+                "mv": (0, 1), "addmv": (1, 2), "dot": (0, 1), "convolution": (0, 1),
+                "convolution_backward": (0, 1, 2)}
+
+    def __init__(self):
+        super().__init__()
+        self.found: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        for i in self.OPERANDS.get(name, ()):
+            t = args[i] if i < len(args) else None
+            if (isinstance(t, torch.Tensor) and t.dtype == torch.float32
+                    and not torch.equal(t, t.to(torch.bfloat16).float())):
+                self.found[name] = self.found.get(name, 0) + 1
+                break
+        return func(*args, **(kwargs or {}))
+
+
+# ------------------------------------- the backbones under compute_dtype="bfloat16"
+# (tests/test_torch_bf16*.py): every backbone small, with TTF_RecAvg +
+# MMF_GR_Add and the kernel routes on
+BF16_BASE = dict(EXPERIMENT, input_dim=3, input_len=16, pred_len=8, use_pallas=True)
+BF16_MODELS = {
+    "DLinear": dict(moving_avg=5),
+    "Informer": dict(d_model=32, d_ff=64, n_heads=2, e_layers=2, d_layers=1, factor=3,
+                     use_fused_ffn=True),
+    "PatchTST": dict(d_model=16, d_ff=32, n_heads=2, e_layers=1, use_fused_ffn=True),
+    "TimesNet": dict(d_model=8, d_ff=16, e_layers=2, top_k=3, num_kernels=2),
+    "TimeMixer": dict(d_model=8, d_ff=16, e_layers=2, down_sampling_layers=3,
+                      down_sampling_window=2, moving_avg=5, top_k=3),
+    "TimeLLM": dict(input_token_len=4, d_model=16, d_ff=32, n_heads=2, ts_vocab_size=64,
+                    top_k=1, llm_layers_timellm=1, use_fused_attn=True),
+    "TTM": dict(patch_size=4, stride=4, d_model=64, e_layers=1, d_layers=1, d_d_model=16,
+                AP_levels=2),
+    "CRU": dict(cru_lsd=8, cru_hidden_units=16),
+    "LatentODE": dict(ode_rec_dims=8, ode_units=16, ode_gru_units=8, ode_latents=4),
+    "NeuralFlow": dict(nf_hidden_dim=16, nf_hidden_layers=2, nf_rec_dims=8, nf_latents=6),
+    "tPatchGNN": dict(hid_dim=8, te_dim=4, node_dim=5, n_heads=2, patch_size=2,
+                      patch_stride=2, npatch=4),
+}
+
+def sample_chunks(K: int, n: int = 8, seed: int = 0) -> list:
+    """n windows of the served experiment's layout (7 days of history, 7 to
+    forecast): ragged observations in both, a fifth missing, 1-4 notes."""
+    from imm_tsf_tpu.data.dataset import Chunk
+
+    rng = np.random.default_rng(seed)
+    chunks = []
+    for i in range(n):
+        L = int(rng.integers(6, 14))
+        tt = np.sort(np.concatenate([rng.uniform(0, 6.9, L - 3), rng.uniform(7.0, 13.9, 3)]))
+        mask = (rng.random((L, K)) < 0.8).astype(np.float32)
+        mask[:, 0] = 1.0
+        vals = (rng.standard_normal((L, K)) * mask).astype(np.float32)
+        n_notes = int(rng.integers(1, 5))
+        chunks.append(Chunk(f"r{i}_chunk0", tt.astype(np.float32), vals, mask,
+                            np.sort(rng.uniform(0, 7, n_notes)).astype(np.float32),
+                            [rng.standard_normal(D_TXT).astype(np.float32)
+                             for _ in range(n_notes)]))
+    return chunks
+
+
+def backbone_case(model: str, compute_dtype: str = "bfloat16", **kw):
+    """(JAX Config, the batch (JAX collate), the JAX params and stats: the
+    init under key 3, the model's leaves moved off it, TTF_RecAvg's sigma
+    1.7) for `model` + TTF_RecAvg + MMF_GR_Add."""
+    from imm_tsf_tpu.serving import collate_chunks
+
+    jcfg = JConfig(**{**BF16_BASE, "model": model, **BF16_MODELS[model],
+                      "compute_dtype": compute_dtype, **kw})
+    batch = collate_chunks(jcfg, sample_chunks(jcfg.input_dim), D_TXT, 14.0, 8)
+    batch = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+    jm, jf = j_get_model(jcfg), JFusionModel(jcfg)
+    params, stats = jax.jit(lambda key: jtrainer.init_state(jcfg, jm, jf, batch, key))(
+        jax.random.PRNGKey(3))
+    params = {"model": perturbed(params["model"], 0.02), "fusion": np_tree(params["fusion"])}
+    params["fusion"]["ttf"]["log_recency_sigma"] = np.float32(np.log(1.7))
+    return jcfg, batch, (jm, jf), params, np_tree(stats)
+
+
+def port_modules(jcfg, params, stats):
+    """The port's Config, backbone and fusion stack loaded from the JAX state."""
+    import dataclasses
+
+    from imm_tsf_torch.fusion.fusion_model import FusionModel
+    from imm_tsf_torch.models import get_model
+
+    tcfg = TConfig(**dataclasses.asdict(jcfg))
+    torch.manual_seed(0)
+    tm, tf = get_model(tcfg), FusionModel(tcfg, d_notes=D_TXT)
+    mstate, fstate = params_from_jax(params, stats)
+    tm.load_state_dict(mstate)
+    tf.load_state_dict(fstate)
+    return tcfg, tm, tf
+
+
+def tensors(batch: dict) -> dict:
+    """A collated NumPy batch as tensors."""
+    return {k: torch.from_numpy(v) for k, v in batch.items()}

@@ -21,8 +21,10 @@ chip_smoke's inf-norms 0.01, 0.5, 6 and 80, in turn), #5 at the served
 [64, 64, 64] on the 72 Van Loan blocks of the served scan batch (one call
 each, in turn; block triangular) and on the dense norm mix of #4, #6 at
 the served batch (B 64, T 72, lod 16, K 15) and #7 at the trained one
-(B 32). --save writes #2's (both forms, the training form with dropout),
-#5's and #6's outputs on these inputs to FILE (torch.save); --against FILE
+(B 32). --save writes #1's (both shapes), #2's (both forms, the training
+form with dropout; and both again in the bf16-weight form), #3's (each
+bucket), #5's and #6's outputs on these inputs to FILE (torch.save), all
+of them the float32 forms a float32 run launches; --against FILE
 adds "max_abs_diff", the largest difference between those outputs and the
 ones saved in FILE (another checkout's, on the same inputs).
 """
@@ -64,21 +66,23 @@ def main() -> int:
                            check=True).stdout.strip()
     out = {"tag": args.tag, "root": root, "device": torch.cuda.get_device_name(0),
            "power": power}
-    out["recavg_ms"] = {}
+    out["recavg_ms"], recavg_sets = {}, []
     for shape in ((64, 8, 24, 768), (32, 8, 36, 768)):
         sets = [cs.recavg_inputs(*shape, gen, dev) for _ in range(4)]
         out["recavg_ms"][str(list(shape))] = cs.device_ms(recavg.recency_weighted_average, sets,
                                                           per_rep=200)
+        recavg_sets.append(sets[0])
     ffn_sets = [cs.ffn_inputs(8192, 512, 2048, gen, dev) for _ in range(2)]
     out["ffn_ms"] = cs.device_ms(lambda *a: ffn.fused_encoder_ffn(*a, cs.KEEP, "gelu", False),
                                  ffn_sets, per_rep=10)
-    out["attn"] = {}
+    out["attn"], attn_sets = {}, []
     for T in (32, 64, 128, 256, 512, 1024):
         rows = max(64, 32768 // T)
         rows = 1 << (rows - 1).bit_length()
         sets = [cs.attn_inputs(rows, 12, T, 64, gen, dev, cs.bucket_lo(T)) for _ in range(2)]
         out["attn"][f"[{rows},12,{T},64]"] = cs.device_ms(attn.fused_causal_attention, sets,
                                                           per_rep=20 if T <= 128 else 5)
+        attn_sets.append(sets[0])
     sets = [list(cs.frechet_inputs(32, 64, norm, gen, dev)) + [cs.MAX_SQUARINGS]
             for norm in NORMS]
     out["frechet_ms"] = cs.device_ms(expm.batched_expm_frechet, sets, per_rep=20)
@@ -95,8 +99,16 @@ def main() -> int:
                                       [list(bwd_ins.values()) + [residuals, g]], per_rep=2)
     ffn_args = ffn_sets[0]
     ffn_train = ffn._forward(*ffn_args, cs.KEEP, "gelu", True, with_residuals=True)
+    bf16w = cs.bf16_weights(ffn_args)
+    bf16w_train = ffn._forward(*bf16w, cs.KEEP, "gelu", True, with_residuals=True)
     outputs = {"ffn": torch.cat([ffn.fused_encoder_ffn(*ffn_args, cs.KEEP, "gelu", False).flatten(),
                                  *(o.flatten() for o in ffn_train)]),
+               "ffn_bf16w": torch.cat([ffn.fused_encoder_ffn(*bf16w, cs.KEEP, "gelu",
+                                                             False).flatten(),
+                                       *(o.flatten() for o in bf16w_train)]),
+               "recavg": torch.cat([recavg.recency_weighted_average(*a).flatten()
+                                    for a in recavg_sets]),
+               "attn": torch.cat([attn.fused_causal_attention(*a).flatten() for a in attn_sets]),
                "expm": torch.stack([expm.batched_expm(*a) for a in blocks]),
                "expm_dense": torch.stack([expm.batched_expm(*a) for a in dense]),
                "scan": torch.cat([torch.cat([o.flatten() for o in (s[0], *s[1])])
