@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     rec 40, latents 20; tPatchGNN hid 32, te 10, node 10, 1 head, 1 layer,
     patched as SERVED_PATCHING: 4 patches of 2 days, each holding points)
     + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded weights, 256 ragged
-    requests from 8 threads (the LatentODE 16, a request a dispatch, its
+    requests from 8 threads (the LatentODE 8, a request a dispatch, its
     union time axis): answers finite with their rows, #1 exactly once a
     dispatch and nothing else, one dispatch kernels vs plain to 1e-4 +
     1e-4|ref|, one traced; (b) train each through
@@ -274,7 +274,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     held to 14b's fused run; launches S x the serial run's, its tested
     epochs made the sweep's; (d) (a) interrupted after one epoch and
     resumed, bit for bit; then the rates of (a)-(c): one run of the
-    cell's flags and the sweep, RATE_EPOCHS (6) epochs each with no early
+    cell's flags and the sweep, RATE_EPOCHS (4) epochs each with no early
     stop, in the order one, sweep, sweep, one; windows/s per card of each
     timed epoch, the median and spread a side, the ratio of the medians;
     launches exact in every run;
@@ -287,7 +287,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     answer within 1e-6 + 1e-5|ref| (whether bit for bit printed), launch
     counts exactly the live service's, one #1 and one #2 eval form a
     dispatch; export seconds, artifact bytes and dispatch p50 against the
-    live service's; (b) 14b's fused CRU exported at 1 and 8 (one #6 a
+    live service's; (b) 14b's fused CRU exported at 8 (one #6 a
     dispatch), held the same way (its default route's artifact, 72 #5 a
     dispatch, takes 79 s to trace on the chip machine's host: cut, and
     measured by tools/torch_export_probe.py); (c) `python -m imm_tsf_torch.predict` (in process) on 14a's
@@ -295,8 +295,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     of 14a's, windows/s; (d) `serve --artifact` on a local port answers 8
     of (a)'s requests as (a)'s artifact does, bit for bit; `main_all` runs
     DLinear with text on and off for one epoch on the card, then again,
-    skipping both by their result files; (e) 14d's TimesNet exported at 1
-    and 8 (its static period canvas traces; one #1 a dispatch) and held to
+    skipping both by their result files; (e) 14d's TimesNet exported at 8
+    (its static period canvas traces; one #1 a dispatch) and held to
     the live service as (b) is, bit for bit;
 17. compute_dtype="amp_bf16" (the JAX package's mixed precision: bf16
     copies of the backbone's parameters and inputs at every forward, JAX's
@@ -345,7 +345,20 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     each, launches exact, every replay bit for bit with the eager forward;
     (d) (b)'s experiment exported at B 8 and served, 64 requests, bit for
     bit with the live service;
- 5. (after 6-19) time each kernel and its plain version at the shapes
+20. data parallelism over torch.distributed (parallel/mesh.py): (a) #2's
+    four forms (eval, training, bf16-weight, one-pass; dropout on) on the
+    second half of phase 3's M 8,192 at row_base 4,096 against their plain
+    versions at that row_base, and bit for bit with rows 4,096.. of a
+    row_base 0 call over the whole batch; (b) 14a's flags with
+    --mesh_shape 1 (NCCL, one rank) on the epoch loop, captured, bit for
+    bit with 14a's loop run, launches exact, windows/s beside 14a's, one
+    all-reduce of the run's parameter count timed; (c) --mesh_shape 2
+    --share_card (two rank processes on the card, gloo, CUDA tensors) on
+    the streaming loop for DP_EPOCHS (2) epochs, per-step losses and each
+    epoch's val mse within DP_RTOL (1e-5) of (b)'s, rank 0's launches
+    exact; (d) --mesh_shape min(cards, 4) over NCCL where the machine has
+    two cards or more, else logged as not run;
+ 5. (after 6-20) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -372,7 +385,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     triangular form; #3 also over the raw-text run's own launches, each
     launched shape timed and bounded; at TimeLLM's two shapes its forward,
     its plain backward (bound: five products to the forward's two) and
-    SDPA's autograd backward beside it).
+    SDPA's autograd backward beside it; #2's training form and its eval
+    form with dropout at row_base 0 and 8,192, in the order 0, M, M, 0).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the repository beside it (imm_tsf_torch does not import), the script
@@ -592,14 +606,16 @@ SWEEP_ARGS = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
 # phase 15's rates: a cell's one run and its sweep, RATE_EPOCHS epochs each
 # with no early stop (epoch 0 captures; 1 on are timed), run one, sweep,
 # sweep, one
-RATE_EPOCHS = 6
+RATE_EPOCHS = 4  # 6 before phase 20 (PERF.md §4: a cut of depth)
 RATE_ARGS = ["--epoch", str(RATE_EPOCHS), "--patience", str(RATE_EPOCHS)]
 RESUME_RTOL = 1e-6  # only where an op with atomics (named by the run) breaks bitwise equality
 # phase 16: the deployment path on phase 14's experiments. An artifact is
 # held to the live service as the JAX package holds its own
 # (tests/test_export.py:160-163); predict to the trained run's test metrics
 ARTIFACT_TOL = (1e-6, 1e-5)  # (atol, rtol)
-ARTIFACT_BATCHES = {"16a": (8, 64), "16b": (1, 8), "16e": (1, 8)}
+# 16b and 16e at B 8 alone (1 and 8 before phase 20: the B 1 program was
+# exported and never served; PERF.md §4, a cut of depth)
+ARTIFACT_BATCHES = {"16a": (8, 64), "16b": (8,), "16e": (8,)}
 N_ARTIFACT_REQUESTS = {"16a": 512, "16b": 64, "16e": 64}
 PREDICT_RTOL = 1e-6
 # phase 17: compute_dtype="amp_bf16", the JAX package's mixed precision
@@ -630,6 +646,15 @@ N_BF16_REQUESTS = 64
 # under a tenth of the distance of the float32 products' output (the form
 # is one-pass, not float32)
 ONE_PASS_SCORE_MAX = 4.0
+# phase 20: data parallelism (parallel/mesh.py). 20b trains 14a's flags over a
+# data mesh of one rank (NCCL) on the epoch loop, bit for bit with 14a; 20c
+# over two ranks sharing the card (gloo, CUDA tensors) on the streaming loop
+# and 20d over min(cards, 4) cards (NCCL) on the epoch loop where the machine
+# has two or more, DP_EPOCHS epochs each, within DP_RTOL of 20b's first epochs
+MESH_ONE = ["--mesh_shape", "1"]
+DP_EPOCHS = 2
+DP_RTOL = 1e-5
+ROW_BASE_FORMS = ("eval", "training", "bf16_weight", "one_pass")
 PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 # 16d: main_all's two combinations, DLinear with text on and off
 MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text", "1", "0",
@@ -641,7 +666,7 @@ MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text"
 # TTF_RecAvg + MMF_GR_Add (d_txt 768). The LatentODE is served a request a
 # dispatch (its union time axis), so it takes fewer requests
 IMTS_MODELS = ("LatentODE", "NeuralFlow", "tPatchGNN")
-N_IMTS_REQUESTS = {"LatentODE": 16, "NeuralFlow": 256, "tPatchGNN": 256}
+N_IMTS_REQUESTS = {"LatentODE": 8, "NeuralFlow": 256, "tPatchGNN": 256}  # LatentODE 16 before phase 20
 # tPatchGNN's served and compared patching: the preset's 24 (days here) spans
 # EPA-Air's whole 7-day history in one patch; patches of 2 days give 4, each
 # holding points. The trained run keeps the reference's own derivation
@@ -2011,7 +2036,7 @@ def expected_counts(route: str, T: int, steps: int, evals: int) -> dict:
 
 def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n_test: int,
                 early_stop_delta: float, expected, free=(), inspect=None,
-                streaming: bool = True) -> dict:
+                streaming: bool = True, rank0: bool = False) -> dict:
     """Train through imm_tsf_torch.main.main(args) with the launch counts
     zeroed just before; every loss and metric must be finite and, on cuda,
     the counts equal expected(steps, evals), but for the counters named in
@@ -2019,7 +2044,10 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
     phases' device ms. inspect(result), when given, sees trainable()'s
     result (the trained modules too). `streaming` pins the streaming loop
     (STREAM: phases 7-13 keep the per-phase step timings of PRs 7-14);
-    phase 14 runs the default epoch loop with it off."""
+    phase 14 runs the default epoch loop with it off. `rank0`: a run over
+    rank processes (`--mesh_shape N`, N > 1), whose counts are rank 0's
+    own (its timings' "launches"); `inspect` does not run there (the
+    modules stay in the ranks)."""
     timings: dict = {}
     zero_counts()
     t0 = time.monotonic()
@@ -2028,6 +2056,10 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
                           timings=timings)
     wall = time.monotonic() - t0
     launches = read_counts()
+    if rank0:
+        counted = timings["launches"]
+        launches = {name: counted[f"{m.__name__.rsplit('.', 1)[-1]}.{a}"]
+                    for name, (m, a) in KERNEL_COUNTS.items()}
     hist = res["history"]
     losses = [x for h in hist for x in h["step_losses"]]
     metrics = [res[k] for k in ("mse", "mae", "rmse")] + [h["val"]["mse"] for h in hist]
@@ -2041,7 +2073,7 @@ def train_route(device, args, root: str, exp_dir: str, label: str, n_val: int, n
                 **{k: launches[k] for k in free})
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"training {label} launched {launches}, expected {want}")
-    if inspect is not None:
+    if inspect is not None and not rank0:
         inspect(res)
     epochs = [{"epoch": h["epoch"], "train_loss": h["train_loss"],
                "val_mse": h["val"]["mse"], "windows_per_s": h["windows_per_sec"]}
@@ -4786,6 +4818,178 @@ def attn_one_pass(sets, masks, nbytes, flops, per_rep: int) -> dict:
                                     lib_sets, per_rep=per_rep)}
 
 
+# --------------------------------------------------------------- phase 20
+def ffn_form(form: str, args, row_base: int, plain: bool = False, **kw):
+    """#2 in one of ROW_BASE_FORMS (dropout on, gelu) on `args` whose first
+    row is the global row `row_base`: the kernel (through its op), or with
+    `plain` its plain version (kw: one_pass for the one-pass roundings).
+    The eval form returns (out,), the others (out, a1, r); the bf16-weight
+    form takes bf16_weights(args)."""
+    train = form != "eval"
+    if plain:
+        out = ffn.ffn_forward_reference(*args, KEEP, "gelu", True, with_residuals=train,
+                                        row_base=row_base, **kw)
+    else:
+        out = ffn._forward(*args, KEEP, "gelu", True, with_residuals=train,
+                           one_pass=form == "one_pass", row_base=row_base)
+    return out if train else (out,)
+
+
+def row_base_case(form: str, M: int, D: int, F: int, gen, device) -> dict:
+    """#2's `form` on the second half of a batch of 2M rows at row_base M
+    (the second rank's first global row) against its plain version at that
+    row_base (FFN_TOL; the one-pass form by one_pass_score), and its rows
+    against rows M.. of the same form's row_base 0 call over the whole
+    batch: max |err| by output and whether they are bit for bit."""
+    names = ("out", "a1", "r")
+    full = ffn_inputs(2 * M, D, F, gen, device)
+    if form == "bf16_weight":
+        full = bf16_weights(full)
+    half = [full[0][M:].contiguous()] + full[1:]
+    got = ffn_form(form, half, M)
+    whole = ffn_form(form, full, 0)
+    bitwise = all(torch.equal(g, w[M:]) for g, w in zip(got, whole))
+    if form == "one_pass":
+        err = {n: one_pass_score(f"20a {n}", g, p, p64, f)["max_abs_err"]
+               for n, g, p, p64, f in zip(
+                   names, got, ffn_form(form, half, M, True, one_pass=True),
+                   ffn_form(form, _float64(half), M, True, one_pass=True),
+                   ffn_form(form, half, M, True))}
+    else:
+        err = {n: max_err(g, w, FFN_TOL)
+               for n, g, w in zip(names, got, ffn_form(form, half, M, True))}
+    return {"max_abs_err": err, "bit_for_bit_with_the_global_batch": bitwise}
+
+
+def check_row_base(device, M: int, D: int, F: int, gen) -> dict:
+    """20a: row_base_case for each of ROW_BASE_FORMS; a rank's masks must be
+    the global batch's rows, so each must be bit for bit."""
+    out = {}
+    for form in ROW_BASE_FORMS:
+        out[form] = row_base_case(form, M, D, F, gen, device)
+        log(f"# phase 20a #2 {form} form at row_base {M} (M {M}, D {D}, F {F}): "
+            f"{json.dumps(out[form])}")
+        if not out[form]["bit_for_bit_with_the_global_batch"]:
+            raise AssertionError(f"20a: #2's {form} form at row_base {M} is not rows {M}.. of "
+                                 f"the global batch's call")
+    return out
+
+
+def dp_case(device, root: str, exp_dir: str, label: str, args, want: dict, rank0: bool,
+            exact: bool = False, kept: dict | None = None) -> dict:
+    """One data-parallel run of 14a's flags + `args` through
+    imm_tsf_torch.main: launches exact (rank 0's own, from its timings,
+    when `rank0`: its counters live in a rank process); its per-step
+    losses and test metrics bit for bit with `want`'s (`exact`) or within
+    DP_RTOL of want's first steps and the same epochs' val mse."""
+    data = training_data(root, PATCH_TRAIN_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    inspect = None
+    if kept is not None:
+        inspect = lambda res: kept.update(n_params=sum(
+            p.numel() for p in trainable_parameters(res["model"], res["fusion"])))
+    res = train_route(device, PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + list(args), root,
+                      exp_dir, label, n_val, n_test, cfg.early_stop_delta,
+                      lambda s, e: ffn_counts("kernel", cfg.e_layers, s, e), inspect=inspect,
+                      streaming=False, rank0=rank0)
+    got = np.asarray(res["step_losses"])
+    ref = np.asarray(want["step_losses"])[:got.size]
+    keys = ("mse", "mae", "rmse")
+    gap = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    bitwise = bool((got == ref).all())
+    if len(res["epochs"]) == len(want["epochs"]):
+        test_gap = max(abs(res["test"][k] - want["test"][k]) / abs(want["test"][k])
+                       for k in keys)
+        bitwise = bitwise and all(res["test"][k] == want["test"][k] for k in keys)
+    else:  # fewer epochs: each epoch's val mse against the same epoch's
+        test_gap = max(abs(a["val_mse"] - b["val_mse"]) / abs(b["val_mse"])
+                       for a, b in zip(res["epochs"], want["epochs"]))
+    summary = {"step_gap": gap, "test_gap": test_gap, "bitwise": bitwise, "steps": int(got.size),
+               "loop": loop_summary(res, cfg.batch_size)}
+    log(f"# phase {label}: {json.dumps(summary)}")
+    if got.size == 0 or (exact and not bitwise) or max(gap, test_gap) > DP_RTOL:
+        raise AssertionError(f"{label} departs from the run it is held to: {summary}")
+    return {"summary": summary, "run": res}
+
+
+def ffn_row_base_timings(device, shapes, checked: dict) -> dict:
+    """Phase 5, #2 at a global row offset (phase 20): the training form
+    (dropout on, as a rank of a data mesh trains) and the eval form with
+    dropout at row_base 0 and at row_base M on the same inputs, timed in
+    the order 0, M, M, 0 in this call; with 20a's checks."""
+    M, D, F = shapes["ffn"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    sets = [ffn_inputs(M, D, F, gen, device) for _ in range(3)]
+    out = {"row_base": M, "checked_20a": checked}
+    for name, train in (("train_ms", True), ("eval_dropout_ms", False)):
+        ms = {0: [], M: []}
+        for base in (0, M, M, 0):
+            ms[base].append(device_ms(lambda *a: ffn._forward(
+                *a, KEEP, "gelu", True, with_residuals=train, row_base=base), sets, per_rep=10))
+        out[name] = {"row_base_0": ms[0], f"row_base_{M}": ms[M]}
+    log(f"# #2 at row_base {M} against 0 (0, M, M, 0): {json.dumps(out)}")
+    return out
+
+
+def allreduce_ms(device, n: int) -> float:
+    """Device ms of one all-reduce of a float32 [n] buffer in the current
+    process group (CUDA events, device_ms)."""
+    import torch.distributed as dist
+
+    flat = torch.randn(n, device=device)
+    return device_ms(lambda: dist.all_reduce(flat), [[]], reps=7, per_rep=20)
+
+
+def run_dp(device, root: str, exp_dir: str, loop_runs: dict, shapes, gen) -> dict:
+    """Phase 20, data parallelism over torch.distributed (parallel/mesh.py):
+    20a check_row_base at phase 3's M 8,192 split in two; 20b 14a's flags
+    with --mesh_shape 1 (NCCL, one rank) on the epoch loop, captured (the
+    flat gradient all-reduce inside each graph), bit for bit with 14a's
+    loop run, launches exact, then one all-reduce of the run's parameter
+    count timed at world 1; 20c --mesh_shape 2 --share_card (two rank
+    processes on one card over gloo, CUDA tensors) on the streaming loop
+    for DP_EPOCHS epochs, within DP_RTOL of 20b's first; 20d --mesh_shape
+    min(cards, 4) over NCCL on the epoch loop where the machine has two
+    cards or more, else logged as not run."""
+    import torch.distributed as dist
+
+    M, D, F = shapes["ffn"]
+    out = {"20a": check_row_base(device, M // 2, D, F, gen)}
+    want = loop_runs["14a PatchTST kernel"]
+    kept: dict = {}
+    one = dp_case(device, root, exp_dir, "20b mesh_shape 1 (NCCL), epoch loop",
+                  MESH_ONE + ["--epoch", str(LOOP_EPOCHS)], want["loop"], False, exact=True,
+                  kept=kept)
+    check_loop_mode("20b", one["run"], "resident", device.type == "cuda")
+    summary = one["summary"]
+    summary["windows_per_s_14a"] = want["summary"]["loop"]["train_windows_per_s"]
+    summary["allreduce_params"] = kept["n_params"]
+    summary["backend"] = dist.get_backend()
+    summary["allreduce_ms"] = allreduce_ms(device, kept["n_params"])
+    log(f"# phase 20b: {summary['loop']['train_windows_per_s']:.1f} train windows/s against "
+        f"14a's {summary['windows_per_s_14a']:.1f}; one all-reduce of {kept['n_params']} "
+        f"float32 over {summary['backend']} at world 1: {summary['allreduce_ms']:.4f} ms")
+    dist.destroy_process_group()
+    out["20b"] = one
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    out["20c"] = dp_case(device, root, exp_dir, "20c mesh_shape 2, one shared card (gloo)",
+                         ["--mesh_shape", "2", "--share_card", "--epoch", str(DP_EPOCHS)]
+                         + STREAM, one["run"], True)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    n = min(torch.cuda.device_count(), 4)
+    if n >= 2:
+        out["20d"] = dp_case(device, root, exp_dir, f"20d mesh_shape {n} (NCCL), epoch loop",
+                             ["--mesh_shape", str(n), "--epoch", str(DP_EPOCHS)], one["run"],
+                             True)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    else:
+        out["20d"] = {"ran": False, "cards": torch.cuda.device_count()}
+        log(f"# phase 20d did not run: {torch.cuda.device_count()} card(s); NCCL over cards "
+            "needs 2 or more")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -5504,12 +5708,18 @@ def main() -> int:
         # served (PatchTST, TimeLLM, the fused CRU) and deployed
         shutil.rmtree(exp_dir, ignore_errors=True)
         bf16 = run_bf16(device, root, exp_dir, device_loop, shapes)
+        mark("19")
+        # phase 20: data parallelism: #2 at a global row offset, 14a's flags
+        # over a data mesh of one rank (NCCL), two ranks on one card (gloo)
+        # and N cards where the machine has them
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        dp = run_dp(device, root, exp_dir, device_loop, shapes, gen)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
         shutil.rmtree(kept_root, ignore_errors=True)
 
-    mark("19")
+    mark("20")
     # phase 18: the served forward captured (its checks ran in phases 4-16)
     captured = captured_summary(serving, text, cru, informer, default_pair, timellm_run, mts,
                                 imts, deployment)
@@ -5562,6 +5772,16 @@ def main() -> int:
                 row.setdefault("launches_by_path", {})[f"amp {path}"] = counts[row["name"]]
     ffn_row["bf16w_launches_by_path"] = {p: c.get("fused_encoder_ffn_bf16w", 0)
                                          for p, c in amp_launches.items()}
+    # phase 20: #2 at a global row offset, and #1 and #2 on the data-parallel paths
+    ffn_row["row_base"] = ffn_row_base_timings(device, shapes, dp["20a"])
+    dp_paths = {"dp 20b": dp["20b"]["run"]["launches"],
+                "dp 20c rank 0": dp["20c"]["run"]["launches"]}
+    if "run" in dp["20d"]:
+        dp_paths["dp 20d rank 0"] = dp["20d"]["run"]["launches"]
+    for path, counts in dp_paths.items():
+        for row in rows:
+            if counts.get(row["name"], 0):
+                row.setdefault("launches_by_path", {})[path] = counts[row["name"]]
     mark("5b")
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
@@ -5613,6 +5833,7 @@ def main() -> int:
                       "bf16": {"19b": bf16["19b PatchTST bfloat16"]["summary"],
                                **{k: v for k, v in bf16.items() if k.startswith("19c")},
                                "19d": bf16["19d artifact"], "errs": bf16["errs"]},
+                      "dp": {k: v.get("summary", v) for k, v in dp.items()},
                       "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,8 +10,9 @@
 //     out = LayerNorm(r) * gamma + beta
 //
 // with act = relu or tanh-approximate GELU, the hash-dropout bits of
-// layers/fast_dropout.py computed inline (index row*n_cols + col in
-// wrapping uint32 arithmetic, as the TPU kernel does), and the one-pass
+// layers/fast_dropout.py computed inline (index (row_base + row)*n_cols + col
+// in wrapping uint32 arithmetic, as the TPU kernel does for row_base 0; a
+// rank of a data mesh passes its first global row), and the one-pass
 // LayerNorm variance E[r^2] - mu^2 with eps 1e-5. The training form
 // (kResiduals) also writes a1 and r, the residuals of the backward
 // (plain PyTorch, kernels/ffn.py:ffn_backward_reference), from the
@@ -319,7 +320,7 @@ ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
            const W* __restrict__ beta, float* __restrict__ out,
            float* __restrict__ a1_out, float* __restrict__ r_out, int M, int D, int F,
            float keep_prob, uint32_t thresh, const long long* __restrict__ salts, int act,
-           int apply_dropout, int vec) {
+           int apply_dropout, int vec, long long row_base) {
   extern __shared__ float4 smem4[];
   // the hidden site's salts (s0a, s1a) and the output site's (s0b, s1b): the
   // low 32 bits of salts[0..3], read from device memory so that a captured
@@ -452,7 +453,8 @@ ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
                 if (f + q < F) {
                   v = activation(a[q], act);
                   if (apply_dropout)
-                    v = keep_bit(static_cast<uint32_t>(row0 + r) * static_cast<uint32_t>(F) +
+                    v = keep_bit(static_cast<uint32_t>(row_base + row0 + r) *
+                                         static_cast<uint32_t>(F) +
                                      static_cast<uint32_t>(f + q), s0a, s1a, thresh)
                             ? v / keep_prob : 0.f;
                 }
@@ -510,7 +512,7 @@ ffn_kernel(const float* __restrict__ x, const W* __restrict__ w1t,
         if (c < D) {
           float a2 = acc2[mi][n][e] + Weights<W>::to_f(b2[c]);
           if (apply_dropout)
-            a2 = keep_bit(static_cast<uint32_t>(row0 + r) * static_cast<uint32_t>(D) +
+            a2 = keep_bit(static_cast<uint32_t>(row_base + row0 + r) * static_cast<uint32_t>(D) +
                               static_cast<uint32_t>(c), s0b, s1b, thresh)
                      ? a2 / keep_prob : 0.f;
           rv = xs[r * kXLd + c] + a2;
@@ -573,7 +575,7 @@ template <typename W, bool kOnePass>
 int launch(const float* x, const W* w1t, const W* b1, const W* w2t, const W* b2, const W* gamma,
            const W* beta, float* out, float* a1, float* r, int M, int D, int F, float keep_prob,
            unsigned int thresh, const long long* salts, int act, int apply_dropout, int vec,
-           void* stream) {
+           long long row_base, void* stream) {
   if (D < 1 || D > kMaxD || F < 1 || M < 0 || (a1 == nullptr) != (r == nullptr) ||
       (apply_dropout && salts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -588,7 +590,7 @@ int launch(const float* x, const W* w1t, const W* b1, const W* w2t, const W* b2,
   const int blocks = (M + kBM - 1) / kBM;
   kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob, thresh, salts, act,
-      apply_dropout, vec);
+      apply_dropout, vec, row_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -602,13 +604,17 @@ extern "C" int ffn_max_d() { return kMaxD; }
 // memory, the hidden site's (s0a, s1a) and the output site's (s0b, s1b) as
 // their low 32 bits, read when apply_dropout (may be null otherwise).
 // vec: D and F are multiples of 4 and x, w1t and w2t are 16-byte aligned.
+// row_base: the global row of x's first row under a data mesh (0 without
+// one); the masks hash (row_base + row) * n_cols + col in uint32, the rows
+// of the global batch's masks while its M x F stays below 2^32.
 extern "C" int ffn_forward(const float* x, const float* w1t, const float* b1,
                            const float* w2t, const float* b2, const float* gamma,
                            const float* beta, float* out, float* a1, float* r, int M, int D,
                            int F, float keep_prob, unsigned int thresh, const long long* salts,
-                           int act, int apply_dropout, int vec, void* stream) {
+                           int act, int apply_dropout, int vec, long long row_base,
+                           void* stream) {
   return launch<float, false>(x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob,
-                              thresh, salts, act, apply_dropout, vec, stream);
+                              thresh, salts, act, apply_dropout, vec, row_base, stream);
 }
 
 // The one-pass bf16 form (compute_dtype="bfloat16"): as ffn_forward, every
@@ -619,9 +625,9 @@ extern "C" int ffn_forward_bf16(const float* x, const float* w1t, const float* b
                                 const float* beta, float* out, float* a1, float* r, int M, int D,
                                 int F, float keep_prob, unsigned int thresh,
                                 const long long* salts, int act, int apply_dropout, int vec,
-                                void* stream) {
+                                long long row_base, void* stream) {
   return launch<float, true>(x, w1t, b1, w2t, b2, gamma, beta, out, a1, r, M, D, F, keep_prob,
-                             thresh, salts, act, apply_dropout, vec, stream);
+                             thresh, salts, act, apply_dropout, vec, row_base, stream);
 }
 
 // The bfloat16-weight form: as ffn_forward, with w1t, b1, w2t, b2, gamma
@@ -632,10 +638,11 @@ extern "C" int ffn_forward_bf16w(const float* x, const void* w1t, const void* b1
                                  const void* beta, float* out, float* a1, float* r, int M, int D,
                                  int F, float keep_prob, unsigned int thresh,
                                  const long long* salts, int act, int apply_dropout, int vec,
-                                 void* stream) {
+                                 long long row_base, void* stream) {
   using B = __nv_bfloat16;
   return launch<B, false>(x, static_cast<const B*>(w1t), static_cast<const B*>(b1),
                           static_cast<const B*>(w2t), static_cast<const B*>(b2),
                           static_cast<const B*>(gamma), static_cast<const B*>(beta), out, a1, r,
-                          M, D, F, keep_prob, thresh, salts, act, apply_dropout, vec, stream);
+                          M, D, F, keep_prob, thresh, salts, act, apply_dropout, vec, row_base,
+                          stream);
 }

@@ -13,6 +13,10 @@
 // itself (an empty kernel on the same grid takes ~2 us back to back) and
 // the memory round trip a block waits on (PERF.md).
 //
+// Under a data mesh (imm_tsf_torch/parallel/mesh.py) a rank passes its own
+// samples unchanged: every output row depends on its own sample alone and
+// the kernel draws no random bits, so it needs no global row offset.
+//
 // Design:
 // - A block owns one sample b, a slab of `threads` x W columns of d and a
 //   few forecast times (the host splits T over gridDim.z), so every V

@@ -71,19 +71,23 @@ def _act_grad(dh: torch.Tensor, a: torch.Tensor, act: str) -> torch.Tensor:
     return torch.ops.aten.gelu_backward(dh, a, approximate="tanh")
 
 
-def _masks(salts, keep_prob: float, M: int, D: int, Fdim: int, device):
+def _masks(salts, keep_prob: float, M: int, D: int, Fdim: int, device, row_base: int = 0):
     """(keep_a [M, F], keep_b [M, D]): the hash bits of the hidden and
-    output dropout sites, from salts rows 0 and 1."""
+    output dropout sites, from salts rows 0 and 1; x's first row is the
+    global batch's row `row_base` (a rank of a data mesh), so the masks
+    are rows row_base.. of the global [M_global, F] and [M_global, D]
+    masks (exact while M_global x F < 2^32: the index is uint32)."""
     s = torch.as_tensor(salts).to(torch.int64).reshape(2, 2)
-    return (_keep_mask(s[0, 0], s[0, 1], keep_prob, (M, Fdim), device),
-            _keep_mask(s[1, 0], s[1, 1], keep_prob, (M, D), device))
+    return (_keep_mask(s[0, 0], s[0, 1], keep_prob, (M, Fdim), device, row_base * Fdim),
+            _keep_mask(s[1, 0], s[1, 1], keep_prob, (M, D), device, row_base * D))
 
 
 def ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float,
                           act: str, apply_dropout: bool, with_residuals: bool = False,
-                          one_pass: bool = False):
+                          one_pass: bool = False, row_base: int = 0):
     """Plain PyTorch forward with the same hash masks (after
-    ffn_kernel.py:_ffn_kernel). x [M, D], w1 [D, F], w2 [F, D]. Returns
+    ffn_kernel.py:_ffn_kernel; x's first row is the global row `row_base`,
+    `_masks`). x [M, D], w1 [D, F], w2 [F, D]. Returns
     out, or (out, a1, r) with the residuals of the training form: a1 the
     pre-activation x W1 + b1, r the pre-LayerNorm sum. Computes in float32,
     or float64 for float64 inputs; `one_pass` rounds each product's
@@ -96,7 +100,7 @@ def ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: floa
     a1 = rnd(xf) @ rnd(w1.to(ct)) + b1
     h = _act_fn(a1, act)
     if apply_dropout:
-        keep_a, keep_b = _masks(salts, keep_prob, M, D, Fdim, x.device)
+        keep_a, keep_b = _masks(salts, keep_prob, M, D, Fdim, x.device, row_base)
         h = torch.where(keep_a, h / keep_prob, 0.0)
     a2 = rnd(h) @ rnd(w2.to(ct)) + b2
     if apply_dropout:
@@ -110,22 +114,23 @@ def ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: floa
 
 
 def ffn_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float,
-                  act: str, apply_dropout: bool) -> torch.Tensor:
+                  act: str, apply_dropout: bool, row_base: int = 0) -> torch.Tensor:
     """The eval form's plain version (ffn_kernel.py:ffn_reference); under
     autograd it is the unfused FFN of the JAX package's EncoderLayer."""
     return ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob,
-                                 act, apply_dropout)
+                                 act, apply_dropout, row_base=row_base)
 
 
 def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
-                           act: str, apply_dropout: bool, one_pass: bool = False):
+                           act: str, apply_dropout: bool, one_pass: bool = False,
+                           row_base: int = 0):
     """The hand VJP (ffn_kernel.py:_ffn_bwd) -> (dx, dw1, db1, dw2, db2,
     dgamma, dbeta), dx in x's dtype and the rest in the weights' (bf16
     weights under amp_bf16: each gradient rounded once, as _ffn_bwd's
     astype rounds it; b1, b2 and beta take the dtype of w1, w2 and gamma,
     and `_FusedFFN` casts each to its own). The LayerNorm statistics are
     recomputed from r with the forward's E[r^2] - mu^2 variance; both dropout masks are re-derived
-    from the salts (no stored mask); act' is taken at a1. The four
+    from the salts (no stored mask, from global row `row_base`); act' is taken at a1. The four
     products stay torch.matmul: the JAX package leaves them to XLA;
     `one_pass` rounds their operands to bf16, as the TPU runs them under
     compute_dtype="bfloat16"."""
@@ -147,7 +152,7 @@ def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
 
     h = _act_fn(a1, act)
     if apply_dropout:
-        keep_a, keep_b = _masks(salts, keep_prob, M, D, Fdim, x.device)
+        keep_a, keep_b = _masks(salts, keep_prob, M, D, Fdim, x.device, row_base)
         da2 = torch.where(keep_b, dr / keep_prob, 0.0)
         hd = torch.where(keep_a, h / keep_prob, 0.0)
     else:
@@ -166,11 +171,12 @@ def ffn_backward_reference(x, w1, w2, gamma, salts, a1, r, g, keep_prob: float,
             db2.to(w2.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
 
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_P, _I, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_FORWARD = ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _L, _P], _I)
 _SIGNATURES = {
-    "ffn_forward": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
-    "ffn_forward_bf16w": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
-    "ffn_forward_bf16": ([_P] * 10 + [_I, _I, _I, ctypes.c_float, _U, _P, _I, _I, _I, _P], _I),
+    "ffn_forward": _FORWARD,
+    "ffn_forward_bf16w": _FORWARD,
+    "ffn_forward_bf16": _FORWARD,
     "ffn_max_d": ([], _I),
 }
 # the weight dtypes the kernel reads, and how many fit a 16-byte copy
@@ -193,7 +199,8 @@ def _device_salts(salts, device) -> torch.Tensor:
 
 
 def _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
-             apply_dropout: bool, with_residuals: bool, one_pass: bool = False):
+             apply_dropout: bool, with_residuals: bool, one_pass: bool = False,
+             row_base: int = 0):
     """Kernel #2 through its op (`ops.fused_encoder_ffn`, its one-pass
     form with `one_pass`): the kernel for
     CUDA tensors, the plain version for CPU tensors. out, or (out, a1, r)
@@ -203,15 +210,16 @@ def _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
     salts = torch.as_tensor(salts) if apply_dropout else None
     out, a1, r = ops.fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
                                        float(keep_prob), act, bool(apply_dropout),
-                                       bool(with_residuals), bool(one_pass))
+                                       bool(with_residuals), bool(one_pass), int(row_base))
     return (out, a1, r) if with_residuals else out
 
 
 def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
-            apply_dropout: bool, with_residuals: bool, one_pass: bool = False):
+            apply_dropout: bool, with_residuals: bool, one_pass: bool = False,
+            row_base: int = 0):
     """Kernel #2 on CUDA tensors (the op's CUDA implementation): out, or
     (out, a1, r) in the training form; `one_pass`: the one-pass bf16 form
-    (float32 weights)."""
+    (float32 weights); `row_base`: x's first global row (`_masks`)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder_ffn: unsupported device {x.device}")
     M, D = x.shape
@@ -267,7 +275,7 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
             r.data_ptr() if with_residuals else None,
             M, D, Fdim, float(keep_prob), _thresh(keep_prob),
             s.data_ptr() if s is not None else None, _ACTS[act], int(bool(apply_dropout)),
-            int(vec), stream)
+            int(vec), int(row_base), stream)
         _build.check(rc, "fused_encoder_ffn")
         global launches, train_launches, bf16w_launches, one_pass_launches
         launches += 1
@@ -280,11 +288,12 @@ def _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob: float, act: str,
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout,
-                one_pass):
+                one_pass, row_base):
         out, a1, r = _forward(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act,
-                              apply_dropout, with_residuals=True, one_pass=one_pass)
+                              apply_dropout, with_residuals=True, one_pass=one_pass,
+                              row_base=row_base)
         ctx.save_for_backward(x, w1, w2, gamma, a1, r)
-        ctx.salts, ctx.static = salts, (keep_prob, act, apply_dropout, one_pass)
+        ctx.salts, ctx.static = salts, (keep_prob, act, apply_dropout, one_pass, row_base)
         ctx.dtypes = tuple(t.dtype for t in (x, w1, b1, w2, b2, gamma, beta))
         return out
 
@@ -292,12 +301,13 @@ class _FusedFFN(torch.autograd.Function):
     def backward(ctx, g):
         x, w1, w2, gamma, a1, r = ctx.saved_tensors
         grads = ffn_backward_reference(x, w1, w2, gamma, ctx.salts, a1, r, g, *ctx.static)
-        return (*(d.to(dt) for d, dt in zip(grads, ctx.dtypes)), None, None, None, None, None)
+        return (*(d.to(dt) for d, dt in zip(grads, ctx.dtypes)), None, None, None, None, None,
+                None)
 
 
 def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
                       keep_prob: float, act: str,
-                      apply_dropout: bool) -> torch.Tensor:
+                      apply_dropout: bool, row_base: int = 0) -> torch.Tensor:
     """x [M, D] -> LayerNorm(x + drop(drop(act(x@W1+b1)) @ W2 + b2)).
 
     w1 [D, F] and w2 [F, D] in the JAX layout; the transposed view of a
@@ -310,10 +320,12 @@ def fused_encoder_ffn(x, w1, b1, w2, b2, gamma, beta, salts,
     With a gradient in flight the training form runs; without one, the
     eval form (the a1 [M, F] write is waste there). Inside
     layers/bf16_products.Bf16Products the one-pass bf16 form runs, forward
-    and backward."""
+    and backward. `row_base`: x's first row in the global batch under a
+    data mesh (rank x M); the masks are then the global masks' rows."""
     params = (x, w1, b1, w2, b2, gamma, beta)
     one_pass = bf16_products.active()
     if torch.is_grad_enabled() and any(t.requires_grad for t in params):
-        return _FusedFFN.apply(*params, salts, keep_prob, act, apply_dropout, one_pass)
+        return _FusedFFN.apply(*params, salts, keep_prob, act, apply_dropout, one_pass,
+                               row_base)
     return _forward(*params, salts, keep_prob, act, apply_dropout, with_residuals=False,
-                    one_pass=one_pass)
+                    one_pass=one_pass, row_base=row_base)

@@ -84,39 +84,43 @@ def _(tau, t_hat, V, mask, sigma, one_pass=False):
 def fused_encoder_ffn(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
                       gamma: Tensor, beta: Tensor, salts: Optional[Tensor], keep_prob: float,
                       act: str, apply_dropout: bool, with_residuals: bool,
-                      one_pass: bool = False) -> tuple[Tensor, Tensor, Tensor]:
+                      one_pass: bool = False,
+                      row_base: int = 0) -> tuple[Tensor, Tensor, Tensor]:
     """-> (out [M, D], a1 [M, F], r [M, D]); a1 and r are empty [0] in the
     eval form (`with_residuals` False). salts: the integer [2, 2] salts, or
     None without dropout. `one_pass`: the one-pass bf16 form (float32
-    weights), x, W1, h and W2 rounded to bf16 at the two products."""
+    weights), x, W1, h and W2 rounded to bf16 at the two products.
+    `row_base`: x's first row in the global batch of a data mesh (the
+    masks' rows); last and defaulted, so programs exported before it was
+    added load and replay unchanged."""
     from .ffn import ffn_forward_reference
 
     if with_residuals:
         out, a1, r = ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob,
                                            act, apply_dropout, with_residuals=True,
-                                           one_pass=one_pass)
+                                           one_pass=one_pass, row_base=row_base)
         return out, a1, r
     out = ffn_forward_reference(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act,
-                                apply_dropout, one_pass=one_pass)
+                                apply_dropout, one_pass=one_pass, row_base=row_base)
     return out, _no_residual(x), _no_residual(x)
 
 
 @fused_encoder_ffn.register_kernel("cuda")
 def _(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, with_residuals,
-      one_pass=False):
+      one_pass=False, row_base=0):
     from .ffn import _launch
 
     if with_residuals:
         return _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout,
-                       True, one_pass=one_pass)
+                       True, one_pass=one_pass, row_base=row_base)
     out = _launch(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, False,
-                  one_pass=one_pass)
+                  one_pass=one_pass, row_base=row_base)
     return out, _no_residual(x), _no_residual(x)
 
 
 @fused_encoder_ffn.register_fake
 def _(x, w1, b1, w2, b2, gamma, beta, salts, keep_prob, act, apply_dropout, with_residuals,
-      one_pass=False):
+      one_pass=False, row_base=0):
     out = torch.empty_like(x)
     if not with_residuals:
         return out, _no_residual(x), _no_residual(x)

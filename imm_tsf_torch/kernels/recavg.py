@@ -16,6 +16,9 @@ differentiable: its backward is `recavg_backward_reference`, the plain
 PyTorch transcription of the JAX package's hand VJP (`_bwd`,
 fusion_kernels.py:120-140), which is XLA there and not a Pallas kernel.
 Gradients go to tau, t_hat, V and sigma; mask is data.
+A data mesh's rank calls it on its own samples as they are: each output
+row depends on its sample alone and no random bits are drawn, so unlike
+#2 it takes no global row offset.
 
 The TPU kernel's weighted sum is a dot_general that names no precision
 (fusion_kernels.py:44-48), as is the XLA path's einsum (fusion/ttf.py:82):

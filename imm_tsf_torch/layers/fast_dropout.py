@@ -62,11 +62,17 @@ def _thresh(keep_prob: float) -> int:
     return min(_MASK32, round(keep_prob * 2.0**32))
 
 
-def _keep_mask(s0, s1, keep_prob: float, shape, device=None) -> torch.Tensor:
+def _keep_mask(s0, s1, keep_prob: float, shape, device=None, offset: int = 0) -> torch.Tensor:
     """Bernoulli(keep_prob) bool mask of `shape` from two uint32 salts
-    (Python ints or 0-d integer tensors)."""
+    (Python ints or 0-d integer tensors), hashing the flat indices offset,
+    offset + 1, ...: a rank's block of a global mask whose outermost axis
+    is the batch starts at `offset` (parallel/mesh.DataMesh.offset). The
+    index is uint32, as the JAX package's `arange(n, uint32)`: the mask is
+    that of the global shape for a global element count below 2^32."""
     n = max(1, math.prod(shape))
     i = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    if offset:
+        i = (i + offset) & _MASK32
     h = _fmix(_fmix(_mul32(i, _GOLD) ^ s0) ^ s1)
     return h < _thresh(keep_prob)
 
@@ -160,25 +166,31 @@ def take_salt_table(generator: torch.Generator | None, n: int) -> torch.Tensor:
     return torch.tensor(pairs) if isinstance(pairs, list) else pairs
 
 
-def hash_dropout(x: torch.Tensor, s0, s1, keep_prob: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, s0, s1, keep_prob: float, offset: int = 0) -> torch.Tensor:
     """where(keep, x / keep_prob, 0) with keep = _keep_mask(s0, s1) over x's
-    shape: bit-identical to the JAX package's `_hash_dropout` given the
-    same salts, its gradient too."""
-    keep = _keep_mask(s0, s1, keep_prob, tuple(x.shape), x.device)
+    shape (from flat index `offset`): bit-identical to the JAX package's
+    `_hash_dropout` given the same salts, its gradient too."""
+    keep = _keep_mask(s0, s1, keep_prob, tuple(x.shape), x.device, offset)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class Dropout(nn.Module):
-    """Identity in eval, hash dropout in train mode."""
+    """Identity in eval, hash dropout in train mode. Under a data mesh
+    (`data_mesh`, set by the trainer) a rank hashes its block of the
+    global batch's mask: every site's input has the batch as its outermost
+    axis (the models' layouts: [B, ...], [B * C, ...] or [B * N, ...]), so
+    the block starts at rank x x.numel()."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator: torch.Generator | None = None  # salt source, set by the trainer
+        self.data_mesh = None  # parallel/mesh.DataMesh, set by the trainer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
-        return hash_dropout(x, *take_salts(self.generator), 1.0 - self.rate)
+        offset = self.data_mesh.offset(x.numel()) if self.data_mesh is not None else 0
+        return hash_dropout(x, *take_salts(self.generator), 1.0 - self.rate, offset)

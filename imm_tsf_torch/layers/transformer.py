@@ -87,14 +87,19 @@ def _ffn(layer: nn.Module, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     fused kernel's route when layer.use_fused_ffn (on a CUDA tensor it
     launches kernel #2 or raises), its plain version otherwise. In train
     mode with dropout, one [2, 2] salt pair from the layer's dropout
-    generator: rows are the hidden site's salts and the output site's."""
+    generator: rows are the hidden site's salts and the output site's.
+    Under a data mesh the rows of x, batch outermost, start at the rank's
+    first global row (rank x M), which the masks hash."""
     apply_dropout = layer.training and layer.dropout.rate > 0
     salts = take_salt_table(layer.dropout.generator, 2) if apply_dropout else None
     ffn = fused_encoder_ffn if layer.use_fused_ffn else ffn_reference
     lead, D = x.shape[:-1], x.shape[-1]
-    out = ffn(x.reshape(-1, D), layer.conv1.weight.t(), layer.conv1.bias,
+    rows = x.reshape(-1, D)
+    mesh = layer.dropout.data_mesh
+    row_base = mesh.offset(rows.shape[0]) if mesh is not None else 0
+    out = ffn(rows, layer.conv1.weight.t(), layer.conv1.bias,
               layer.conv2.weight.t(), layer.conv2.bias, norm.weight, norm.bias, salts,
-              1.0 - layer.dropout.rate, layer.activation, apply_dropout)
+              1.0 - layer.dropout.rate, layer.activation, apply_dropout, row_base)
     return out.reshape(*lead, D)
 
 
@@ -129,7 +134,10 @@ class BatchNorm(nn.Module):
     biased variance E[x^2] - E[x]^2, clipped at 0, as flax computes it) and
     updates the running buffers r = 0.9 r + 0.1 stat; eval reads them.
     torch's BatchNorm1d would store the unbiased variance and decay the
-    other way."""
+    other way. Under a data mesh of more than one rank (`data_mesh`, set by
+    the trainer) the statistics are the global batch's: the sums of x and
+    x^2 are all-reduced in the forward (differentiable, so the backward
+    sums their gradient terms too), and every rank's buffers update alike."""
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -138,11 +146,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.data_mesh = None  # parallel/mesh.DataMesh, set by the trainer
+
+    def _stats(self, x):
+        mesh = self.data_mesh
+        if mesh is None or not mesh.couples:
+            mean = x.mean(dim=(0, 2))
+            return mean, (x * x).mean(dim=(0, 2)) - mean * mean
+        n = x.shape[0] * x.shape[2] * mesh.world
+        sums = mesh.all_reduce(torch.stack([x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2))]))
+        mean = sums[0] / n
+        return mean, sums[1] / n - mean * mean
 
     def forward(self, x):
         if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp(min=0.0)
+            mean, var = self._stats(x)
+            var = var.clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -12,8 +12,9 @@ embedding geometry for tests and benchmarks, not language understanding.
 Every alias is ported: the GPT-2 family, BERT, Llama-3.1-8B and
 DeepSeek-7B. A full-depth Llama (7.50 B parameters without the LM head,
 30.0 GB in float32) fits one 80 GB card, so `llm_tp` 0 (auto) and 1
-resolve to one device; the tensor-parallel mesh comes with the multi-GPU
-layers (ROADMAP.md, Queue 1, item 16).
+resolve to one device; the tensor-parallel mesh is the half of the
+multi-GPU layers still to port (ROADMAP.md, Queue 1, item 16, the TP
+half; the data-parallel half is parallel/).
 
 `embed_notes` pushes ragged lists of notes through the model in
 length-bucketed row batches and mean-pools each note's real tokens in
@@ -67,11 +68,11 @@ def get_context_window_size(alias: str) -> int:
 def resolve_llm_mesh(alias: str, llm_tp: int):
     """cfg.llm_tp on one card: 0 (auto) and 1 give None, one device for
     every alias (a full-depth Llama fits one 80 GB card); more than one
-    is refused until the multi-GPU layers land."""
+    is refused until the tensor-parallel half of the multi-GPU layers lands."""
     if llm_tp > 1:
         raise NotImplementedError(
-            f"llm_tp={llm_tp}: the tensor-parallel LLM mesh comes with the system "
-            "layers (ROADMAP.md, Queue 1, item 16)")
+            f"llm_tp={llm_tp}: the tensor-parallel LLM mesh is not ported "
+            "(ROADMAP.md, Queue 1, item 16, the TP half)")
     return None
 
 
@@ -321,8 +322,8 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
     stats_out, if given, gets real_tokens / processed_tokens / n_notes."""
     if mesh is not None:
         raise NotImplementedError(
-            "tensor-parallel note embedding waits for the multi-GPU layers "
-            "(ROADMAP.md, Queue 1, item 16)")
+            "tensor-parallel note embedding, the TP half of the multi-GPU layers, is not "
+            "ported (ROADMAP.md, Queue 1, item 16, the TP half)")
     B = len(notes_text)
     N_max = max((len(s) for s in notes_text), default=1) or 1
     flat, note_mask = [], np.zeros((B, N_max), bool)

@@ -54,6 +54,7 @@ class LatentODE(nn.Module):
                                       n_layers=cfg.ode_gen_layers, n_units=cfg.ode_units)
         self.decoder = rubanova_linear(latents, D)
         self.z0_generator: torch.Generator | None = None  # set by the trainer
+        self.data_mesh = None  # parallel/mesh.DataMesh, set by the trainer
 
     def encode(self, observed_data, observed_tp, observed_mask):
         """The backward ODE-RNN over the shared time axis observed_tp [T]:
@@ -92,9 +93,12 @@ class LatentODE(nn.Module):
         mean_z0, std_z0 = tz.chunk(2, dim=-1)
         std_z0 = torch.abs(std_z0)
         if self.training:
-            z0 = mean_z0 + std_z0 * nets.train_eps(mean_z0.shape, mean_z0, self.z0_generator)
+            z0 = mean_z0 + std_z0 * nets.noise(
+                lambda shape: nets.train_eps(shape, mean_z0, self.z0_generator), mean_z0.shape,
+                self.data_mesh)
         elif self.cfg.eval_sample_traj:
-            z0 = mean_z0 + std_z0 * nets.eval_eps(mean_z0.shape, mean_z0)
+            z0 = mean_z0 + std_z0 * nets.noise(lambda shape: nets.eval_eps(shape, mean_z0),
+                                               mean_z0.shape, self.data_mesh)
         else:
             z0 = mean_z0
 

@@ -45,6 +45,7 @@ class NeuralFlow(nn.Module):
         self.transform_z0_2 = rubanova_linear(100, 2 * latents)
         self.decoder = rubanova_linear(latents, D)
         self.z0_generator: torch.Generator | None = None  # set by the trainer
+        self.data_mesh = None  # parallel/mesh.DataMesh, set by the trainer
 
     def _lstm_cell(self, x, h, c):
         i, f, g, o = (self.lstm_ih(x) + self.lstm_hh(h)).chunk(4, dim=-1)
@@ -77,9 +78,12 @@ class NeuralFlow(nn.Module):
         mean_z0, std_z0 = self.transform_z0_2(torch.tanh(self.transform_z0_1(h))).chunk(2, dim=-1)
         std_z0 = F.softplus(std_z0)
         if self.training:
-            z0 = mean_z0 + std_z0 * nets.train_eps(mean_z0.shape, mean_z0, self.z0_generator)
+            z0 = mean_z0 + std_z0 * nets.noise(
+                lambda shape: nets.train_eps(shape, mean_z0, self.z0_generator), mean_z0.shape,
+                self.data_mesh)
         elif self.cfg.eval_sample_traj:
-            z0 = mean_z0 + std_z0 * nets.eval_eps(mean_z0.shape, mean_z0)
+            z0 = mean_z0 + std_z0 * nets.noise(lambda shape: nets.eval_eps(shape, mean_z0),
+                                               mean_z0.shape, self.data_mesh)
         else:
             z0 = mean_z0
 

@@ -88,6 +88,7 @@ class TimesBlock(nn.Module):
         super().__init__()
         self.k, self.num_kernels = cfg.top_k, cfg.num_kernels
         self.T = cfg.input_len + cfg.pred_len
+        self.data_mesh = None  # parallel/mesh.DataMesh, set by the trainer
         self._init_inception("conv1", cfg.d_model, cfg.d_ff)
         self._init_inception("conv2", cfg.d_ff, cfg.d_model)
         cand, self.buckets = _bucket_partition(self.T, 2 * cfg.num_kernels - 1)
@@ -133,12 +134,22 @@ class TimesBlock(nn.Module):
         return F.conv2d(x, (w / n).to(x.dtype).permute(3, 2, 0, 1), (b / n).to(x.dtype),
                         padding=(kh // 2, kw // 2))
 
+    def _batch_mean(self, amp: torch.Tensor) -> torch.Tensor:
+        """The amplitudes' mean over the batch [F, N]; under a data mesh of
+        more than one rank, over the global batch (the sum all-reduced,
+        with no gradient: the choice it feeds has none), so every rank
+        picks the global batch's periods."""
+        mesh = self.data_mesh
+        if mesh is None or not mesh.couples:
+            return amp.mean(dim=0)
+        return mesh.all_reduce_(amp.sum(dim=0).detach()) / (amp.shape[0] * mesh.world)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, N]
         B, T, N = x.shape
         if T != self.T:
             raise ValueError(f"TimesBlock built for T {self.T} got T {T}")
         amp = torch.fft.rfft(x.to(fft_dtype(x.dtype)), dim=1).abs()  # [B, F, N]
-        freq = amp.mean(dim=0).mean(dim=-1).detach()  # [F]; the choice has no gradient
+        freq = self._batch_mean(amp).mean(dim=-1).detach()  # [F]; the choice has no gradient
         freq = torch.cat([torch.zeros_like(freq[:1]), freq[1:]])  # the DC bin never wins
         top = top_lags(freq[None], self.k)[0]  # [k], on the device
         period_weight = amp.mean(dim=-1)[:, top].to(x.dtype)  # [B, k]

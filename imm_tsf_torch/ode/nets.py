@@ -101,6 +101,13 @@ def train_eps(shape, like: torch.Tensor, generator: torch.Generator | None) -> t
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
+def noise(draw, shape, mesh=None) -> torch.Tensor:
+    """draw(shape); under a data mesh (parallel/mesh.DataMesh) the rank's
+    rows of draw(global shape), the batch outermost: each sample's noise is
+    the single-process run's."""
+    return draw(tuple(shape)) if mesh is None else mesh.local_draw(draw, shape)
+
+
 _EVAL_EPS: dict = {}  # (shape, device, dtype) -> tensor
 
 

@@ -7,7 +7,8 @@ epochs, `train_state_<epoch>.pt` (save_train_state), from which
 `--load <id>` resumes a run (after imm_tsf_tpu/training/checkpoint.py:
 57-98, which keeps two with orbax's max_to_keep=2). Orbax checkpoints of
 the JAX package are not read; `convert.params_from_jax` carries their
-weights across.
+weights across. Under a data mesh rank 0 writes (`rank0_writes`) and every
+rank reads.
 """
 
 from __future__ import annotations
@@ -47,6 +48,16 @@ def save_experiment(exp_dir: str, cfg: Config, model_state: dict,
     with open(os.path.join(exp_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
     save_weights(os.path.join(exp_dir, "best"), model_state, fusion_state, step)
+
+
+def rank0_writes(mesh, write) -> None:
+    """write() on rank 0 of a data mesh, whose ranks hold the same state
+    (parallel/mesh.py), then a barrier, so that no rank goes on, or reads
+    the files on `--load`, before they are whole; without a mesh write()."""
+    if mesh is None or mesh.rank == 0:
+        write()
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _train_state_steps(directory: str) -> list[int]:

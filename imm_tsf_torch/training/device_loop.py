@@ -16,6 +16,13 @@ Exactness contract (the JAX file's, :14-31; tests/test_torch_device_loop.py):
   - evaluation returns the per-batch error sums and the host reduces them
     in float64, in the streaming evaluation's order.
 
+Under a data mesh (parallel/mesh.py; JAX `_make_gather`, :171-189, and the
+staged runners' sharding, :301-315) every rank holds every resident
+window, the JAX package's replicated store, and its row tables hold the
+rank's columns of each epoch's [n_batches, B] table, so each step gathers
+the rank's rows of the global batch; a staged epoch keeps the rank's rows
+of each batch before stacking (1-D shared time axes whole).
+
 Collates that are per-window independent (standard, CRU, patch) are
 collated once and stacked (`try_build_resident`); the patch path's
 per-batch `Lp` is zero-padded to the split's largest, that path's own pad
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from ..data.loader import BatchIterator, PrefetchIterator
+from ..parallel.mesh import shard_batch
 
 
 def _unwrap(loader):
@@ -128,20 +136,22 @@ def _batched(rows: np.ndarray, B: int, n_rows: int) -> np.ndarray:
 
 class Resident:
     """A split's resident arrays on `device` and its [n_batches, B] row
-    table, a static buffer each epoch's table is copied into."""
+    table, a static buffer each epoch's table is copied into; under a data
+    mesh the table holds the rank's columns, [n_batches, B / world]."""
 
-    def __init__(self, name: str, built, bit, device):
+    def __init__(self, name: str, built, bit, device, mesh=None):
         arrays, self.row_of = built
         self.name, self.bit = name, bit
         self.store = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
         self.n_rows = next(iter(arrays.values())).shape[0]
         self.n_batches = (len(bit.indices) + bit.batch_size - 1) // bit.batch_size
-        self.table = torch.zeros((self.n_batches, bit.batch_size), dtype=torch.int64,
-                                 device=device)
+        self.cols = mesh.rows(bit.batch_size) if mesh is not None else slice(None)
+        width = len(range(bit.batch_size)[self.cols])
+        self.table = torch.zeros((self.n_batches, width), dtype=torch.int64, device=device)
         self.key = ("resident", name, self.n_rows)
 
     def load(self, perm: np.ndarray) -> None:
-        self.table.copy_(torch.from_numpy(perm.astype(np.int64)))
+        self.table.copy_(torch.from_numpy(perm[:, self.cols].astype(np.int64)))
 
 
 def gather(table: torch.Tensor):
@@ -193,14 +203,15 @@ def make_predict_runner(forward, loop):
     return run_predict
 
 
-def stage_epoch(loader) -> dict | None:
+def stage_epoch(loader, mesh=None) -> dict | None:
     """One epoch's batches collated on the host exactly as the streaming
     loop would (the same shuffle calls) and stacked [n_batches, ...], for
     batch-dependent collates (the ODE path's union time axis). 1-D time
     axes are edge-repeated to the epoch's longest (a repeated time is a
     dt = 0 identity step of the fixed-step solvers), everything else
     zero-padded (masks stay zero). None if a value is not an array (JAX
-    :258-298)."""
+    :258-298). Under a data mesh each batch keeps the rank's rows first
+    (parallel/mesh.shard_batch; the 1-D time axes whole)."""
     batches = []
     for out in loader:
         out = dict(out)
@@ -208,7 +219,7 @@ def stage_epoch(loader) -> dict | None:
             out.pop(k, None)
         if any(not isinstance(v, np.ndarray) for v in out.values()):
             return None
-        batches.append(out)
+        batches.append(shard_batch(out, mesh) if mesh is not None else out)
     if not batches or any(b.keys() != batches[0].keys() for b in batches):
         return None
     stacked = {}

@@ -6,6 +6,14 @@ The reference's metric math (lib/evaluation.py:17-69 compute_error,
 a per-variable mean over all (traj, batch, time) elements first, then the
 mean over variables with at least one observation. Padding rows have a
 zero mask, so they add nothing to the sums or the counts.
+
+Under a data mesh (parallel/mesh.py) the loss and the metrics are the
+global batch's: a mean of the ranks' means is wrong wherever their mask
+counts differ (a padded last batch, sparse IMTS masks). Each rank divides
+its error sums by the all-reduced counts (`masked_mse_loss(..., mesh)`),
+so the ranks' losses, and their gradients, sum to the global ones; the
+eval sums are all-reduced before the final reduction (`evaluation(...,
+mesh)`).
 """
 
 from __future__ import annotations
@@ -16,9 +24,11 @@ import numpy as np
 import torch
 
 
-def compute_error(truth, pred_y, mask, func: str, reduce: str):
+def compute_error(truth, pred_y, mask, func: str, reduce: str, mesh=None):
     """truth [B,T,D]; pred_y [B,T,D] or [S,B,T,D]; mask [B,T,D].
-    reduce="mean" -> scalar; reduce="sum" -> (error_var_sum [D], mask_count [D])."""
+    reduce="mean" -> scalar; reduce="sum" -> (error_var_sum [D], mask_count [D]).
+    Under a data mesh, "mean" divides by the counts summed over the ranks:
+    this rank's share of the global mean."""
     if pred_y.ndim == 3:
         pred_y = pred_y[None]
     truth = truth[None].expand(pred_y.shape)
@@ -36,6 +46,8 @@ def compute_error(truth, pred_y, mask, func: str, reduce: str):
     D = pred_y.shape[-1]
     error_var_sum = error.reshape(-1, D).sum(dim=0)
     mask_count = mask.reshape(-1, D).sum(dim=0)
+    if reduce == "mean" and mesh is not None:
+        mask_count = mesh.all_reduce_(mask_count.detach().clone())
     if reduce == "mean":
         error_var_avg = error_var_sum / (mask_count + 1e-8)
         return error_var_avg.sum() / torch.count_nonzero(mask_count)
@@ -44,9 +56,11 @@ def compute_error(truth, pred_y, mask, func: str, reduce: str):
     raise ValueError("Reduce argument not specified!")
 
 
-def masked_mse_loss(pred_y, truth, mask):
-    """The training loss: two-stage masked MSE (lib/evaluation.py:107-156)."""
-    return compute_error(truth, pred_y, mask, func="MSE", reduce="mean")
+def masked_mse_loss(pred_y, truth, mask, mesh=None):
+    """The training loss: two-stage masked MSE (lib/evaluation.py:107-156);
+    under a data mesh the rank's share of the global batch's, which the
+    ranks' gradient all-reduce sums."""
+    return compute_error(truth, pred_y, mask, func="MSE", reduce="mean", mesh=mesh)
 
 
 def batch_error_sums(pred_y, truth, mask) -> dict:
@@ -84,10 +98,11 @@ def finalize_metrics(acc: dict) -> dict:
     return {"loss": mse, "mse": mse, "mae": mae, "rmse": float(np.sqrt(mse)), "mape": mape}
 
 
-def evaluation(forecast_fn, dataloader) -> dict:
+def evaluation(forecast_fn, dataloader, mesh=None) -> dict:
     """Streaming evaluation over a loader (lib/evaluation.py:192-283).
     forecast_fn(batch) -> (pred_y [B,Lp,D], truth, mask) as tensors of one
-    device; the sums come to the host in float64."""
+    device; the sums come to the host in float64 (under a data mesh summed
+    over the ranks, whose rows forecast_fn predicts)."""
     acc = None
     for batch in dataloader:
         sums = batch_error_sums(*forecast_fn(batch))
@@ -99,4 +114,4 @@ def evaluation(forecast_fn, dataloader) -> dict:
                 acc[k] += sums[k]
     if acc is None:
         raise ValueError("empty dataloader")
-    return finalize_metrics(acc)
+    return finalize_metrics(acc if mesh is None else mesh.all_reduce_sums(acc))

@@ -86,6 +86,11 @@ COUNTERS = ((recavg, "launches"), (ffn, "launches"), (ffn, "train_launches"),
 WARMUP_CALLS = 1  # eager calls of a key before its capture
 
 
+def launch_counts() -> dict:
+    """Every launch counter by "<module>.<counter>" (e.g. "ffn.launches")."""
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{a}": getattr(m, a) for m, a in COUNTERS}
+
+
 def _counts() -> tuple[list, dict]:
     return [getattr(m, a) for m, a in COUNTERS], dict(attn.launches_by_shape)
 
@@ -330,12 +335,17 @@ def interleave(step_iters: list) -> list:
     return results
 
 
-def eager_reason(cfg) -> str | None:
+def eager_reason(cfg, mesh=None) -> str | None:
     """Why this run's steps cannot be captured, or None: the config's
     `debug_nans` (autograd's anomaly mode reads every backward's output on
-    the host). No backbone reads a value back to the host inside a step."""
+    the host), or a data mesh on cuda whose collectives run over gloo
+    (ranks that share one card: gloo stages CUDA tensors through host
+    memory, which a graph cannot hold; NCCL's are captured). No backbone reads a value back
+    to the host inside a step."""
     if cfg.debug_nans:
         return "debug_nans: autograd's anomaly mode checks each backward on the host"
+    if mesh is not None and mesh.device.type == "cuda" and mesh.backend == "gloo":
+        return "gloo collectives (ranks sharing a card) stage through host memory"
     return None
 
 

@@ -51,6 +51,18 @@ counters and history, the train loader's shuffle state and the port's
 random streams (the hash-dropout salts, ProbSparse's samples, the
 LatentODE's and NeuralFlow's z0 noise), so a resumed run equals the
 uninterrupted one bit for bit.
+
+`mesh_shape` (N,) trains over a data mesh of N ranks (parallel/mesh.py;
+`python -m imm_tsf_torch.main --mesh_shape N` starts them), the JAX
+package's ("data",) mesh (:529, :647-724, :796): every rank runs this
+function on the same data stream and keeps its rows of each global batch
+(streaming, resident and staged alike), the parameters start from rank
+0's, the loss is the rank's share of the global masked mean, one
+all-reduce of a flat buffer sums the gradients (and the loss) after the
+backward, inside a captured step too, and the eval sums are all-reduced,
+so every rank takes the same early-stopping decisions. Rank 0 writes the
+checkpoints (the others wait at a barrier); every rank reads them on
+`--load`. The run gives the single-process answer on the global batch.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ from ..device import resolve_run_device
 from ..layers.bf16_products import Bf16Products
 from ..layers.fast_dropout import Dropout
 from ..layers.prob_attention import ProbAttention
+from ..parallel.mesh import check_mesh_shape, make_mesh, shard_batch
 from .evaluation import evaluation, finalize_metrics, masked_mse_loss
 from .optim import cast_frozen, clip_and_step, make_optimizer, trainable_parameters
 
@@ -135,13 +148,14 @@ def make_forward(cfg: Config, model, fusion):
     return forward
 
 
-def make_loss_fn(forward):
+def make_loss_fn(forward, mesh=None):
     """The masked-MSE training loss (reference lib/evaluation.py:107):
-    loss_fn(batch) -> 0-d tensor."""
+    loss_fn(batch) -> 0-d tensor; under a data mesh the rank's share of
+    the global batch's loss."""
 
     def loss_fn(batch: dict):
         return masked_mse_loss(forward(batch), batch["data_to_predict"],
-                               batch["mask_predicted_data"])
+                               batch["mask_predicted_data"], mesh)
 
     return loss_fn
 
@@ -173,9 +187,12 @@ class StepTimer:
 
 
 def make_grad_step(loss_fn, optimizer, params, clip_norm: float = 1.0,
-                   timer: StepTimer | None = None):
+                   timer: StepTimer | None = None, mesh=None):
     """grad_step(batch) -> loss (0-d, on the device): forward, backward,
-    clip, Adam step. `timer` marks the phases with CUDA events.
+    clip, Adam step. `timer` marks the phases with CUDA events. Under a
+    data mesh the gradients and the loss are summed over the ranks by one
+    flat all-reduce after the backward (parallel/mesh.DataMesh.
+    sum_gradients): the global batch's.
     `grad_step.stepping` is True from the clip and optimizer step of the
     latest call on: an error raised before it left the parameters and
     Adam state untouched."""
@@ -188,6 +205,8 @@ def make_grad_step(loss_fn, optimizer, params, clip_norm: float = 1.0,
         loss = loss_fn(batch)
         mark()
         loss.backward()
+        if mesh is not None:
+            loss = mesh.sum_gradients(params, loss)
         mark()
         grad_step.stepping = True
         clip_and_step(optimizer, params, clip_norm)
@@ -198,26 +217,29 @@ def make_grad_step(loss_fn, optimizer, params, clip_norm: float = 1.0,
     return grad_step
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
-    """The batch's arrays as tensors on `device` (other entries dropped)."""
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()
-            if isinstance(v, np.ndarray)}
+def to_device(batch: dict, device: torch.device, mesh=None) -> dict:
+    """The batch's arrays as tensors on `device` (other entries dropped);
+    under a data mesh the rank's rows (parallel/mesh.shard_batch)."""
+    return {k: torch.from_numpy(v).to(device) for k, v in shard_batch(batch, mesh).items()}
 
 
 def check_trainable(cfg: Config) -> None:
     """Refuse a configuration whose training path is not ported: nothing
-    drops to a plain version unsaid."""
+    drops to a plain version unsaid. A data mesh is ported; a second mesh
+    axis (the tensor-parallel LLM's) is refused, and so is a global batch
+    that the data axis does not divide."""
     refusals = [
         (cfg.dropout_impl != "hash",
          f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
          "(ROADMAP.md, Queue 1, item 19)"),
-        (bool(cfg.mesh_shape),
-         "mesh_shape: multi-GPU training comes with the system layers "
-         "(ROADMAP.md, Queue 1, item 16)"),
     ]
     for refused, why in refusals:
         if refused:
             raise NotImplementedError(why)
+    n = check_mesh_shape(cfg.mesh_shape)
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over the data axis of "
+                         f"mesh_shape {tuple(cfg.mesh_shape)} (ROADMAP.md, Queue 1, item 16)")
 
 
 def _find_shuffler(loader):
@@ -294,26 +316,27 @@ def shuffle_state(shuffler):
     return shuffler._rng.bit_generator.state if shuffler is not None else None
 
 
-def run_evaluation(forward, loader, device, modules) -> dict:
+def run_evaluation(forward, loader, device, modules, mesh=None) -> dict:
     """Streaming evaluation with the modules in eval mode; back to train
-    mode after."""
+    mode after. Under a data mesh each rank predicts its rows and the sums
+    are all-reduced."""
 
     def forecast(batch):
-        dev = to_device(batch, device)
+        dev = to_device(batch, device, mesh)
         return forward(dev), dev["data_to_predict"], dev["mask_predicted_data"]
 
     for m in modules:
         m.eval()
     try:
         with torch.inference_mode():
-            return evaluation(forecast, loader)
+            return evaluation(forecast, loader, mesh)
     finally:
         for m in modules:
             m.train()
 
 
 def build_run(cfg: Config, sample: dict, device: torch.device,
-              initial_state: tuple | None = None):
+              initial_state: tuple | None = None, mesh=None):
     """One run's modules, random streams and optimizer, as trainable()
     builds them: the model and fusion stack under torch.manual_seed(cfg.seed)
     (Flax takes the notes' width from the sample batch; so does the fusion
@@ -322,7 +345,9 @@ def build_run(cfg: Config, sample: dict, device: torch.device,
     "sample": ProbSparse attention's train-mode key samples, "z0": the
     LatentODE's and NeuralFlow's train-mode z0 noise (both on the device)},
     each seeded cfg.seed and wired into its modules; Adam over the trainable
-    parameters at cfg.lr (`capturable` on cuda).
+    parameters at cfg.lr (`capturable` on cuda). Under a data mesh every
+    module that holds a `data_mesh` gets it, and the parameters and buffers
+    are rank 0's.
     -> (model, fusion or None, generators, params, optimizer)"""
     from ..models import get_model
 
@@ -356,9 +381,23 @@ def build_run(cfg: Config, sample: dict, device: torch.device,
                 m.generator = generators["sample"]
             elif hasattr(m, "z0_generator"):
                 m.z0_generator = generators["z0"]
+    wire_mesh((model, fusion), mesh)
+    if mesh is not None:
+        mesh.broadcast_module_(model, fusion)
     params = trainable_parameters(model, fusion)
     optimizer = make_optimizer(params, cfg.lr, cfg.w_decay, capturable=device.type == "cuda")
     return model, fusion, generators, params, optimizer
+
+
+def wire_mesh(modules, mesh) -> None:
+    """Set `data_mesh` on every submodule that holds one (the batch-coupled
+    layers: dropout sites, BatchNorm, TimesBlock, the latent models' z0)."""
+    for mod in modules:
+        if mod is None:
+            continue
+        for m in mod.modules():
+            if hasattr(m, "data_mesh"):
+                m.data_mesh = mesh
 
 
 def traced_epoch(cfg: Config, start_epoch: int) -> int | None:
@@ -392,12 +431,18 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     seconds and graph nodes, replays, eager calls) and, on cuda,
     "step_ms": on the epoch loop each step's device ms under "step" (CUDA
     events around each replay or eager step, warm-up calls aside),
-    streaming each step's forward, backward and optimizer device ms."""
+    streaming each step's forward, backward and optimizer device ms, and
+    "launches": each kernel wrapper's launches in this run ({"<module>.<counter>":
+    n}, training/graphs.COUNTERS; a rank's own under a data mesh)."""
     from ..data.loader import parse_datasets
+    from .graphs import launch_counts
+
+    launches0 = launch_counts()
 
     # --gpu pins the card before anything is placed on it (JAX :530-539)
     device = resolve_run_device(device, cfg.gpu, cfg.mesh_shape)
     check_trainable(cfg)
+    mesh = make_mesh(cfg.mesh_shape, device)
 
     def _mark(key, dt):
         if timings is not None:
@@ -418,7 +463,7 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
     # stays the JAX package's for the same seed
     sample = next(iter(data_obj["train_dataloader"]))
     model, fusion, generators, params, optimizer = build_run(cfg, sample, device,
-                                                             initial_state)
+                                                             initial_state, mesh)
     modules = [m for m in (model, fusion) if m is not None]
     samples, z0 = generators["sample"], generators["z0"]
     forward = make_forward(cfg, model, fusion)
@@ -443,24 +488,27 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
         train_loader = PrefetchIterator(train_loader, depth=cfg.host_prefetch)
     t0 = time.time()
     epochs = (_epoch_loop(cfg, data_obj, model, forward, optimizer, params, [samples, z0],
-                          device, timings is not None)
+                          device, timings is not None, mesh)
               if cfg.device_loop and not log_every else None)
     _mark("setup", time.time() - t0)
     timer = None
     if epochs is None:
         timer = StepTimer() if timings is not None and device.type == "cuda" else None
-        grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0, timer)
+        grad_step = make_grad_step(make_loss_fn(forward, mesh), optimizer, params, 1.0, timer,
+                                   mesh)
 
     def _eval(which: str) -> dict:
         t0 = time.time()
         if epochs is not None:
             res = epochs.evaluate(which, modules)
         else:
-            res = run_evaluation(forward, data_obj[f"{which}_dataloader"], device, modules)
+            res = run_evaluation(forward, data_obj[f"{which}_dataloader"], device, modules,
+                                 mesh)
         _mark(which, time.time() - t0)
         return res
 
-    profile_epoch = traced_epoch(cfg, start_epoch)
+    # one trace a run: rank 0's under a data mesh
+    profile_epoch = traced_epoch(cfg, start_epoch) if mesh is None or mesh.rank == 0 else None
     # debug_nans: anomaly mode raises where a backward first gives a NaN
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
                else contextlib.nullcontext())
@@ -473,7 +521,7 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                     step_losses = epochs.train(itr, train_loader)
                 else:
                     step_losses = _train_epoch(cfg, itr, train_loader, grad_step, timer, device,
-                                               log_every)
+                                               log_every, mesh)
                 _mark("train", time.time() - st)
                 val_res = _eval("val")
             if best_val_mse - val_res["mse"] > cfg.early_stop_delta:
@@ -483,12 +531,12 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                 else:  # no test split: the best epoch's val metrics
                     test_res = dict(val_res)
                 if checkpoint_dir is not None:
-                    from .checkpoint import save_experiment
+                    from .checkpoint import rank0_writes, save_experiment
 
                     t0 = time.time()
-                    save_experiment(checkpoint_dir, cfg.replace(platform="auto"),
-                                    model.state_dict(),
-                                    fusion.state_dict() if fusion is not None else None, itr)
+                    rank0_writes(mesh, lambda: save_experiment(
+                        checkpoint_dir, cfg.replace(platform="auto"), model.state_dict(),
+                        fusion.state_dict() if fusion is not None else None, itr))
                     _mark("save", time.time() - t0)
             else:
                 no_improve += 1
@@ -500,16 +548,17 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
                                 step_losses=step_losses, val=val_res, secs=epoch_secs,
                                 windows_per_sec=n_windows / max(epoch_secs, 1e-9)))
             if checkpoint_dir is not None:
-                from .checkpoint import save_train_state
+                from .checkpoint import rank0_writes, save_train_state
 
                 meta = dict(epoch=itr, best_val_mse=float(best_val_mse), best_iter=best_iter,
                             no_improve=no_improve, test_res=test_res, history=history,
                             data_rng_state=shuffle_state(shuffler),
                             **generator_states(generators))
                 t0 = time.time()
-                save_train_state(checkpoint_dir, model.state_dict(),
-                                 fusion.state_dict() if fusion is not None else None,
-                                 optimizer.state_dict(), meta, itr)
+                rank0_writes(mesh, lambda: save_train_state(
+                    checkpoint_dir, model.state_dict(),
+                    fusion.state_dict() if fusion is not None else None,
+                    optimizer.state_dict(), meta, itr))
                 _mark("save", time.time() - t0)
             logger.info("- Epoch %03d | train loss %.5f | val mse %.5f mae %.5f | %.2fs"
                         " | %.0f windows/s", itr, history[-1]["train_loss"], val_res["mse"],
@@ -523,19 +572,28 @@ def trainable(cfg: Config, data_obj: dict | None = None, log_every: int = 0,
 
     if timer is not None:
         timings["step_ms"] = timer.ms
+    if timings is not None:
+        timings["launches"] = {k: v - launches0[k] for k, v in launch_counts().items()}
     if epochs is not None and timings is not None:
         timings["epoch_loop"] = epochs.stats()
         if device.type == "cuda":
             timings["step_ms"] = {"step": epochs.step_ms}
     assert test_res is not None, "No test results available."
+    wire_mesh(modules, None)  # the returned modules run on one device
     return dict(test_res, best_iter=best_iter, history=history, model=model, fusion=fusion)
 
 
-def _skip_batch(itr: int, step: int, error, grad_step, device) -> None:
+def _skip_batch(itr: int, step: int, error, grad_step, device, mesh=None) -> None:
     """A batch that ran out of device memory before the optimizer step is
     skipped with a warning (reference main.py:1107-1110); at or after it,
     the error is raised, since the parameters or Adam state may be partly
-    updated."""
+    updated. Under a data mesh of more than one rank it is raised: one rank
+    cannot skip a batch that the others train on."""
+    if mesh is not None and mesh.world > 1:
+        raise RuntimeError(
+            f"out of memory at epoch {itr} step {step} on rank {mesh.rank} of a data mesh: "
+            "the ranks step together, so the batch cannot be skipped; reduce batch_size") \
+            from error
     if grad_step.stepping:
         raise RuntimeError(
             f"out of memory at epoch {itr} step {step} in the optimizer step: the "
@@ -546,17 +604,18 @@ def _skip_batch(itr: int, step: int, error, grad_step, device) -> None:
         torch.cuda.empty_cache()
 
 
-def _train_epoch(cfg, itr, loader, grad_step, timer, device, log_every) -> list[float]:
+def _train_epoch(cfg, itr, loader, grad_step, timer, device, log_every,
+                 mesh=None) -> list[float]:
     """One streaming epoch of gradient steps; returns the steps' losses
     (an out-of-memory batch: `_skip_batch`)."""
     step_losses = []
     for step, batch in enumerate(loader):
         try:
-            loss = float(grad_step(to_device(batch, device)))
+            loss = float(grad_step(to_device(batch, device, mesh)))
         except torch.cuda.OutOfMemoryError as e:
             if timer is not None:
                 timer.discard()
-            _skip_batch(itr, step, e, grad_step, device)
+            _skip_batch(itr, step, e, grad_step, device, mesh)
             continue
         if timer is not None:
             timer.collect()
@@ -575,11 +634,12 @@ def _is_oom(error) -> bool:
             or "out of memory" in str(error).lower())
 
 
-def resident_stores(cfg, data_obj, device) -> dict | None:
+def resident_stores(cfg, data_obj, device, mesh=None) -> dict | None:
     """Every split as a device_loop.Resident on `device`, or None when one
     split does not build (a batch-dependent collate, a split past
     `device_loop_max_mb`, a loader that is not a BatchIterator under its
-    stages)."""
+    stages). Under a data mesh every rank holds every window (the JAX
+    package's replicated store) and its tables hold the rank's columns."""
     from . import device_loop as DL
 
     cap = cfg.device_loop_max_mb << 20
@@ -591,28 +651,29 @@ def resident_stores(cfg, data_obj, device) -> dict | None:
         if r is None:
             return None
         built[w] = (r, bit)
-    return {w: DL.Resident(w, r, bit, device) for w, (r, bit) in built.items()}
+    return {w: DL.Resident(w, r, bit, device, mesh) for w, (r, bit) in built.items()}
 
 
 def _epoch_loop(cfg, data_obj, model, forward, optimizer, params, generators, device,
-                timed: bool):
+                timed: bool, mesh=None):
     """The run's device-side epoch loop, or None when it streams: resident
     train, val and test stores, else staged val and test stores (the train
-    split staged each epoch), else None (JAX :646-701)."""
+    split staged each epoch), else None (JAX :646-701). Under a data mesh
+    each rank's stores and tables give it its rows of every batch."""
     from . import device_loop as DL
 
     bit_train = _find_shuffler(data_obj["train_dataloader"])
-    stores = resident_stores(cfg, data_obj, device)
+    stores = resident_stores(cfg, data_obj, device, mesh)
     if stores is not None:
         return _EpochLoop(cfg, "resident", stores, bit_train, model, forward, optimizer,
-                          params, generators, device, timed)
+                          params, generators, device, timed, mesh)
     # the eval splits stage once (no shuffle: the train stream is untouched)
     evals = [w for w in ("val", "test") if data_obj[f"{w}_dataloader"] is not None]
-    staged = {w: DL.stage_epoch(data_obj[f"{w}_dataloader"]) for w in evals}
+    staged = {w: DL.stage_epoch(data_obj[f"{w}_dataloader"], mesh) for w in evals}
     if any(v is None for v in staged.values()):
         return None
     return _EpochLoop(cfg, "staged", staged, bit_train, model, forward, optimizer, params,
-                      generators, device, timed)
+                      generators, device, timed, mesh)
 
 
 class _EpochLoop:
@@ -622,17 +683,19 @@ class _EpochLoop:
     `stores`: the Resident splits, or the eval splits' staged arrays."""
 
     def __init__(self, cfg, mode: str, stores: dict, bit_train, model, forward, optimizer,
-                 params, generators, device, timed: bool):
+                 params, generators, device, timed: bool, mesh=None):
         from . import device_loop as DL
         from .graphs import StepLoop, eager_reason
 
         self.cfg, self.mode, self.bit_train, self.device = cfg, mode, bit_train, device
+        self.mesh = mesh
         self.events: list = []  # (start, end) CUDA events of the epoch's timed steps
         self.step_ms: list = []
-        eager = eager_reason(cfg)
+        eager = eager_reason(cfg, mesh)
         self.loop = StepLoop(device, generators, eager=eager,
                              timer=self.events if timed and device.type == "cuda" else None)
-        self.grad_step = make_grad_step(make_loss_fn(forward), optimizer, params, 1.0)
+        self.grad_step = make_grad_step(make_loss_fn(forward, mesh), optimizer, params, 1.0,
+                                        mesh=mesh)
         how = ("captured CUDA graph steps" if self.loop.capture
                else f"eager steps ({eager or 'no CUDA graphs on ' + device.type})")
         if mode == "resident":
@@ -663,14 +726,15 @@ class _EpochLoop:
         a captured loop (:755-771), and skips the batch in eager steps."""
         from . import device_loop as DL
 
-        on_oom = lambda step, e: _skip_batch(itr, step, e, self.grad_step, self.device)
+        on_oom = lambda step, e: _skip_batch(itr, step, e, self.grad_step, self.device,
+                                             self.mesh)
         try:
             if self.mode == "resident":
                 res = self.res["train"]
                 perm = DL.epoch_perm(self.bit_train, res.row_of, res.n_rows)
                 losses, skipped = self.run_train(res, perm, on_oom)
             else:
-                stacked = DL.stage_epoch(train_loader)
+                stacked = DL.stage_epoch(train_loader, self.mesh)
                 if stacked is None:
                     raise RuntimeError("epoch staging failed mid-run")
                 losses, skipped = self.run_train(stacked, on_oom)
@@ -697,8 +761,9 @@ class _EpochLoop:
         for m in modules:
             m.eval()
         try:
-            sums = self.run_eval(self.res[which] if self.mode == "resident" else which)
-            return finalize_metrics(DL.reduce_eval_sums(sums))
+            sums = DL.reduce_eval_sums(
+                self.run_eval(self.res[which] if self.mode == "resident" else which))
+            return finalize_metrics(sums if self.mesh is None else self.mesh.all_reduce_sums(sums))
         finally:
             for m in modules:
                 m.train()

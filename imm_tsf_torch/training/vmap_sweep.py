@@ -169,6 +169,12 @@ def train_seed_sweep(cfg: Config, seeds=None, lrs=None, data_obj: dict | None = 
                          f"{S} replicas")
     device = resolve_run_device(device, cfg.gpu, cfg.mesh_shape)
     check_trainable(cfg)
+    if cfg.mesh_shape:
+        # the JAX package shards the replica axis over the mesh (:171-237)
+        raise NotImplementedError(
+            f"mesh_shape {tuple(cfg.mesh_shape)} with a sweep: the replica-sharded sweep is "
+            "not ported (ROADMAP.md, Queue 1, item 16, the TP half); train the replicas on "
+            "one device")
 
     def _mark(key, dt):
         if timings is not None:

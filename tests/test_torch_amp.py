@@ -66,6 +66,7 @@ from imm_tsf_torch.models import get_model
 from imm_tsf_torch.training import trainer
 
 from torch_port_parity import perturbed
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from imm_tsf_torch.training.optim import clip_and_step, make_optimizer, trainabl
 
 from test_torch_amp import MODELS, _batch, _cfg, _jax_state, _np, _port, _tensors, strict_jit
 from torch_port_parity import pinned_salts
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -18,6 +18,7 @@ from imm_tsf_torch.training import trainer
 
 from torch_port_parity import (BF16_MODELS, backbone_case, install_bf16_oracle, port_modules,
                                tensors)
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

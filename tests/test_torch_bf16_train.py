@@ -32,6 +32,7 @@ from imm_tsf_torch.training import trainer
 
 from torch_port_parity import (backbone_case, install_bf16_oracle, np_tree, port_modules,
                                tensors)
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from imm_tsf_torch.kernels import cru_scan as kscan
 from imm_tsf_torch.kernels import expm as kexpm
 from imm_tsf_torch.models import get_model
 from imm_tsf_torch.ops import cru_scan as tscan
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -21,7 +21,11 @@ steps whose float32 rounding alone passes 1e-4 + 1e-4|ref|). The one-pass
 bf16 forms of #1-#3 (compute_dtype="bfloat16") are held as
 chip_smoke.one_pass_score holds them: each output's relative norm distance
 to its plain version run in float64 within 4 times the float32 plain
-version's own, and under a tenth of the float32 products'."""
+version's own, and under a tenth of the float32 products'. #2's forms at a
+global row offset (row_base, a rank of a data mesh) are held to their plain
+versions at that offset as above, and bit for bit to the matching rows of a
+row_base 0 call over the global batch; their dropout bits are the hash
+bits of the global rows."""
 
 import os
 
@@ -34,8 +38,8 @@ from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_i
                         check_scan, check_scan_bwd, compare_step, compare_timellm_step,
                         dropout_probe_inputs, expm_inputs, expm_rel_err, expm_tri_inputs,
                         ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
-                        one_pass_score, recavg_inputs, run_imts_serving, run_mts_serving,
-                        scan_bwd_case, scan_inputs, training_data)
+                        one_pass_score, recavg_inputs, row_base_case, run_imts_serving,
+                        run_mts_serving, scan_bwd_case, scan_inputs, training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.layers.bf16_products import Bf16Products
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
@@ -1149,3 +1153,32 @@ def test_mode_products_use_bf16_gemms_with_float32_output(dev, gen):
     assert (lin.weight.grad.double() - r(g).t() @ r(x)).abs().max() <= (
         1e-5 * lin.weight.grad.abs().max())
     assert (lin(x).double() - want).abs().max() >= 1e-3
+
+
+# ------------------------------------------------ #2 at a global row offset
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["eval", "training", "bf16_weight", "one_pass"])
+@pytest.mark.parametrize("M,D,F", [(4096, 512, 2048), (37, 96, 200), (77, 30, 70)])
+def test_ffn_forms_at_a_row_base_match_plain_and_the_global_rows(dev, gen, form, M, D, F):
+    """#2's four forms on the second half of a batch at row_base M: against
+    the plain version at that row_base, and bit for bit with rows M.. of a
+    row_base 0 call over the 2M rows (chip_smoke.row_base_case)."""
+    before = ffn.launches
+    out = row_base_case(form, M, D, F, gen, dev)
+    assert ffn.launches == before + 2
+    assert out["bit_for_bit_with_the_global_batch"], out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["output", "hidden"])
+@pytest.mark.parametrize("train", [False, True])
+def test_ffn_dropout_bits_at_a_row_base_are_the_global_hash_bits(dev, gen, site, train):
+    """The kept elements of rows M.. of the global batch, at row_base M: the
+    hash bits of the global [2M, D] (and [2M, F]) masks' rows."""
+    salts = ffn_inputs(8, 8, 8, gen, dev)[-1]
+    M = 300
+    args, expect = dropout_probe_inputs(2 * M, 512, 1024, site, salts, dev)
+    half = [args[0][M:].contiguous()] + args[1:]
+    out = ffn._forward(*half, KEEP, "relu", True, with_residuals=train, row_base=M)
+    out = out[0] if train else out
+    assert torch.equal(out > 0, expect[M:])

@@ -40,6 +40,7 @@ from imm_tsf_torch.training.graphs import StepLoop
 from imm_tsf_torch.training.trainer import (_EmbedNotesLoader, _find_shuffler, make_forward,
                                             trainable)
 from torch_port_parity import EXPERIMENT, np_tree
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

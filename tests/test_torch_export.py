@@ -20,6 +20,7 @@ from imm_tsf_torch.kernels import ops
 from imm_tsf_torch.serving import ForecastService
 
 from torch_port_parity import assert_answers_match, jax_and_port_experiments, mixed_requests
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 
@@ -164,23 +165,43 @@ def _forecast_in_fours(fc, insts):
     return [a for i in range(0, len(insts), 4) for a in fc.forecast(insts[i:i + 4])]
 
 
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory):
+    """case -> (cfg, jdir, tdir, insts, j_meta, the JAX artifact's answers):
+    each experiment and its JAX artifact made once for the module, so the
+    two CRU cases (the same config, the port on either route) share one."""
+    from imm_tsf_tpu.export import ExportedForecaster as JExportedForecaster
+    from imm_tsf_tpu.export import export_experiment as j_export_experiment
+
+    made: dict = {}
+
+    def get(case: str):
+        key = json.dumps(CASES[case], sort_keys=True)
+        if key not in made:
+            tmp = tmp_path_factory.mktemp(case)
+            cfg, jdir, tdir = jax_and_port_experiments(
+                tmp, dict(CASES[case], input_dim=3, input_len=16, pred_len=8))
+            insts = mixed_requests(cfg, 10)
+            jart = str(tmp / "jax_art")
+            j_meta = j_export_experiment(jdir, jart, batch_sizes=(4,))
+            made[key] = (cfg, jdir, tdir, insts, j_meta,
+                         _forecast_in_fours(JExportedForecaster(jart), insts))
+        return made[key]
+
+    return get
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_artifact_matches_jax_artifact_and_live_service(tmp_path, monkeypatch, case):
+def test_artifact_matches_jax_artifact_and_live_service(jax_side, tmp_path, monkeypatch, case):
     """One experiment (the JAX init, converted) exported by both packages
     on the CPU: the port's artifact answers 10 mixed requests as the JAX
     artifact does (1e-4 + 1e-4|ref|, the tolerance of the live services'
     comparison) and as the port's live service does (rtol 1e-5, atol
     1e-6); its graph holds the expected ops. CRU_fused exports the port on
-    the fused route (IMM_TSF_CRU_FUSED=1) against the JAX default route."""
-    from imm_tsf_tpu.export import ExportedForecaster as JExportedForecaster
-    from imm_tsf_tpu.export import export_experiment as j_export_experiment
-
-    cfg, jdir, tdir = jax_and_port_experiments(
-        tmp_path, dict(CASES[case], input_dim=3, input_len=16, pred_len=8))
-    insts = mixed_requests(cfg, 10)
-    jart, tart = str(tmp_path / "jax_art"), str(tmp_path / "port_art")
-    j_meta = j_export_experiment(jdir, jart, batch_sizes=(4,))
-    want = _forecast_in_fours(JExportedForecaster(jart), insts)
+    the fused route (IMM_TSF_CRU_FUSED=1) against the JAX default route
+    (CRU_default's experiment and JAX artifact, `jax_side`)."""
+    cfg, jdir, tdir, insts, j_meta, want = jax_side(case)
+    tart = str(tmp_path / "port_art")
 
     if case == "CRU_fused":
         monkeypatch.setenv("IMM_TSF_CRU_FUSED", "1")

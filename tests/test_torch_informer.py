@@ -55,6 +55,7 @@ from imm_tsf_torch.models import get_model
 from imm_tsf_torch.serving import ForecastService
 from imm_tsf_torch.training.checkpoint import save_experiment
 from imm_tsf_torch.training.trainer import trainable
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

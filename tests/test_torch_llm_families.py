@@ -45,6 +45,7 @@ from imm_tsf_torch.convert import bert_params_from_jax, llama_params_from_jax, p
 from imm_tsf_torch.llm import bert, llama, loader
 from imm_tsf_torch.models import get_model
 from torch_port_parity import np_tree, trainable_matches_jax
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from imm_tsf_torch.convert import params_from_jax
 from imm_tsf_torch.kernels import ffn as tffn
 from imm_tsf_torch.layers.transformer import AttentionLayer, EncoderLayer, FullAttention
 from imm_tsf_torch.training.trainer import check_trainable, trainable
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

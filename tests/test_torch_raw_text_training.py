@@ -33,6 +33,7 @@ from imm_tsf_torch.data.loader import parse_datasets
 from imm_tsf_torch.kernels import attn
 from imm_tsf_torch.llm import loader
 from imm_tsf_torch.training.trainer import _EmbedNotesLoader, trainable
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from imm_tsf_torch.training import graphs
 from imm_tsf_torch.training.checkpoint import save_experiment
 
 from torch_port_parity import D_TXT, EXPERIMENT, service_matches_jax
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from imm_tsf_tpu.config import Config as JConfig
 from imm_tsf_torch.convert import params_from_jax
 from imm_tsf_torch.serving import ForecastService
 from imm_tsf_torch.training.checkpoint import save_experiment
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -43,6 +43,7 @@ from imm_tsf_torch.training.checkpoint import load_weights
 from imm_tsf_torch.training.trainer import trainable
 from imm_tsf_torch.training.vmap_sweep import train_seed_sweep
 from torch_port_parity import D_TXT, EXPERIMENT, np_tree
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

@@ -58,6 +58,7 @@ from imm_tsf_torch.models import get_model
 from imm_tsf_torch.models import timellm
 from imm_tsf_torch.training.optim import cast_frozen
 from imm_tsf_torch.training.trainer import check_trainable, trainable
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

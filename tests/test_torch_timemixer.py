@@ -23,6 +23,7 @@ from imm_tsf_torch.models import get_model, timemixer
 
 from torch_port_parity import (assert_model_matches, model_batch, perturbed, port_state,
                                service_matches_jax, trainable_matches_jax)
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 

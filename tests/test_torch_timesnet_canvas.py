@@ -34,6 +34,17 @@ torch.set_num_threads(1)
 
 ATOL = 2e-5
 T_CASES = (36, 72, 120)
+_INITS: dict = {}  # (module, T) -> its flax init under PRNGKey(0)
+
+
+def _jax_init(jm, T: int, *args):
+    """jax.jit(jm.init)(PRNGKey(0), *args), made once a module class and T:
+    the parameters depend on neither top_k nor the input's values (the
+    candidate periods are all of T's), so the k and input cases share it."""
+    key = (type(jm).__name__, T)
+    if key not in _INITS:
+        _INITS[key] = jax.jit(jm.init)(jax.random.PRNGKey(0), *args)
+    return _INITS[key]
 
 
 @pytest.mark.parametrize("T", range(2, 201))
@@ -87,7 +98,7 @@ def test_times_block_matches_jax(recorded, T, k, case):
     rng = np.random.default_rng(T + k)
     x = (rng.standard_normal((3, T, 4)) if case == "random"
          else np.full((3, T, 4), -2.5)).astype(np.float32)
-    params = perturbed(jax.jit(jb.init)(jax.random.PRNGKey(0), x)["params"])
+    params = perturbed(_jax_init(jb, T, x)["params"])
     tb.load_state_dict(port_state(params))
     recorded["jax"].clear()  # the init's pick
     want = np.asarray(jax.jit(jb.apply)({"params": params}, x))
@@ -106,7 +117,8 @@ def test_timesnet_matches_jax(T, k):
     L, Lp = cfg_kw["input_len"], cfg_kw["pred_len"]
     batch = model_batch(T + k, B=4, L=L, Lp=Lp, K=3)
     tm = get_model(TConfig(**cfg_kw))
-    assert_model_matches(jtimesnet.TimesNet(JConfig(**cfg_kw)), tm, batch, ATOL)
+    jm = jtimesnet.TimesNet(JConfig(**cfg_kw))
+    assert_model_matches(jm, tm, batch, ATOL, init=_jax_init(jm, T, *batch))
 
 
 def test_training_step_gradients_match_jax():

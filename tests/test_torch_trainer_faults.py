@@ -72,7 +72,8 @@ def test_out_of_memory_before_the_optimizer_step_skips_the_batch(root, monkeypat
     make_loss_fn, clip_and_step = trainer.make_loss_fn, trainer.clip_and_step
     forwards, steps = [], []
     monkeypatch.setattr(trainer, "make_loss_fn",
-                        lambda forward: _raise_on_call(make_loss_fn(forward), 1, forwards))
+                        lambda forward, *mesh: _raise_on_call(make_loss_fn(forward, *mesh), 1,
+                                                              forwards))
 
     def counted_step(optimizer, params, clip_norm=1.0):
         clip_and_step(optimizer, params, clip_norm)

@@ -35,6 +35,7 @@ from imm_tsf_torch.layers.fast_dropout import Dropout, draw_salts, hash_dropout
 from imm_tsf_torch.training import evaluation as tev
 from imm_tsf_torch.training.optim import clip_and_step, make_optimizer
 from imm_tsf_torch.training.trainer import check_trainable, trainable
+from torch_port_parity import jitted_jax_init  # noqa: F401 -- autouse: JAX's init jitted
 
 torch.set_num_threads(1)
 
@@ -144,10 +145,12 @@ def test_dropout_is_bit_identical_to_jax_hash_dropout(rate):
 
 def test_refused_configurations_name_their_slice():
     base = dict(model="CRU", enable_text=True, use_text_embeddings=True)
+    # the data axis is ported; the tensor-parallel 'model' axis is not
     for kw, match in ((dict(dropout_impl="flax"), "Queue 1, item 19"),
-                      (dict(mesh_shape=(2,)), "Queue 1, item 16")):
+                      (dict(mesh_shape=(2, 2)), "Queue 1, item 16.*TP half")):
         with pytest.raises(NotImplementedError, match=match):
             check_trainable(TConfig(**dict(base, **kw)))
+    check_trainable(TConfig(**dict(base, mesh_shape=(2,))))
     # kernel #3 has its backward and raw-text notes have their loader stage
     for kw in ({}, dict(model="PatchTST", use_fused_ffn=True, use_fused_attn=True),
                dict(use_fused_attn=True), dict(use_text_embeddings=False),

@@ -15,7 +15,8 @@ it for each in turns on one card (A, B, B, A). Prints one JSON line:
 "scan_bwd_ms"}: device ms (chip_smoke.device_ms) of #1 at the serving
 shape [B 64, N 8, T 24, d 768] and the PatchTST training shape [32, 8, 36,
 768], #2 at M 8192, D 512, F 2048 (gelu, no
-dropout), #3 at each embed_notes bucket call ([rows, 12, T, 64],
+dropout; "ffn_train_ms" its training form with dropout), #3 at each
+embed_notes bucket call ([rows, 12, T, 64],
 right-padded notes), #4 at the trained [32, 64, 64] (one call at each of
 chip_smoke's inf-norms 0.01, 0.5, 6 and 80, in turn), #5 at the served
 [64, 64, 64] on the 72 Van Loan blocks of the served scan batch (one call
@@ -75,6 +76,9 @@ def main() -> int:
     ffn_sets = [cs.ffn_inputs(8192, 512, 2048, gen, dev) for _ in range(2)]
     out["ffn_ms"] = cs.device_ms(lambda *a: ffn.fused_encoder_ffn(*a, cs.KEEP, "gelu", False),
                                  ffn_sets, per_rep=10)
+    out["ffn_train_ms"] = cs.device_ms(
+        lambda *a: ffn._forward(*a, cs.KEEP, "gelu", True, with_residuals=True), ffn_sets,
+        per_rep=10)
     out["attn"], attn_sets = {}, []
     for T in (32, 64, 128, 256, 512, 1024):
         rows = max(64, 32768 // T)
