@@ -198,12 +198,13 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     rec 40, latents 20; tPatchGNN hid 32, te 10, node 10, 1 head, 1 layer,
     patched as SERVED_PATCHING: 4 patches of 2 days, each holding points)
     + TTF_RecAvg + MMF_GR_Add (d_txt 768), seeded weights, 256 ragged
-    requests from 8 threads (the LatentODE 8, a request a dispatch, its
+    requests from 8 threads (the LatentODE 4, a request a dispatch, its
     union time axis): answers finite with their rows, #1 exactly once a
     dispatch and nothing else, one dispatch kernels vs plain to 1e-4 +
     1e-4|ref|, one traced; (b) train each through
     `imm_tsf_torch.main.main([...])` (IMTS_TRAIN_ARGS: hash dropout 0.1,
-    batch 32, two epochs on phase 7's fixture, #1 on; tPatchGNN's npatch
+    batch 32, two epochs on phase 7's fixture, the LatentODE on one entity of
+    ODE_DATA, its 120-day counterpart, #1 on; tPatchGNN's npatch
     the reference's derivation from the flags before the presets, printed
     with the patches holding points): every loss finite, #1 exactly once a
     forward; (c) `compare_imts_step`: one step at B 32 on requests through
@@ -258,7 +259,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     events), idle share, capture seconds and graph nodes printed; (d)
     TimesNet on captured resident steps (its static period canvas reads
     nothing back to the host), held bit for bit, and the LatentODE on the
-    staged loop (phase 12's 1 entity, one training batch an epoch) for two
+    staged loop (phase 12's ODE_DATA entity, one training batch an epoch) for two
     epochs, the second's steps captured and replayed, against phase 12's
     streaming run (printed: the hash masks over its longer staged union
     axes may differ); (e) 14a's run resumed on the epoch loop from its
@@ -358,7 +359,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     epoch's val mse within DP_RTOL (1e-5) of (b)'s, rank 0's launches
     exact; (d) --mesh_shape min(cards, 4) over NCCL where the machine has
     two cards or more, else logged as not run;
- 5. (after 6-20) time each kernel and its plain version at the shapes
+21. the tensor-parallel half of parallel/: the frozen LLM over a ("data",
+    "model") mesh that one process drives (llm/loader.make_llm_mesh,
+    shard_llm_params), and the sweep over a data mesh: (a) phase 4b's
+    GPT-2 (768 wide, 6 blocks, #3) embeds 64 samples of the note mix on 2
+    data groups x 1 over [cuda:0, cuda:0], within rtol 2e-5, atol 2e-6 of
+    the same call with no mesh, #3 launched exactly twice as often, #3
+    against its plain version at each shape a group launched, real
+    tokens/s both ways; (b) Llama-3.1-8B at full width (4,096, 32 heads, 8
+    KV heads, intermediate 14,336) at 2 blocks, random weights from the
+    seed, over 1 x 2 model shards of the card: each shard 7,168 gate rows,
+    float32 within rtol 2e-5, atol 2e-6 of tp 1, bfloat16 within
+    BF16_TP_SHARE of the unsharded bfloat16 embedding's own distance to
+    float32, peak memory of each; resolve_llm_mesh("Llama", 2) None on one
+    card; 14a's raw-text variant for one epoch with --llm_tp 2, launches
+    exact; (c) 14a's flags with --vmap_seeds 2 --vmap_lrs 1e-3 3e-4
+    --mesh_shape 2 --share_card (S 4 over two ranks on the card, two
+    replicas a rank, no collective in a step) on the epoch loop, captured,
+    two epochs: each replica's per-step losses and val mse bit for bit with
+    15a's, rank 0's launches exact, windows/s per card beside 15a's; (d)
+    --vmap_lrs 1e-3 --mesh_shape 2 --share_card (S 1: each batch split over
+    the ranks) streaming for DP_EPOCHS epochs within DP_RTOL of 20c; (e)
+    (b)'s Llama and (c) over min(cards, 4) cards where the machine has two
+    or more, else logged as not run;
+ 5. (after 6-21) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -370,7 +394,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     on that step's inputs; #2's training form and its plain backward at
     M 8192, and both forms at Informer's three sites, each also in its
     bf16-weight form beside the float32 form, bound with bf16 weight bytes
-    and two TF32 passes a product) and print one JSON
+    and two TF32 passes a product; #2's eval form's library_ms, at M 8192
+    and at Informer's sites, two cuBLAS float32 GEMMs + GELU + LayerNorm)
+    and print one JSON
     line {"kernels": [...]}
     (seven rows; #1-#3 each with a `one_pass` block, its one-pass form of
     phase 19 timed on the row's own inputs: launches from 19b and 19c,
@@ -451,6 +477,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12  # tensor cores; #3 runs 3 TF32 passes a product
+GPU_CYCLES_PER_S = 1.98e9  # the H100 SXM's boost clock: torch.cuda._sleep counts cycles
+SLEEP_CYCLES = (10_000_000, 100_000_000)  # device_ms's sleep ahead of each rep
 
 SEED = 0  # weights, requests and kernel inputs
 N_REQUESTS = 1024
@@ -655,6 +683,39 @@ MESH_ONE = ["--mesh_shape", "1"]
 DP_EPOCHS = 2
 DP_RTOL = 1e-5
 ROW_BASE_FORMS = ("eval", "training", "bf16_weight", "one_pass")
+# phase 21: the frozen LLM over a ("data", "model") mesh (llm/loader.make_llm_mesh)
+# driven by one process. 21a phase 4b's GPT-2 on 2 data groups of the card,
+# N_MESH_SAMPLES samples of the note mix, within LLM_MESH_TOL of no mesh
+# (tests/test_llm_sharded.py's rtol 2e-5, atol 2e-6: a group's rows are whole rows).
+# 21b Llama-3.1-8B at full width and LLAMA_TP_LAYERS blocks over 2 model shards of
+# the card, N_LLAMA_TP_SAMPLES samples of notes up to 200 words. A shard's o and down
+# terms sum 2,048 and 7,168 products where tp 1 sums 4,096 and 14,336 at once, so in
+# float32 the two differ by float32 rounding of sums that wide, past LLM_MESH_TOL at
+# this width (the share of elements past it is printed): each is held against a
+# float64 copy of the model instead, the sharded embedding's largest distance to it
+# within TP_F64_SCORE_MAX times tp 1's own. In bfloat16 within BF16_TP_SHARE of the
+# unsharded bfloat16 embedding's own relative distance to float32 (each shard casts
+# its own weights, and the row-split terms are summed in float32 and rounded once,
+# so only their summation order differs)
+LLM_MESH_TOL = (2e-6, 2e-5)  # (atol, rtol)
+TP_F64_SCORE_MAX = 2.0
+N_MESH_SAMPLES = 64
+LLAMA_TP_LAYERS = 2
+N_LLAMA_TP_SAMPLES = 16
+BF16_TP_SHARE = 0.5
+# 21b: 14a's raw-text variant (the notes through phase 4b's GPT-2 in the loader
+# stage) for one epoch with llm_tp 2, which one card resolves to one device
+RAW_TEXT_TP_ARGS = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
+                    + ["--use_text_embeddings", "false", "--use_fused_attn", "true",
+                       "--llm_layers_fusion", "6", "--llm_tp", "2", "--epoch", "1"])
+# 21c: phase 15a's sweep over two ranks sharing the card (replica-sharded: two
+# replicas a rank), its first two epochs; 21d: the data-parallel sweep (S 1)
+MESH_SWEEP = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
+              + ["--vmap_seeds", "2", "--vmap_lrs", "1e-3", "3e-4", "--epoch", "2"])
+MESH_SWEEP_ARGS = MESH_SWEEP + ["--mesh_shape", "2", "--share_card"]
+MESH_DP_SWEEP_ARGS = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
+                      + ["--vmap_lrs", "1e-3", "--epoch", str(DP_EPOCHS), "--mesh_shape", "2",
+                         "--share_card"] + STREAM)
 PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
 # 16d: main_all's two combinations, DLinear with text on and off
 MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text", "1", "0",
@@ -666,19 +727,23 @@ MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text"
 # TTF_RecAvg + MMF_GR_Add (d_txt 768). The LatentODE is served a request a
 # dispatch (its union time axis), so it takes fewer requests
 IMTS_MODELS = ("LatentODE", "NeuralFlow", "tPatchGNN")
-N_IMTS_REQUESTS = {"LatentODE": 8, "NeuralFlow": 256, "tPatchGNN": 256}  # LatentODE 16 before phase 20
+# LatentODE 16 before phase 20, 8 before phase 21 (PERF.md §4)
+N_IMTS_REQUESTS = {"LatentODE": 4, "NeuralFlow": 256, "tPatchGNN": 256}
 # tPatchGNN's served and compared patching: the preset's 24 (days here) spans
 # EPA-Air's whole 7-day history in one patch; patches of 2 days give 4, each
 # holding points. The trained run keeps the reference's own derivation
 SERVED_PATCHING = dict(patch_size=2, patch_stride=2, npatch=4)
 IMTS_TRAIN_ARGS = {m: [a if a != "CRU" else m for a in TRAIN_ARGS] + ["--use_pallas", "true"]
                    for m in IMTS_MODELS}
-# the LatentODE trains on 1 of the fixture's 8 entities: its scan runs every
-# union time step on the host (~8 s a step at 768 union times on the H100).
-# One entity gives one training batch of 32 windows over 512 union times
-# (two entities gave 768 + 192) and eval batches over 192, which roughly
-# halves phases 12b, 12d and 14d's staged run (PERF.md §4)
+# the LatentODE trains on one entity of ODE_DATA, a fixture of TRAIN_DATA's
+# kind over 120 days, not 240: its scan runs every union time step on the host
+# (~8 s a step at 768 union times on the H100). One entity of 240 days gave one
+# training batch of 32 windows over 512 union times (two entities 768 + 192);
+# 120 days give about half the windows and a union bucket half as long, which
+# roughly halves phases 12b, 12d and 14d's staged run again (PERF.md §4: cuts
+# of depth for phases 20 and 21)
 IMTS_TRAIN_ARGS["LatentODE"] += ["--rec_ids", "entity000"]
+ODE_DATA = dict(TRAIN_DATA, n_entities=1, n_days=120)
 IMTS_STEP_B = 32
 # phase 12e holds the LatentODE's float32 forward over a union axis of 768
 # times (a two-entity training batch's) to its float64 run: within 4x the JAX package's
@@ -3891,7 +3956,8 @@ def check_loop_mode(label: str, run: dict, mode: str, captured: bool) -> None:
                              f"{'captured' if captured else 'eager'} steps")
 
 
-def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: str) -> dict:
+def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: str,
+                    ode_root: str) -> dict:
     """Phase 14: the default training path on the card. 14a PatchTST +
     TTF_RecAvg + MMF_GR_Add on the kernel route (#1, #2 with hash dropout
     0.1), 14b CRU on the default route (#5, #4) and the fused route (#6,
@@ -3934,7 +4000,7 @@ def run_device_loop(device, root: str, exp_dir: str, streamed: dict, kept_root: 
                                         keep_exp=os.path.join(kept_root, "experiment_14d"))
     shutil.rmtree(exp_dir, ignore_errors=True)
     out["14d LatentODE staged"] = run_loop_case(
-        device, root, exp_dir, "14d LatentODE, staged", IMTS_TRAIN_ARGS["LatentODE"],
+        device, ode_root, exp_dir, "14d LatentODE, staged", IMTS_TRAIN_ARGS["LatentODE"],
         recavg_only, False, streamed=streamed["LatentODE"], epochs=2, trace=False)
     shutil.rmtree(exp_dir, ignore_errors=True)
     for name, case in out.items():
@@ -3959,13 +4025,16 @@ def tested_epochs(epochs: list, early_stop_delta: float) -> set:
 
 
 def train_sweep(device, args, root: str, exp_dir: str, label: str, expected,
-                trace: bool = False, start: int = 0) -> dict:
+                trace: bool = False, start: int = 0, ranks: int = 1) -> dict:
     """Phase 15: a sweep through imm_tsf_torch.main.main(args) with the
     launch counts zeroed just before. Every replica's losses and metrics
     finite; on cuda the counts equal expected(steps, evals) over all
     replicas: each steps every epoch from `start` on, runs the val split
     every epoch and the test split every epoch on which any replica
-    improved. With `trace`, epoch 1 is traced (idle share)."""
+    improved. With `trace`, epoch 1 is traced (idle share). `ranks` > 1: a
+    sweep over rank processes (`--mesh_shape N`), whose counts are rank 0's
+    own (its timings' "launches"): its S / N replicas' where N divides the
+    grid's S, else all S replicas' (phase 21)."""
     data = training_data(root, args)
     cfg = data["cfg"]
     n_train, n_val, n_test = (len(data[f"{w}_dataloader"]) for w in ("train", "val", "test"))
@@ -3978,6 +4047,10 @@ def train_sweep(device, args, root: str, exp_dir: str, label: str, expected,
                           timings=timings)
     wall = time.monotonic() - t0
     launches = read_counts()
+    if ranks > 1:
+        counted = timings["launches"]
+        launches = {name: counted[f"{m.__name__.rsplit('.', 1)[-1]}.{a}"]
+                    for name, (m, a) in KERNEL_COUNTS.items()}
     replicas, tested = [], set()
     for r in res:
         hist = r["history"]
@@ -3993,7 +4066,8 @@ def train_sweep(device, args, root: str, exp_dir: str, label: str, expected,
                          "test": {k: r[k] for k in ("mse", "mae", "rmse", "best_iter")}})
     S = len(res)
     n_epochs = max(h["epoch"] for r in res for h in r["history"]) + 1 - start
-    want = expected(S * n_epochs * n_train, S * (n_epochs * n_val + len(tested) * n_test))
+    own = S // ranks if S % ranks == 0 else S  # the replicas rank 0 steps
+    want = expected(own * n_epochs * n_train, own * (n_epochs * n_val + len(tested) * n_test))
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"{label} launched {launches}, expected {want}")
     loop = timings.get("epoch_loop") or {}
@@ -4004,7 +4078,7 @@ def train_sweep(device, args, root: str, exp_dir: str, label: str, expected,
            "graph_nodes": [x and x["graph_nodes"] for x in loop.get("replicas", [])],
            "replays": [x and x["replays"] for x in loop.get("replicas", [])],
            "peak_gb": timings["peak_bytes"] / 1e9 if "peak_bytes" in timings else None,
-           "windows_per_epoch": S * n_train * cfg.batch_size,
+           "windows_per_epoch": S * n_train * cfg.batch_size, "rank0_replicas": own,
            "step_ms": {f"{r['seed']}/{r['lr']}": float(np.median(ms)) if ms else None
                        for r, ms in zip(replicas, timings.get("step_ms", {}).get("step", []))},
            "busy_ms": None, "untraced_ms": None, "idle_share": None}
@@ -4138,8 +4212,7 @@ def run_sweeps(device, root: str, exp_dir: str, loop_runs: dict) -> dict:
         raise AssertionError(f"15a launched {sweep['launches']}, not {S} x 14a's {four}")
     if sweep["mode"] != "resident" or (device.type == "cuda" and not all(sweep["replays"])):
         raise AssertionError(f"15a ran {sweep['mode']} with replays {sweep['replays']}")
-    out["15a"] = dict({k: v for k, v in sweep.items() if k != "replicas"}, held=held, S=S,
-                      launches_x_14a=S)
+    out["15a"] = dict(sweep, held=held, S=S, launches_x_14a=S)  # replicas: phase 21c
     log(f"# phase 15a: {S} replicas, launches {S} x 14a's, idle {sweep['idle_share']} (busy "
         f"{sweep['busy_ms']} ms traced, untraced epoch {sweep['untraced_ms']} ms), capture s "
         f"{sweep['capture_s']}, graph nodes {sweep['graph_nodes']}, peak {sweep['peak_gb']} GB")
@@ -4754,6 +4827,14 @@ def run_bf16(device, root: str, exp_dir: str, loop_runs: dict, shapes) -> dict:
     return out
 
 
+def ffn_library_f32(x, w1, b1, w2, b2, gamma, beta, salts):
+    """#2's eval form (gelu, no dropout) in library calls: two cuBLAS float32
+    GEMMs (TF32 off) with their biases, torch's tanh GELU and LayerNorm."""
+    h = nn.functional.gelu(torch.addmm(b1, x, w1), approximate="tanh")
+    return nn.functional.layer_norm(x + torch.addmm(b2, h, w2), (x.shape[1],), gamma, beta,
+                                    1e-5)
+
+
 def ffn_library_bf16(x, w1, b1, w2, b2, gamma, beta, salts):
     """#2's eval form (gelu, no dropout) in library calls: two cuBLAS GEMMs
     on bf16 copies with float32 output, torch's tanh GELU and LayerNorm."""
@@ -4990,18 +5071,249 @@ def run_dp(device, root: str, exp_dir: str, loop_runs: dict, shapes, gen) -> dic
     return out
 
 
+# --------------------------------------------------------------- phase 21
+def mesh_notes(n: int, seed: int, max_words: int) -> list:
+    """n samples of 1-8 notes each from phase 4b's note mix (TextNotes)."""
+    rng = np.random.default_rng(seed)
+    note = TextNotes(max_words)
+    return [[note(rng)["text"] for _ in range(int(rng.integers(1, 9)))] for _ in range(n)]
+
+
+def rel_dist(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def tokens_per_s(embed, real_tokens: int) -> float:
+    """Real tokens/s of embed(): the median of 3 timed calls after one."""
+    embed()
+    return real_tokens / (float(np.median(wall_ms(embed, reps=3))) / 1e3)
+
+
+def check_gpt2_groups(device, devices, gen) -> dict:
+    """21a: phase 4b's GPT-2 (768 wide, 6 blocks, #3) embeds N_MESH_SAMPLES
+    samples of the note mix on an LLM mesh of len(devices) data groups x 1
+    against the same call with no mesh: within LLM_MESH_TOL; #3 launched
+    exactly len(devices) times as often (each padded row batch split
+    between the groups, once a block each); #3 against its plain version
+    at each shape a group launched it; real tokens/s both ways."""
+    model, tok = llm_loader.load_llm("GPT2", TEXT_CFG["llm_layers_fusion"], device=device,
+                                     use_fused_attn=True)
+    mesh = llm_loader.make_llm_mesh(1, devices=devices)
+    notes = mesh_notes(N_MESH_SAMPLES, SEED, 1000)
+    calls = {}
+    for name, m in (("no mesh", None), ("mesh", mesh)):
+        attn.launches, attn.launches_by_shape = 0, {}
+        stats: dict = {}
+        emb = embed_notes(notes, model, tok, max_length=1024, stats_out=stats, mesh=m)[0]
+        calls[name] = {"emb": emb, "launches": attn.launches, "stats": stats,
+                       "shapes": dict(attn.launches_by_shape)}
+    plain, sharded = calls["no mesh"], calls["mesh"]
+    n_layers = TEXT_CFG["llm_layers_fusion"]
+    if device.type == "cuda" and (sharded["launches"] != len(devices) * plain["launches"]
+                                  or plain["launches"] == 0 or plain["launches"] % n_layers):
+        raise AssertionError(f"21a: #3 launched {sharded['launches']} times on the mesh, "
+                             f"{plain['launches']} without it")
+    err = float(np.abs(sharded["emb"] - plain["emb"]).max())
+    np.testing.assert_allclose(sharded["emb"], plain["emb"], atol=LLM_MESH_TOL[0],
+                               rtol=LLM_MESH_TOL[1], err_msg="21a: the mesh's embedding")
+    group_errs = {}
+    for (B, H, T, D), _ in sorted(sharded["shapes"].items()):  # one group's batch
+        args = attn_inputs(B, H, T, D, gen, device, bucket_lo(T))
+        group_errs[f"[{B},{H},{T},{D}]"] = max_err(
+            attn.fused_causal_attention(*args), attn.attention_reference(*args), ATTN_TOL)
+    real = plain["stats"]["real_tokens"]
+    rate = {name: tokens_per_s(lambda m=m: embed_notes(notes, model, tok, max_length=1024,
+                                                       mesh=m), real)
+            for name, m in (("no mesh", None), ("mesh", mesh))} if device.type == "cuda" else {}
+    out = {"mesh": mesh.shape, "notes": plain["stats"]["n_notes"], "real_tokens": real,
+           "processed_tokens": [plain["stats"]["processed_tokens"],
+                                sharded["stats"]["processed_tokens"]],
+           "max_abs_err": err, "launches": [plain["launches"], sharded["launches"]],
+           "group_shapes": [[list(k), n] for k, n in sorted(sharded["shapes"].items())],
+           "attn_vs_plain_on_a_group": group_errs, "real_tokens_per_s": rate}
+    log(f"# phase 21a GPT-2 over {mesh.shape}: {json.dumps(out)}")
+    llm_loader._SHARDS.clear()
+    return out
+
+
+def llama_tp(device, devices, label: str) -> dict:
+    """21b: Llama-3.1-8B at full width, LLAMA_TP_LAYERS blocks, random
+    weights from the seed, over an LLM mesh of 1 x len(devices): each
+    shard's gate rows (I / tp); in float32 the sharded embedding's largest
+    distance to a float64 copy of the model within TP_F64_SCORE_MAX times
+    tp 1's own (the share of its elements past LLM_MESH_TOL against tp 1
+    printed); in bfloat16 within BF16_TP_SHARE of the unsharded bfloat16
+    embedding's own distance to float32 (relative norm distances); peak
+    memory of each call."""
+    tp = len(devices)
+    model, tok = llm_loader.load_llm("Llama", LLAMA_TP_LAYERS, device=device)
+    mesh = llm_loader.make_llm_mesh(tp, devices=devices)
+    notes = mesh_notes(N_LLAMA_TP_SAMPLES, SEED + 1, 200)
+    emb, peak = {}, {}
+    for dtype in (None, torch.bfloat16):
+        for m in (None, mesh):
+            key = f"{'bfloat16' if dtype else 'float32'} tp {tp if m else 1}"
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            stats: dict = {}
+            emb[key] = embed_notes(notes, model, tok, max_length=1024, stats_out=stats,
+                                   mesh=m, compute_dtype=dtype)[0]
+            peak[key] = peak_gb(device)
+    gate = [s["gate_proj"].shape[0] for s in
+            llm_loader.shard_llm_params(model, mesh)[0].layers[0][2]]
+    if gate != [model.cfg.intermediate_size // tp] * tp:
+        raise AssertionError(f"{label}: the gate projection's shards hold {gate} rows")
+    f32, f32_tp = emb["float32 tp 1"], emb[f"float32 tp {tp}"]
+    b16, b16_tp = emb["bfloat16 tp 1"], emb[f"bfloat16 tp {tp}"]
+    m64 = llm_loader._copy_to(model, device, torch.float64)
+    f64 = embed_notes(notes, m64, tok, max_length=1024)[0].astype(np.float64)
+    del m64
+    past = np.abs(f32_tp - f32) > LLM_MESH_TOL[0] + LLM_MESH_TOL[1] * np.abs(f32)
+    out = {"tp": tp, "mesh": mesh.shape, "gate_rows": gate, "notes": stats["n_notes"],
+           "real_tokens": stats["real_tokens"], "peak_gb": peak,
+           "float32_max_abs_err": float(np.abs(f32_tp - f32).max()),
+           "float32_share_past_tol": float(past.mean()),
+           "float32_from_float64": {"tp 1": float(np.abs(f32 - f64).max()),
+                                    f"tp {tp}": float(np.abs(f32_tp - f64).max())},
+           "bfloat16_rel_dist": rel_dist(b16_tp, b16),
+           "bfloat16_vs_float32_rel_dist": rel_dist(b16, f32),
+           f"bfloat16_tp_{tp}_vs_float32_rel_dist": rel_dist(b16_tp, f32)}
+    d64 = out["float32_from_float64"]
+    out["float32_score"] = d64[f"tp {tp}"] / d64["tp 1"]
+    out["bfloat16_bound"] = BF16_TP_SHARE * out["bfloat16_vs_float32_rel_dist"]
+    log(f"# {label}: {json.dumps(out)}")
+    if not out["float32_score"] <= TP_F64_SCORE_MAX:
+        raise AssertionError(f"{label}: float32 tp {tp} is {d64[f'tp {tp}']:.3e} from float64, "
+                             f"tp 1 {d64['tp 1']:.3e} (score {out['float32_score']:.3f} > "
+                             f"{TP_F64_SCORE_MAX})")
+    if not out["bfloat16_rel_dist"] <= out["bfloat16_bound"]:
+        raise AssertionError(f"{label}: bfloat16 tp {tp} is {out['bfloat16_rel_dist']:.3e} from "
+                             f"tp 1 (bound {out['bfloat16_bound']:.3e})")
+    del model
+    llm_loader._SHARDS.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_mesh_sweep(got: dict, want: dict, label: str, rtol: float = 0.0) -> dict:
+    """Each replica of `got` against `want`'s of the same seed and lr: its
+    per-step losses and each epoch's val mse over got's epochs, bit for bit
+    (rtol 0) or within rtol relative."""
+    gaps = {}
+    for r in got["replicas"]:
+        w = replica(want, r["seed"], r["lr"])
+        la, lb = np.asarray(r["step_losses"]), np.asarray(w["step_losses"])[:len(r["step_losses"])]
+        va = np.asarray([e["val_mse"] for e in r["epochs"]])
+        vb = np.asarray([e["val_mse"] for e in w["epochs"]])[:va.size]
+        if la.size == 0 or la.shape != lb.shape or va.shape != vb.shape:
+            raise AssertionError(f"{label}: replica ({r['seed']}, {r['lr']}) trained "
+                                 f"{la.size} steps, {va.size} epochs")
+        gap = max(float(np.max(np.abs(la - lb) / np.abs(lb))),
+                  float(np.max(np.abs(va - vb) / np.abs(vb))))
+        gaps[f"{r['seed']}/{r['lr']}"] = gap
+        if gap > rtol:
+            raise AssertionError(f"{label}: replica ({r['seed']}, {r['lr']}) departs by {gap:.3e} "
+                                 f"(> {rtol})")
+    return gaps
+
+
+def run_llm_mesh(device, root: str, exp_dir: str, sweeps: dict, dp: dict, gen) -> dict:
+    """Phase 21: the tensor-parallel half of parallel/. 21a check_gpt2_groups
+    over [cuda:0, cuda:0]; 21b llama_tp at tp 2 over [cuda:0, cuda:0],
+    resolve_llm_mesh("Llama", 2) on the machine's cards, 14a's raw-text
+    variant for one epoch with --llm_tp 2 on the epoch loop; 21c 14a's
+    flags with MESH_SWEEP (S 4 over two ranks on the card, two replicas a
+    rank, gloo) on the epoch loop, captured, for the first two of 15a's
+    epochs, each replica bit for bit with 15a's, rank 0's launches exact,
+    windows/s per card beside 15a's; 21d 14a's flags with MESH_DP_SWEEP (S
+    1 over two ranks: the data-parallel sweep) streaming for DP_EPOCHS
+    epochs within DP_RTOL of 20c; 21e llama_tp and 21c over min(cards, 4)
+    cards where there are two or more (NCCL), else logged as not run."""
+    out = {"21a": check_gpt2_groups(device, [device, device], gen)}
+    b = {"llama": llama_tp(device, [device, device], "21b Llama-3.1-8B tp 2 over one card")}
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    resolved = llm_loader.resolve_llm_mesh("Llama", 2, device)
+    b["resolve_llama_tp2"] = None if resolved is None else resolved.shape
+    if device.type == "cuda" and cards == 1 and resolved is not None:
+        raise AssertionError(f"21b: llm_tp 2 on one card resolved to {resolved.shape}")
+    data = training_data(root, PATCH_TRAIN_ARGS)
+    cfg = data["cfg"]
+    n_val, n_test = len(data["val_dataloader"]), len(data["test_dataloader"])
+    patch_counts = lambda s, e: ffn_counts("kernel", cfg.e_layers, s, e)
+    raw = train_route(device, RAW_TEXT_TP_ARGS, root, exp_dir,
+                      "21b 14a's raw-text variant, --llm_tp 2", n_val, n_test,
+                      cfg.early_stop_delta, patch_counts, free=("fused_causal_attention",),
+                      streaming=False)
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    n = raw["launches"]["fused_causal_attention"]
+    if device.type == "cuda" and (n == 0 or n % TEXT_CFG["llm_layers_fusion"]):
+        raise AssertionError(f"21b raw-text run: #3 launched {n} times")
+    b["raw_text"] = {k: raw[k] for k in ("launches", "steps", "epochs", "test", "wall_s")}
+    out["21b"] = b
+
+    def sweep_case(label, args, want, rtol, ranks, mode):
+        res = train_sweep(device, args, root, exp_dir, label, patch_counts, ranks=ranks)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        captured = device.type == "cuda" and mode == "resident"
+        if res["mode"] != mode or (captured and not all(res["replays"])):
+            raise AssertionError(f"{label} ran {res['mode']} with replays {res['replays']}")
+        held = hold_mesh_sweep(res, want, label, rtol)
+        rate = [res["windows_per_epoch"] / t for t in res["train_s"][1:]]
+        summary = dict({k: v for k, v in res.items() if k != "replicas"}, held=held,
+                       windows_per_s_per_card=rate)
+        return summary, res
+
+    a15 = sweeps["15a"]
+    c, _ = sweep_case("21c sweep over 2 ranks on one card, replica-sharded", MESH_SWEEP_ARGS,
+                      a15, 0.0, 2, "resident")
+    c["windows_per_s_per_card_15a"] = {
+        "epoch 2": a15["windows_per_epoch"] / a15["train_s"][2],
+        "rate median": a15["rate"]["sweep"]["median"]}
+    log(f"# phase 21c: every replica bit for bit with 15a's; {c['windows_per_s_per_card']} "
+        f"windows/s per card against 15a's {c['windows_per_s_per_card_15a']}")
+    out["21c"] = c
+    d_want = {"replicas": [dict(dp["20c"]["run"], seed=SEED, lr=1e-3)]}
+    d, _ = sweep_case("21d data-parallel sweep over 2 ranks on one card", MESH_DP_SWEEP_ARGS,
+                      d_want, DP_RTOL, 2, "streaming")
+    log(f"# phase 21d: within {d['held']} of 20c (DP_RTOL {DP_RTOL})")
+    out["21d"] = d
+    n = 4 if cards >= 4 else 2 if cards >= 2 else 0
+    if n:
+        devices = [torch.device("cuda", i) for i in range(n)]
+        e = {"llama": llama_tp(device, devices, f"21e Llama-3.1-8B tp {n} over {n} cards")}
+        e["sweep"], _ = sweep_case(f"21e sweep over {n} cards (NCCL)",
+                                   MESH_SWEEP + ["--mesh_shape", str(n)], a15, 0.0, n,
+                                   "resident")
+        out["21e"] = e
+    else:
+        out["21e"] = {"ran": False, "cards": cards}
+        log(f"# phase 21e did not run: {cards} card(s); the LLM mesh and the sweep over cards "
+            "need 2 or more")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
     calls, cycling through `arg_sets`. A sleep kernel queued first keeps
-    the card busy while the host enqueues, so host overhead is not timed."""
+    the card busy while the host enqueues, so host overhead is not timed:
+    it lasts 1.5 times the host's enqueue of one rep, timed after the warm
+    up, at least SLEEP_CYCLES[0] (~5 ms) and at most SLEEP_CYCLES[1] (~50
+    ms, what every rep slept before phase 21: PERF.md §4)."""
     for args in arg_sets:  # warm up
         fn(*args)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(per_rep):  # the host's enqueue of one rep
+        fn(*arg_sets[i % len(arg_sets)])
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(max(1.5 * enqueue_s * GPU_CYCLES_PER_S, SLEEP_CYCLES[0]), SLEEP_CYCLES[1]))
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for i in range(per_rep):
             fn(*arg_sets[i % len(arg_sets)])
@@ -5051,20 +5363,20 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
     f_mm, f_ew = 4 * M * D * F, 10 * M * F + 10 * M * D  # the two products; the rest
     f_flops = f_mm + f_ew
     rows = []
-    for name, src, replaces, fn, plain, sets, nbytes, flops, err, per_rep in (
+    for name, src, replaces, fn, plain, library, sets, nbytes, flops, err, per_rep in (
         ("recency_weighted_average", "imm_tsf_torch/csrc/recavg.cu",
          "imm_tsf_tpu/ops/pallas/fusion_kernels.py:73",
-         recavg.recency_weighted_average, recavg.recavg_reference, rsets,
+         recavg.recency_weighted_average, recavg.recavg_reference, None, rsets,
          r_bytes, r_flops, errs["recavg serving"], 200),
         ("fused_encoder_ffn", "imm_tsf_torch/csrc/ffn.cu",
          "imm_tsf_tpu/ops/pallas/ffn_kernel.py:118",
          lambda *a: ffn.fused_encoder_ffn(*a, KEEP, "gelu", False),
-         lambda *a: ffn.ffn_reference(*a, KEEP, "gelu", False), fsets,
-         f_bytes, f_flops, errs["ffn serving"], 10),
+         lambda *a: ffn.ffn_reference(*a, KEEP, "gelu", False), (ffn_library_f32, fsets),
+         fsets, f_bytes, f_flops, errs["ffn serving"], 10),
     ):
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "ok": True, "max_abs_err": err,
-                     **timed(fn, plain, None, sets, nbytes, flops, per_rep)})
+                     **timed(fn, plain, library, sets, nbytes, flops, per_rep)})
     # #1: its previous design and the launch floor under both, at the same
     # shape; then the PatchTST training shape
     rec_row = rows[0]
@@ -5199,6 +5511,7 @@ def measure(device, shapes, gen, errs, serving, text, cru, patch, informer,
             "plain_ms": device_ms(lambda *a: ffn.ffn_reference(*a, KEEP, "gelu", False), sets,
                                   per_rep=10),
             "bound_ms": b, "bound_by": by,
+            "library_ms": device_ms(ffn_library_f32, sets, per_rep=10),
             "train_ms": device_ms(lambda *a: ffn._forward(*a, KEEP, "gelu", True,
                                                           with_residuals=True), sets, per_rep=10),
             "train_plain_ms": device_ms(lambda *a: ffn.ffn_forward_reference(
@@ -5640,6 +5953,8 @@ def main() -> int:
     # (12e); then the LatentODE run resumed from its train state
     imts: dict = {}
     ode_kept: dict = {}  # the LatentODE run, its final weights and #1's trained shapes
+    ode_root = root + "_ode"  # ODE_DATA, the LatentODE's fixture (phases 12 and 14)
+    make_synthetic_dataset(os.path.join(ode_root, "EPA-Air"), **ODE_DATA)
     try:
         for model in IMTS_MODELS:
             imts[model] = {"serving": run_imts_serving(device, model, N_IMTS_REQUESTS[model],
@@ -5647,10 +5962,12 @@ def main() -> int:
             shutil.rmtree(exp_dir, ignore_errors=True)
         make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
         for model in IMTS_MODELS:
-            imts[model]["training"] = run_imts_training(device, root, exp_dir, model, ode_kept)
+            imts[model]["training"] = run_imts_training(
+                device, ode_root if model == "LatentODE" else root, exp_dir, model, ode_kept)
             shutil.rmtree(exp_dir, ignore_errors=True)
         imts["ode_drift"] = check_ode_drift(device)
-        imts["resume"] = run_resume(device, root, exp_dir, ode_kept["run"], ode_kept["weights"],
+        imts["resume"] = run_resume(device, ode_root, exp_dir, ode_kept["run"],
+                                    ode_kept["weights"],
                                     args=ODE_RESUME_ARGS, expected=recavg_only,
                                     label="LatentODE resume", strict=True,
                                     stopped=ode_kept["dir"])
@@ -5658,6 +5975,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
         shutil.rmtree(exp_dir + "_latent_ode_run", ignore_errors=True)
+        shutil.rmtree(ode_root, ignore_errors=True)
     errs["recavg ode union"] = check_recavg_ode(device, ode_kept["recavg_shapes"])
 
     mark("12")
@@ -5687,10 +6005,11 @@ def main() -> int:
     kept_root = exp_dir + "_kept"  # 14a's, 14b's fused and 14d's experiments, for phase 16
     try:
         make_synthetic_dataset(os.path.join(root, "EPA-Air"), **TRAIN_DATA)
+        make_synthetic_dataset(os.path.join(ode_root, "EPA-Air"), **ODE_DATA)
         os.makedirs(kept_root)
         device_loop = run_device_loop(
             device, root, exp_dir, {"LatentODE": imts["LatentODE"]["training"]["kernel"]},
-            kept_root)
+            kept_root, ode_root)
         mark("14")
         # phase 15: stacked-replica sweeps on the same fixture, held to phase 14's runs
         shutil.rmtree(exp_dir, ignore_errors=True)
@@ -5714,12 +6033,19 @@ def main() -> int:
         # and N cards where the machine has them
         shutil.rmtree(exp_dir, ignore_errors=True)
         dp = run_dp(device, root, exp_dir, device_loop, shapes, gen)
+        mark("20")
+        # phase 21: the frozen LLM over a ("data", "model") mesh (GPT-2 on two
+        # data groups, Llama-3.1-8B over two model shards), raw text with
+        # llm_tp 2, the sweep over two ranks (replica-sharded, data-parallel)
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        llm_mesh = run_llm_mesh(device, root, exp_dir, sweeps, dp, gen)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(ode_root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
         shutil.rmtree(kept_root, ignore_errors=True)
 
-    mark("20")
+    mark("21")
     # phase 18: the served forward captured (its checks ran in phases 4-16)
     captured = captured_summary(serving, text, cru, informer, default_pair, timellm_run, mts,
                                 imts, deployment)
@@ -5782,6 +6108,17 @@ def main() -> int:
         for row in rows:
             if counts.get(row["name"], 0):
                 row.setdefault("launches_by_path", {})[path] = counts[row["name"]]
+    # phase 21: #3 on the LLM mesh's data groups, #1-#3 on the raw-text run with
+    # llm_tp 2, #1 and #2 on rank 0's replicas of the sweeps over two ranks
+    attn_row = next(r for r in rows if r["name"] == "fused_causal_attention")
+    attn_row["launches_by_path"]["llm mesh 21a"] = llm_mesh["21a"]["launches"][1]
+    mesh_paths = {"raw text llm_tp 2 21b": llm_mesh["21b"]["raw_text"]["launches"],
+                  "mesh sweep 21c rank 0": llm_mesh["21c"]["launches"],
+                  "mesh sweep 21d rank 0": llm_mesh["21d"]["launches"]}
+    for path, counts in mesh_paths.items():
+        for row in rows:
+            if counts.get(row["name"], 0):
+                row.setdefault("launches_by_path", {})[path] = counts[row["name"]]
     mark("5b")
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
@@ -5834,7 +6171,7 @@ def main() -> int:
                                **{k: v for k, v in bf16.items() if k.startswith("19c")},
                                "19d": bf16["19d artifact"], "errs": bf16["errs"]},
                       "dp": {k: v.get("summary", v) for k, v in dp.items()},
-                      "phase_s": phase_s}),
+                      "llm_mesh": llm_mesh, "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

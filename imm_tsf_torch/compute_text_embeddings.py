@@ -21,9 +21,11 @@ the CSVs go through data/dataset's reader, notes are ordered by a stable
 sort of their stamps (pandas' default sort is not stable, so notes with
 equal stamps may come in another order there).
 
-`--device` (default cuda) picks the card; `--llm_tp` above 1 is refused
-(a full-depth Llama fits one 80 GB card); `--embed_dtype bfloat16` runs
-the frozen forward in bfloat16 (the model cast once), pooling in float32.
+`--device` (default cuda) picks the card; `--llm_tp` picks the frozen
+LLM's ("data", "model") mesh over the cards from it on (llm/loader.
+resolve_llm_mesh: 0, the default, puts every card on the "model" axis for
+Llama and DeepSeek); `--embed_dtype bfloat16` runs the frozen forward in
+bfloat16 (the model cast once), pooling in float32.
 """
 
 from __future__ import annotations
@@ -84,7 +86,9 @@ def compute_text_embeddings(
         sec_per_unit = float(unit_scale)
     else:
         sec_per_unit = UNIT_SECONDS[time_unit]
-    loader.resolve_llm_mesh(llm_model_fusion, llm_tp)
+    mesh = loader.resolve_llm_mesh(llm_model_fusion, llm_tp, device)
+    if mesh is not None:
+        print(f"[mesh] frozen LLM sharded over {mesh.shape}")
     compute_dtype = _EMBED_DTYPES[embed_dtype]
     model, tokenizer = loader.load_llm(llm_model_fusion, llm_layers_fusion,
                                        model_dir=model_dir, device=device)
@@ -114,7 +118,7 @@ def compute_text_embeddings(
         stats: dict = {}
         te = time.perf_counter()
         emb, _ = loader.embed_notes([notes], model, tokenizer, max_length=max_length,
-                                    token_batch=token_batch, stats_out=stats,
+                                    token_batch=token_batch, stats_out=stats, mesh=mesh,
                                     compute_dtype=compute_dtype)
         te = time.perf_counter() - te  # embed_notes returns host arrays: the card is done
         n_calls += 1
@@ -144,8 +148,8 @@ def main(argv=None) -> None:
     ap.add_argument("--model_dir", default=None)
     ap.add_argument("--overwrite", action="store_true")
     ap.add_argument("--llm_tp", type=int, default=0,
-                    help="tensor-parallel width for the frozen LLM (0 = auto: one card; "
-                         "above 1 is not ported yet)")
+                    help="tensor-parallel width of the frozen LLM's mesh (0 = auto: every "
+                         "card on the model axis for Llama / DeepSeek; 1 = one card)")
     ap.add_argument("--time_unit", default="auto",
                     help="unit for the stored note rel-times; 'auto' resolves each "
                          "dataset's unit from config.DATASET_PRESETS (unknown: days)")

@@ -60,6 +60,13 @@ def upcast(w: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
     return w.to(torch.promote_types(w.dtype, x.dtype))
 
 
+def placed(t: torch.Tensor, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """t (detached) on `device`, a floating tensor in `dtype` when given:
+    t itself where both already match, else a copy."""
+    return t.detach().to(device, dtype if dtype is not None and t.is_floating_point()
+                         else t.dtype)
+
+
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, upcast(lin.weight, x), upcast(lin.bias, x))
 

@@ -11,10 +11,17 @@ its `weight`), so `convert.llama_params_from_jax` only renames and
 transposes; `convert_hf_llama` reads a Hugging Face checkpoint.
 
 The JAX package annotates the projections with tensor-parallel partition
-hints; only their initializer, normal(0.02), carries over here (the
-loader's `_llama_init_`). At full depth Llama-3.1-8B without its LM head
-(which no caller reads) is 7.50 B parameters, 30.0 GB in float32, so it
-fits one 80 GB card.
+specs: the output columns of q, k, v, gate and up (`(None, "model")`) and
+the input rows of o and down (`("model", None)`) split over the "model"
+axis. `LlamaShards` lays a model out so over the devices of one data group
+of the loader's LLM mesh (llm/loader.shard_llm_params): shard s holds its
+1/tp of each split projection (heads, KV heads and intermediate units) on
+its device, and each block sums the shards' partial outputs after o and
+after down on the group's first device, in shard order, so that two runs
+agree bit for bit. The initializer, normal(0.02), is the loader's
+`_llama_init_`. At full depth Llama-3.1-8B without its LM head (which no
+caller reads) is 7.50 B parameters, 30.0 GB in float32, so it fits one
+80 GB card.
 
 Like the JAX `_rope`, the rotary angles are float32 with no Llama-3.1
 `rope_scaling` ("llama3"): an inherited departure from upstream Hugging
@@ -38,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .bert import attend
-from .gpt2 import linear, upcast
+from .gpt2 import placed, upcast
 
 
 @dataclass(frozen=True)
@@ -78,6 +85,13 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return x * emb.cos() + rotated * emb.sin()
 
 
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x / √(mean(x²) + eps)) in x's dtype, times the scale; the mean in
+    float32."""
+    var = x.float().pow(2).mean(-1, keepdim=True)
+    return (x * (1.0 / torch.sqrt(var + eps))).to(x.dtype) * upcast(weight, x)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -85,10 +99,91 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        """(x / √(mean(x²) + eps)) in x's dtype, times the scale; the mean
-        in float32."""
-        var = x.float().pow(2).mean(-1, keepdim=True)
-        return (x * (1.0 / torch.sqrt(var + self.eps))).to(x.dtype) * upcast(self.weight, x)
+        return rms_norm(x, self.weight, self.eps)
+
+
+_SPLIT = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")  # output rows of [out, in]
+_SPLIT_IN = ("o_proj", "down_proj")  # input columns
+
+
+def check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Refuse a tensor-parallel width that does not divide the heads, the
+    KV heads and the intermediate units of `cfg`."""
+    sizes = {"heads": cfg.num_attention_heads, "KV heads": cfg.num_key_value_heads,
+             "intermediate units": cfg.intermediate_size}
+    bad = {k: v for k, v in sizes.items() if v % tp}
+    if bad:
+        raise ValueError(f"llm_tp={tp} does not divide the model's "
+                         + ", ".join(f"{v} {k}" for k, v in bad.items())
+                         + " (a tensor-parallel width must divide its "
+                         + ", ".join(f"{v} {k}" for k, v in sizes.items()) + ")")
+
+
+def _row_product(a: torch.Tensor, w: torch.Tensor, partial: bool) -> torch.Tensor:
+    """a @ wᵀ: a shard's term of a row-split product (`partial`) of bf16
+    operands comes out in float32 (one cuBLAS GEMM with float32 output on
+    CUDA), so the terms' sum is rounded to bf16 once, as the whole
+    product's is; otherwise F.linear in the activations' dtype."""
+    if partial and a.dtype == w.dtype == torch.bfloat16:
+        from ..layers.bf16_products import _mm_f32
+
+        return _mm_f32(a, w.t())
+    return F.linear(a, upcast(w, a))
+
+
+def _attention(c: LlamaConfig, h, attn_mask, w: dict, H: int, KV: int,
+               partial: bool = False) -> torch.Tensor:
+    """o_proj of the attention of heads H over KV heads (a shard's, or all)
+    of the projections in `w`: [B, T, E], this shard's term of the sum."""
+    B, T, _ = h.shape
+    Dh = c.hidden_size // c.num_attention_heads
+    proj = lambda name: F.linear(h, upcast(w[name], h))
+    q = proj("q_proj").reshape(B, T, H, Dh).transpose(1, 2)
+    k = proj("k_proj").reshape(B, T, KV, Dh).transpose(1, 2)
+    v = proj("v_proj").reshape(B, T, KV, Dh).transpose(1, 2)
+    pos = torch.arange(T, device=h.device)
+    q, k = _rope(q, pos, c.rope_theta), _rope(k, pos, c.rope_theta)
+    if KV != H:  # grouped-query: each kv head repeated in place (jnp.repeat)
+        k = k.repeat_interleave(H // KV, dim=1)
+        v = v.repeat_interleave(H // KV, dim=1)
+    mask = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()[None, None]
+    if attn_mask is not None:
+        mask = mask & attn_mask.bool()[:, None, None, :]
+    out = attend(q, k, v, mask).to(h.dtype).transpose(1, 2).reshape(B, T, H * Dh)
+    return _row_product(out, w["o_proj"], partial)
+
+
+def _mlp(h, w: dict, partial: bool = False) -> torch.Tensor:
+    """down_proj of the SwiGLU of the intermediate units in `w`."""
+    act = F.silu(F.linear(h, upcast(w["gate_proj"], h))) * F.linear(h, upcast(w["up_proj"], h))
+    return _row_product(act, w["down_proj"], partial)
+
+
+def _sum_shards(parts: list, x: torch.Tensor) -> torch.Tensor:
+    """The shards' terms summed on x's device in shard order, in float32 at
+    least, then in x's dtype; one term is returned as it is."""
+    if len(parts) == 1:
+        return parts[0].to(x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    out = parts[0].to(x.device, acc)
+    for p in parts[1:]:
+        out = out + p.to(x.device, acc)
+    return out.to(x.dtype)
+
+
+def block_forward(c: LlamaConfig, x, attn_mask, input_norm, post_norm, shards: list):
+    """One Llama block over `shards` (dicts of the projections' weights, on
+    their "device"; one shard holding them whole is the plain block): the
+    norms run on x's device, each shard's attention and MLP on its own,
+    their terms summed on x's device in shard order."""
+    tp = len(shards)
+    H, KV, partial = c.num_attention_heads // tp, c.num_key_value_heads // tp, tp > 1
+    h = rms_norm(x, input_norm, c.rms_norm_eps)
+    x = x + _sum_shards([_attention(c, h.to(s["device"]), None if attn_mask is None
+                                    else attn_mask.to(s["device"]), s, H, KV, partial)
+                         for s in shards], x)
+    h = rms_norm(x, post_norm, c.rms_norm_eps)
+    return x + _sum_shards([_mlp(h.to(s["device"]), s, partial) for s in shards], x)
 
 
 class LlamaBlock(nn.Module):
@@ -111,27 +206,9 @@ class LlamaBlock(nn.Module):
     def forward(self, x, attn_mask=None):
         """x [B, T, E]; attn_mask [B, T], True (or > 0) = real token; the
         keys are masked causally and by attn_mask."""
-        c = self.cfg
-        H, KV = c.num_attention_heads, c.num_key_value_heads
-        B, T, E = x.shape
-        Dh = E // H
-        h = self.input_norm(x)
-        q = linear(self.q_proj, h).reshape(B, T, H, Dh).transpose(1, 2)
-        k = linear(self.k_proj, h).reshape(B, T, KV, Dh).transpose(1, 2)
-        v = linear(self.v_proj, h).reshape(B, T, KV, Dh).transpose(1, 2)
-        pos = torch.arange(T, device=x.device)
-        q, k = _rope(q, pos, c.rope_theta), _rope(k, pos, c.rope_theta)
-        if KV != H:  # grouped-query: each kv head repeated in place (jnp.repeat)
-            k = k.repeat_interleave(H // KV, dim=1)
-            v = v.repeat_interleave(H // KV, dim=1)
-        mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()[None, None]
-        if attn_mask is not None:
-            mask = mask & attn_mask.bool()[:, None, None, :]
-        out = attend(q, k, v, mask).to(x.dtype).transpose(1, 2).reshape(B, T, H * Dh)
-        x = x + linear(self.o_proj, out)
-        h = self.post_norm(x)
-        act = F.silu(linear(self.gate_proj, h)) * linear(self.up_proj, h)
-        return x + linear(self.down_proj, act)
+        whole = {n: getattr(self, n).weight for n in _SPLIT + _SPLIT_IN}
+        return block_forward(self.cfg, x, attn_mask, self.input_norm.weight,
+                             self.post_norm.weight, [dict(whole, device=x.device)])
 
 
 class LlamaModel(nn.Module):
@@ -159,6 +236,49 @@ class LlamaModel(nn.Module):
         for layer in self.layers:
             x = layer(x, attn_mask=attn_mask)
         return self.final_norm(x)
+
+
+class LlamaShards:
+    """A LlamaModel laid out over the devices of one data group, `devices`
+    [d_0 .. d_tp-1] (the loader's LLM mesh): shard s holds, on d_s, rows s
+    of the output-split projections (q, k, v: its H / tp heads and KV / tp
+    KV heads; gate, up: its I / tp units) and columns s of o and down; the
+    token table and the norms live on d_0, where each block's terms are
+    summed. A weight that is already on its device in `dtype` is taken as a
+    view, so a shard on the model's own device copies nothing; elsewhere,
+    or in another dtype (embed_notes' compute_dtype), each shard holds its
+    own 1/tp. Called as the model is, on ids on d_0."""
+
+    def __init__(self, model: LlamaModel, devices, dtype: torch.dtype | None = None):
+        c = self.cfg = model.cfg
+        devices = [torch.device(d) for d in devices]
+        tp = len(devices)
+        check_tp(c, tp)
+
+        def part(w, name, s):
+            n = w.shape[1] if name in _SPLIT_IN else w.shape[0]
+            cut = slice(s * n // tp, (s + 1) * n // tp)
+            return w[:, cut] if name in _SPLIT_IN else w[cut]
+
+        d0 = devices[0]
+        self.embed = placed(model.embed_tokens.weight, d0, dtype)
+        self.final_norm = placed(model.final_norm.weight, d0, dtype)
+        self.layers = []
+        for blk in model.layers:
+            shards = [dict({n: placed(part(getattr(blk, n).weight, n, s), d, dtype)
+                            for n in _SPLIT + _SPLIT_IN}, device=d)
+                      for s, d in enumerate(devices)]
+            self.layers.append((placed(blk.input_norm.weight, d0, dtype),
+                                placed(blk.post_norm.weight, d0, dtype), shards))
+
+    def word_embedding_table(self) -> torch.Tensor:
+        return self.embed
+
+    def __call__(self, input_ids=None, attn_mask=None):
+        x = F.embedding(input_ids, self.embed)
+        for input_norm, post_norm, shards in self.layers:
+            x = block_forward(self.cfg, x, attn_mask, input_norm, post_norm, shards)
+        return rms_norm(x, self.final_norm, self.cfg.rms_norm_eps)
 
 
 _HF_LLAMA = {"input_layernorm": "input_norm", "post_attention_layernorm": "post_norm",

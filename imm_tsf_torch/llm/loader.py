@@ -10,16 +10,22 @@ random GPT-2) and the tokenizer falls back to the hash tokenizer:
 embedding geometry for tests and benchmarks, not language understanding.
 
 Every alias is ported: the GPT-2 family, BERT, Llama-3.1-8B and
-DeepSeek-7B. A full-depth Llama (7.50 B parameters without the LM head,
-30.0 GB in float32) fits one 80 GB card, so `llm_tp` 0 (auto) and 1
-resolve to one device; the tensor-parallel mesh is the half of the
-multi-GPU layers still to port (ROADMAP.md, Queue 1, item 16, the TP
-half; the data-parallel half is parallel/).
+DeepSeek-7B. `llm_tp` picks the LLM's ("data", "model") mesh by the JAX
+package's rules (`resolve_llm_mesh`), over the devices this process
+drives: the cards from the run's card on (a rank of a data mesh: its own
+card), or on the CPU `llm_tp` copies of it. `shard_llm_params` lays the
+model out over the mesh: the Llama family's projections split over the
+"model" axis (llm/llama.LlamaShards), GPT-2 and BERT whole on each data
+group (the JAX package gives them no partition specs). A full-depth Llama
+(7.50 B parameters without the LM head, 30.0 GB in float32) fits one
+80 GB card, so on one card every `llm_tp` resolves to one device.
 
 `embed_notes` pushes ragged lists of notes through the model in
 length-bucketed row batches and mean-pools each note's real tokens in
 float32; with `compute_dtype=torch.bfloat16` the frozen weights and the
-activations are bfloat16 (the weights cast once per model).
+activations are bfloat16 (the weights cast once per model, or per shard).
+With a mesh each row batch is padded to a multiple of the data groups and
+split between them, each group computing its contiguous share.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models.base import variance_scaling_
+from ..parallel.mesh import LlmMesh
 
 ALIAS = {
     # reference fusions/load_llm.py:5-13
@@ -65,15 +72,70 @@ def get_context_window_size(alias: str) -> int:
     return CONTEXT_WINDOW[alias]
 
 
-def resolve_llm_mesh(alias: str, llm_tp: int):
-    """cfg.llm_tp on one card: 0 (auto) and 1 give None, one device for
-    every alias (a full-depth Llama fits one 80 GB card); more than one
-    is refused until the tensor-parallel half of the multi-GPU layers lands."""
-    if llm_tp > 1:
-        raise NotImplementedError(
-            f"llm_tp={llm_tp}: the tensor-parallel LLM mesh is not ported "
-            "(ROADMAP.md, Queue 1, item 16, the TP half)")
-    return None
+def llm_devices(device=None, llm_tp: int = 1) -> list:
+    """The devices the frozen LLM's mesh may take in this process: on cuda
+    the cards from `device`'s on (the current card when it names none), or
+    the rank's own card alone under a data mesh of more than one rank
+    (parallel/mesh.py: each rank drives one card); on the CPU, which has no
+    count to clip to, `llm_tp` copies of it."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * max(1, llm_tp)
+    first = dev.index if dev.index is not None else torch.cuda.current_device()
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return [torch.device("cuda", first)]
+    return [torch.device("cuda", i) for i in range(first, torch.cuda.device_count())]
+
+
+def make_llm_mesh(tp: int = 1, n_devices: int | None = None, devices=None) -> LlmMesh | None:
+    """The ("data", "model") mesh of the frozen LLM (the JAX package's
+    make_llm_mesh): tp-way tensor parallelism, the remaining devices on the
+    data (row-batch) axis, over `devices` (the test hook: copies of the CPU
+    or of one card stand in for several) or else the first `n_devices` of
+    llm_devices(). tp is clipped to the device count and must divide it.
+    Without explicit devices, tp <= 1 gives None (one device computes), as
+    in the JAX package; with them, any grid of two devices or more."""
+    explicit = devices is not None
+    if not explicit:
+        devices = llm_devices("cuda")
+        if n_devices is not None:
+            if n_devices > len(devices):
+                raise ValueError(f"{n_devices} devices asked, {len(devices)} available")
+            devices = devices[:n_devices]
+    n = len(devices)
+    tp = max(1, min(tp, n))
+    if (tp <= 1 and not explicit) or n <= 1:
+        return None
+    if n % tp:
+        raise ValueError(f"tp={tp} must divide device count {n}")
+    return LlmMesh(devices, tp)
+
+
+def resolve_llm_mesh(alias: str, llm_tp: int, device=None, devices=None) -> LlmMesh | None:
+    """cfg.llm_tp as the JAX package reads it: 1 gives None (one device);
+    0 (auto) every device on the "model" axis for Llama and DeepSeek when
+    there are two or more, else None; above 1 the width, clipped to the
+    device count (None where that leaves 1). The devices: `devices`, or
+    llm_devices(device, llm_tp). A width the Llama family's heads, KV heads
+    or intermediate units do not divide is refused."""
+    if llm_tp == 1:
+        return None
+    if devices is None:
+        devices = llm_devices(device, llm_tp)
+    n = len(devices)
+    if llm_tp == 0:
+        tp = n if alias in ("Llama", "DeepSeek") and n > 1 else 1
+    else:
+        tp = max(1, min(llm_tp, n))
+    if tp <= 1:
+        return None
+    if alias in ("Llama", "DeepSeek"):
+        from .llama import LLAMA_SIZES, check_tp
+
+        check_tp(LLAMA_SIZES[alias], tp)
+    return make_llm_mesh(tp, devices=devices)
 
 
 class HashTokenizer:
@@ -258,7 +320,8 @@ EMBED_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
 def _pooled_forward(model, ids: np.ndarray, tok_mask: np.ndarray) -> torch.Tensor:
     """[rows, T] ids and mask -> [rows, d] masked mean of the last hidden
-    state, pooled in float32; stays on the model's device."""
+    state, pooled in float32; stays on the device of the model's token
+    table (a data group's first device)."""
     dev = model.word_embedding_table().device
     ids_t = torch.from_numpy(ids).to(dev, torch.long)
     m = torch.from_numpy(tok_mask).to(dev)
@@ -273,21 +336,65 @@ def _pooled_forward(model, ids: np.ndarray, tok_mask: np.ndarray) -> torch.Tenso
 _CAST: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
+def _copy_to(model: nn.Module, device, dtype: torch.dtype | None) -> nn.Module:
+    """A copy of `model` whose tensors are cast straight from the model's
+    onto `device` in `dtype` (deepcopy's memo), so no second float32 model
+    is ever held (a full-depth Llama is 30 GB)."""
+    from .gpt2 import placed
+
+    memo = {id(p): nn.Parameter(placed(p, device, dtype), requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    memo.update((id(b), placed(b, device, dtype)) for b in model.buffers())
+    return copy.deepcopy(model, memo)
+
+
 def _in_dtype(model: nn.Module, dtype: torch.dtype | None) -> nn.Module:
     """`model` itself when its weights are `dtype` (or dtype is None),
     else its cached copy in `dtype`."""
-    if dtype is None or model.word_embedding_table().dtype == dtype:
+    table = model.word_embedding_table()
+    if dtype is None or table.dtype == dtype:
         return model
     copies = _CAST.setdefault(model, {})
     if dtype not in copies:
-        # the copy takes tensors cast straight from the model's (deepcopy's
-        # memo), so no second float32 model is ever held (a full-depth
-        # Llama is 30 GB)
-        memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=p.requires_grad)
-                for p in model.parameters() if p.is_floating_point()}
-        memo.update((id(b), b.to(dtype)) for b in model.buffers() if b.is_floating_point())
-        copies[dtype] = copy.deepcopy(model, memo)
+        copies[dtype] = _copy_to(model, table.device, dtype)
     return copies[dtype]
+
+
+def _lay_out(model: nn.Module, mesh: LlmMesh, dtype: torch.dtype | None) -> list:
+    """One model a data group of `mesh`: the Llama family split over the
+    group's "model" devices (llama.LlamaShards); GPT-2 and BERT whole on
+    the group's first device (the model itself where that is its device
+    and dtype, else a copy)."""
+    from .llama import LlamaModel, LlamaShards
+
+    if isinstance(model, LlamaModel):
+        return [LlamaShards(model, devices, dtype) for devices in mesh.grid]
+    table = model.word_embedding_table()
+    return [model if (g[0] == table.device and dtype in (None, table.dtype))
+            else _copy_to(model, g[0], dtype) for g in mesh.grid]
+
+
+def shard_llm_params(model: nn.Module, mesh: LlmMesh,
+                     compute_dtype: torch.dtype | None = None) -> list:
+    """`model` laid out over `mesh` (the JAX package's shard_llm_params:
+    each model-axis device holds 1/tp of every split projection), in
+    `compute_dtype` when given (each shard cast on its own): one callable
+    a data group, called as the model is. Made once per (model, mesh,
+    dtype) and kept in a bounded cache, as the JAX package's
+    _get_dev_params keeps its device params."""
+    key = (id(model), id(mesh), compute_dtype)
+    hit = _SHARDS.get(key)
+    if hit is None or hit[0] is not model or hit[1] is not mesh:
+        while len(_SHARDS) >= _CACHE_LIMIT:
+            _SHARDS.pop(next(iter(_SHARDS)))
+        hit = _SHARDS[key] = (model, mesh, _lay_out(model, mesh, compute_dtype))
+    return hit[2]
+
+
+# shards per (model, mesh, dtype), first in first out; an entry holds its
+# model and mesh, so the bound keeps a sweep over many LLMs from growing
+_CACHE_LIMIT = 4
+_SHARDS: dict = {}
 
 
 def _pad_rows(bi, bm, tgt):
@@ -319,11 +426,15 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
     runs as it is), with the activations in it too; the pooling stays
     float32 (the JAX package's `_get_pooled_fwd` / `_get_dev_params`).
 
+    mesh: an LlmMesh (make_llm_mesh, resolve_llm_mesh), the JAX package's
+    ("data", "model") mesh: the model laid out over it once
+    (shard_llm_params), every row batch padded to a multiple of its dp data
+    groups (JAX :382, :408, :417) and split between them in contiguous
+    shares; the pooled rows come back in order.
+
     stats_out, if given, gets real_tokens / processed_tokens / n_notes."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel note embedding, the TP half of the multi-GPU layers, is not "
-            "ported (ROADMAP.md, Queue 1, item 16, the TP half)")
+    if mesh is not None and not isinstance(mesh, LlmMesh):
+        raise TypeError(f"mesh must be an LlmMesh (make_llm_mesh), not {type(mesh).__name__}")
     B = len(notes_text)
     N_max = max((len(s) for s in notes_text), default=1) or 1
     flat, note_mask = [], np.zeros((B, N_max), bool)
@@ -336,8 +447,18 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
                 flat.append("")
     ids, tok_mask = tokenizer(flat, max_length=max_length)
     n_flat = len(flat)
-    model = _in_dtype(model, compute_dtype)
     d = model.word_embedding_table().shape[1]
+    if mesh is None:
+        dp, one = 1, _in_dtype(model, compute_dtype)
+        fwd = lambda bi, bm: [_pooled_forward(one, bi, bm)]
+    else:
+        dp, groups = mesh.shape["data"], shard_llm_params(model, mesh, compute_dtype)
+
+        def fwd(bi, bm):
+            r = bi.shape[0] // dp  # the callers pad the rows to a multiple of dp
+            return [_pooled_forward(g, bi[k * r:(k + 1) * r], bm[k * r:(k + 1) * r])
+                    for k, g in enumerate(groups)]
+
     emb = np.zeros((n_flat, d), np.float32)
     real_tokens = int(tok_mask.sum())
     processed = 0
@@ -345,8 +466,9 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
     if not bucketed:
         for s in range(0, n_flat, token_batch):
             sel = np.arange(s, min(s + token_batch, n_flat))
-            pending.append((sel, _pooled_forward(model, ids[sel], tok_mask[sel])))
-            processed += sel.size * max_length
+            bi, bm = _pad_rows(ids[sel], tok_mask[sel], -(-sel.size // dp) * dp)
+            pending.append((sel, fwd(bi, bm)))
+            processed += bi.shape[0] * max_length
     else:
         lengths = tok_mask.sum(axis=1)
         buckets = [b for b in EMBED_BUCKETS if b < max_length] + [max_length]
@@ -357,17 +479,19 @@ def embed_notes(notes_text, model, tokenizer, max_length: int = 1024,
             idx = np.nonzero((bucket_of == b) & (lengths > 0))[0]
             if idx.size == 0:
                 continue
-            rows = max(token_batch, token_budget // b)
+            rows = max(token_batch, token_budget // b, dp)
             rows = 1 << (rows - 1).bit_length()  # power of two
+            rows = -(-rows // dp) * dp  # a multiple of the data groups
             for s in range(0, idx.size, rows):
                 sel = idx[s : s + rows]
                 bi, bm = ids[sel, :b], tok_mask[sel, :b]
                 if sel.size < rows:  # the remainder, padded to a power of two
-                    bi, bm = _pad_rows(bi, bm, 1 << (sel.size - 1).bit_length())
-                pending.append((sel, _pooled_forward(model, bi, bm)))
+                    tgt = 1 << (sel.size - 1).bit_length()
+                    bi, bm = _pad_rows(bi, bm, -(-max(tgt, dp) // dp) * dp)
+                pending.append((sel, fwd(bi, bm)))
                 processed += bi.shape[0] * b
-    for sel, out in pending:
-        emb[sel] = out[: sel.size].cpu().numpy()
+    for sel, outs in pending:
+        emb[sel] = np.concatenate([o.cpu().numpy() for o in outs])[: sel.size]
     if stats_out is not None:
         stats_out.update(real_tokens=real_tokens, processed_tokens=processed,
                          n_notes=int(note_mask.sum()))

@@ -20,7 +20,9 @@ JSON line.
 `--vmap_seeds N` (N > 1) and/or `--vmap_lrs l1 l2 ...` train the (seeds x
 lrs) grid of replicas of the experiment in one process on one card
 (training/vmap_sweep.py), seeds from `--seed`; one JSON line a replica,
-with its `seed` (and `lr` under `--vmap_lrs`). `--gpu N` picks the card
+with its `seed` (and `lr` under `--vmap_lrs`). With `--mesh_shape N` too,
+the sweep runs on N ranks: each trains S/N of the replicas where N divides
+the grid's S, else every replica's batches split over the ranks. `--gpu N` picks the card
 when `--device` names no index (device.resolve_run_device).
 
 `--mesh_shape N` (N > 1) trains the experiment over a data mesh of N
@@ -183,7 +185,8 @@ def _rank_main(dev, argv, experiment_id, timed: bool):
     res = _run(argv, cfg, dev, experiment_id, timings)
     if dist.get_rank() != 0:
         return None
-    return {k: v for k, v in res.items() if k not in ("model", "fusion")}, timings or {}
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("model", "fusion")}
+    return (list(map(strip, res)) if isinstance(res, list) else strip(res)), timings or {}
 
 
 def _run(argv, cfg, device, experiment_id, timings):
@@ -217,7 +220,8 @@ def _run(argv, cfg, device, experiment_id, timings):
                          if k in ("loss", "mse", "mae", "rmse", "mape", "best_iter", "seed",
                                   "lr")}
             logger.info("Final test metrics: %s", json.dumps(printable))
-            print(json.dumps(printable), flush=True)
+            if rank0:
+                print(json.dumps(printable), flush=True)
         return results
     res = trainable(cfg, checkpoint_dir=checkpoint_dir, timings=timings, device=device)
     printable = {k: v for k, v in res.items() if k in _PRINTED}

@@ -11,15 +11,18 @@ loop and the production trainable() over the mesh:
   4. the resident epoch loop             - each rank gathers its rows of
                                            every batch from the replicated
                                            windows, the pad row included
-  5. trainable() for 2 epochs            - the data pipeline, fusion, eval
+  5. the Llama note embedding over a     - each rank drives its own LLM
+     ("data", "model") mesh                  mesh: 2 data groups x 4
+                                           model shards of its device
+  6. trainable() for 2 epochs            - the data pipeline, fusion, eval
                                            and early stopping under DP,
                                            against the run without a mesh
 
 Each step's loss is the global batch's, so every rank reports the same
 value; the step is also run without a mesh on the whole batch, and the
-two must agree (rtol 1e-5). The JAX module's Llama case (a tensor-
-parallel ("data", "model") mesh) raises here: it comes with the TP half
-of ROADMAP.md, Queue 1, item 16, and so does its replica-sharded sweep.
+two must agree (rtol 1e-5). The Llama case holds the sharded embedding
+to the unsharded one (rtol 2e-5, atol 2e-6) and its gate projection to
+I / tp rows a shard, as the JAX module's case does.
 
     python -m imm_tsf_torch.parallel.dryrun --device cpu --world 2
     python -m imm_tsf_torch.parallel.dryrun --world 2            # N cards, NCCL
@@ -36,7 +39,6 @@ import tempfile
 import numpy as np
 import torch
 
-from .mesh import ROADMAP_DP
 from .multiproc import build_batch, launch
 
 
@@ -158,12 +160,39 @@ def _device_epoch_dp(n: int, device) -> list:
     return losses
 
 
-def _llama_tensor_parallel(n: int) -> None:
-    """The JAX module's tensor-sharded Llama note embedding over a ("data",
-    "model") mesh: not ported."""
-    raise NotImplementedError(
-        f"the tensor-parallel Llama embedding over a (data, model) mesh of {n} devices is "
-        f"not ported ({ROADMAP_DP}, the TP half)")
+def _llama_tensor_parallel(device) -> float:
+    """The JAX module's tensor-sharded Llama note embedding through the
+    production embed_notes over a ("data", "model") mesh of dp x tp
+    copies of this rank's device (one process drives an LLM mesh; a rank
+    of a data mesh drives its own): the gate projection genuinely split
+    (I / tp rows a shard), the embedding within rtol 2e-5, atol 2e-6 of
+    the unsharded one. -> the largest gap."""
+    from ..llm.llama import LlamaConfig, LlamaModel
+    from ..llm.loader import (HashTokenizer, _llama_init_, embed_notes, make_llm_mesh,
+                              shard_llm_params)
+
+    tp, dp = 4, 2
+    cfg = LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4)
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    model = model.to_empty(device=device)
+    _llama_init_(model, torch.Generator(device).manual_seed(0))
+    model.eval().requires_grad_(False)
+    mesh = make_llm_mesh(tp, devices=[device] * (dp * tp))
+    shards = shard_llm_params(model, mesh)[0].layers[0][2]
+    widths = [s["gate_proj"].shape[0] for s in shards]
+    if widths != [cfg.intermediate_size // tp] * tp:
+        raise AssertionError(f"the gate projection's shards hold {widths} rows")
+    notes = [["alpha beta", "gamma"], [], ["delta epsilon zeta eta"]]
+    emb, mask = embed_notes(notes, model, HashTokenizer(256), max_length=32, mesh=mesh)
+    ref, _ = embed_notes(notes, model, HashTokenizer(256), max_length=32)
+    if not (np.isfinite(emb).all() and mask.sum() == 3):
+        raise AssertionError("the sharded embedding is not finite, or its mask is wrong")
+    np.testing.assert_allclose(emb, ref, rtol=2e-5, atol=2e-6)
+    _say(f"  dryrun[Llama-TP-embed]({dp}x{tp} mesh of {device}): emb={emb.shape}, gate rows "
+         f"{widths} OK")
+    return float(np.abs(emb - ref).max())
 
 
 def _trainable_e2e(n: int, device) -> float:
@@ -215,10 +244,7 @@ def run_rank(device) -> dict:
         cfg, batch = build(n)
         out[cfg.model] = _dryrun_one(cfg, batch, device, cfg.model)
     out["device-epoch"] = _device_epoch_dp(n, device)
-    try:
-        _llama_tensor_parallel(n)
-    except NotImplementedError as e:
-        _say(f"  dryrun[Llama-TP-embed]: not run: {e}")
+    out["Llama-TP-embed"] = _llama_tensor_parallel(device)
     out["trainable-e2e"] = _trainable_e2e(n, device)
     _say(f"dryrun({n} ranks): OK")
     return out

@@ -34,6 +34,13 @@ such a run equals the run without a mesh bit for bit.
 `init_distributed` reads the environment. Rank r runs on cuda:(gpu +
 local rank), or every rank on cuda:gpu when the caller asks to share one
 card (`share_card`, over gloo). There is no CPU fallback.
+
+The frozen LLM's ("data", "model") mesh (`LlmMesh`, built by llm/loader.
+make_llm_mesh) is another thing: the JAX package builds it inside one
+process over `jax.devices()` and shards the embedding forward over it, so
+the port drives its grid of devices from one process too, with no
+collective: each data group computes its rows, each model shard its part
+of a Llama block (llm/llama.LlamaShards).
 """
 
 from __future__ import annotations
@@ -96,16 +103,17 @@ def rank_device(device, local_rank: int, gpu: int = 0, share_card: bool = False,
 
 
 def check_mesh_shape(mesh_shape) -> int:
-    """The data axis's size of `mesh_shape`; a second axis of size > 1 (the
-    JAX package's ("data", "model") mesh for the tensor-parallel LLM) is
-    refused."""
+    """The data axis's size of `mesh_shape`; a second axis of size > 1 (a
+    ("data", "model") training mesh, which the JAX package replicates over
+    "model") is refused. The frozen LLM's mesh is LlmMesh, from llm_tp."""
     shape = tuple(int(n) for n in mesh_shape)
     if any(n < 1 for n in shape):
         raise ValueError(f"mesh_shape {shape}: every axis needs at least one device")
     if any(n > 1 for n in shape[1:]):
         raise NotImplementedError(
-            f"mesh_shape {shape}: only the data axis is ported; the 'model' axis comes with "
-            f"the tensor-parallel LLM ({ROADMAP_DP}, the TP half)")
+            f"mesh_shape {shape}: only the data axis of a training mesh is ported; its "
+            f"replicated 'model' axis is not ({ROADMAP_DP}, the TP half; the frozen LLM's "
+            f"mesh is llm_tp)")
     return shape[0] if shape else 1
 
 
@@ -221,6 +229,25 @@ class DataMesh:
         shape = tuple(shape)
         out = draw((shape[0] * self.world,) + shape[1:])
         return out[self.rank * shape[0]:(self.rank + 1) * shape[0]]
+
+
+class LlmMesh:
+    """The frozen LLM's ("data", "model") mesh over `devices`, driven by
+    one process: `shape` {"data": dp, "model": tp} and `grid`, dp data
+    groups of tp devices each (group g holds devices g·tp .. g·tp + tp - 1).
+    A device may appear more than once (copies of the CPU in the tests,
+    one card standing in for several)."""
+
+    def __init__(self, devices, tp: int):
+        devices = [torch.device(d) for d in devices]
+        if tp < 1 or len(devices) % tp:
+            raise ValueError(f"tp={tp} must divide the device count {len(devices)}")
+        dp = len(devices) // tp
+        self.grid = [devices[g * tp:(g + 1) * tp] for g in range(dp)]
+        self.shape = {"data": dp, "model": tp}
+
+    def __repr__(self):
+        return f"LlmMesh({self.shape}, {self.grid})"
 
 
 def make_mesh(mesh_shape=(), device="cpu") -> DataMesh | None:

@@ -225,9 +225,9 @@ def to_device(batch: dict, device: torch.device, mesh=None) -> dict:
 
 def check_trainable(cfg: Config) -> None:
     """Refuse a configuration whose training path is not ported: nothing
-    drops to a plain version unsaid. A data mesh is ported; a second mesh
-    axis (the tensor-parallel LLM's) is refused, and so is a global batch
-    that the data axis does not divide."""
+    drops to a plain version unsaid. A data mesh is ported; a second axis
+    of the training mesh (the JAX package replicates over it) is refused,
+    and so is a global batch that the data axis does not divide."""
     refusals = [
         (cfg.dropout_impl != "hash",
          f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
@@ -796,11 +796,13 @@ class _EmbedNotesLoader:
 
     Embeddings are cached by note string: the LLM is frozen and one
     note's pooled embedding does not depend on its batch neighbours, so
-    the cache is exact and a string is embedded once per loader."""
+    the cache is exact and a string is embedded once per loader. With
+    `llm_mesh` (llm.loader.resolve_llm_mesh) the LLM runs over its mesh."""
 
-    def __init__(self, base, llm, tokenizer, max_length: int):
+    def __init__(self, base, llm, tokenizer, max_length: int, llm_mesh=None):
         self.base = base
         self.llm, self.tokenizer, self.max_length = llm, tokenizer, max_length
+        self.llm_mesh = llm_mesh
         self._cache: dict = {}  # note string -> pooled embedding [d]
         self._d: int | None = None
         self.llm_calls = 0  # batches that reached the LLM
@@ -812,7 +814,8 @@ class _EmbedNotesLoader:
         """This stage around another base loader (device_loop._unwrap),
         sharing the embedding cache: a note's pooled embedding does not
         depend on its batch, so hits across splits are exact."""
-        stage = _EmbedNotesLoader(base, self.llm, self.tokenizer, self.max_length)
+        stage = _EmbedNotesLoader(base, self.llm, self.tokenizer, self.max_length,
+                                  self.llm_mesh)
         stage._cache, stage._d = self._cache, self._d
         return stage
 
@@ -824,7 +827,8 @@ class _EmbedNotesLoader:
         if missing or self._d is None:
             self.llm_calls += 1
             emb_new, _ = embed_notes([missing] if missing else [[]], self.llm,
-                                     self.tokenizer, max_length=self.max_length)
+                                     self.tokenizer, max_length=self.max_length,
+                                     mesh=self.llm_mesh)
             for s, v in zip(missing, emb_new[0]):
                 cache[s] = v
             self._d = int(emb_new.shape[-1])
@@ -856,17 +860,22 @@ def make_loader_wrappers(cfg: Config, device=None) -> list:
     """Host-side loader stages a run needs, as loader -> loader callables
     (outermost last): raw-text note embedding through the frozen LLM on
     `device` (cuda unless the caller asks for the CPU) and TimeLLM's exact
-    prompts. Shared by trainable() and the service. Apply once."""
+    prompts. Shared by trainable() and the service. Apply once. The LLM
+    runs over its ("data", "model") mesh of cfg.llm_tp (llm.loader.
+    resolve_llm_mesh over the devices `device` leads: the cards from it on,
+    the rank's own card under a data mesh, llm_tp copies of the CPU)."""
     wrappers = []
     if cfg.enable_text and not cfg.use_text_embeddings:
         from ..llm.loader import load_llm, resolve_llm_mesh
 
-        # the JAX package shards the LLM over llm_tp > 1 devices: refused here
-        resolve_llm_mesh(cfg.llm_model_fusion, cfg.llm_tp)
+        llm_mesh = resolve_llm_mesh(cfg.llm_model_fusion, cfg.llm_tp, device)
+        if llm_mesh is not None:
+            logger.info("frozen LLM over the mesh %s", llm_mesh.shape)
         llm, tokenizer = load_llm(cfg.llm_model_fusion, cfg.llm_layers_fusion,
                                   device=device,
                                   use_fused_attn=cfg.use_pallas and cfg.use_fused_attn)
-        wrappers.append(lambda ld: _EmbedNotesLoader(ld, llm, tokenizer, cfg.max_length))
+        wrappers.append(lambda ld: _EmbedNotesLoader(ld, llm, tokenizer, cfg.max_length,
+                                                     llm_mesh))
     if cfg.model == "TimeLLM" and cfg.timellm_exact_prompt:
         # the reference's prompt: statistics to text to ids on the host, a batch at a time
         from ..llm.loader import load_tokenizer

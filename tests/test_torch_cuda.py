@@ -25,7 +25,11 @@ version's own, and under a tenth of the float32 products'. #2's forms at a
 global row offset (row_base, a rank of a data mesh) are held to their plain
 versions at that offset as above, and bit for bit to the matching rows of a
 row_base 0 call over the global batch; their dropout bits are the hash
-bits of the global rows."""
+bits of the global rows. #3 on one data group's rows of an LLM mesh (half
+of each embed_notes bucket call's rows) as at every bucket; a GPT-2 over two
+data groups of the card launches #3 twice as often as without the mesh,
+and its embedding is within rtol 2e-5, atol 2e-6 of no mesh's
+(tests/test_llm_sharded.py)."""
 
 import os
 
@@ -34,7 +38,8 @@ import pytest
 import torch
 
 from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_inputs,
-                        attn_ragged_inputs, bf16_weights, bucket_lo, check_attn_backward,
+                        attn_ragged_inputs, bf16_weights, bucket_lo, bucket_rows,
+                        check_attn_backward, mesh_notes,
                         check_scan, check_scan_bwd, compare_step, compare_timellm_step,
                         dropout_probe_inputs, expm_inputs, expm_rel_err, expm_tri_inputs,
                         ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
@@ -42,6 +47,7 @@ from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_i
                         run_mts_serving, scan_bwd_case, scan_inputs, training_data)
 from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
 from imm_tsf_torch.layers.bf16_products import Bf16Products
+from imm_tsf_torch.llm import gpt2, loader
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 from imm_tsf_torch.ops.expm import expm as ops_expm
 from imm_tsf_torch.ops.expm import expm_frechet_taylor12, expm_plain, expm_taylor12
@@ -286,6 +292,35 @@ def test_attn_kernel_at_every_bucket(dev, gen, T):
     out = attn.fused_causal_attention(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", EMBED_BUCKETS)
+def test_attn_kernel_on_a_data_groups_rows(dev, gen, T):
+    """One data group's share of an embed_notes bucket call over an LLM mesh
+    of two data groups: half its rows, right-padded as notes are."""
+    args = attn_inputs(bucket_rows(T) // 2, 12, T, 64, gen, dev, bucket_lo(T))
+    out = attn.fused_causal_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attn.attention_reference(*args), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gpt2_on_two_data_groups_of_the_card(dev):
+    cfg = gpt2.GPT2Config(n_layer=2)
+    with torch.device("meta"):
+        model = gpt2.GPT2Model(cfg, use_fused_attn=True)
+    model = model.to_empty(device=dev)
+    loader._flax_init_(model, torch.Generator(dev).manual_seed(0))
+    model.eval().requires_grad_(False)
+    notes, tok = mesh_notes(16, 0, 300), loader.HashTokenizer(cfg.vocab_size)
+    mesh = loader.make_llm_mesh(1, devices=[dev, dev])
+    before = attn.launches
+    want = loader.embed_notes(notes, model, tok, max_length=1024)[0]
+    plain = attn.launches - before
+    got = loader.embed_notes(notes, model, tok, max_length=1024, mesh=mesh)[0]
+    assert attn.launches - before - plain == 2 * plain > 0
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
 
 
 @pytest.mark.cuda

@@ -15,8 +15,11 @@ entity with an empty note cell (skipped) and one without a text.csv:
 - the port's artifacts load through both packages' datasets, chunk for
   chunk;
 - `--embed_dtype bfloat16`: within 0.05 x scale of the float32 artifact
-  (tests/test_llm_stack.py:128), stored float32; `--llm_tp` above 1
-  refused.
+  (tests/test_llm_stack.py:128), stored float32; `llm_tp` 2 (the
+  model split over two copies of the CPU, llm/loader.resolve_llm_mesh)
+  within rtol 2e-5, atol 2e-6 of the float32 artifact (the JAX package's
+  sharded-embedding tolerance, tests/test_llm_sharded.py), and a width
+  that does not divide the heads refused.
 """
 
 import os
@@ -143,7 +146,7 @@ def test_stage_matches_jax_stage(ds, fixture_root, models, tmp_path, monkeypatch
         np.testing.assert_array_equal(np.stack(a.note_payloads), np.stack(b.note_payloads))
 
 
-def test_bfloat16_stage_and_refusals(fixture_root, models, tmp_path, monkeypatch):
+def test_bfloat16_stage_and_refusals(fixture_root, models, tmp_path, monkeypatch, capsys):
     _patch(monkeypatch, models)
     root = str(tmp_path)
     shutil.copytree(os.path.join(fixture_root, "EPA-Air"), os.path.join(root, "EPA-Air"))
@@ -166,6 +169,15 @@ def test_bfloat16_stage_and_refusals(fixture_root, models, tmp_path, monkeypatch
         scale = float(w["embeddings"].abs().max())
         np.testing.assert_allclose(g.numpy(), w["embeddings"].numpy(), atol=0.05 * scale, rtol=0)
         np.testing.assert_array_equal(b16[key]["rel_times"].numpy(), w["rel_times"].numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
-        stage.compute_text_embeddings("EPA-Air", "Llama", None, MAX_LENGTH, root, llm_tp=2,
+    monkeypatch.setattr(loader, "load_llm", lambda *a, **k: (tm, loader.HashTokenizer(256)))
+    stage.compute_text_embeddings("EPA-Air", "Llama", None, MAX_LENGTH, root, llm_tp=2,
+                                  overwrite=True, device="cpu")
+    assert "sharded over {'data': 1, 'model': 2}" in capsys.readouterr().out
+    tp2 = _artifacts(root, "EPA-Air")
+    assert sorted(tp2) == sorted(f32)
+    for key, w in f32.items():
+        np.testing.assert_allclose(tp2[key]["embeddings"].numpy(), w["embeddings"].numpy(),
+                                   rtol=2e-5, atol=2e-6)
+    with pytest.raises(ValueError, match="llm_tp=3 does not divide the model's 32 heads"):
+        stage.compute_text_embeddings("EPA-Air", "Llama", None, MAX_LENGTH, root, llm_tp=3,
                                       device="cpu")

@@ -177,13 +177,19 @@ def test_embed_notes_every_note_empty_and_mesh_refused():
                                    max_length=64)
     assert emb.shape == (2, 2, 64) and (emb == 0).all()
     assert mask.tolist() == [[True, True], [False, False]]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # through an LLM mesh (two data groups of two copies of the CPU) too
+    mesh = loader.make_llm_mesh(2, devices=["cpu"] * 4)
+    emb, mask = loader.embed_notes([[], []], tm, loader.HashTokenizer(256), max_length=64,
+                                   mesh=mesh)
+    assert emb.shape == (2, 1, 64) and (emb == 0).all() and not mask.any()
+    with pytest.raises(TypeError, match="LlmMesh"):
         loader.embed_notes([["a"]], tm, loader.HashTokenizer(256), mesh=object())
 
 
 def test_load_llm_defaults_to_cuda_and_refuses_unported():
     """Every alias builds (BERT here: 768 wide, frozen, on the CPU when
-    asked); an unknown alias and a tensor-parallel mesh are refused."""
+    asked); an unknown alias is refused; resolve_llm_mesh reads the cards
+    (cuda by default) unless llm_tp is 1."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -193,9 +199,9 @@ def test_load_llm_defaults_to_cuda_and_refuses_unported():
     assert not any(p.requires_grad for p in model.parameters()) and not model.training
     with pytest.raises(ValueError, match="Unknown LLM alias"):
         loader.load_llm("T5", 1, device="cpu")
-    assert loader.resolve_llm_mesh("Llama", 0) is None
+    assert loader.resolve_llm_mesh("Llama", 0, device="cpu") is None
     assert loader.resolve_llm_mesh("BERT", 1) is None
-    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         loader.resolve_llm_mesh("Llama", 2)
     assert loader.get_d_model("GPT2M") == jloader.get_d_model("GPT2M") == 1024
     assert loader.D_MODEL == jloader.D_MODEL and loader.ALIAS == jloader.ALIAS

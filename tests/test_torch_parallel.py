@@ -27,7 +27,15 @@ Tolerances, stated beside each check:
   under 2 ranks against the uninterrupted run: bit for bit;
 - the padded last batch: the DP loss equals the single-process loss to
   1e-6 relative, while the mean of the ranks' means is off by more than
-  10 %.
+  10 %;
+- the sweep over the mesh (training/vmap_sweep.py): replica-sharded (S 2 at
+  world 2, one replica a rank) bit for bit with the single-process
+  train_seed_sweep of the same seeds, replica for replica, and the arrays
+  of its train states and best weights equal to that sweep's; the
+  data-parallel sweep (S 1 at world 2) within 1e-5 relative of it. The
+  single-process sweep is held to the JAX package's by
+  tests/test_torch_sweep.py (the port's form of tests/test_vmap_sweep.py:
+  87-102); every process here runs one thread, so equality carries over.
 """
 
 import os
@@ -74,6 +82,8 @@ MODELS = {
     "Informer": dict(model="Informer", e_layers=2, d_layers=1, factor=3, distil=True),
     "TimesNet": dict(model="TimesNet", e_layers=1, d_ff=16, num_kernels=2, top_k=3),
 }
+# the sweeps over the mesh: PatchTST with #2 and hash dropout on the epoch loop
+SWEEP = dict(BASE, **MODELS["PatchTST"])
 # PatchTST from the JAX init against the JAX trainable (dropout 0: the two
 # packages' salt streams differ), as tests/test_torch_patchtst_training.py
 JAX_SLICE = dict(BASE, **MODELS["PatchTST"], dropout=0.0, device_loop=False)
@@ -127,6 +137,10 @@ def world(tmp_path_factory):
         ("PatchTST_stream", "cli", dict(argv=argv(dict(kw["PatchTST"], device_loop=False,
                                                        mesh_shape=WORLD)),
                                         experiment_id="dp_stream")),
+        ("sweep_split", "sweep", dict(cfg_kw=dict(SWEEP, data_root=root, mesh_shape=(WORLD,)),
+                                      seeds=[3, 4], checkpoint_dir=os.path.join(root, "split"))),
+        ("sweep_dp", "sweep", dict(cfg_kw=dict(SWEEP, data_root=root, mesh_shape=(WORLD,)),
+                                   seeds=[3], lrs=[1e-3])),
     ] + [(name, "cli", dict(argv=argv(dict(k, mesh_shape=WORLD)), experiment_id=f"dp_{name}"))
          for name, k in kw.items()]
     w = multiproc.World(cases.run, WORLD, (run,), device="cpu", threads=1, timeout=900).start()
@@ -199,9 +213,11 @@ def test_a_gloo_mesh_on_cuda_takes_eager_steps(monkeypatch, device, backend, cap
 
 
 def test_sweep_over_a_mesh_is_refused(world):
+    """A sweep over a data mesh of 2 in a process with no process group of
+    2 ranks is refused (main --mesh_shape 2 starts them)."""
     from imm_tsf_torch.training.vmap_sweep import train_seed_sweep
 
-    with pytest.raises(NotImplementedError, match="replica-sharded sweep"):
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
         train_seed_sweep(TConfig(**dict(world.kw["PatchTST"], mesh_shape=(2,))), seeds=[1, 2],
                          device="cpu")
 
@@ -427,3 +443,69 @@ def test_dropout_on_two_ranks_matches_the_jax_global_dropout(world):
     got = [r["keep_masks"] for r in world.results()]
     np.testing.assert_array_equal(np.concatenate([g["out"] for g in got]), np.asarray(out))
     np.testing.assert_array_equal(np.concatenate([g["grad"] for g in got]), np.asarray(grad))
+
+
+# ------------------------------------------------------------ sweeps
+def _single_sweep(world, tmp_path, **kw):
+    from imm_tsf_torch.training.vmap_sweep import train_seed_sweep
+
+    res = train_seed_sweep(TConfig(**dict(SWEEP, data_root=world.root)), device="cpu", **kw)
+    return [dict(cases.summary(r), seed=r["seed"], lr=r.get("lr")) for r in res]
+
+
+def _assert_same_arrays(a, b, path=""):
+    """Two saved states equal: tensors bit for bit, other values equal (wall
+    seconds and rates aside)."""
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), path
+    elif isinstance(a, dict):
+        assert sorted(map(str, a)) == sorted(map(str, b)), path
+        for k in a:
+            _assert_same_arrays(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_arrays(x, y, f"{path}[{i}]")
+    elif not path.endswith(("secs", "windows_per_sec")):
+        assert a == b or (a != a and b != b), (path, a, b)
+
+
+def test_replica_sharded_sweep_equals_the_single_process_sweep(world, tmp_path):
+    """S 2 over 2 ranks, one replica a rank (no collective in a step): each
+    replica's per-step losses, best epoch and test metrics, and the train
+    states and best weights rank 0 saved, equal the single-process sweep's
+    bit for bit; every rank returns every replica's results and holds the
+    modules of its own."""
+    from imm_tsf_torch.training.checkpoint import load_train_state, load_weights
+
+    single = str(tmp_path / "single")
+    want = _single_sweep(world, tmp_path, seeds=[3, 4], checkpoint_dir=single)
+    got = [r["sweep_split"] for r in world.results()]
+    for rank, res in enumerate(got):
+        assert [r.pop("held") for r in res] == [i == rank for i in range(WORLD)]
+        assert res == want
+    split = os.path.join(world.root, "split")
+    assert sorted(os.listdir(split)) == sorted(os.listdir(single))
+    _assert_same_arrays(load_train_state(split), load_train_state(single))
+    _assert_same_arrays(load_weights(os.path.join(split, "best")),
+                        load_weights(os.path.join(single, "best")))
+    with open(os.path.join(split, "best", "replicas.json")) as f, \
+            open(os.path.join(single, "best", "replicas.json")) as g:
+        assert f.read() == g.read()
+
+
+def test_data_parallel_sweep_matches_the_single_process_sweep(world, tmp_path):
+    """S 1 over 2 ranks (the grid does not split): the replica's batches
+    split over the ranks, within 1e-5 relative of the single-process sweep
+    (per-step losses and test metrics), the same best epoch; both ranks
+    hold it."""
+    (want,) = _single_sweep(world, tmp_path, seeds=[3], lrs=[1e-3])
+    got = [r["sweep_dp"] for r in world.results()]
+    assert got[0] == got[1]
+    (res,) = got[0]
+    assert res.pop("held") and res["best_iter"] == want["best_iter"]
+    assert (res["seed"], res["lr"]) == (3, 1e-3)
+    assert len(res["step_losses"]) == len(want["step_losses"]) >= 8
+    np.testing.assert_allclose(res["step_losses"], want["step_losses"], rtol=1e-5)
+    for k in ("loss", "mse", "mae", "rmse"):
+        np.testing.assert_allclose(res[k], want[k], rtol=1e-5, err_msg=k)

@@ -16,8 +16,8 @@ handles, on the CPU.
   products, tests/test_torch_bf16*.py); amp_bf16 raises the JAX package's
   ValueError for the continuous-time models (amp_bf16 itself is ported,
   tests/test_torch_amp.py); float32 and highest are served.
-- `llm_tp` above 1 (the JAX package's tensor-parallel LLM mesh) is
-  refused where the raw-text stage would load the LLM.
+- an `llm_tp` that does not divide the Llama's heads is refused where the
+  raw-text stage would load the LLM (before it loads it).
 
 The out-of-memory errors are raised on purpose, on a chosen step, by a
 wrapped loss function or optimizer step: torch.cuda.OutOfMemoryError is
@@ -170,6 +170,6 @@ def test_service_refuses_bfloat16_compute(tmp_path, dtype):
 
 
 def test_raw_text_stage_refuses_a_tensor_parallel_llm():
-    cfg = Config(**dict(CRU_CFG, use_text_embeddings=False, llm_tp=2))
-    with pytest.raises(NotImplementedError, match=r"llm_tp=2.*Queue 1, item 16"):
+    cfg = Config(**dict(CRU_CFG, use_text_embeddings=False, llm_model_fusion="Llama", llm_tp=3))
+    with pytest.raises(ValueError, match=r"llm_tp=3 does not divide.*8 KV heads"):
         make_loader_wrappers(cfg, "cpu")

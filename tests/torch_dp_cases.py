@@ -135,8 +135,20 @@ def keep_masks(device, shape, salts, keep_prob):
         undo()
 
 
+def sweep(device, cfg_kw, seeds=None, lrs=None, checkpoint_dir=None):
+    """train_seed_sweep over this rank's data mesh: each replica's summary
+    (with its seed and lr), in grid order, on every rank."""
+    from imm_tsf_torch.config import Config
+    from imm_tsf_torch.training.vmap_sweep import train_seed_sweep
+
+    res = train_seed_sweep(Config(**cfg_kw), seeds=seeds, lrs=lrs, device=device,
+                           checkpoint_dir=checkpoint_dir)
+    return [dict(summary(r), seed=r["seed"], lr=r.get("lr"), held=r["model"] is not None)
+            for r in res]
+
+
 CASES = dict(flagship=flagship, padded_step=padded_step, train=train, cli=cli,
-             keep_masks=keep_masks)
+             keep_masks=keep_masks, sweep=sweep)
 
 
 def run(device, cases):
