@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
  1. the card: `nvidia-smi` name and power limit, torch's device name;
     TF32 off for matmuls and cuDNN (every comparison here is float32),
     cuDNN's deterministic algorithms (as the port's device setup has them);
- 2. build the seven CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
+ 2. build the eight CUDA kernels from `imm_tsf_torch/csrc/` with nvcc
     and the native chunker (`imm_tsf_torch/native/chunker.cpp`) with g++
     (one process per source, in parallel) and print the build time;
  3. hold each kernel against its plain PyTorch version on the card:
@@ -240,9 +240,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the bfloat16 artifacts within 0.05 x scale; then phase 8's kernel
     route trained on the float32 artifacts (4096-wide notes into d_txt
     768), #1 and #2 exact; (d) TimeLLM with BERT (6 layers) and with Llama
-    (1 layer, 4096 wide; TIMELLM_LLM_LAYERS), trained through `imm_tsf_torch.main` (BERT two epochs,
-    Llama one; the frozen LLM bit for bit as drawn; each checkpoint
-    write's seconds printed), the trained experiment served (64 requests,
+    (1 layer, 4096 wide; TIMELLM_LLM_LAYERS), trained through
+    `imm_tsf_torch.main` (one epoch each; the frozen LLM bit for bit as
+    drawn; each checkpoint write's seconds printed), the trained experiment served (64 requests,
     #1 once a dispatch, nothing else), one compared step kernels vs plain
     vs float64 (`compare_model_step`); each run's peak device memory;
 14. the default training path, the device-resident epoch loop
@@ -355,7 +355,7 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     bit with 14a's loop run, launches exact, windows/s beside 14a's, one
     all-reduce of the run's parameter count timed; (c) --mesh_shape 2
     --share_card (two rank processes on the card, gloo, CUDA tensors) on
-    the streaming loop for DP_EPOCHS (2) epochs, per-step losses and each
+    the streaming loop for DP_EPOCHS (1) epoch, per-step losses and each
     epoch's val mse within DP_RTOL (1e-5) of (b)'s, rank 0's launches
     exact; (d) --mesh_shape min(cards, 4) over NCCL where the machine has
     two cards or more, else logged as not run;
@@ -382,7 +382,19 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     the ranks) streaming for DP_EPOCHS epochs within DP_RTOL of 20c; (e)
     (b)'s Llama and (c) over min(cards, 4) cards where the machine has two
     or more, else logged as not run;
- 5. (after 6-21) time each kernel and its plain version at the shapes
+22. dropout_impl="flax" (flax nn.Dropout's threefry2x32 masks, the flax
+    dropout kernel of `csrc/dropout.cu`, not a TPU kernel): (a) one
+    training step of 14a's flags + `--dropout_impl flax --rng_impl
+    threefry2x32` (FLAX_ARGS) records each dropout site's input shape and
+    flax (scope path, counter), launches exact (the kernel once a site
+    forward and once backward, #2 never: the FFN runs unfused), and the
+    kernel at each of those shapes, and past 2^32 (flat offsets whose hi
+    counter is 1, or turns over inside), forward and backward, bit for bit
+    with its plain version; (b) FLAX_ARGS for FLAX_EPOCHS (2) epochs on the
+    loop (captured) and streaming, bit for bit, launches exact, train
+    windows/s beside 14a's hash run; (c) (b)'s loop run resumed after its
+    first epoch (`--load`), bit for bit;
+ 5. (after 6-22) time each kernel and its plain version at the shapes
     of its path (#1 also at the training shape, beside its previous design
     and an empty kernel launched on its grid, the launch floor; the
     attention at every bucket shape, beside
@@ -398,7 +410,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
     and at Informer's sites, two cuBLAS float32 GEMMs + GELU + LayerNorm)
     and print one JSON
     line {"kernels": [...]}
-    (seven rows; #1-#3 each with a `one_pass` block, its one-pass form of
+    (seven rows and the flax dropout kernel's: one step's forward
+    launches at 22a's site shapes, each timed and summed, bound the largest
+    of bytes at 3.35 TB/s, FLAX_DROPOUT_INT_OPS an element at the INT32
+    rate and FLAX_DROPOUT_FP_OPS at the FP32 pipe's, launches from 22b's
+    loop run, library none; #1-#3 each with a
+    `one_pass` block, its one-pass form of
     phase 19 timed on the row's own inputs: launches from 19b and 19c,
     bound one bf16 pass a product at 989 TFLOP/s, library_ms cuBLAS bf16
     GEMMs with float32 output + GELU + LayerNorm for #2, SDPA on bf16 for
@@ -450,9 +467,12 @@ from imm_tsf_torch.data.loader import parse_datasets
 from imm_tsf_torch.data.synthetic import make_synthetic_dataset
 from imm_tsf_torch.export import ExportedForecaster, export_experiment
 from imm_tsf_torch.fusion.fusion_model import FusionModel
-from imm_tsf_torch.kernels import _build, attn, cru_scan, expm, ffn, recavg
+from imm_tsf_torch.kernels import _build, attn, cru_scan, dropout, expm, ffn, recavg
+from imm_tsf_torch.kernels.dropout import flax_dropout, flax_dropout_reference
 from imm_tsf_torch.kernels._cluster import CLUSTER_SIZES
+from imm_tsf_torch.layers import fast_dropout
 from imm_tsf_torch.layers.fast_dropout import Dropout, _keep_mask
+from imm_tsf_torch.layers.jax_prng import site_hash
 from imm_tsf_torch.layers import transformer as transformer_layers
 from imm_tsf_torch.layers.prob_attention import ProbAttention
 from imm_tsf_torch.layers.transformer import BatchNorm, DecoderLayer, EncoderLayer
@@ -680,7 +700,7 @@ ONE_PASS_SCORE_MAX = 4.0
 # and 20d over min(cards, 4) cards (NCCL) on the epoch loop where the machine
 # has two or more, DP_EPOCHS epochs each, within DP_RTOL of 20b's first epochs
 MESH_ONE = ["--mesh_shape", "1"]
-DP_EPOCHS = 2
+DP_EPOCHS = 1  # 2 before phase 22 (PERF.md §4: a cut of depth)
 DP_RTOL = 1e-5
 ROW_BASE_FORMS = ("eval", "training", "bf16_weight", "one_pass")
 # phase 21: the frozen LLM over a ("data", "model") mesh (llm/loader.make_llm_mesh)
@@ -717,6 +737,24 @@ MESH_DP_SWEEP_ARGS = (PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"]
                       + ["--vmap_lrs", "1e-3", "--epoch", str(DP_EPOCHS), "--mesh_shape", "2",
                          "--share_card"] + STREAM)
 PEAK_BF16_FLOP_PER_S = 989e12  # tensor cores, dense
+# phase 22: dropout_impl="flax" (flax nn.Dropout's threefry masks, kernels/dropout.py)
+# on 14a's flags: the FFN unfused (#2 not launched), FLAX_EPOCHS on the loop (the
+# second epoch replays) and streaming, then resumed after its first epoch
+FLAX = ["--dropout_impl", "flax", "--rng_impl", "threefry2x32"]
+FLAX_ARGS = PATCH_TRAIN_ARGS + PATCH_ROUTES["kernel"] + FLAX
+FLAX_EPOCHS = 2
+# the INT32 rate: 132 SMs x 64 INT32 lanes x the boost clock (Hopper white paper);
+# the FP32 pipe's: 128 lanes an SM (PEAK_FP32_FLOP_PER_S counts an FMA as two)
+PEAK_INT32_OPS_PER_S = 132 * 64 * GPU_CYCLES_PER_S
+PEAK_FP32_OPS_PER_S = 132 * 128 * GPU_CYCLES_PER_S
+# an element of the flax dropout, the work done once an element (the site's fold and
+# the key words plus their injection constants are a thread's, computed once). On
+# the INT32 pipe: one threefry2x32 block, 2 first additions, 20 rounds of add,
+# rotate and xor, 5 key injections of 2 additions (72), the bits' xor, shift and or
+# (3) and the 64-bit flat index (2). On the FP32 pipe: u - 1, the compare and the
+# division (3)
+FLAX_DROPOUT_INT_OPS = 77
+FLAX_DROPOUT_FP_OPS = 3
 # 16d: main_all's two combinations, DLinear with text on and off
 MAIN_ALL_ARGS = ["--datasets", "EPA-Air", "--models", "DLinear", "--enable_text", "1", "0",
                      "--ttf", "TTF_RecAvg", "--mmf", "MMF_GR_Add", "--epoch", "1",
@@ -774,7 +812,8 @@ LLM_BUCKET_CALL, LLM_SHORT_CALL = (64, 1024), (64, 32)
 STAGE_TRAIN_ARGS = ([a if a != "GPT2" else "Llama" for a in PATCH_TRAIN_ARGS]
                     + PATCH_ROUTES["kernel"])
 # 13d: each TimeLLM checkpoint holds its frozen LLM (the 6-layer Llama 7.4 GB)
-TIMELLM_LLM_EPOCHS = {"BERT": 2, "LLAMA": 1}
+# BERT's run one epoch, two before phase 22 (PERF.md §4: a cut of depth)
+TIMELLM_LLM_EPOCHS = {"BERT": 1, "LLAMA": 1}
 # 13d's frozen LLM depth: the preset's 6 blocks for BERT; Llama cut to 1,
 # 4096 wide (its training, serving and compared step took ~160 s at 6 and
 # 97 s at 3, PERF.md §4)
@@ -2015,7 +2054,9 @@ KERNEL_COUNTS = {  # kernel -> (module, its launch counter)
     # the one-pass bf16 forms (compute_dtype="bfloat16"), counted in the above too
     "recency_weighted_average_bf16": (recavg, "one_pass_launches"),
     "fused_encoder_ffn_bf16": (ffn, "one_pass_launches"),
-    "fused_causal_attention_bf16": (attn, "one_pass_launches")}
+    "fused_causal_attention_bf16": (attn, "one_pass_launches"),
+    # dropout_impl="flax" (not a TPU kernel): forward and backward launches, and the backward's
+    "flax_dropout": (dropout, "launches"), "flax_dropout_backward": (dropout, "backward_launches")}
 
 
 def zero_counts() -> None:
@@ -5293,6 +5334,172 @@ def run_llm_mesh(device, root: str, exp_dir: str, sweeps: dict, dp: dict, gen) -
     return out
 
 
+# --------------------------------------------------------------- phase 22
+def flax_counts(sites: int):
+    """expected(steps, evals) of a flax-mode PatchTST run behind TTF_RecAvg:
+    #1 once a forward, the flax dropout kernel once a site a step forward
+    and once backward, #2 never (the FFN runs unfused)."""
+    return lambda steps, evals: dict(dict.fromkeys(KERNEL_COUNTS, 0),
+                                     recency_weighted_average=steps + evals,
+                                     flax_dropout=2 * sites * steps,
+                                     flax_dropout_backward=sites * steps)
+
+
+def flax_sites(device, root: str) -> dict:
+    """22a: one training step of FLAX_ARGS's run (trainer.build_run, its
+    first training batch) with a forward pre-hook on every Dropout: each
+    site's input shape and dtype in call order, its flax (path, counter),
+    and the step's launches (zeroed just before)."""
+    from imm_tsf_torch.training.trainer import build_run
+
+    data = training_data(root, FLAX_ARGS)
+    cfg = data["cfg"]
+    sample = next(iter(data["train_dataloader"]))
+    model, fusion, _, params, optimizer = build_run(cfg, sample, device)
+    calls: list = []
+    steps: set = set()  # the step's fast_dropout.FlaxSites, which make_forward entered
+
+    def record(_, a):
+        calls.append((tuple(a[0].shape), str(a[0].dtype)))
+        steps.add(fast_dropout._FLAX)
+
+    hooks = [m.register_forward_pre_hook(record)
+             for mod in (model, fusion) for m in mod.modules() if isinstance(m, Dropout)]
+    step = make_grad_step(make_loss_fn(make_forward(cfg, model, fusion)), optimizer, params)
+    zero_counts()
+    try:
+        step(to_device(sample, device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = read_counts()
+    if len(steps) != 1 or None in steps:
+        raise AssertionError(f"22a: the step's sites drew under {len(steps)} step keys, not one")
+    sites = steps.pop()
+    want = dict(flax_counts(len(calls))(1, 0), recency_weighted_average=1)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"22a: one flax step launched {launches}, expected {want}")
+    out = {"sites": len(calls), "shapes": calls,
+           "drawn": [[list(path), counter] for path, counter in sites.drawn],
+           "launches": launches}
+    log(f"# phase 22a: {len(calls)} flax dropout sites a step: {json.dumps(out)}")
+    return out
+
+
+def check_flax_dropout(device, shapes: list, gen) -> dict:
+    """22a: the flax dropout kernel on each site shape of the path, and past
+    2^32 (a flat offset whose hi counter is 1, and one where it turns over
+    inside), forward and backward against its plain version on the same
+    inputs: bit for bit. Returns the largest |kernel - plain| (0.0)."""
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=device, dtype=torch.int64)
+    cases = [(shape, getattr(torch, dtype.split(".")[-1]), 0) for shape, dtype in
+             dict.fromkeys(shapes)] + [((32, 8, 6, 512), torch.float32, 2**32 + 77),
+                                       ((1000, 77), torch.float32, 2**32 - 5000),
+                                       ((256, 6, 512), torch.bfloat16, 0)]
+    worst, site = 0.0, site_hash(("enc_layer_0", "Dropout_1"), 1)
+    for shape, dtype, offset in cases:
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        g = torch.randn(shape, generator=gen, device=device).to(dtype)
+        xk = x.clone().requires_grad_()
+        out = flax_dropout(xk, key, site, KEEP, offset)
+        out.backward(g)
+        want = flax_dropout_reference(x, key, site, KEEP, offset)
+        want_g = flax_dropout_reference(g, key, site, KEEP, offset)
+        err = max(float((out - want).abs().max()), float((xk.grad - want_g).abs().max()))
+        worst = max(worst, err)
+        if not (torch.equal(out, want) and torch.equal(xk.grad, want_g)):
+            raise AssertionError(f"22a: the flax dropout kernel at {shape} {dtype} offset "
+                                 f"{offset} is not its plain version bit for bit ({err:.3e})")
+    log(f"# phase 22a: the flax dropout kernel equals its plain version bit for bit, forward "
+        f"and backward, at {len(cases)} shapes (offsets past 2^32 among them)")
+    return {"max_abs_err": worst, "cases": [[list(s), str(d), o] for s, d, o in cases]}
+
+
+def run_flax(device, root: str, exp_dir: str, loop_runs: dict, gen) -> dict:
+    """Phase 22: dropout_impl="flax". 22a the path's dropout sites (one
+    step's shapes and flax draws) and the kernel against its plain version
+    there; 22b FLAX_ARGS (14a's flags + flax masks) for FLAX_EPOCHS on the
+    loop (captured) and streaming, bit for bit, launches exact (#2 0), train
+    windows/s beside 14a's hash run; 22c the loop run resumed after its
+    first epoch (`--load`), bit for bit."""
+    probe = flax_sites(device, root)
+    out = {"22a": dict(probe, **check_flax_dropout(device, probe["shapes"], gen))}
+    expected = flax_counts(probe["sites"])
+    kept: dict = {}
+    case = run_loop_case(device, root, exp_dir, "22b PatchTST, flax dropout", FLAX_ARGS,
+                         expected, True, epochs=FLAX_EPOCHS, trace=False, kept=kept,
+                         exact=True)
+    check_loop_mode("22b", case["loop"], "resident", device.type == "cuda")
+    hash_loop = loop_runs["14a PatchTST kernel"]["summary"]["loop"]
+    case["summary"]["hash_loop"] = hash_loop
+    log(f"# phase 22b: loop bit for bit with streaming, #2 not launched; train windows/s "
+        f"{case['summary']['loop']['train_windows_per_s']:.1f} against 14a's hash run's "
+        f"{hash_loop['train_windows_per_s']:.1f}")
+    out["22b PatchTST flax"] = case
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    out["22c resume"] = run_resume(device, root, exp_dir, case["loop"], kept["weights"],
+                                   args=FLAX_ARGS + ["--load", "resume"], expected=expected,
+                                   label="22c flax resume on the epoch loop", strict=True,
+                                   total=FLAX_EPOCHS)
+    return out
+
+
+def flax_dropout_bound(shapes) -> tuple[float, str]:
+    """The flax dropout's bound (ms, bound_by) on inputs of these (shape,
+    dtype): the largest of x read and out written once at 3.35 TB/s,
+    FLAX_DROPOUT_INT_OPS an element at PEAK_INT32_OPS_PER_S and
+    FLAX_DROPOUT_FP_OPS an element at PEAK_FP32_OPS_PER_S."""
+    n = sum(math.prod(shape) for shape, _ in shapes)
+    nbytes = sum(2 * math.prod(shape) * (2 if "bfloat16" in dtype else 4)
+                 for shape, dtype in shapes)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(FLAX_DROPOUT_INT_OPS * n / PEAK_INT32_OPS_PER_S,
+                FLAX_DROPOUT_FP_OPS * n / PEAK_FP32_OPS_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flax_dropout_row(device, flax: dict) -> dict:
+    """Phase 5's row of the flax dropout kernel: one step's forward
+    launches at the path's site shapes (22a), each timed, kernel and plain
+    version, and summed; bound by flax_dropout_bound; launches from
+    22b's loop run. No PyTorch call draws these bits (F.dropout draws
+    Philox): library none."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    key = torch.randint(0, 2**32, (2,), generator=gen, device=device, dtype=torch.int64)
+    site = site_hash(("enc_layer_0", "Dropout_1"), 1)
+    shapes = flax["22a"]["shapes"]
+    per_site = []
+    with torch.no_grad():
+        for shape, dtype in shapes:
+            x = torch.randn(shape, generator=gen, device=device).to(getattr(torch, dtype[6:]))
+            bound_ms, bound_by = flax_dropout_bound([(shape, dtype)])
+            per_site.append({
+                "shape": list(shape), "dtype": dtype,
+                "ms": device_ms(lambda a: flax_dropout(a, key, site, KEEP), [(x,)]),
+                "plain_ms": device_ms(lambda a: flax_dropout_reference(a, key, site, KEEP),
+                                      [(x,)], per_rep=5),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    bound_ms, bound_by = flax_dropout_bound(shapes)
+    loop = flax["22b PatchTST flax"]["loop"]
+    out = {"name": "flax_dropout", "route": "cuda", "source": "imm_tsf_torch/csrc/dropout.cu",
+           "replaces": "imm_tsf_tpu/layers/fast_dropout.py:159 (not a TPU kernel: XLA's "
+                       "threefry2x32 bernoulli and select under dropout_impl=\"flax\")",
+           "launches": loop["launches"]["flax_dropout"],
+           "max_abs_err": flax["22a"]["max_abs_err"],
+           "ms": sum(r["ms"] for r in per_site),
+           "plain_ms": sum(r["plain_ms"] for r in per_site),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "per_site": per_site,
+           "backward_launches": loop["launches"]["flax_dropout_backward"],
+           "int32_ops_per_s": PEAK_INT32_OPS_PER_S, "fp32_ops_per_s": PEAK_FP32_OPS_PER_S,
+           "ops_an_element": {"int32": FLAX_DROPOUT_INT_OPS, "fp32": FLAX_DROPOUT_FP_OPS},
+           "what": "one step's forward launches at the path's site shapes (22a), summed"}
+    log(f"# phase 5 flax dropout: {json.dumps(out)}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def device_ms(fn, arg_sets, reps: int = 7, per_rep: int = 20) -> float:
     """Median over `reps` of the mean device time of `per_rep` back-to-back
@@ -5639,7 +5846,7 @@ def measure_cru(cru) -> list[dict]:
          "max_abs_err": scan_abs, "check": scan,
          "shape": list(ins["y_mean"].shape) + [ins["coeff_w"].shape[1]],
          **timed(cru_scan.fused_cru_scan, cru_ops.cru_scan_reference, None, [args],
-                 s_bytes, s_flops, 2),
+                 s_bytes, s_flops, 1),
          "launches": cru["fused"]["launches"]["fused_cru_scan"]},
     ]
     for row in rows:
@@ -5733,7 +5940,7 @@ def measure_training(train) -> list[dict]:
          "max_abs_err": max(v["max_abs_err"] for v in bwd.values()), "check": bwd,
          "shape": list(step["scan_shape"]),
          **timed(cru_scan.fused_cru_scan_backward, cru_ops.cru_scan_bwd_reference, None,
-                 [list(args)], b_bytes, b_flops, 2),
+                 [list(args)], b_bytes, b_flops, 1),
          **plan, "ms_by_cluster": by_cluster,
          "launches": train["routes"]["fused"]["launches"]["fused_cru_scan_backward"],
          "launches_per_step": 1},
@@ -5800,7 +6007,7 @@ def main() -> int:
     # phase 2: build
     t0 = time.monotonic()
     secs = _build.build(["ffn", "recavg", "attn", "expm", "cru_scan", "expm_frechet",
-                         "cru_scan_bwd", "chunker"])
+                         "cru_scan_bwd", "dropout", "chunker"])
     log(f"# built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in sorted(secs.items()))})")
 
@@ -6039,13 +6246,18 @@ def main() -> int:
         # llm_tp 2, the sweep over two ranks (replica-sharded, data-parallel)
         shutil.rmtree(exp_dir, ignore_errors=True)
         llm_mesh = run_llm_mesh(device, root, exp_dir, sweeps, dp, gen)
+        mark("21")
+        # phase 22: dropout_impl="flax": the flax dropout kernel at the path's
+        # sites, 14a's flags with flax masks on the loop and streaming, resumed
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        flax = run_flax(device, root, exp_dir, device_loop, gen)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(ode_root, ignore_errors=True)
         shutil.rmtree(exp_dir, ignore_errors=True)
         shutil.rmtree(kept_root, ignore_errors=True)
 
-    mark("21")
+    mark("22")
     # phase 18: the served forward captured (its checks ran in phases 4-16)
     captured = captured_summary(serving, text, cru, informer, default_pair, timellm_run, mts,
                                 imts, deployment)
@@ -6119,6 +6331,8 @@ def main() -> int:
         for row in rows:
             if counts.get(row["name"], 0):
                 row.setdefault("launches_by_path", {})[path] = counts[row["name"]]
+    # phase 22: the flax dropout kernel timed at the path's sites (not a TPU kernel)
+    rows.append(flax_dropout_row(device, flax))
     mark("5b")
     log(f"# service: {serving['requests_per_s']:.1f} requests/s, dispatch p50 "
         f"{serving['dispatch_ms']['p50']} ms; raw text {text['requests_per_s']:.1f} "
@@ -6171,7 +6385,9 @@ def main() -> int:
                                **{k: v for k, v in bf16.items() if k.startswith("19c")},
                                "19d": bf16["19d artifact"], "errs": bf16["errs"]},
                       "dp": {k: v.get("summary", v) for k, v in dp.items()},
-                      "llm_mesh": llm_mesh, "phase_s": phase_s}),
+                      "llm_mesh": llm_mesh,
+                      "flax": {k: v.get("summary", v) for k, v in flax.items()},
+                      "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

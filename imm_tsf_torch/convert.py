@@ -57,6 +57,17 @@ vocab] like any Dense kernel; a bfloat16 leaf (`frozen_param_dtype`)
 converts exactly to float32, and a leaf in flax's partitioning box (the
 Llama projections' `nn.with_partitioning`) is unboxed.
 
+`assign_flax_sites` gives every Dropout of a port module tree its flax
+scope path, for dropout_impl="flax" (layers/fast_dropout.py), by the
+same names read the other way: an encoder or decoder layer's attention
+dropout sits in its inner attention, which flax binds to the model as
+`<class>_<i>` (FullAttention_0, ProbAttention_3: numbered a class, in the
+order of `_attention_block`); the layers' own dropout is a fresh flax
+module a call (`Dropout_<k>` in `enc_layer_<i>` / `dec_layer_<j>`);
+every other site keeps its port path with its last name made flax's
+(`dropout` and `head_dropout` -> `Dropout_0`, `dropout<k>` ->
+`Dropout_<k - 1>`), one module whose make_rng counter counts its calls.
+
 `gpt2_params_from_jax` carries a flax `GPT2Model` param tree (the JAX
 package's frozen LLM) into the port's `llm.gpt2.GPT2Model` state dict:
 Embed `embedding` -> `weight` (not transposed), blocks `h_<i>` -> `h.<i>`;
@@ -136,6 +147,57 @@ def _model_renames(tree: dict) -> tuple:
     gnn = ((re.compile(r"^Dense_(\d+)\."), _sequential_dense(gnn_layers)),) if gnn_layers else ()
     return ((re.compile(r"^AttentionLayer_(\d+)\."), _attention_block(e_layers)),
             *gnn, *_LAYER_RENAMES)
+
+
+_INNER_ATTENTION = re.compile(
+    r"^(encoder\.layers\.(\d+)\.attention|decoder\.layers\.(\d+)\.(self|cross)_attention)"
+    r"\.inner$")
+_LAYER_DROPOUT = re.compile(r"^(encoder|decoder)\.layers\.(\d+)\.dropout$")
+_DROPOUT_NAME = re.compile(r"^(?:head_)?dropout(\d*)$")
+
+
+def _flax_dropout_path(name: str, inner_names: dict) -> tuple[tuple, bool]:
+    """(flax scope path, fresh) of the Dropout at port path `name` under a
+    root module; inner_names maps each inner attention's port path to its
+    flax name."""
+    m = _LAYER_DROPOUT.match(name)
+    if m:
+        layer = ("enc" if m.group(1) == "encoder" else "dec") + f"_layer_{m.group(2)}"
+        return (layer, "Dropout_0"), True
+    parent, _, last = name.rpartition(".")
+    if parent in inner_names:
+        return (inner_names[parent], "Dropout_0"), False
+    m = _DROPOUT_NAME.match(last)
+    if m is None:
+        raise ValueError(f"no flax name for the dropout site {name!r}")
+    k = int(m.group(1)) - 1 if m.group(1) else 0
+    return (*(parent.split(".") if parent else ()), f"Dropout_{k}"), False
+
+
+def assign_flax_sites(root) -> list:
+    """Set `impl` "flax", `flax_path` and `flax_fresh` on every Dropout
+    under `root` (a backbone or the fusion stack: each is its own flax
+    apply root); returns [(port path, flax path, fresh)]."""
+    from .layers.fast_dropout import Dropout
+
+    def order(item):  # _attention_block's: encoder layers, then each decoder layer's pair
+        m = _INNER_ATTENTION.match(item[0])
+        return (1, int(m.group(3)), m.group(4) == "cross") if m.group(3) else (0, int(m.group(2)))
+
+    inners = sorted(((n, mod) for n, mod in root.named_modules() if _INNER_ATTENTION.match(n)),
+                    key=order)
+    inner_names, seen = {}, {}
+    for n, mod in inners:
+        cls = type(mod).__name__
+        inner_names[n] = f"{cls}_{seen.get(cls, 0)}"
+        seen[cls] = seen.get(cls, 0) + 1
+    sites = []
+    for n, mod in root.named_modules():
+        if isinstance(mod, Dropout):
+            mod.flax_path, mod.flax_fresh = _flax_dropout_path(n, inner_names)
+            mod.impl = "flax"
+            sites.append((n, mod.flax_path, mod.flax_fresh))
+    return sites
 
 
 def port_keys(tree: dict, renames=()) -> dict:

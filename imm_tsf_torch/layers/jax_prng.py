@@ -1,5 +1,6 @@
-"""JAX's default PRNG in NumPy: threefry2x32, `jax.random.randint` and
-`jax.random.normal`.
+"""JAX's default PRNG in NumPy: threefry2x32, `jax.random.randint`,
+`jax.random.normal`, and flax's per-site hash and the JAX trainer's key
+chain for flax-mode dropout.
 
 ProbSparse attention (layers/prob_attention.py) samples its keys in eval
 with `jax.random.randint(jax.random.PRNGKey(0), (L_Q, U_part), 0, L_K)`
@@ -26,10 +27,25 @@ for the default `threefry2x32` implementation with
     1e-6 at the sizes served).
     The LatentODE's and NeuralFlow's eval_sample_traj serve that draw.
 
+  - flax's `make_rng` folds its static data into the apply's key once
+    (`jax.random.fold_in`, the hash of the counter pair (0, data)): the
+    data is SHA-1 over the scope names from the apply root and the call's
+    counter (minimal big-endian bytes), no separator byte (flax's
+    `flax_fix_rng_separator` is off by default), the digest's first 4
+    bytes read big-endian (`site_hash`).
+
+`KeyChain` is the JAX trainer's key chain under
+rng_impl="threefry2x32", the keys that flax-mode dropout folds each
+site into (layers/fast_dropout.py); the fold and the site's mask
+(`jax.random.bernoulli`) are kernels/dropout's.
+
 All arithmetic is on uint32 NumPy arrays, which wrap like the hardware.
 """
 
 from __future__ import annotations
+
+import functools
+import hashlib
 
 import numpy as np
 
@@ -120,3 +136,41 @@ def normal(key: tuple[int, int], shape: tuple) -> np.ndarray:
     floats = ((bits >> np.uint32(9)) | np.float32(1.0).view(np.uint32)).view(np.float32) - f(1.0)
     u = np.maximum(lo, floats * (f(1.0) - lo) + lo)
     return (f(np.sqrt(2)) * _erf_inv32(u)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4096)
+def site_hash(path: tuple, counter: int) -> int:
+    """The uint32 that flax folds into the apply's key for a make_rng call
+    of the scope at `path` (its names from the apply root), the scope's
+    `counter`-th call (flax/core/scope.py, _fold_in_static)."""
+    m = hashlib.sha1()
+    for x in (*path, counter):
+        m.update(x.encode("utf-8") if isinstance(x, str)
+                 else x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+class KeyChain:
+    """The JAX trainer's key chain under rng_impl="threefry2x32"
+    (imm_tsf_tpu/training/trainer.py:554-557, 795; device_loop.py:206,
+    326, 386): key(seed), one split whose second key goes to the init,
+    then `rng, step_rng = split(rng)` a training step. `next()` is that
+    split and returns step_rng; the state (the two words of rng and the
+    impl) is what a train state saves, as the JAX trainer's meta["rng"]."""
+
+    impl = "threefry2x32"
+
+    def __init__(self, seed: int):
+        self.key = split(prng_key(seed))[0]
+
+    def next(self) -> tuple[int, int]:
+        self.key, step = split(self.key)
+        return step
+
+    def get_state(self) -> dict:
+        return {"rng": list(self.key), "rng_impl": self.impl}
+
+    def set_state(self, state: dict) -> None:
+        if state.get("rng_impl", self.impl) != self.impl:
+            raise ValueError(f"a {state['rng_impl']} key cannot continue a {self.impl} chain")
+        self.key = (int(state["rng"][0]), int(state["rng"][1]))

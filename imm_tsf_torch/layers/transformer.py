@@ -89,7 +89,17 @@ def _ffn(layer: nn.Module, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     mode with dropout, one [2, 2] salt pair from the layer's dropout
     generator: rows are the hidden site's salts and the output site's.
     Under a data mesh the rows of x, batch outermost, start at the rank's
-    first global row (rank x M), which the masks hash."""
+    first global row (rank x M), which the masks hash.
+    Under dropout_impl="flax" (the layer's dropout `impl`) the FFN runs
+    unfused, module by module, with the layer's dropout as its flax sites
+    Dropout_<k>, train and eval alike: the JAX package fuses no FFN in
+    flax mode (`_ffn_use_fused`, imm_tsf_tpu/layers/transformer.py:109),
+    so kernel #2 is not launched."""
+    if layer.dropout.impl == "flax":
+        a = layer.conv1(x)
+        y = layer.dropout(torch.relu(a) if layer.activation == "relu"
+                          else F.gelu(a, approximate="tanh"))
+        return norm(x + layer.dropout(layer.conv2(y)))
     apply_dropout = layer.training and layer.dropout.rate > 0
     salts = take_salt_table(layer.dropout.generator, 2) if apply_dropout else None
     ffn = fused_encoder_ffn if layer.use_fused_ffn else ffn_reference

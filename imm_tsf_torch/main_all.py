@@ -5,7 +5,7 @@ main_all.py:12-205).
         [--enable_text 1 0] [--epoch N] [--data_root ./data] \\
         [--results_dir experiment_results] [--device cuda] \\
         [--parallel N --worker_device cuda|cpu] [--seeds S] [--lrs l1 l2 ...] \
-        [--compute_dtype float32|bfloat16|amp_bf16]
+        [--compute_dtype float32|bfloat16|amp_bf16] [--dropout_impl hash|flax]
 
 Cartesian product over datasets x models x enable_text x TTF x MMF with:
   - the default fusion pair only when text is off (:109-117);
@@ -17,13 +17,17 @@ Cartesian product over datasets x models x enable_text x TTF x MMF with:
 `--seeds S` and `--lrs` train each combination's (seeds x lrs) replicas in
 one process (training/vmap_sweep.train_seed_sweep); the result's metrics
 are the best-validation replica's under an lr grid, else the base seed's,
-with every replica's metrics beside them. The JAX main_all's `--dropout_impl`
-is not carried over: the port trains with the hash dropout only
-(`dropout_impl="flax"` is ROADMAP.md, Queue 1, item 19). `--compute_dtype
+with every replica's metrics beside them. `--compute_dtype
 bfloat16` trains every combination with one-pass bf16 products (every
 model), `amp_bf16` under the JAX package's mixed precision (the
 continuous-time models refuse it), each into result files named with it
-(training/trainer.make_forward).
+(training/trainer.make_forward). `--dropout_impl` overrides every
+combination's dropout, into result files tagged `_dropout=<impl>` (the JAX
+main_all's :59-63, 87-91, 358): "flax" is flax nn.Dropout's masks, which
+the port trains under rng_impl="threefry2x32" only. A replica grid pins
+that impl (training/vmap_sweep.py, as the JAX sweep does); a plain
+combination keeps the config's default "rbg", which the trainer refuses
+with flax (`check_trainable`): such a sweep fails before any work.
 
 `--parallel N` runs combinations in N worker processes (a spawn pool). On
 cuda (the default `--worker_device`) each worker takes one card
@@ -54,7 +58,7 @@ from .utils.table import Table
 
 def run_combination(combo, batch_size, llm_model_fusion, use_text_embeddings, data_root,
                     epoch, results_dir: Path, seeds: int = 1, lrs=None, device: str = "cuda",
-                    compute_dtype: str = "float32"):
+                    compute_dtype: str = "float32", dropout_impl: str | None = None):
     """Train one combination on `device` and write its result file;
     ("skipped-cached", 0.0) when the file exists, else ("ok", seconds)."""
     data_name, model_name, enable_text, TTF_module, MMF_module = combo
@@ -67,6 +71,8 @@ def run_combination(combo, batch_size, llm_model_fusion, use_text_embeddings, da
         grid_tag += f"_seeds={seeds}"
     if lrs:
         grid_tag += "_lrs=" + ",".join(f"{lr:g}" for lr in lrs)
+    if dropout_impl is not None:
+        grid_tag += f"_dropout={dropout_impl}"
     result_path = results_dir / (
         f"{data_name}_{model_name}_enable_text={enable_text}"
         f"_TTF_module={TTF_module}_MMF_module={MMF_module}"
@@ -89,6 +95,8 @@ def run_combination(combo, batch_size, llm_model_fusion, use_text_embeddings, da
         "data_root": data_root,
         "compute_dtype": compute_dtype,
     }
+    if dropout_impl is not None:
+        fixed_params["dropout_impl"] = dropout_impl
     cfg = apply_presets(Config(overwrite_args=True), fixed_params, {"lr": 1e-3})
     if cfg.enable_text:
         cfg = resolve_max_length(cfg)
@@ -131,7 +139,9 @@ def run_combination(combo, batch_size, llm_model_fusion, use_text_embeddings, da
     }
     if seed_metrics is not None:
         result_data["seed_metrics"] = seed_metrics
-    result_data["provenance"] = provenance(cfg)
+    # the rng_impl the run trained under (a replica grid pins threefry2x32)
+    result_data["provenance"] = provenance(
+        cfg.replace(rng_impl=best_metrics.get("rng_impl", cfg.rng_impl)))
     results_dir.mkdir(parents=True, exist_ok=True)
     with open(result_path, "w") as f:
         json.dump(result_data, f, indent=4)
@@ -281,6 +291,10 @@ def main(argv=None):
                          "with bf16-rounded operands and float32 sums (every model); amp_bf16 "
                          "is the JAX package's mixed precision (MTS/LMTS models only; the "
                          "others refuse it)")
+    ap.add_argument("--dropout_impl", default=None, choices=["hash", "flax"],
+                    help="every combination's dropout masks (default: the config's, hash); "
+                         "flax is flax nn.Dropout's, trained under rng_impl threefry2x32, "
+                         "which a replica grid (--seeds / --lrs) pins")
     ap.add_argument("--worker_device", choices=["cuda", "cpu"], default="cuda",
                     help="where --parallel workers run: cuda (default; one card a "
                          "worker, N cards needed) or cpu")
@@ -308,12 +322,19 @@ def main(argv=None):
         else:
             combinations.append((d, m, False, "TTF_RecAvg", "MMF_GR_Add"))
 
+    if args.dropout_impl == "flax" and not (args.seeds > 1 or args.lrs):
+        # every combination trains under the config's rng_impl, "rbg": refused
+        # before any work, as the trainer refuses it
+        from .training.trainer import check_trainable
+
+        check_trainable(Config(dropout_impl="flax"))
     results_dir = Path(args.results_dir)
     run_times = []
     total_t0 = time.time()
     run = lambda c, device: (c, args.batch_size, args.llm_model_fusion,
                              bool(args.use_text_embeddings), args.data_root, args.epoch,
-                             results_dir, args.seeds, args.lrs, device, args.compute_dtype)
+                             results_dir, args.seeds, args.lrs, device, args.compute_dtype,
+                             args.dropout_impl)
 
     if args.parallel > 1:
         import multiprocessing as mp

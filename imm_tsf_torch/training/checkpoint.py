@@ -73,8 +73,10 @@ def save_train_state(directory: str, model_state: dict, fusion_state: dict | Non
     `<directory>/train_state_<step>.pt` and delete all but the latest
     TRAIN_STATES_KEPT. `meta` holds plain Python values and tensors only
     (the counters, the history, the shuffle state and the states of the
-    trainer's generators: the hash-dropout salts, ProbSparse's samples and
-    the latent models' z0 noise), so load_train_state reads it back with
+    trainer's generators: the hash-dropout salts, ProbSparse's samples,
+    the latent models' z0 noise and, under dropout_impl="flax", the key
+    chain as {"rng": its two words, "rng_impl"}, the JAX trainer's meta
+    "rng" and "rng_impl"), so load_train_state reads it back with
     weights_only=True."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"train_state_{int(step)}.pt")

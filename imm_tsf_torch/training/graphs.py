@@ -9,7 +9,8 @@ the epoch ends:
 - static inputs: the stacked store of the split, the epoch's [n_batches,
   B] table of store rows, a one-element `pos` (the running batch, filled
   before each step), the epoch's [n_batches, n_sites, 2] table of
-  hash-dropout salts (layers/fast_dropout.SaltTape) and the [n_batches]
+  hash-dropout salts (layers/fast_dropout.SaltTape; under
+  dropout_impl="flax" the step keys of the run's KeyChain) and the [n_batches]
   loss buffer, or the eval outputs' [n_batches, ...] error sums;
 - the step gathers its batch by `pos` and writes its loss (or its error
   sums) at `pos`, so the host reads an epoch's losses once;
@@ -72,7 +73,7 @@ import time
 import numpy as np
 import torch
 
-from ..kernels import attn, cru_scan, expm, ffn, recavg
+from ..kernels import attn, cru_scan, dropout, expm, ffn, recavg
 from ..layers.fast_dropout import SaltTape, salt_tape
 from ..ops import cru_scan as cru_scan_ops
 from .evaluation import batch_error_sums
@@ -82,7 +83,8 @@ COUNTERS = ((recavg, "launches"), (ffn, "launches"), (ffn, "train_launches"),
             (ffn, "bf16w_launches"), (expm, "launches"), (expm, "frechet_launches"),
             (cru_scan, "launches"), (cru_scan, "backward_launches"), (attn, "launches"),
             (attn, "backward_calls"), (recavg, "one_pass_launches"),
-            (ffn, "one_pass_launches"), (attn, "one_pass_launches"))
+            (ffn, "one_pass_launches"), (attn, "one_pass_launches"),
+            (dropout, "launches"), (dropout, "backward_launches"))
 WARMUP_CALLS = 1  # eager calls of a key before its capture
 
 

@@ -49,8 +49,21 @@ state goes to `<checkpoint_dir>/train_state_<epoch>.pt` after every epoch
 :860-880): weights, BatchNorm statistics, Adam's moments and step, the
 counters and history, the train loader's shuffle state and the port's
 random streams (the hash-dropout salts, ProbSparse's samples, the
-LatentODE's and NeuralFlow's z0 noise), so a resumed run equals the
-uninterrupted one bit for bit.
+LatentODE's and NeuralFlow's z0 noise, and under dropout_impl="flax" the
+dropout key chain), so a resumed run equals the uninterrupted one bit for
+bit.
+
+dropout_impl="flax" (with rng_impl="threefry2x32") trains with flax
+nn.Dropout's masks, bit for bit the JAX package's: `build_run` gives the
+run a layers/jax_prng.KeyChain (the JAX trainer's key(seed), its init
+split and one split a step), attached to the model as `flax_keys`, and
+every dropout site its flax scope path (convert.assign_flax_sites);
+make_forward runs a train-mode forward of such a model inside
+layers/fast_dropout.flax_step, which takes the step's key. The FFN of
+PatchTST's and Informer's layers then runs unfused, as the JAX package
+runs it in flax mode. Under the default
+"rbg" the JAX package's bits come from XLA's RngBitGenerator, which no
+port reproduces, and `check_trainable` refuses the pair.
 
 `mesh_shape` (N,) trains over a data mesh of N ranks (parallel/mesh.py;
 `python -m imm_tsf_torch.main --mesh_shape N` starts them), the JAX
@@ -78,7 +91,8 @@ import torch
 from ..config import IMTS_MODELS, Config
 from ..device import resolve_run_device
 from ..layers.bf16_products import Bf16Products
-from ..layers.fast_dropout import Dropout
+from ..layers.fast_dropout import Dropout, flax_step
+from ..layers.jax_prng import KeyChain
 from ..layers.prob_attention import ProbAttention
 from ..parallel.mesh import check_mesh_shape, make_mesh, shard_batch
 from .evaluation import evaluation, finalize_metrics, masked_mse_loss
@@ -113,7 +127,13 @@ def make_forward(cfg: Config, model, fusion):
     every later dtype), and the fusion stack in float32 on the backbone's
     float32 output; the continuous-time models refuse it with the JAX
     package's ValueError. The precision is read here, once: a forward
-    keeps the one it was built with."""
+    keeps the one it was built with.
+
+    Under dropout_impl="flax" (build_run attached the run's key chain to
+    the model as `flax_keys`) a forward with the model in train mode runs
+    inside fast_dropout.flax_step: one step key for the model's and the
+    fusion stack's sites, as the JAX trainer passes one step_rng to both
+    applies."""
     amp = cfg.compute_dtype == "amp_bf16"
     if amp and cfg.model in IMTS_MODELS:
         raise ValueError(
@@ -130,11 +150,15 @@ def make_forward(cfg: Config, model, fusion):
     else:
         backbone = model
 
+    keys = getattr(model, "flax_keys", None)
+
     def forward(batch: dict):
-        if one_pass:
-            with Bf16Products():
-                return _forward(batch)
-        return _forward(batch)
+        with (flax_step(keys) if keys is not None and model.training
+              else contextlib.nullcontext()):
+            if one_pass:
+                with Bf16Products():
+                    return _forward(batch)
+            return _forward(batch)
 
     def _forward(batch: dict):
         extra = {"prompt_ids": batch["prompt_ids"]} if "prompt_ids" in batch else {}
@@ -227,11 +251,15 @@ def check_trainable(cfg: Config) -> None:
     """Refuse a configuration whose training path is not ported: nothing
     drops to a plain version unsaid. A data mesh is ported; a second axis
     of the training mesh (the JAX package replicates over it) is refused,
-    and so is a global batch that the data axis does not divide."""
+    and so is a global batch that the data axis does not divide.
+    dropout_impl="flax" trains under rng_impl="threefry2x32" and is refused
+    under any other impl (the default "rbg")."""
     refusals = [
-        (cfg.dropout_impl != "hash",
-         f"dropout_impl={cfg.dropout_impl!r}: only the hash dropout is ported "
-         "(ROADMAP.md, Queue 1, item 19)"),
+        (cfg.dropout_impl == "flax" and cfg.rng_impl != "threefry2x32",
+         f"dropout_impl='flax' with rng_impl={cfg.rng_impl!r}: flax nn.Dropout's masks "
+         "are ported under threefry2x32 only (pass --rng_impl threefry2x32); rbg's bits "
+         "come from XLA's RngBitGenerator, which differs from backend to backend and no "
+         "port reproduces (ROADMAP.md, Queue 1, item 19)"),
     ]
     for refused, why in refusals:
         if refused:
@@ -344,7 +372,9 @@ def build_run(cfg: Config, sample: dict, device: torch.device,
     train mode; the generators {"salt": the hash dropout's salts (host),
     "sample": ProbSparse attention's train-mode key samples, "z0": the
     LatentODE's and NeuralFlow's train-mode z0 noise (both on the device)},
-    each seeded cfg.seed and wired into its modules; Adam over the trainable
+    each seeded cfg.seed and wired into its modules, and under
+    dropout_impl="flax" "keys": the flax dropout key chain of cfg.seed
+    (every Dropout given its flax scope path); Adam over the trainable
     parameters at cfg.lr (`capturable` on cuda). Under a data mesh every
     module that holds a `data_mesh` gets it, and the parameters and buffers
     are rank 0's.
@@ -381,6 +411,13 @@ def build_run(cfg: Config, sample: dict, device: torch.device,
                 m.generator = generators["sample"]
             elif hasattr(m, "z0_generator"):
                 m.z0_generator = generators["z0"]
+    if cfg.dropout_impl == "flax":
+        from ..convert import assign_flax_sites
+
+        generators["keys"] = model.flax_keys = KeyChain(cfg.seed)
+        for mod in (model, fusion):
+            if mod is not None:
+                assign_flax_sites(mod)
     wire_mesh((model, fusion), mesh)
     if mesh is not None:
         mesh.broadcast_module_(model, fusion)

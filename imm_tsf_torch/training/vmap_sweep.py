@@ -33,7 +33,9 @@ The contract is the JAX module's (tests/test_torch_sweep.py):
   - replica (s, l) reproduces trainable(cfg.replace(seed=s, lr=l,
     data_seed=base)) of the port: its init, its salt, sample and z0
     generators, its Adam at lr l, its best epoch, patience and test
-    metrics. Test runs for every replica when any improved; with no test
+    metrics; under dropout_impl="flax" its key chain is KeyChain(s),
+    rng_impl pinned to threefry2x32 (:82-89). Test runs for every
+    replica when any improved; with no test
     split the best epoch's val metrics are reported. The run stops when
     every replica has exhausted its patience; a replica that stopped still
     steps, but its results are locked (:252-254, :377-406, :440-460);
@@ -204,8 +206,9 @@ def train_seed_sweep(cfg: Config, seeds=None, lrs=None, data_obj: dict | None = 
     """Train the (seeds x lrs) replica grid of cfg on `device` (cuda unless
     the caller asks for the CPU); returns one result a replica, in grid
     order, with trainable()'s keys (the best epoch's test metrics,
-    best_iter, history, model, fusion) and `seed`, `lr` when lrs are
-    given, `diverged` for a replica that turned NaN. Under cfg.mesh_shape
+    best_iter, history, model, fusion), `seed`, `rng_impl` (threefry2x32,
+    which the sweep pins), `lr` when lrs are given, `diverged` for a
+    replica that turned NaN. Under cfg.mesh_shape
     (N,) this process is one rank of N (see the module docstring).
 
     initial_states: one (model_state_dict, fusion_state_dict or None) a
@@ -229,6 +232,9 @@ def train_seed_sweep(cfg: Config, seeds=None, lrs=None, data_obj: dict | None = 
                          f"{S} replicas")
     launches0 = launch_counts()
     device = resolve_run_device(device, cfg.gpu, cfg.mesh_shape)
+    # the replicas' key chains are threefry's (JAX :82), whose flax-mode
+    # dropout masks the port reproduces; the hash masks read no key
+    cfg = cfg.replace(rng_impl="threefry2x32")
     check_trainable(cfg)
     mesh = make_mesh(cfg.mesh_shape, device)
     # N ranks dividing S split the replica axis (JAX :171-175: "each chip
@@ -251,7 +257,7 @@ def train_seed_sweep(cfg: Config, seeds=None, lrs=None, data_obj: dict | None = 
         t0 = time.time()
         data_obj = parse_datasets(cfg, verbose=False)
         _mark("parse", time.time() - t0)
-    cfg = data_obj["cfg"]
+    cfg = data_obj["cfg"].replace(rng_impl="threefry2x32")  # re-pinned, as JAX :88-89
     if cfg.data_seed is None:
         cfg = cfg.replace(data_seed=cfg.seed)
     data_obj = wrap_data_loaders(cfg, data_obj, device)
@@ -468,7 +474,8 @@ def train_seed_sweep(cfg: Config, seeds=None, lrs=None, data_obj: dict | None = 
         r = dict(test_res[i] if test_res[i] is not None else (val[i] or {}))
         mine = replicas.get(i)
         r.update(best_iter=int(best_iter[i]), seed=s, history=history[i],
-                 model=mine and mine.model, fusion=mine and mine.fusion)
+                 model=mine and mine.model, fusion=mine and mine.fusion,
+                 rng_impl=cfg.rng_impl)
         if lrs:
             r["lr"] = l
         if failed[i]:

@@ -56,6 +56,6 @@ def provenance(cfg=None) -> dict:
     }
     if cfg is not None:
         out.update({k: getattr(cfg, k, None) for k in (
-            "dropout_impl", "compute_dtype", "frozen_param_dtype", "use_pallas",
+            "dropout_impl", "rng_impl", "compute_dtype", "frozen_param_dtype", "use_pallas",
             "use_fused_ffn", "use_fused_attn", "device_loop", "seed", "lr")})
     return out

@@ -29,7 +29,10 @@ bits of the global rows. #3 on one data group's rows of an LLM mesh (half
 of each embed_notes bucket call's rows) as at every bucket; a GPT-2 over two
 data groups of the card launches #3 twice as often as without the mesh,
 and its embedding is within rtol 2e-5, atol 2e-6 of no mesh's
-(tests/test_llm_sharded.py)."""
+(tests/test_llm_sharded.py). The flax-mode dropout kernel (kernels/dropout.py,
+dropout_impl="flax") equals its plain version bit for bit, forward and
+backward, float32 and bf16, at flat offsets past 2^32, and a captured
+launch reads the step key the host writes before each replay."""
 
 import os
 
@@ -45,8 +48,10 @@ from chip_smoke import (IMTS_MODELS, MTS_MODELS, RESUME_ARGS, TRAIN_DATA, attn_i
                         ffn_inputs, final_weights, frechet_inputs, frechet_rel_err,
                         one_pass_score, recavg_inputs, row_base_case, run_imts_serving,
                         run_mts_serving, scan_bwd_case, scan_inputs, training_data)
-from imm_tsf_torch.kernels import attn, cru_scan, expm, ffn, recavg
+from imm_tsf_torch.kernels import attn, cru_scan, dropout, expm, ffn, recavg
+from imm_tsf_torch.kernels.dropout import flax_dropout, flax_dropout_reference
 from imm_tsf_torch.layers.bf16_products import Bf16Products
+from imm_tsf_torch.layers.jax_prng import site_hash
 from imm_tsf_torch.llm import gpt2, loader
 from imm_tsf_torch.llm.loader import EMBED_BUCKETS
 from imm_tsf_torch.ops.expm import expm as ops_expm
@@ -1217,3 +1222,64 @@ def test_ffn_dropout_bits_at_a_row_base_are_the_global_hash_bits(dev, gen, site,
     out = ffn._forward(*half, KEEP, "relu", True, with_residuals=train, row_base=M)
     out = out[0] if train else out
     assert torch.equal(out > 0, expect[M:])
+
+
+# ------------------------------------------------ the flax-mode dropout kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,rate,offset", [
+    ((256, 6, 512), torch.float32, 0.1, 0),          # PatchTST's d_model sites at B 32
+    ((256, 6, 2048), torch.float32, 0.1, 0),         # its hidden FFN site
+    ((256, 2, 6, 6), torch.float32, 0.3, 0),         # the attention weights
+    ((37, 7, 5), torch.float32, 0.1, 2**32 + 12345),  # past 2^32: the hi counter 1
+    ((3, 5), torch.float32, 0.5, 2**32 - 7),         # the hi counter turns over inside
+    ((1000, 77), torch.bfloat16, 0.1, 5 * 2**32),
+    ((1,), torch.float32, 0.1, 0),
+])
+def test_flax_dropout_kernel_matches_plain(dev, gen, shape, dtype, rate, offset):
+    """Forward and backward bit for bit with the plain version (int64
+    threefry on the card) and with the CPU's; two launches, one of them
+    the backward's."""
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    key = torch.tensor([0x12345678, 0x9ABCDEF0], dtype=torch.int64, device=dev)
+    site = site_hash(("enc_layer_0", "Dropout_1"), 1)
+    before, before_bwd = dropout.launches, dropout.backward_launches
+    xk = x.clone().requires_grad_()
+    out = flax_dropout(xk, key, site, 1.0 - rate, offset)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (dropout.launches, dropout.backward_launches) == (before + 2, before_bwd + 1)
+    want = flax_dropout_reference(x, key, site, 1.0 - rate, offset)
+    assert out.dtype == dtype and torch.equal(out, want)
+    assert torch.equal(xk.grad, flax_dropout_reference(g, key, site, 1.0 - rate, offset))
+    assert torch.equal(out.cpu(), flax_dropout_reference(x.cpu(), key.cpu(), site, 1.0 - rate,
+                                                         offset))
+    kept, n = (want != 0).float().mean().item(), x.numel()
+    assert abs(kept - (1.0 - rate)) <= 6 * (rate * (1.0 - rate) / n) ** 0.5  # six sigma
+
+
+@pytest.mark.cuda
+def test_flax_dropout_kernel_replays_the_key_it_reads(dev, gen):
+    """A captured launch reads the step key from device memory: a key
+    written after the capture changes the replay's mask."""
+    x = torch.randn((64, 300), generator=gen, device=dev)
+    key = torch.tensor([1, 2], dtype=torch.int64, device=dev)
+    site = site_hash(("mmf", "Dropout_0"), 1)
+    flax_dropout(x, key, site, 0.9)  # loads the library outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flax_dropout(x, key, site, 0.9)
+    for words in ([3, 4], [0xFFFFFFFF, 0]):
+        key.copy_(torch.tensor(words, dtype=torch.int64))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flax_dropout_reference(x, key, site, 0.9))
+
+
+@pytest.mark.cuda
+def test_flax_dropout_kernel_refuses_what_it_cannot_take(dev):
+    key = torch.tensor([1, 2], dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flax_dropout(torch.ones(4, dtype=torch.float64, device=dev), key, 1, 0.9)
+    with pytest.raises(ValueError, match="int64 \\[2\\]"):
+        flax_dropout(torch.ones(4, device=dev), key.cpu(), 1, 0.9)
